@@ -3,20 +3,41 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Phases, one JSON line each (then the card line and the result line):
-  device           card name and power limit (nvidia-smi), torch and CUDA
-  build            nvcc build of csrc/intersect.cu and its seconds
-  kernel_vs_plain  the closest-hit kernel against its plain PyTorch version
-                   (a) on the 5,120-triangle liver proxy, 65,536 rays
-                   (b) on ~100k random small triangles, 16,384 rays;
-                   hit-set and prim agreement, max |dt|, median times
-  render_small     the port's render through the kernel against the same
+Phases, one JSON line each (then the kernels line, the card line and the
+result line):
+  device           card name and power limit (nvidia-smi), torch and CUDA,
+                   and the published peaks the bounds below are taken from
+  build            nvcc build of csrc/intersect.cu: seconds, ptxas report
+  kernel_vs_plain  the closest-hit kernels (sweep + merge) against their
+                   plain PyTorch version, in three regimes:
+                   (a) K1: the 5,120-triangle liver proxy, 65,536 rays
+                   (b) K2: ~100k random small triangles, 16,384 rays
+                   (c) ties: duplicate and coplanar triangles hit at equal
+                       t inside a chunk, across chunks and across splits
+                   hit-set and prim agreement, max |dt|, the split of the
+                   chunk range, median ms of the query (sweep + merge) and
+                   of the sweep alone, and the bounds: bound_dense_ms (38
+                   FLOP for every ray x every real triangle), needed_tests
+                   (the real triangles of the chunks whose box each ray
+                   enters before its maxt), candidate_tests (the needed
+                   pairs whose plane the ray crosses before its closest
+                   hit), bound_needed_ms (11 FLOP of prefilter per needed
+                   pair, the other 27 per candidate) and share =
+                   bound_needed_ms / ms
+  merge_vs_plain   the merge kernel alone against its plain version on the
+                   K1 regime's per-split partials
+  render_small     the port's render through the kernels against the same
                    render on the CPU (plain version), per pixel
   render           the liver proxy at 428x240, 64 spp, depth 12, through
                    liverrenderer_tpu_torch.render: seconds, paths/s, image
                    checks and the kernel launches of this run
+  render_kernel    a separate 8 spp render with CUDA events around every
+                   intersect_closest call: ms per launch on the main path's
+                   own rays, the kernels' share of the wall time, the same
+                   rays replayed back to back, their bound, and the kernels
+                   against the plain version on them (short hits included)
   kernels          every kernel of the path with the TPU kernels it
-                   replaces, its launches, agreement and times
+                   replaces, its launches, agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -28,17 +49,35 @@ import sys
 import time
 
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
+KERNEL_SPP = 8                 # render_kernel phase
+TIE_T, TIE_R = 40_000, 16_384  # ties regime
 
-# tolerances: the kernel and its plain version run the same fp32
-# operations in the same order (no FMA contraction), and differ only where
-# the kernel's chunk culling drops a grazing hit that lies outside its
-# chunk's box by a rounding error
+# tolerances: the kernel computes t with the plain version's fp32
+# operations in the same order (bit-identical), but contracts p, u and v to
+# FMA, which may flip a hit within a few ulps of a triangle edge to the
+# neighbour (prims) or, rarely, to a miss (hit sets); its chunk culling may
+# also drop a grazing hit that lies outside its chunk's box by a rounding
+# error
 HIT_AGREE_MIN = 0.9999
 PRIM_AGREE_MIN = 0.99
 T_RTOL = 1e-5
 # render_small: the card's transcendentals differ from the CPU's by ulps,
 # which can flip a rare dielectric / roulette decision of one path
 PIX_RTOL, PIX_ATOL, PIX_FRAC_MIN, MEAN_RTOL = 1e-3, 1e-4, 0.99, 1e-3
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32
+# outside the tensor cores, and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# floating-point operations of one Baldwin-Weber ray x triangle test
+# (liverrenderer_tpu/accel/pallas_intersect.py:14-15), and of the part a
+# pair the kernel's prefilter rejects pays: n.d and n.o (3 multiplies and
+# 2 adds each) and t_num = dn - n.o
+FLOP_PER_TEST = 38
+PREFILTER_FLOP = 11
+# a hit closer than this is counted as short (a self-hit would be one:
+# spawned rays start ~1e-4 off the surface, core/types.py RAY_EPS)
+SHORT_T = 1e-3
 
 
 def emit(phase: str, **kw):
@@ -89,17 +128,110 @@ def check_agreement(r, what):
     check(r["max_rel_dt"] <= T_RTOL, f"{what}: t {r}")
 
 
-def kernel_vs_plain(torch, ci, rays, tris, boxes, reps_plain):
+def needed_work(torch, rays, tris, boxes, n_tris, t_hit):
+    """Work these rays need, counted by plain torch on the card:
+    (needed, candidates).  `needed` ray x triangle pairs: for each ray, the
+    real triangles of every chunk whose box it enters (near <= far,
+    far > 0, near < maxt), by a slab test of every ray against every box.
+    `candidates`: the needed pairs whose triangle plane the ray crosses at
+    0 < t <= min(maxt, t_hit) with |n.d| > 1e-12 (t_hit: the ray's closest
+    hit, inf on a miss), which a sweep carries past the prefilter even when
+    it meets the closest hit first."""
+    n, n_chunks = rays.shape[1], boxes.shape[0]
+    real = (n_tris - 128 * torch.arange(n_chunks, device=rays.device)) \
+        .clamp(0, 128)
+    o, d, maxt = rays[0:3], rays[3:6], rays[6]
+    inv = 1.0 / torch.where(d.abs() > 1e-20, d, torch.full_like(d, 1e-20))
+    lim = torch.minimum(maxt, t_hit)
+    needed = cand = 0
+    step = max(1, (1 << 25) // (128 * n))      # chunks per pass
+    for c0 in range(0, n_chunks, step):
+        bx = boxes[c0:c0 + step]
+        g = bx.shape[0]
+        t0 = (bx[:, 0:3, None] - o[None]) * inv[None]     # (G, 3, n)
+        t1 = (bx[:, 3:6, None] - o[None]) * inv[None]
+        near = torch.minimum(t0, t1).amax(1)
+        far = torch.maximum(t0, t1).amin(1)
+        enter = (near <= far) & (far > 0) & (near < maxt[None])
+        needed += int((enter.to(torch.int64) * real[c0:c0 + g, None]).sum())
+        blk = tris[c0 * 128:(c0 + g) * 128]                # (G*128, 16)
+        nx, ny, nz, dn = (blk[:, k:k + 1] for k in range(4))
+        ndir = nx * d[0] + ny * d[1] + nz * d[2]
+        t = (dn - (nx * o[0] + ny * o[1] + nz * o[2])) / ndir
+        c = (ndir.abs() > 1e-12) & (t > 0) & (t <= lim[None])
+        cand += int((c.view(g, 128, n) & enter[:, None]).sum())
+    return needed, cand
+
+
+def bounds(torch, rays, tris, boxes, n_tris, t_hit, splits):
+    """Dense and data-dependent bounds of one query (sweep + merge) and of
+    its sweep alone.  Operations: every needed pair pays the prefilter,
+    each candidate the rest of the test; bytes: ray rows, triangle rows and
+    boxes read once, t and prim written once (the sweep alone writes them
+    once per split)."""
+    n = rays.shape[1]
+    dense = n * n_tris
+    need, cand = needed_work(torch, rays, tris, boxes, n_tris, t_hit)
+    ops = PREFILTER_FLOP * need + (FLOP_PER_TEST - PREFILTER_FLOP) * cand
+    b_dense = dense * FLOP_PER_TEST / PEAK_FP32 * 1e3
+    b_need = ops / PEAK_FP32 * 1e3
+    inputs = 4 * (rays.numel() + tris.numel() + boxes.numel())
+    nbytes, sweep_bytes = inputs + 8 * n, inputs + 8 * splits * n
+    b_bytes = nbytes / PEAK_BYTES * 1e3
+    b_sweep_bytes = sweep_bytes / PEAK_BYTES * 1e3
+    return dict(dense_tests=dense, bound_dense_ms=b_dense,
+                needed_tests=need, candidate_tests=cand, flop=ops,
+                bound_needed_ms=b_need, bytes=nbytes, bound_bytes_ms=b_bytes,
+                bound_ms=max(b_need, b_bytes),
+                bound_by="operations" if b_need >= b_bytes else "bytes",
+                sweep_bytes=sweep_bytes,
+                sweep_bound_ms=max(b_need, b_sweep_bytes),
+                sweep_bound_by="operations" if b_need >= b_sweep_bytes
+                else "bytes")
+
+
+def sweep_alone(torch, ci, rays, tris, boxes):
+    """The sweep kernel alone, launched through its C function on
+    preallocated partials: (median ms, t_part, prim_part)."""
+    lib = ci.build_kernel()
+    n, n_chunks = rays.shape[1], boxes.shape[0]
+    splits, per = ci.split_plan(n, n_chunks, rays.device)
+    t_part = torch.empty((splits, n), dtype=torch.float32, device=rays.device)
+    p_part = torch.empty((splits, n), dtype=torch.int32, device=rays.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.lr_intersect_sweep(
+            rays.data_ptr(), n, tris.data_ptr(), boxes.data_ptr(), n_chunks,
+            per, splits, t_part.data_ptr(), p_part.data_ptr(), stream)
+        check(err == 0, f"sweep launch failed: CUDA error {err}")
+
+    return cuda_ms(run, reps=7, inner=10), t_part, p_part
+
+
+def kernel_vs_plain(torch, ci, rays, tris, boxes, n_tris, reps_plain):
     tk, pk = ci.intersect_closest(rays, tris, boxes)
     tr, pr = ci.intersect_closest_reference(rays, tris, boxes)
     torch.cuda.synchronize()
     res = compare_hits(tk, pk, tr, pr)
+    res["splits"], res["chunks_per_split"] = ci.split_plan(
+        rays.shape[1], boxes.shape[0], rays.device)
     res["ms"] = cuda_ms(lambda: ci.intersect_closest(rays, tris, boxes),
                         reps=7, inner=10)
+    res["sweep_ms"], t_part, p_part = sweep_alone(torch, ci, rays, tris,
+                                                  boxes)
+    ts, ps = ci.merge_partials_reference(t_part, p_part)
+    check(bool(torch.equal(ts, tk) and torch.equal(ps, pk)),
+          "the sweep alone differs from intersect_closest")
     res["plain_ms"] = cuda_ms(
         lambda: ci.intersect_closest_reference(rays, tris, boxes),
         reps=reps_plain, inner=1)
-    return res
+    res.update(bounds(torch, rays, tris, boxes, n_tris, tr, res["splits"]))
+    res["share"] = res["bound_needed_ms"] / res["ms"]
+    res["sweep_share"] = res["sweep_bound_ms"] / res["sweep_ms"]
+    check(res["share"] <= 1 and res["sweep_share"] <= 1,
+          f"a time below its bound: {res}")
+    return res, pk, pr
 
 
 def proxy_rays(torch, scene, n_cam, n_in, gen):
@@ -128,6 +260,78 @@ def proxy_rays(torch, scene, n_cam, n_in, gen):
                      0).contiguous()
 
 
+def k2_inputs(np, torch, ci):
+    """~100k random small triangles (no BVH order: every chunk's box spans
+    the cloud) and 16,384 rays aimed at it."""
+    rs = np.random.default_rng(SEED)
+    T = 100_000
+    v0 = rs.uniform(-1, 1, (T, 3)).astype(np.float32)
+    v1 = v0 + rs.uniform(-0.05, 0.05, (T, 3)).astype(np.float32)
+    v2 = v0 + rs.uniform(-0.05, 0.05, (T, 3)).astype(np.float32)
+    buf, boxes, _, center = ci.pack_tris(v0, v1, v2)
+    R = 16384
+    o = rs.uniform(-2, 2, (R, 3)).astype(np.float32)
+    aim = rs.uniform(-0.6, 0.6, (R, 3)).astype(np.float32)
+    d = aim - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.ascontiguousarray(np.concatenate(
+        [(o - center).T, d.T, np.full((1, R), np.inf), np.zeros((1, R))]),
+        np.float32)
+    return (torch.from_numpy(rays).cuda(), torch.from_numpy(buf).cuda(),
+            torch.from_numpy(boxes).cuda(), T)
+
+
+def _tie_module():
+    """tests/torch_tie_inputs.py, loaded by path (a package named `tests`
+    elsewhere on sys.path must not shadow it)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "tests" / "torch_tie_inputs.py"
+    spec = importlib.util.spec_from_file_location("torch_tie_inputs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tie_regime_inputs(torch, ci):
+    mod = _tie_module()
+    pack_rays, tie_inputs = mod.pack_rays, mod.tie_inputs
+    v0, v1, v2, o, d, maxt, expected = tie_inputs(TIE_T, TIE_R, SEED)
+    buf, boxes, _, center = ci.pack_tris(v0, v1, v2)
+    return (torch.from_numpy(pack_rays(o, d, maxt, center)).cuda(),
+            torch.from_numpy(buf).cuda(), torch.from_numpy(boxes).cuda(),
+            torch.from_numpy(expected).to(torch.int32).cuda())
+
+
+def capture_render(torch, lrt, ci, scene, spp):
+    """Render with CUDA events around every intersect_closest call (the
+    module attribute is wrapped for the call and restored after).
+    Returns (wall seconds, [(event ms, rays, tris, boxes)])."""
+    calls = []
+    orig = ci.intersect_closest
+
+    def timed(rays, tris, boxes):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(rays, tris, boxes)
+        b.record()
+        calls.append((a, b, rays.clone(), tris, boxes))
+        return out
+
+    torch.cuda.synchronize()
+    ci.intersect_closest = timed
+    try:
+        t0 = time.perf_counter()
+        img = lrt.render(scene, spp=spp, seed=SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        ci.intersect_closest = orig
+    check(bool(torch.isfinite(img).all()), "render_kernel: non-finite image")
+    return secs, [(a.elapsed_time(b), r, t, bx) for a, b, r, t, bx in calls]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -139,7 +343,8 @@ def main() -> int:
         from liverrenderer_tpu_torch.accel import cuda_intersect as ci
         from liverrenderer_tpu_torch.scene.liver_proxy import \
             liver_proxy_dict
-    except ImportError as e:
+        _tie_module()
+    except (ImportError, FileNotFoundError) as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
@@ -152,7 +357,9 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, kind=name,
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, peak_fp32_tflops=PEAK_FP32 / 1e12,
+         peak_hbm_tb_s=PEAK_BYTES / 1e12,
+         peak_source="NVIDIA H100 SXM data sheet, dense, at 700 W")
 
     # ---- 2. build
     ci.build_kernel()
@@ -160,46 +367,69 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit("build", seconds=round(ci.BUILD_INFO["seconds"], 3), ptxas=ptxas)
 
-    # ---- 3. kernel against its plain version
+    # ---- 3. kernels against their plain version
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    scene = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED),
-                          device="cuda")
+    scene = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED))
+    check(scene.device.type == "cuda", "load_dict did not build on the card")
     check(scene.n_tris == 5120, f"proxy has {scene.n_tris} triangles")
     rays = proxy_rays(torch, scene, 32768, 32768, gen)
-    res_a = kernel_vs_plain(torch, ci, rays, scene.tri_buf, scene.tri_boxes,
-                            reps_plain=5)
+    res_a, _, _ = kernel_vs_plain(torch, ci, rays, scene.tri_buf,
+                                  scene.tri_boxes, scene.n_tris,
+                                  reps_plain=5)
     emit("kernel_vs_plain", regime="K1 liver proxy", tris=scene.n_tris,
-         **res_a)
+         card=smi, **res_a)
     check_agreement(res_a, "liver proxy")
 
-    rs = np.random.default_rng(SEED)
-    T = 100_000
-    v0 = rs.uniform(-1, 1, (T, 3)).astype(np.float32)
-    v1 = v0 + rs.uniform(-0.05, 0.05, (T, 3)).astype(np.float32)
-    v2 = v0 + rs.uniform(-0.05, 0.05, (T, 3)).astype(np.float32)
-    buf, boxes, _, center = ci.pack_tris(v0, v1, v2)
-    R = 16384
-    o = rs.uniform(-2, 2, (R, 3)).astype(np.float32)
-    aim = rs.uniform(-0.6, 0.6, (R, 3)).astype(np.float32)
-    d = aim - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    rays_b = np.ascontiguousarray(np.concatenate(
-        [(o - center).T, d.T, np.full((1, R), np.inf), np.zeros((1, R))]),
-        np.float32)
-    res_b = kernel_vs_plain(
-        torch, ci, torch.from_numpy(rays_b).cuda(),
-        torch.from_numpy(buf).cuda(), torch.from_numpy(boxes).cuda(),
-        reps_plain=3)
+    rays_b, tris_b, boxes_b, T = k2_inputs(np, torch, ci)
+    res_b, _, _ = kernel_vs_plain(torch, ci, rays_b, tris_b, boxes_b, T,
+                                  reps_plain=3)
     emit("kernel_vs_plain", regime="K2 ~100k triangles", tris=T,
-         tpad=int(buf.shape[0]), **res_b)
+         tpad=int(tris_b.shape[0]), card=smi, **res_b)
     check_agreement(res_b, "100k triangles")
-    check(res_b["hits"] > R // 4, f"100k cloud: only {res_b['hits']} hits")
+    check(res_b["hits"] > rays_b.shape[1] // 4,
+          f"100k cloud: only {res_b['hits']} hits")
 
-    # ---- 4a. the render through the kernel against the CPU render
+    rays_c, tris_c, boxes_c, expected = tie_regime_inputs(torch, ci)
+    res_c, pk, pr = kernel_vs_plain(torch, ci, rays_c, tris_c, boxes_c,
+                                    TIE_T, reps_plain=3)
+    res_c["winners_as_rule"] = float((pk == expected).float().mean())
+    emit("kernel_vs_plain", regime="ties", tris=TIE_T, card=smi, **res_c)
+    check_agreement(res_c, "ties")
+    check(res_c["splits"] > 1, "ties: the chunk range was not split")
+    check(bool(torch.equal(pr, expected)), "ties: plain version off the rule")
+    check(bool(torch.equal(pk, expected)), "ties: kernel off the tie rule")
+
+    # ---- 3b. the merge alone, on the K1 regime's per-split partials
+    splits, per = res_a["splits"], res_a["chunks_per_split"]
+    check(splits > 1, "K1 regime: the chunk range was not split")
+    parts = [ci.intersect_closest_reference(
+        rays, scene.tri_buf[c * 128:(c + per) * 128],
+        scene.tri_boxes[c:c + per])
+        for c in range(0, scene.tri_boxes.shape[0], per)]
+    t_part = torch.stack([x[0] for x in parts]).contiguous()
+    p_part = torch.stack([x[1] for x in parts]).contiguous()
+    tm, pm = ci.merge_partials(t_part, p_part)
+    tr, pr = ci.merge_partials_reference(t_part, p_part)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(tr)
+    merge = dict(
+        splits=splits, n_rays=int(t_part.shape[1]),
+        equal=bool(torch.equal(tm, tr) and torch.equal(pm, pr)),
+        max_abs_err=float((tm - tr)[fin].abs().max()) if fin.any() else 0.0,
+        ms=cuda_ms(lambda: ci.merge_partials(t_part, p_part), 7, 10),
+        plain_ms=cuda_ms(lambda: ci.merge_partials_reference(t_part, p_part),
+                         7, 10),
+        # t of every split read, the winner's prim read, t and prim written
+        bytes=4 * t_part.numel() + 12 * t_part.shape[1])
+    merge["bound_ms"] = merge["bytes"] / PEAK_BYTES * 1e3
+    emit("merge_vs_plain", card=smi, **merge)
+    check(merge["equal"], "merge kernel differs from its plain version")
+
+    # ---- 4a. the render through the kernels against the CPU render
     small = liver_proxy_dict(16, 12, 4, 2, SEED)
     img_cpu = lrt.render(lrt.load_dict(small, device="cpu"), spp=4,
                          seed=SEED).numpy()
-    img_gpu = lrt.render(lrt.load_dict(small, device="cuda"), spp=4,
+    img_gpu = lrt.render(lrt.load_dict(small), spp=4,
                          seed=SEED).cpu().numpy()
     close = np.abs(img_gpu - img_cpu) <= PIX_ATOL + PIX_RTOL \
         * np.abs(img_cpu)
@@ -214,39 +444,112 @@ def main() -> int:
     # ---- 4b. the main path at full width
     torch.cuda.synchronize()
     ci.LAUNCHES = 0
+    ci.MERGE_LAUNCHES = 0
     t0 = time.perf_counter()
     img = lrt.render(scene, spp=SPP, seed=SEED)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = ci.LAUNCHES
+    launches, merge_launches = ci.LAUNCHES, ci.MERGE_LAUNCHES
     finite = bool(torch.isfinite(img).all())
     paths = WIDTH * HEIGHT * SPP
     emit("render", film=[WIDTH, HEIGHT], spp=SPP, max_depth=scene.max_depth,
          tris=scene.n_tris, wavefront=1 << 16, seconds=round(secs, 3),
          paths_per_s=paths / secs, finite=finite,
          shape=list(img.shape), mean=float(img.mean()),
-         corner=[float(x) for x in img[0, 0]], launches=launches)
+         corner=[float(x) for x in img[0, 0]], launches=launches,
+         merge_launches=merge_launches)
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), "image shape")
     check(finite, "image has non-finite values")
-    check(launches > 0, "the render did not launch the kernel")
+    check(launches > 0, "the render did not launch the sweep kernel")
+    check(merge_launches > 0, "the render did not launch the merge kernel")
     # the corner sees the constant white environment directly
     check(bool(torch.allclose(img[0, 0], torch.ones(3, device="cuda"))),
           "corner pixel is not the environment")
     check(0.05 < float(img.mean()) < 1.0, "image mean out of range")
 
+    # ---- 4c. the kernels on the main path's own rays
+    secs_k, calls = capture_render(torch, lrt, ci, scene, KERNEL_SPP)
+    inline_ms = sum(c[0] for c in calls)
+    check(len(calls) > 0, "render_kernel: no intersect_closest call")
+
+    def replay():
+        for _, r, t, bx in calls:
+            ci.intersect_closest(r, t, bx)
+
+    replay_ms = cuda_ms(replay, reps=3, inner=1) / len(calls)
+    agree = dict(n_rays=0, hits=0, hit_same=0, both=0, prim_same=0,
+                 max_rel_dt=0.0, short_kernel=0, short_plain=0, needed=0,
+                 candidates=0, dense=0)
+    for _, r, t, bx in calls:
+        tk, pk = ci.intersect_closest(r, t, bx)
+        tr, pr = ci.intersect_closest_reference(r, t, bx)
+        c = compare_hits(tk, pk, tr, pr)
+        agree["n_rays"] += c["n_rays"]
+        agree["hits"] += c["hits"]
+        agree["hit_same"] += int(((pk >= 0) == (pr >= 0)).sum())
+        both = int(((pk >= 0) & (pr >= 0)).sum())
+        agree["both"] += both
+        agree["prim_same"] += int(((pk == pr) & (pr >= 0)).sum())
+        agree["max_rel_dt"] = max(agree["max_rel_dt"], c["max_rel_dt"])
+        agree["short_kernel"] += int(((pk >= 0) & (tk < SHORT_T)).sum())
+        agree["short_plain"] += int(((pr >= 0) & (tr < SHORT_T)).sum())
+        need, cand = needed_work(torch, r, t, bx, scene.n_tris, tr)
+        agree["needed"] += need
+        agree["candidates"] += cand
+        agree["dense"] += r.shape[1] * scene.n_tris
+    hit_agree = agree["hit_same"] / agree["n_rays"]
+    prim_agree = agree["prim_same"] / max(agree["both"], 1)
+    ops = PREFILTER_FLOP * agree["needed"] \
+        + (FLOP_PER_TEST - PREFILTER_FLOP) * agree["candidates"]
+    b_need = ops / PEAK_FP32 * 1e3 / len(calls)
+    b_dense = agree["dense"] * FLOP_PER_TEST / PEAK_FP32 * 1e3 / len(calls)
+    emit("render_kernel", film=[WIDTH, HEIGHT], spp=KERNEL_SPP,
+         max_depth=scene.max_depth, card=smi, seconds=secs_k,
+         launches=len(calls), kernel_ms_total=inline_ms,
+         ms_per_launch=inline_ms / len(calls),
+         wall_share=inline_ms / (secs_k * 1e3),
+         replay_ms_per_launch=replay_ms,
+         bound_dense_ms=b_dense, bound_needed_ms=b_need,
+         needed_tests_per_launch=agree["needed"] / len(calls),
+         candidate_tests_per_launch=agree["candidates"] / len(calls),
+         share=b_need / replay_ms, n_rays=agree["n_rays"],
+         hits=agree["hits"], hit_agree=hit_agree, prim_agree=prim_agree,
+         max_rel_dt=agree["max_rel_dt"], short_hits_kernel=agree[
+             "short_kernel"], short_hits_plain=agree["short_plain"])
+    check_agreement(dict(hit_agree=hit_agree, prim_agree=prim_agree,
+                         max_rel_dt=agree["max_rel_dt"]), "render rays")
+
     # ---- 5. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
-    print(json.dumps({"kernels": [dict(
-        name="intersect_closest", route="cuda", source=src,
-        replaces="liverrenderer_tpu/accel/pallas_intersect.py:101",
-        also_replaces="liverrenderer_tpu/accel/pallas_intersect.py:152",
-        tpu_kernels=["K1 _intersect_kernel", "K2 _intersect_stream_kernel"],
-        launches=launches, max_abs_err=res_a["max_abs_dt"],
-        ms=res_a["ms"], plain_ms=res_a["plain_ms"],
-        hit_agree=res_a["hit_agree"], prim_agree=res_a["prim_agree"],
-        k2_max_abs_err=res_b["max_abs_dt"], k2_ms=res_b["ms"],
-        k2_plain_ms=res_b["plain_ms"], k2_hit_agree=res_b["hit_agree"],
-        k2_prim_agree=res_b["prim_agree"])]}), flush=True)
+    print(json.dumps({"kernels": [
+        # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
+        # query, which the merge row's kernel completes; plain_ms: the plain
+        # version of the whole query
+        dict(name="intersect_sweep", route="cuda", source=src,
+             replaces="liverrenderer_tpu/accel/pallas_intersect.py:101",
+             also_replaces="liverrenderer_tpu/accel/pallas_intersect.py:152",
+             tpu_kernels=["K1 _intersect_kernel",
+                          "K2 _intersect_stream_kernel"],
+             launches=launches, max_abs_err=res_a["max_abs_dt"],
+             ms=res_a["sweep_ms"], plain_ms=res_a["plain_ms"],
+             bound_ms=res_a["sweep_bound_ms"],
+             bound_by=res_a["sweep_bound_by"], library_ms=None,
+             share=res_a["sweep_share"], sweep_merge_ms=res_a["ms"],
+             hit_agree=res_a["hit_agree"], prim_agree=res_a["prim_agree"],
+             k2_max_abs_err=res_b["max_abs_dt"], k2_ms=res_b["sweep_ms"],
+             k2_sweep_merge_ms=res_b["ms"], k2_plain_ms=res_b["plain_ms"],
+             k2_bound_ms=res_b["sweep_bound_ms"],
+             k2_share=res_b["sweep_share"], k2_hit_agree=res_b["hit_agree"],
+             k2_prim_agree=res_b["prim_agree"], ties_ms=res_c["sweep_ms"],
+             ties_winners_as_rule=res_c["winners_as_rule"]),
+        dict(name="intersect_merge", route="cuda", source=src,
+             replaces="liverrenderer_tpu/accel/pallas_intersect.py:152",
+             tpu_kernels=["K2 _intersect_stream_kernel (accumulation "
+                          "across its sequential grid axis)"],
+             launches=merge_launches, max_abs_err=merge["max_abs_err"],
+             ms=merge["ms"], plain_ms=merge["plain_ms"],
+             bound_ms=merge["bound_ms"], bound_by="bytes",
+             library_ms=None)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

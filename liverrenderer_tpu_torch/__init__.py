@@ -8,8 +8,9 @@ path: load a scene dict, render it on the regenerating wavefront.
 
     import liverrenderer_tpu_torch as lrt
     from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
-    scene = lrt.load_dict(liver_proxy_dict(428, 240, 64), device="cuda")
+    scene = lrt.load_dict(liver_proxy_dict(428, 240, 64))  # on the card
     img = lrt.render(scene, spp=64, seed=0)      # (h, w, 3) on the card
+    cpu = lrt.load_dict(liver_proxy_dict(16, 12, 4), device="cpu")
 """
 
 import torch as _torch

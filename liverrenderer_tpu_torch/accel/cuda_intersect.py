@@ -1,13 +1,17 @@
-"""Closest-hit ray x triangle sweep: host code, the CUDA kernel's wrapper
-and its plain PyTorch version (counterpart of
+"""Closest-hit ray x triangle sweep: host code, the CUDA kernels' wrappers
+and their plain PyTorch versions (counterpart of
 liverrenderer_tpu/accel/pallas_intersect.py).
 
-The kernel (csrc/intersect.cu) replaces both Pallas TPU kernels of the JAX
-package, `_intersect_kernel` and `_intersect_stream_kernel`.  It is built
-from the repository's source with nvcc at first use into build/torch_kernels
-(keyed by a hash of the source) and bound with ctypes.
+The kernels (csrc/intersect.cu) replace both Pallas TPU kernels of the JAX
+package, `_intersect_kernel` and `_intersect_stream_kernel`: a sweep kernel
+that cuts the chunk range into splits over its grid's second dimension and
+writes one partial closest hit per split and ray, and a merge kernel that
+walks the splits in order (not launched when there is one split).  They are
+built from the repository's source with nvcc at first use into
+build/torch_kernels (keyed by a hash of the source; sm_90a, -O3,
+FMA contraction on, no fast math) and bound with ctypes.
 
-Layout contract, shared by the kernel, the plain version and the JAX
+Layout contract, shared by the kernels, the plain version and the JAX
 package:
   rays   (8, N)  f32 rows: ox oy oz dx dy dz maxt (row 7 unused)
   tris   (Tpad, 16) f32 Baldwin-Weber rows (pack_tris), Tpad % 128 == 0
@@ -39,13 +43,19 @@ MAX_STREAM_TRIS = 1 << 21
 
 _INF = float("inf")
 
-# Kernel launches so far (chip_smoke.py resets it and reads it back to show
-# that a run went through the kernel).
+# Kernel launches so far, sweep and merge (chip_smoke.py resets them and
+# reads them back to show that a run went through the kernels).
 LAUNCHES = 0
+MERGE_LAUNCHES = 0
+# Sweep blocks aimed for per call, in multiples of what the card holds at
+# once; the chunk range is split until the grid reaches it (chosen by
+# timing 2, 4, 8 and 16 on the card, PERF.md).
+WAVES = 8
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "intersect.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _LIB = None
+_CONFIG: dict = {}
 BUILD_INFO: dict = {}
 
 
@@ -128,13 +138,14 @@ def _nvcc() -> str:
 
 
 def build_kernel():
-    """Build (once per source hash) and load the kernel library.  Raises
-    if nvcc fails; BUILD_INFO records the seconds and ptxas' report."""
+    """Build (once per source hash) and load the kernels' library from
+    csrc/intersect.cu; raises if nvcc fails.  The build's seconds, ptxas
+    report (empty when the library was already built) and path go to
+    BUILD_INFO."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = _BUILD_DIR / f"intersect_{tag}.so"
     t0 = time.perf_counter()
@@ -143,8 +154,8 @@ def build_kernel():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             os.unlink(tmp)
@@ -153,11 +164,14 @@ def build_kernel():
         log = res.stdout + res.stderr
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    fn = lib.lr_intersect_closest
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lr_intersect_config.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.lr_intersect_sweep.argtypes = [ptr, i, ptr, ptr, i, i, i, ptr, ptr,
+                                       ptr]
+    lib.lr_intersect_merge.argtypes = [ptr, ptr, i, i, ptr, ptr, ptr]
+    for fn in (lib.lr_intersect_config, lib.lr_intersect_sweep,
+               lib.lr_intersect_merge):
+        fn.restype = ctypes.c_int
     BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
                       path=str(so))
     _LIB = lib
@@ -186,13 +200,46 @@ def _check(rays, tris, boxes):
                              f"{rays.device}")
 
 
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"intersect {what} launch failed: CUDA error "
+                           f"{err}")
+
+
+def _launch(fn, device, what: str, *args):
+    """Call a C launcher on `device`'s current stream (the tensors' card)
+    and raise on the CUDA error it returns."""
+    with torch.cuda.device(device):
+        _raise_on(fn(*args, torch.cuda.current_stream().cuda_stream), what)
+
+
+def split_plan(n: int, n_chunks: int, device):
+    """(splits, chunks_per_split) for a sweep of n rays over n_chunks
+    chunks: the chunk range is cut until the grid holds WAVES times the
+    sweep blocks the card keeps resident (from the kernel's occupancy)."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _CONFIG:
+        rpb, bps = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(idx):
+            _raise_on(build_kernel().lr_intersect_config(
+                ctypes.byref(rpb), ctypes.byref(bps)), "occupancy query")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _CONFIG[idx] = (rpb.value, bps.value * sms)
+    rays_per_block, resident = _CONFIG[idx]
+    blocks_x = max(-(-n // rays_per_block), 1)
+    splits = min(n_chunks, max(1, -(-WAVES * resident // blocks_x)))
+    per = -(-n_chunks // splits)
+    return -(-n_chunks // per), per
+
+
 def intersect_closest(rays: torch.Tensor, tris: torch.Tensor,
                       boxes: torch.Tensor):
     """Closest hit of each ray over the packed triangle buffer ->
-    (t (N,) f32, prim (N,) int32).  CUDA tensors launch the kernel (or
-    raise); CPU tensors take the plain version.  No gradient flows: the
-    hit search is sampling geometry, re-derived differentiably in
-    compute_si."""
+    (t (N,) f32, prim (N,) int32).  CUDA tensors launch the sweep kernel,
+    and the merge kernel when the chunk range is split (or raise); CPU
+    tensors take the plain version.  No gradient flows: the hit search is
+    sampling geometry, re-derived differentiably in compute_si."""
     global LAUNCHES
     rays, tris, boxes = rays.detach(), tris.detach(), boxes.detach()
     _check(rays, tris, boxes)
@@ -204,20 +251,56 @@ def intersect_closest(rays: torch.Tensor, tris: torch.Tensor,
     for name, x in (("rays", rays), ("tris", tris), ("boxes", boxes)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = build_kernel()
-    n = rays.shape[1]
-    t = torch.empty(n, dtype=torch.float32, device=rays.device)
-    prim = torch.empty(n, dtype=torch.int32, device=rays.device)
-    with torch.cuda.device(rays.device):    # launch on the tensors' card
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lr_intersect_closest(
-            rays.data_ptr(), n, tris.data_ptr(), boxes.data_ptr(),
-            boxes.shape[0], t.data_ptr(), prim.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"intersect kernel launch failed: CUDA error "
-                           f"{err}")
+    n, n_chunks = rays.shape[1], boxes.shape[0]
+    splits, per = split_plan(n, n_chunks, rays.device)
+    t_part = torch.empty((splits, n), dtype=torch.float32,
+                         device=rays.device)
+    prim_part = torch.empty((splits, n), dtype=torch.int32,
+                            device=rays.device)
+    _launch(build_kernel().lr_intersect_sweep, rays.device, "sweep",
+            rays.data_ptr(), n, tris.data_ptr(), boxes.data_ptr(), n_chunks,
+            per, splits, t_part.data_ptr(), prim_part.data_ptr())
     LAUNCHES += 1
+    if splits == 1:
+        return t_part[0], prim_part[0]
+    return merge_partials(t_part, prim_part)
+
+
+def merge_partials(t_part: torch.Tensor, prim_part: torch.Tensor):
+    """Closest of the (S, N) per-split partial hits, walking the splits in
+    order with strict '<' (an earlier split keeps a tie) -> (t, prim).
+    CUDA tensors launch the merge kernel (or raise); CPU tensors take the
+    plain version."""
+    global MERGE_LAUNCHES
+    if t_part.dim() != 2 or t_part.shape != prim_part.shape \
+            or t_part.dtype != torch.float32 \
+            or prim_part.dtype != torch.int32:
+        raise ValueError("merge_partials takes (S, N) float32 t and int32 "
+                         "prim partials")
+    if t_part.device != prim_part.device:
+        raise ValueError("merge_partials: partials on two devices")
+    if t_part.device.type == "cpu":
+        return merge_partials_reference(t_part, prim_part)
+    if not (t_part.is_contiguous() and prim_part.is_contiguous()):
+        raise ValueError("partials must be contiguous")
+    splits, n = t_part.shape
+    t = torch.empty(n, dtype=torch.float32, device=t_part.device)
+    prim = torch.empty(n, dtype=torch.int32, device=t_part.device)
+    _launch(build_kernel().lr_intersect_merge, t_part.device, "merge",
+            t_part.data_ptr(), prim_part.data_ptr(), n, splits, t.data_ptr(),
+            prim.data_ptr())
+    MERGE_LAUNCHES += 1
     return t, prim
+
+
+def merge_partials_reference(t_part: torch.Tensor, prim_part: torch.Tensor):
+    """Plain PyTorch version of the merge kernel."""
+    best_t, best_prim = t_part[0], prim_part[0]
+    for s in range(1, t_part.shape[0]):
+        got = t_part[s] < best_t
+        best_t = torch.where(got, t_part[s], best_t)
+        best_prim = torch.where(got, prim_part[s], best_prim)
+    return best_t, best_prim
 
 
 def intersect_closest_reference(rays: torch.Tensor, tris: torch.Tensor,

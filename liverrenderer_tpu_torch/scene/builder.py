@@ -535,8 +535,14 @@ def build_numpy(d: Dict[str, Any]):
     return b.finalize()
 
 
-def load_dict(d: Dict[str, Any], device="cpu"):
-    """Build the port's Scene on `device` from a Mitsuba-style dict."""
+def load_dict(d: Dict[str, Any], device="cuda"):
+    """Build the port's Scene on `device` from a Mitsuba-style dict: the
+    card unless the caller passes device="cpu".  Raises RuntimeError when
+    asked for the card and there is none."""
+    import torch
     from ..bridge import scene_from_numpy
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_dict: no CUDA device; pass device='cpu' "
+                           "to build the scene on the CPU")
     arrays, statics = build_numpy(d)
     return scene_from_numpy(arrays, statics, device)

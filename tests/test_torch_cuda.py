@@ -13,39 +13,109 @@ import torch
 import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.accel import cuda_intersect as tci
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
+from torch_tie_inputs import pack_rays, tie_inputs
+
+# the kernel against its plain version (chip_smoke.py holds the same):
+# u and v are contracted to FMA in the kernel, which may flip a hit within
+# a few ulps of a triangle edge to the neighbour or, rarely, to a miss; t of
+# a triangle both take is computed with the same roundings
+HIT_AGREE_MIN, PRIM_AGREE_MIN, T_RTOL = 0.9999, 0.99, 1e-5
 
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_version():
-    """Same tensors through the kernel and the plain version: equal hit
-    sets and t wherever both take the same triangle (the same fp32
-    operations, no FMA contraction; the kernel's chunk culling may only
-    drop a grazing hit lying outside its chunk box by a rounding error)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    scene = lrt.load_dict(liver_proxy_dict(64, 48, 1, 3, 0), device="cuda")
-    rng = np.random.default_rng(0)
-    n = 5000
+def _assert_agree(tk, pk, tr, pr, min_hits):
+    hit = pr >= 0
+    assert hit.sum() >= min_hits
+    assert ((pk >= 0) == hit).float().mean() >= HIT_AGREE_MIN
+    same = (pk == pr) & hit
+    assert same.sum() >= PRIM_AGREE_MIN * hit.sum()
+    torch.testing.assert_close(tk[same], tr[same], rtol=T_RTOL, atol=0)
+
+
+def _proxy_rays(scene, n, seed):
+    rng = np.random.default_rng(seed)
     o = rng.uniform(-0.8, 0.8, (n, 3))
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     maxt = np.where(rng.uniform(size=n) < 0.5, np.inf,
                     rng.uniform(0.02, 1.0, n))
-    center = scene.tri_center.cpu().numpy()
-    rays = np.concatenate([(o - center).T, d.T, maxt[None], np.zeros((1, n))])
-    rays = torch.from_numpy(np.ascontiguousarray(rays, np.float32)).cuda()
+    rays = pack_rays(o, d, maxt, scene.tri_center.cpu().numpy())
+    return torch.from_numpy(rays).cuda()
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version():
+    """Same tensors through the kernel and the plain version: hit sets,
+    prims and t agree at the thresholds above (the kernel's chunk culling
+    may also drop a grazing hit lying outside its chunk box by a rounding
+    error)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = lrt.load_dict(liver_proxy_dict(64, 48, 1, 3, 0), device="cuda")
+    rays = _proxy_rays(scene, 5000, 0)
     before = tci.LAUNCHES
     tk, pk = tci.intersect_closest(rays, scene.tri_buf, scene.tri_boxes)
     tr, pr = tci.intersect_closest_reference(rays, scene.tri_buf,
                                              scene.tri_boxes)
     torch.cuda.synchronize()
     assert tci.LAUNCHES == before + 1
-    hit = pr >= 0
-    assert hit.sum() > 1000
-    assert ((pk >= 0) == hit).float().mean() >= 0.9999
-    same = (pk == pr) & hit
-    assert same.sum() >= 0.99 * hit.sum()
-    torch.testing.assert_close(tk[same], tr[same], rtol=1e-5, atol=0)
+    _assert_agree(tk, pk, tr, pr, min_hits=1000)
+
+
+@pytest.mark.cuda
+def test_kernel_ragged_wavefront():
+    """N = 5,001 rays: no block size divides it; the last block masks its
+    dead lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = lrt.load_dict(liver_proxy_dict(64, 48, 1, 3, 0))
+    rays = _proxy_rays(scene, 5001, 1)
+    tk, pk = tci.intersect_closest(rays, scene.tri_buf, scene.tri_boxes)
+    tr, pr = tci.intersect_closest_reference(rays, scene.tri_buf,
+                                             scene.tri_boxes)
+    torch.cuda.synchronize()
+    assert tk.shape == (5001,) and pk.shape == (5001,)
+    _assert_agree(tk, pk, tr, pr, min_hits=1000)
+
+
+@pytest.mark.cuda
+def test_kernel_tie_rule_across_splits():
+    """Duplicate and coplanar triangles hit at bitwise-equal t inside one
+    chunk, across chunks and across the splits of the chunk range: the
+    kernel and the merge keep the plain version's winner on every ray."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    v0, v1, v2, o, d, maxt, expected = tie_inputs(40_000, 4096, seed=3)
+    buf, boxes, _, center = tci.pack_tris(v0, v1, v2)
+    rays = torch.from_numpy(pack_rays(o, d, maxt, center)).cuda()
+    tris, boxes = torch.from_numpy(buf).cuda(), torch.from_numpy(boxes).cuda()
+    splits, _ = tci.split_plan(4096, boxes.shape[0], rays.device)
+    assert splits > 1
+    before = tci.MERGE_LAUNCHES
+    tk, pk = tci.intersect_closest(rays, tris, boxes)
+    tr, pr = tci.intersect_closest_reference(rays, tris, boxes)
+    torch.cuda.synchronize()
+    assert tci.MERGE_LAUNCHES == before + 1
+    expected = torch.from_numpy(expected).to(torch.int32).cuda()
+    assert torch.equal(pr, expected)
+    _assert_agree(tk, pk, tr, pr, min_hits=2000)
+    assert torch.equal(pk, expected)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_matches_plain_version():
+    """Partials with many equal t across splits: strict '<' in split
+    order, exactly as the plain merge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    t = rng.choice([0.5, 1.0, 2.0, np.inf], size=(7, 3001)).astype(np.float32)
+    prim = rng.integers(0, 1 << 20, size=t.shape).astype(np.int32)
+    prim[np.isinf(t)] = -1
+    t, prim = torch.from_numpy(t).cuda(), torch.from_numpy(prim).cuda()
+    tk, pk = tci.merge_partials(t, prim)
+    tr, pr = tci.merge_partials_reference(t, prim)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tr) and torch.equal(pk, pr)
 
 
 @pytest.mark.cuda
@@ -55,7 +125,7 @@ def test_render_runs_through_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     d = liver_proxy_dict(16, 12, 4, 2, 0)
-    ref = lrt.render(lrt.load_dict(d), spp=4).numpy()
+    ref = lrt.render(lrt.load_dict(d, device="cpu"), spp=4).numpy()
     before = tci.LAUNCHES
     img = lrt.render(lrt.load_dict(d, device="cuda"), spp=4).cpu().numpy()
     assert tci.LAUNCHES > before

@@ -24,6 +24,7 @@ from liverrenderer_tpu_torch.accel import cuda_intersect as tci
 from liverrenderer_tpu_torch.accel import intersect as tint
 from liverrenderer_tpu_torch.bridge import numpy_tree, scene_from_numpy
 from liverrenderer_tpu_torch.core.types import Ray as TRay
+from torch_tie_inputs import pack_rays, tie_inputs
 
 
 def _cornell(scene_fn=None):
@@ -143,6 +144,55 @@ def test_streaming_regime_matches_pallas(np_rng, monkeypatch):
         center=torch.from_numpy(tbuf[3]))
     _assert_hits_agree((np.asarray(jt), np.asarray(jp)),
                        (tt.numpy(), tp.numpy()), min_hits=50)
+
+
+def test_tie_rule_matches_pallas():
+    """Duplicate and coplanar triangles hit at bitwise-equal t, inside one
+    chunk and across chunks: the plain version and the Pallas kernel
+    (interpret mode) both give the larger id of the earliest chunk."""
+    v0, v1, v2, o, d, maxt, expected = tie_inputs(300, 256, seed=1)
+    jbuf = jpk.pack_tris(v0, v1, v2)
+    tbuf = tci.pack_tris(v0, v1, v2)
+    for a, b in zip(tbuf, jbuf):
+        np.testing.assert_array_equal(a, b)
+    buf, boxes, kperm, center = jbuf
+    with pltpu.force_tpu_interpret_mode():
+        jt, jp, _, _ = jpk.intersect_tris(
+            jnp.asarray(buf), jnp.asarray(boxes), jnp.asarray(kperm),
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(maxt),
+            jnp.full(len(o), np.inf, jnp.float32),
+            center=jnp.asarray(center))
+    tt, tp, _, _ = tci.intersect_tris(
+        *(torch.from_numpy(x) for x in tbuf[:3]), torch.from_numpy(o),
+        torch.from_numpy(d), torch.from_numpy(maxt),
+        torch.full((len(o),), float("inf")),
+        center=torch.from_numpy(tbuf[3]))
+    np.testing.assert_array_equal(np.asarray(jp), expected)
+    np.testing.assert_array_equal(tp.numpy(), expected)
+    hit = expected >= 0
+    np.testing.assert_array_equal(tt.numpy()[hit], np.asarray(jt)[hit])
+
+
+@pytest.mark.parametrize("splits", [2, 3, 8])
+def test_split_merge_equals_whole_sweep(splits):
+    """The kernel's split of the chunk range: partial sweeps over
+    contiguous chunk ranges, merged in order with strict '<', equal the
+    whole sweep bit for bit, ties included."""
+    v0, v1, v2, o, d, maxt, expected = tie_inputs(1000, 200, seed=2)
+    buf, boxes, _, center = (torch.from_numpy(x)
+                             for x in tci.pack_tris(v0, v1, v2))
+    rays = torch.from_numpy(pack_rays(o, d, maxt, center.numpy()))
+    t, prim = tci.intersect_closest_reference(rays, buf, boxes)
+    np.testing.assert_array_equal(prim.numpy(), expected)
+    n_chunks = boxes.shape[0]
+    per = -(-n_chunks // splits)
+    parts = [tci.intersect_closest_reference(
+        rays, buf[c * tci.TILE_T:(c + per) * tci.TILE_T], boxes[c:c + per])
+        for c in range(0, n_chunks, per)]
+    tm, pm = tci.merge_partials(torch.stack([x[0] for x in parts]),
+                                torch.stack([x[1] for x in parts]))
+    torch.testing.assert_close(tm, t, rtol=0, atol=0)
+    torch.testing.assert_close(pm, prim, rtol=0, atol=0)
 
 
 def test_ray_sort_keeps_results(np_rng):

@@ -40,7 +40,7 @@ def _assert_images_agree(img, ref):
 @pytest.fixture(scope="module")
 def scenes():
     d = liver_proxy_dict(16, 12, 4, 2, 0)
-    return lr.load_dict(d), lrt.load_dict(d)
+    return lr.load_dict(d), lrt.load_dict(d, device="cpu")
 
 
 def test_bounce_matches_on_identical_state(scenes):
@@ -108,7 +108,8 @@ def test_tent_filter_matches_jax():
     d = liver_proxy_dict(12, 8, 2, 1, 1)
     d["sensor"]["film"]["rfilter"] = {"type": "tent"}
     ref = np.asarray(lr.render(lr.load_dict(d), spp=2, seed=1))
-    _assert_images_agree(lrt.render(lrt.load_dict(d), spp=2, seed=1).numpy(),
+    _assert_images_agree(lrt.render(lrt.load_dict(d, device="cpu"), spp=2,
+                                    seed=1).numpy(),
                          ref)
 
 
@@ -117,7 +118,7 @@ def test_nee_scenes_raise():
     d["integrator"]["type"] = "volpath"
     d["fog"] = {"type": "homogeneous", "sigma_t": 0.5}
     d["liver"]["exterior"] = {"type": "ref", "id": "fog"}
-    ts = lrt.load_dict(d)
+    ts = lrt.load_dict(d, device="cpu")
     assert ts.needs_medium_nee
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lrt.render(ts, spp=1)

@@ -48,7 +48,7 @@ def test_liver_proxy_scene_buffers_equal(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
     d = liver_proxy_dict(16, 12, 4, 2, 0)
     js = lr.load_dict(d)
-    ts = lrt.load_dict(d)
+    ts = lrt.load_dict(d, device="cpu")
     assert ts.n_tris == 320 and not ts.needs_surface_nee \
         and not ts.needs_medium_nee
     pa, _ = _assert_tree_equal(ts, js)
@@ -60,7 +60,7 @@ def test_liver_proxy_tri_rows_keyed_by_id():
     agree once keyed by the triangle id baked into column 12."""
     d = liver_proxy_dict(16, 12, 4, 2, 0)
     js = lr.load_dict(d)
-    ts = lrt.load_dict(d)
+    ts = lrt.load_dict(d, device="cpu")
     _assert_tree_equal(ts, js, skip=("tri_buf", "tri_boxes", "tri_kperm",
                                      "bvh.node_min", "bvh.node_max",
                                      "bvh.right", "bvh.first", "bvh.count",
@@ -88,7 +88,8 @@ def test_bridge_cornell_box():
 
 
 def test_bridge_missing_array_raises():
-    arrays, statics = numpy_tree(lrt.load_dict(liver_proxy_dict(4, 4, 1, 0)))
+    arrays, statics = numpy_tree(lrt.load_dict(liver_proxy_dict(4, 4, 1, 0),
+                                                 device="cpu"))
     del arrays["media.params"]
     with pytest.raises(KeyError, match="media.params"):
         scene_from_numpy(arrays, statics, "cpu")
@@ -109,11 +110,23 @@ def test_unported_plugins_raise():
     d = liver_proxy_dict(4, 4, 1, 0)
     d["liver"]["bsdf"] = {"type": "diffuse"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lrt.load_dict(d)
+        lrt.load_dict(d, device="cpu")
     d = liver_proxy_dict(4, 4, 1, 0)
     d["env"] = {"type": "envmap", "filename": "sky.exr"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lrt.load_dict(d)
+        lrt.load_dict(d, device="cpu")
+
+
+def test_load_dict_defaults_to_the_card():
+    """Without `device` the scene goes to the card; on a machine without
+    one load_dict raises instead of building on the CPU."""
+    d = liver_proxy_dict(4, 4, 1, 0)
+    if torch.cuda.is_available():
+        assert lrt.load_dict(d).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lrt.load_dict(d)
+    assert lrt.load_dict(d, device="cpu").device.type == "cpu"
 
 
 def test_port_imports_no_jax():
