@@ -36,8 +36,21 @@ result line):
                    own rays, the kernels' share of the wall time, the same
                    rays replayed back to back, their bound, and the kernels
                    against the plain version on them (short hits included)
+  grad_small       render_grad of the small proxy's media.params on the
+                   card against the same gradient on the CPU (plain version)
+  render_grad      the liver proxy at 428x240, 16 spp, depth 12, through
+                   liverrenderer_tpu_torch.render_grad (loss = mean image,
+                   d/d media.params): median seconds of 3 after a warm-up,
+                   fwd+bwd paths/s and its cost per path against a 16 spp
+                   primal timed in the same call, the sweep and merge
+                   launches of the stored forward and of the replay walk,
+                   peak device memory
+  render_grad_trace  torch.profiler over an 8 spp render_grad: device busy
+                   and idle share, kernel launches per regen iteration,
+                   the top device ops
   kernels          every kernel of the path with the TPU kernels it
-                   replaces, its launches, agreement, times and bound
+                   replaces, its launches (render + render_grad),
+                   agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -50,6 +63,8 @@ import time
 
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
 KERNEL_SPP = 8                 # render_kernel phase
+GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
+TRACE_SPP = 8                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
 
 # tolerances: the kernel computes t with the plain version's fp32
@@ -64,6 +79,9 @@ T_RTOL = 1e-5
 # render_small: the card's transcendentals differ from the CPU's by ulps,
 # which can flip a rare dielectric / roulette decision of one path
 PIX_RTOL, PIX_ATOL, PIX_FRAC_MIN, MEAN_RTOL = 1e-3, 1e-4, 0.99, 1e-3
+# grad_small: the card sums per-lane gradient terms in another order than
+# the CPU (and a rare path may flip, as above)
+GRAD_COS_MIN, GRAD_NORM_RTOL = 0.999, 1e-2
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): fp32
 # outside the tensor cores, and HBM3 bandwidth
@@ -78,6 +96,9 @@ PREFILTER_FLOP = 11
 # a hit closer than this is counted as short (a self-hit would be one:
 # spawned rays start ~1e-4 off the surface, core/types.py RAY_EPS)
 SHORT_T = 1e-3
+# profiler spans around render_grad and its replay walk
+GRAD_SPAN = "chip_smoke.render_grad"
+REPLAY_SPAN = "chip_smoke.replay_walk"
 
 
 def emit(phase: str, **kw):
@@ -332,6 +353,101 @@ def capture_render(torch, lrt, ci, scene, spp):
     return secs, [(a.elapsed_time(b), r, t, bx) for a, b, r, t, bx in calls]
 
 
+def grad_run(torch, lrt, ci, treplay, scene, spp):
+    """One render_grad of mean(image) with respect to media.params, with
+    the kernel counts set to 0 just before it and split at the replay
+    walk's entry (module attribute wrapped for the call) -> (seconds,
+    gradient, image, launches of the stored forward and of the walk)."""
+    at_walk = []
+    orig = treplay._replay_walk
+
+    def walk(*args, **kw):
+        at_walk.append((ci.LAUNCHES, ci.MERGE_LAUNCHES))
+        with torch.profiler.record_function(REPLAY_SPAN):
+            return orig(*args, **kw)
+
+    torch.cuda.synchronize()
+    ci.LAUNCHES = 0
+    ci.MERGE_LAUNCHES = 0
+    treplay._replay_walk = walk
+    try:
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(GRAD_SPAN):
+            _, grads, img = lrt.render_grad(
+                scene, {"media.params": scene.media.params},
+                lambda im: im.mean(), spp=spp, seed=SEED)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        treplay._replay_walk = orig
+    check(len(at_walk) == 1, f"render_grad walked {len(at_walk)} times, "
+          "not the single-walk schedule")
+    (fs, fm), (ts, tm) = at_walk[0], (ci.LAUNCHES, ci.MERGE_LAUNCHES)
+    counts = dict(fwd_launches=fs, fwd_merge_launches=fm,
+                  replay_launches=ts - fs, replay_merge_launches=tm - fm)
+    return secs, grads["media.params"], img, counts
+
+
+def _busy_us(spans):
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def trace_summary(prof, secs, iterations, top=10):
+    """Device busy time (union of the device intervals) and idle share,
+    host kernel launches per regen iteration, for the whole render_grad
+    and for its two walks (split at the replay walk's span), and the top
+    device ops of a torch.profiler run.  iterations: (forward, replay)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    # the host side of each span (CUDA traces also hold a device-side
+    # annotation of the same name)
+    spans = {name: [e.time_range for e in events if e.name == name
+                    and e.device_type == DeviceType.CPU]
+             for name in (GRAD_SPAN, REPLAY_SPAN)}
+    check(all(len(v) == 1 for v in spans.values()),
+          "trace: render_grad or replay walk span missing")
+    t0, w0, w1 = (spans[GRAD_SPAN][0].start, spans[REPLAY_SPAN][0].start,
+                  spans[REPLAY_SPAN][0].end)
+    # device work: kernels, copies and sets (not the spans' annotations)
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in spans]
+    dev = [e.time_range for e in dev_ev]
+    launch = [e.time_range.start for e in events
+              if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cudaLaunchKernelExC")]
+    out = dict(seconds=secs, device_events=len(dev),
+               host_launches=len(launch),
+               device_busy_ms=_busy_us((r.start, r.end) for r in dev) / 1e3)
+    out["device_idle_share"] = 1.0 - out["device_busy_ms"] / 1e3 / secs
+    for name, (a, b), its in (("fwd", (t0, w0), iterations[0]),
+                              ("replay", (w0, w1), iterations[1])):
+        n = sum(1 for x in launch if a <= x < b)
+        busy = _busy_us((r.start, r.end) for r in dev if a <= r.start < b)
+        out[f"{name}_iterations"] = its
+        out[f"{name}_host_launches"] = n
+        out[f"{name}_launches_per_iteration"] = n / max(its, 1)
+        out[f"{name}_device_busy_ms"] = busy / 1e3
+        out[f"{name}_window_ms"] = (b - a) / 1e3
+        out[f"{name}_device_idle_share"] = 1.0 - busy / max(b - a, 1e-9)
+
+    by_name = {}
+    for e in dev_ev:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.end - e.time_range.start
+        acc[1] += 1
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    out["top_device_ops"] = [dict(name=k[:80], device_ms=us / 1e3, calls=n)
+                             for k, (us, n) in ops]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -341,6 +457,7 @@ def main() -> int:
         import numpy as np
         import liverrenderer_tpu_torch as lrt
         from liverrenderer_tpu_torch.accel import cuda_intersect as ci
+        from liverrenderer_tpu_torch.integrators import prb_replay as treplay
         from liverrenderer_tpu_torch.scene.liver_proxy import \
             liver_proxy_dict
         _tie_module()
@@ -519,7 +636,81 @@ def main() -> int:
     check_agreement(dict(hit_agree=hit_agree, prim_agree=prim_agree,
                          max_rel_dt=agree["max_rel_dt"]), "render rays")
 
-    # ---- 5. kernels
+    # ---- 5a. gradients through the kernels against the CPU gradient
+    sc_cpu = lrt.load_dict(small, device="cpu")
+    g_cpu = lrt.render_grad(
+        sc_cpu, {"media.params": sc_cpu.media.params}, lambda im: im.mean(),
+        spp=4, seed=SEED)[1]["media.params"]
+    _, g_gpu, _, counts = grad_run(torch, lrt, ci, treplay,
+                                   lrt.load_dict(small), 4)
+    a, b = g_gpu.cpu().double(), g_cpu.double()
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    norm_rel = abs(float(a.norm() / b.norm()) - 1.0)
+    emit("grad_small", film=[16, 12], spp=4, tris=320, cosine=cos,
+         norm_rel=norm_rel, max_abs_diff=float((a - b).abs().max()),
+         grad_norm=float(b.norm()), **counts)
+    check(bool(torch.isfinite(a).all()) and float(b.norm()) > 0,
+          "grad_small: gradient not finite or zero")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "GPU gradient disagrees with the CPU gradient")
+    check(counts["replay_launches"] > 0,
+          "grad_small: the replay walk did not launch the sweep kernel")
+
+    # ---- 5b. the gradient path at full width (bench.py's render_grad)
+    grad_run(torch, lrt, ci, treplay, scene, GRAD_SPP)         # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = [grad_run(torch, lrt, ci, treplay, scene, GRAD_SPP)
+            for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    grad_counts = runs[0][3]
+    check(all(r[3] == grad_counts for r in runs),
+          f"launch counts differ between reps: {[r[3] for r in runs]}")
+    g = runs[0][1]
+    check(all(bool(torch.equal(r[1], g)) or
+              float((r[1] - g).abs().max()) <= 1e-4 * float(g.abs().max())
+              for r in runs), "gradient differs between reps")
+    lrt.render(scene, spp=GRAD_SPP, seed=SEED)                 # warm-up
+    primal = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lrt.render(scene, spp=GRAD_SPP, seed=SEED)
+        torch.cuda.synchronize()
+        primal.append(time.perf_counter() - t0)
+    t_grad = sorted(r[0] for r in runs)[1]
+    t_primal = sorted(primal)[1]
+    grad_paths = WIDTH * HEIGHT * GRAD_SPP
+    finite_g = bool(torch.isfinite(g).all())
+    emit("render_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+         max_depth=scene.max_depth, tris=scene.n_tris, card=smi,
+         seconds=t_grad, seconds_reps=[r[0] for r in runs],
+         fwd_bwd_paths_per_s=grad_paths / t_grad,
+         primal_seconds=t_primal, primal_seconds_reps=primal,
+         primal_paths_per_s=grad_paths / t_primal,
+         fwd_bwd_over_primal=t_grad / t_primal,
+         grad_finite=finite_g, grad_abs_max=float(g.abs().max()),
+         grad_nonzero=int((g != 0).sum()),
+         image_mean=float(runs[0][2].mean()),
+         max_memory_allocated=peak, **grad_counts)
+    check(finite_g and float(g.abs().max()) > 0,
+          "render_grad: gradient not finite or zero")
+    for k in ("fwd_launches", "fwd_merge_launches", "replay_launches",
+              "replay_merge_launches"):
+        check(grad_counts[k] > 0, f"render_grad: {k} is 0")
+
+    # ---- 5c. where the gradient's time goes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        secs_t, _, _, counts_t = grad_run(torch, lrt, ci, treplay, scene,
+                                          TRACE_SPP)
+    # one sweep launch per bounce: the launch counts are the iterations
+    emit("render_grad_trace", film=[WIDTH, HEIGHT], spp=TRACE_SPP,
+         card=smi, **trace_summary(prof, secs_t,
+                                   (counts_t["fwd_launches"],
+                                    counts_t["replay_launches"])))
+
+    # ---- 6. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
     print(json.dumps({"kernels": [
         # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
@@ -530,7 +721,11 @@ def main() -> int:
              also_replaces="liverrenderer_tpu/accel/pallas_intersect.py:152",
              tpu_kernels=["K1 _intersect_kernel",
                           "K2 _intersect_stream_kernel"],
-             launches=launches, max_abs_err=res_a["max_abs_dt"],
+             launches=launches + grad_counts["fwd_launches"]
+             + grad_counts["replay_launches"],
+             render_launches=launches,
+             render_grad_launches=grad_counts,
+             max_abs_err=res_a["max_abs_dt"],
              ms=res_a["sweep_ms"], plain_ms=res_a["plain_ms"],
              bound_ms=res_a["sweep_bound_ms"],
              bound_by=res_a["sweep_bound_by"], library_ms=None,
@@ -546,7 +741,10 @@ def main() -> int:
              replaces="liverrenderer_tpu/accel/pallas_intersect.py:152",
              tpu_kernels=["K2 _intersect_stream_kernel (accumulation "
                           "across its sequential grid axis)"],
-             launches=merge_launches, max_abs_err=merge["max_abs_err"],
+             launches=merge_launches + grad_counts["fwd_merge_launches"]
+             + grad_counts["replay_merge_launches"],
+             render_launches=merge_launches,
+             max_abs_err=merge["max_abs_err"],
              ms=merge["ms"], plain_ms=merge["plain_ms"],
              bound_ms=merge["bound_ms"], bound_by="bytes",
              library_ms=None)]}), flush=True)

@@ -3,13 +3,17 @@
 The port follows ROADMAP.md slice by slice; liverrenderer_tpu (JAX) stays
 the reference.  Plain tensor code is PyTorch; the closest-hit intersection,
 the JAX package's only Pallas kernels, is a hand-written CUDA kernel for
-Hopper (csrc/intersect.cu).  The first slice renders the primal biovolpath
-path: load a scene dict, render it on the regenerating wavefront.
+Hopper (csrc/intersect.cu).  The port renders the biovolpath liver path
+on the regenerating wavefront and differentiates it through the PRB replay
+adjoint.
 
     import liverrenderer_tpu_torch as lrt
     from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
     scene = lrt.load_dict(liver_proxy_dict(428, 240, 64))  # on the card
     img = lrt.render(scene, spp=64, seed=0)      # (h, w, 3) on the card
+    loss, grads, img = lrt.render_grad(
+        scene, {"media.params": scene.media.params}, lambda im: im.mean(),
+        spp=16, seed=0)                          # grads["media.params"]
     cpu = lrt.load_dict(liver_proxy_dict(16, 12, 4), device="cpu")
 """
 
@@ -23,5 +27,8 @@ _torch.backends.cudnn.allow_tf32 = False
 from .scene.builder import load_dict  # noqa: E402
 from .scene.transform import Transform  # noqa: E402
 from .integrators.common import render  # noqa: E402
+from .integrators.prb import render_fwd_grad, render_grad  # noqa: E402
+from .util import SceneParameters, apply_params, traverse  # noqa: E402
 
-__all__ = ["load_dict", "render", "Transform"]
+__all__ = ["load_dict", "render", "render_grad", "render_fwd_grad",
+           "traverse", "apply_params", "SceneParameters", "Transform"]

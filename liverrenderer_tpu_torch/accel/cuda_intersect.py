@@ -359,8 +359,14 @@ def intersect_tris(tri_buf, boxes, kperm, o, d, maxt, t_best,
     winner's barycentrics are re-derived in compute_si.
 
     sort=True orders the wavefront by direction octant + origin Morton key
-    before the query so blocks of rays are spatially coherent."""
+    before the query so blocks of rays are spatially coherent.
+
+    Hit finding carries no derivative (the winner is re-derived
+    differentiably in compute_si), so the rays are detached here: no
+    autograd history reaches the kernel."""
     n = o.shape[0]
+    o, d, maxt, t_best = o.detach(), d.detach(), maxt.detach(), \
+        t_best.detach()
     lim = torch.minimum(torch.where(torch.isfinite(maxt), maxt, _INF),
                         t_best)
     if center is not None:

@@ -7,6 +7,8 @@ from any tree of dataclasses whose leaves turn into numpy arrays: the JAX
 Scene (flax struct dataclasses of JAX arrays) as well as the port's own.
 The port never sees a JAX object: a caller that holds one calls
 `numpy_tree` on it, which reads each leaf through `np.asarray`.
+`params_from_numpy` does the same for a dict of differentiable parameters
+(`render_grad`'s `params`).
 """
 from __future__ import annotations
 
@@ -80,3 +82,11 @@ def scene_from_numpy(arrays: dict, statics: dict, device) -> Scene:
     ignored; a missing array raises KeyError, a missing static keeps the
     field's default."""
     return _build(Scene, "", arrays, statics, device)
+
+
+def params_from_numpy(arrays: dict, device) -> dict:
+    """The port's params dict on `device` from a parameter dict whose
+    values were read out as numpy (`np.asarray` of each JAX array), under
+    the same util.traverse keys."""
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for k, v in arrays.items()}

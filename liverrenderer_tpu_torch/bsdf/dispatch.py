@@ -84,7 +84,7 @@ def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
     wi = _sanitize_dir(si.wi)
     flip = b.twosided[idx] & (m.cos_theta(wi) < 0)
     wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
-    p = b.params[idx]
+    p = m.table_lookup(b.params, idx)
     t0 = eval_texture(scene.textures, b.tex0[idx], b.tex0_types)
     t1 = eval_texture(scene.textures, b.tex1[idx], b.tex1_types)
 

@@ -1,10 +1,5 @@
 """Batched vector math (counterpart of liverrenderer_tpu/core/math.py),
-cut to what the primal liver slice calls.
-
-The JAX package's `table_lookup` select chains exist because per-lane
-gathers are slow on a TPU; on a GPU the port indexes tables directly
-(identical values).
-"""
+cut to what the liver slice calls."""
 from __future__ import annotations
 
 import torch
@@ -38,10 +33,35 @@ def safe_acos(x):
 
 
 def mis_weight(pdf_a, pdf_b):
-    """Power heuristic (beta=2)."""
+    """Power heuristic (beta=2).  Detached: MIS weights are sampling-density
+    ratios, excluded from differentiation."""
     a2 = pdf_a * pdf_a
     w = a2 / torch.clamp(a2 + pdf_b * pdf_b, min=1e-38)
-    return torch.where(torch.isfinite(w), w, 0.0)
+    return torch.where(torch.isfinite(w), w, 0.0).detach()
+
+
+def table_lookup(table, idx):
+    """Per-lane row lookup from a small parameter table (media, BSDF rows)
+    -> idx.shape + table.shape[1:].
+
+    Tables of up to 8 rows become a broadcast or a select chain, as in the
+    JAX package: the values are the gather's, but the backward is one
+    reduction over the lanes per row.  The backward of a gather
+    (index_put_ with accumulation) serialises the lanes that share a row,
+    and every lane of a wavefront shares one of a few rows: on the card it
+    took ~30 ms per lookup of 65,536 lanes (chip_smoke.py
+    render_grad_trace; PERF.md)."""
+    R = table.shape[0]
+    out_shape = idx.shape + table.shape[1:]
+    if R == 1:
+        return torch.broadcast_to(table[0], out_shape)
+    if R <= 8:
+        sel = idx.view(idx.shape + (1,) * (table.dim() - 1))
+        out = torch.broadcast_to(table[0], out_shape)
+        for r in range(1, R):
+            out = torch.where(sel == r, table[r], out)
+        return out
+    return table[idx]
 
 
 def coordinate_system(n):

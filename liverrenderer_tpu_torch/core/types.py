@@ -86,6 +86,8 @@ class MediumInteraction:
     sigma_t: Tensor              # (N,3)
     combined_extinction: Tensor  # (N,3) majorant
     transmittance: Tensor        # (N,3) bio media: one-hot channel mask / 0
+    log_p: Tensor                # (N,) bio media: differentiable log-density
+    #                              of the sampled free-flight event (0 else)
 
     @property
     def valid(self) -> Tensor:

@@ -1,0 +1,100 @@
+"""Differentiable rendering: gradients of image losses with respect to scene
+parameters (counterpart of liverrenderer_tpu/integrators/prb.py).
+
+`render_grad` runs the PRB replay adjoint (prb_replay.py) wherever it
+applies and the scan adjoint otherwise: each render pass walks exactly
+max_depth bounces (`volpath.sample(mode="ad")`, every bounce under an
+activation checkpoint) and reverse-mode autograd differentiates it, with
+the detached-sampling rules of the bounce.  Passes are independent Monte
+Carlo estimates, so the gradient of their sum is the sum of per-pass
+gradients; the counter RNG makes each pass walk the primal's paths.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..scene.ir import Scene
+from ..util import _leaf, apply_params
+from .common import MAX_WAVEFRONT, _render_jit, render_pass
+from .prb_replay import (_detach, _leaves, _loss_from_acc,
+                         render_grad_replay, replay_applicable)
+from .regen import render_regen
+
+Tensor = torch.Tensor
+
+
+def _grad_jit(scene: Scene, params: Dict[str, Tensor], seed, spp: int,
+              spp_pass: int, loss_fn: Callable):
+    """The scan adjoint -> (loss, grads, image)."""
+    n_passes = (spp + spp_pass - 1) // spp_pass
+    keys, values = _leaves(scene, params)
+    sc_primal = _detach(apply_params(scene, dict(zip(keys, values))))
+    # the primal image for dL/dI on the regenerating wavefront (every
+    # scene the port loads is regen-able); dL/dI on an independent primal
+    # keeps the adjoint unbiased
+    with torch.no_grad():
+        acc = render_regen(sc_primal, seed, spp)
+    loss, image, g_rgb = _loss_from_acc(acc, loss_fn)
+    # develop(total) divides by the total filter weight, which carries no
+    # parameter dependence: each pass's rgb meets d loss / d rgb
+    g_rgb = g_rgb.view(acc.shape[:-1] + (3,))
+
+    grads = [torch.zeros_like(v) for v in values]
+    for i in range(n_passes):
+        leaves = [v.requires_grad_() for v in (x.detach() for x in values)]
+        with torch.enable_grad():
+            sc = apply_params(scene, dict(zip(keys, leaves)))
+            acc_i = render_pass(sc, seed, spp_pass, i * spp_pass, mode="ad")
+            f = torch.sum(acc_i[..., 0:3] * g_rgb)
+            if not f.requires_grad:
+                continue
+            gs = torch.autograd.grad(f, leaves, allow_unused=True)
+        grads = [g if gi is None else g + gi for g, gi in zip(grads, gs)]
+    return loss, dict(zip(keys, grads)), image
+
+
+def _render_grad_scan(scene: Scene, params: Dict[str, Tensor],
+                      loss_fn: Callable, spp: int, seed: int,
+                      spp_pass: int | None):
+    n_pix = scene.film_w * scene.film_h
+    max_pass = max(1, min(spp, (MAX_WAVEFRONT // 4) // max(n_pix, 1)))
+    spp_pass = spp_pass or max_pass
+    while spp % spp_pass != 0:
+        spp_pass -= 1
+    return _grad_jit(scene, params, seed, spp, spp_pass, loss_fn)
+
+
+def render_grad(scene: Scene, params: Dict[str, Tensor], loss_fn: Callable,
+                spp: int = 16, seed: int = 0, spp_pass: int | None = None,
+                replay: bool | None = None):
+    """Differentiable render: (loss, grads with respect to params, image).
+
+    `params` maps util.traverse keys to tensors; `loss_fn` maps the
+    developed (h, w, 3) image to a scalar tensor.  Runs on the scene's
+    device.  The PRB replay adjoint serves every configuration it
+    applies to; replay=False forces the scan adjoint."""
+    for k in params:
+        _leaf(k)       # raises for keys the port does not carry
+    if replay is None:
+        replay = replay_applicable(scene, params, spp)
+    if replay:
+        return render_grad_replay(scene, params, loss_fn, spp=spp, seed=seed)
+    return _render_grad_scan(scene, params, loss_fn, spp, seed, spp_pass)
+
+
+def render_fwd_grad(scene: Scene, params: Dict[str, Tensor], spp: int = 16,
+                    seed: int = 0):
+    """Forward mode: (image, d image / d params . ones), a JVP with unit
+    tangents through the scan walk (the reference's
+    ADIntegrator.render_forward).  Callers wanting another direction pass
+    scaled params."""
+    keys, values = _leaves(scene, params)
+
+    def f(*vals):
+        return _render_jit(apply_params(scene, dict(zip(keys, vals))), seed,
+                           spp, spp, "ad")
+
+    tangents = tuple(torch.ones_like(v) for v in values)
+    return torch.func.jvp(f, tuple(values), tangents)

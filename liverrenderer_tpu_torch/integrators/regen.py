@@ -7,6 +7,14 @@ and re-seeded with the next (pixel, sample) id.  The accumulator contract
 is the JAX package's: the same sample ids, keyed the same way into the
 counter RNG, splatted into the same (h, w, 4) film.
 
+With `store_paths` the walk also writes every finished path's radiance
+into a flat (budget, 3) pool indexed by sample id: the residual the PRB
+replay adjoint (prb_replay.py) reads.  Each sample dies once, so the pool
+is written by index_copy_ (a set, deterministic on the card) into a pool
+with one spare row, which takes the writes of the lanes that did not die.
+The JAX package's fused and packed pool layouts tune XLA scatters on a
+TPU; one layout serves here.
+
 Dropped on purpose: the JAX package's host schedule (probe-timed,
 power-of-two spp chunks per device execution, `render_regen_host`) exists
 only to keep single executions under the TPU runtime watchdog.  Here the
@@ -39,17 +47,29 @@ def _lane_cap(scene: Scene) -> int:
     return scene.max_depth * 4
 
 
+def pool_channels(scene: Scene) -> int:
+    """Channel count of the stored-path pool: RGB (the spectral variant,
+    which pools the wavelength packet, is not ported)."""
+    if scene.spectral:
+        raise not_ported("the spectral variant", "Queue 1 M10")
+    return 3
+
+
+def _finalize_L2(scene: Scene, st):
+    """(film_rgb, pool_vec) at lane death: the deferred environment term
+    folded in.  Both are the RGB radiance (they differ only in the
+    spectral variant, whose pool keeps the wavelength packet)."""
+    L = st.L + st.env_weight * eval_environment(scene, st.ray_d)
+    return L, L
+
+
 def _finalize_L(scene: Scene, st):
-    """Radiance at lane death: the deferred environment term folded in."""
-    return st.L + st.env_weight * eval_environment(scene, st.ray_d)
+    return _finalize_L2(scene, st)[0]
 
 
-def _make_lanes(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
-                tile_pix: int | None = None, samp0: int = 0):
-    """Seed path states for sample ids (pixel-minor order, so the first
-    iterations cover the whole film).  The counter RNG keys on the global
-    (pixel, sample) pair, so any partition of the budget walks the same
-    paths."""
+def _lane_sampler(scene: Scene, sample_ids, seed, pix0: int,
+                  tile_pix: int | None, samp0: int):
+    """(film position, sampler after the camera jitter) of sample ids."""
     w = scene.film_w
     n_pix = tile_pix if tile_pix is not None else w * scene.film_h
     pix = sample_ids % n_pix + pix0
@@ -58,8 +78,26 @@ def _make_lanes(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
     px = (pix % w).to(torch.float32)
     py = (pix // w).to(torch.float32)
     uf, sampler = sampler.next_2d()
-    pos = torch.stack([px, py], -1) + uf
+    return torch.stack([px, py], -1) + uf, sampler
+
+
+def _make_lanes(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
+                tile_pix: int | None = None, samp0: int = 0):
+    """Seed path states for sample ids (pixel-minor order, so the first
+    iterations cover the whole film).  The counter RNG keys on the global
+    (pixel, sample) pair, so any partition of the budget walks the same
+    paths."""
+    pos, sampler = _lane_sampler(scene, sample_ids, seed, pix0, tile_pix,
+                                 samp0)
     return vp.init_state(sample_ray(scene, pos), sampler, scene), pos
+
+
+def lane_pos(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
+             tile_pix: int | None = None, samp0: int = 0):
+    """Film position of each sample id without building its path state:
+    the same draw as _make_lanes, so the replay adjoint can compute each
+    sample's filter cotangent before its walk."""
+    return _lane_sampler(scene, sample_ids, seed, pix0, tile_pix, samp0)[0]
 
 
 def _select_state(mask, new, old):
@@ -107,15 +145,24 @@ def _splat_died(scene: Scene, film, pos, L, died, in_range, pix0: int):
 
 
 def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
-                       tile_pix: int, samp0: int = 0):
-    """One regenerating wavefront over a pixel tile -> (tile_pix, 4)."""
+                       tile_pix: int, samp0: int = 0,
+                       store_paths: bool = False,
+                       spp_chunk: int | None = None):
+    """One regenerating wavefront over a pixel tile -> (tile_pix, 4).
+
+    samp0/spp_chunk: walk only samples [samp0, samp0 + spp_chunk) of each
+    pixel (the replay adjoint's spp-chunked schedule).  store_paths: also
+    return the (tile_pix * spp_chunk, 3) pool of each finished path's
+    radiance, indexed by sample id."""
     h = scene.film_h
     dev = scene.device
-    budget = tile_pix * spp
+    budget = tile_pix * (spp if spp_chunk is None else spp_chunk)
     W = min(REGEN_WAVEFRONT, budget)
-    st, pos = _make_lanes(scene, torch.arange(W, device=dev), seed, spp,
-                          pix0, tile_pix, samp0)
+    sid = torch.arange(W, device=dev)
+    st, pos = _make_lanes(scene, sid, seed, spp, pix0, tile_pix, samp0)
     film = torch.zeros((tile_pix, 4), device=dev)
+    if store_paths:
+        pool = torch.zeros((budget + 1, pool_channels(scene)), device=dev)
     refills = (budget + W - 1) // W
     lane_cap = _lane_cap(scene)
     max_iters = lane_cap * (refills + 2)     # runaway backstop only
@@ -131,10 +178,14 @@ def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
         st = dataclasses.replace(st, active=st.active & (age < lane_cap))
         died = was_active & ~st.active
 
-        L = _finalize_L(scene, st)
+        L, Lpool = _finalize_L2(scene, st)
         L = torch.where(torch.isfinite(L), L, 0.0)
         # lanes of a padded last tile carry pixel ids past the film
         _splat_died(scene, film, pos, L, died, pos[:, 1] < h, pix0)
+        if store_paths:
+            # lanes still walking write the spare row `budget`
+            pool.index_copy_(0, torch.where(died, sid, budget),
+                             torch.where(torch.isfinite(Lpool), Lpool, 0.0))
 
         # regenerate from the pool
         ranks = torch.cumsum(died.to(torch.int64), 0) - 1
@@ -144,8 +195,11 @@ def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
                                       seed, spp, pix0, tile_pix, samp0)
         st = _select_state(take, new_st, st)
         pos = torch.where(take[:, None], new_pos, pos)
+        sid = torch.where(take, new_ids, sid)
         age = torch.where(take, 0, age)
         next_s = torch.clamp(next_s + died.sum(), max=budget)
+    if store_paths:
+        return film, pool[:budget]
     return film
 
 

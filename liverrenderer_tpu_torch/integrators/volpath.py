@@ -1,6 +1,12 @@
 """Volumetric path tracer with null scattering and the fork's
 tissue-depth-threaded bio-media transport (counterpart of
-liverrenderer_tpu/integrators/volpath.py), primal only.
+liverrenderer_tpu/integrators/volpath.py): the primal walk and, for the
+gradients, the bounded walk (`sample(mode="ad")`).
+
+Detached sampling (the reference's PRB rules): every sampling density and
+sampled direction is `.detach()`ed at the points where the JAX bounce
+stops its gradient, so parameter derivatives flow only through
+values, transmittances and the bio score term exp(log_p - log_p.detach()).
 
 The slice carries the configurations in which next-event estimation is
 statically unreachable: delta surfaces (dielectric, null) and bio media
@@ -18,6 +24,7 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from ..accel.intersect import ray_intersect
 from ..bsdf.dispatch import bsdf_sample
@@ -67,7 +74,7 @@ def _has_bio(scene: Scene) -> bool:
 
 
 def check_supported(scene: Scene):
-    """Raise for what the primal slice does not carry."""
+    """Raise for what the slice does not carry."""
     if scene.spectral:
         raise not_ported("the spectral variant", "Queue 1 M10")
     if scene.needs_surface_nee or scene.needs_medium_nee:
@@ -147,12 +154,17 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     mei = finalize_interaction(cand, si.t, st.channel, in_medium)
     tr_a, ffpdf = transmittance_eval_pdf(scene, st.medium, mei, si.t)
     tr_pdf = _index_spectrum(ffpdf, st.channel)
+    tr_pdf_det = torch.clamp(tr_pdf, min=1e-30).detach()
     ratio = torch.where((tr_pdf > 0)[:, None],
-                        tr_a / torch.clamp(tr_pdf, min=1e-30)[:, None], 0.0)
+                        tr_a / tr_pdf_det[:, None], 0.0)
     throughput = torch.where(in_medium[:, None], throughput * ratio,
                              throughput)
-    # (bio media: the score-function factor exp(log_p - log_p) is 1 in the
-    # primal; it returns with the gradient slice)
+    if _has_bio(scene):
+        # bio media: score-function gradient of the free-flight event
+        # (value 1; derivative d log_p, media/dispatch.py)
+        score = torch.exp(mei.log_p - mei.log_p.detach())
+        throughput = torch.where(in_medium[:, None],
+                                 throughput * score[:, None], throughput)
 
     escaped = in_medium & ~mei.valid
     act_medium = in_medium & mei.valid
@@ -166,7 +178,8 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     act_real = act_medium & ~null_scatter
 
     sn_c = _index_spectrum(mei.sigma_n, st.channel)
-    w_null = mei.sigma_n * (maj_c / torch.clamp(sn_c, min=1e-30))[:, None]
+    w_null = mei.sigma_n \
+        * (maj_c / torch.clamp(sn_c, min=1e-30)).detach()[:, None]
     throughput = torch.where(act_null[:, None], throughput * w_null,
                              throughput)
 
@@ -175,7 +188,8 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     act_real = act_real & ~reached_max
 
     is_bio = medium_is_bio(scene, st.medium) & in_medium
-    w_real = mei.sigma_s * (maj_c / torch.clamp(st_c, min=1e-30))[:, None]
+    w_real = mei.sigma_s \
+        * (maj_c / torch.clamp(st_c, min=1e-30)).detach()[:, None]
     if _has_bio(scene):
         w_real = torch.where(is_bio[:, None], mei.transmittance, w_real)
         if scene.integrator == "biovolpath":
@@ -189,11 +203,15 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     throughput = torch.where(act_real[:, None], throughput * w_real,
                              throughput)
 
-    # ---- phase sampling (detached in the JAX package; primal here)
+    # ---- phase sampling, detached: the sampled direction and its pdf
+    # carry no derivative; the phase parameter's gradient re-enters
+    # through the value/pdf ratio
     ptype, g, pprm = medium_phase(scene, st.medium)
     u2p, sampler = sampler.next_2d()
     wo_med, _, ppdf = phase_sample(ptype, g, st.ray_d, u2p, pprm,
                                    scene.media.phase_types)
+    wo_med = wo_med.detach()
+    ppdf = ppdf.detach()
     pval = phase_eval(ptype, g, m.dot(st.ray_d, wo_med), pprm, st.ray_d,
                       wo_med, scene.media.phase_types)
     pw = pval / torch.clamp(ppdf, min=1e-20)
@@ -262,7 +280,7 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     rr_keep = (urr < q) | ~perform_rr
     throughput = torch.where(
         perform_rr[:, None],
-        throughput / torch.clamp(q, min=1e-8)[:, None], throughput)
+        throughput / torch.clamp(q.detach(), min=1e-8)[:, None], throughput)
     alive = alive & rr_keep
 
     return dataclasses.replace(
@@ -275,16 +293,25 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
 
 
 def sample(scene: Scene, sampler: Sampler, ray: Ray, mode: str = "primal"):
-    """Fixed-wavefront walk: bounce every lane until all die or the
-    iteration cap (null events do not count depth, so the cap is a
-    multiple of max_depth) -> (L, valid, sampler)."""
-    if mode != "primal":
-        raise not_ported("gradient modes", "Queue 1 M7")
+    """Fixed-wavefront walk -> (L, valid, sampler).
+
+    primal: bounce every lane until all die or the iteration cap (null
+    events do not count depth, so the cap is a multiple of max_depth).
+    ad: exactly max_depth bounces, each under a non-reentrant activation
+    checkpoint, so reverse mode keeps one lane state per bounce and
+    recomputes the bounce in the backward pass."""
     check_supported(scene)
     st = init_state(ray, sampler, scene)
-    for _ in range(scene.max_depth * 4):
-        if not bool(st.active.any()):
-            break
-        st = bounce(scene, st)
+    if mode == "primal":
+        for _ in range(scene.max_depth * 4):
+            if not bool(st.active.any()):
+                break
+            st = bounce(scene, st)
+    elif mode == "ad":
+        for _ in range(scene.max_depth):
+            st = torch.utils.checkpoint.checkpoint(
+                bounce, scene, st, use_reentrant=False)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
     env = eval_environment(scene, st.ray_d)
     return st.L + st.env_weight * env, st.valid, st.sampler

@@ -2,9 +2,11 @@
 liverrenderer_tpu/media/dispatch.py), for the homogeneous medium and the
 fork's bio media (glissonCapsule, parenchyma, liver).
 
-Primal only: the score-function log-likelihood (`log_p`) that the JAX
-package carries for gradients of the bio media comes with the gradient
-slice (ROADMAP Queue 1 M7).  Its forward factor exp(log_p - log_p) is 1.
+The sampled collision distance is detached (differentiable delta
+tracking): parameter gradients flow through the coefficients, the
+transmittance/pdf ratios and, for the bio media, the score-function
+log-likelihood `log_p` of the sampled event, which the integrator folds in
+as exp(log_p - log_p.detach()) (value 1, derivative d log_p).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 
 import torch
 
+from ..core import math as m
 from ..core.types import INF, MediumInteraction
 from ..errors import not_ported
 from ..scene.ir import (MEDIUM_GLISSON, MEDIUM_HETEROGENEOUS, MEDIUM_LIVER,
@@ -52,7 +55,9 @@ def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
                           tissue_depth):
     """Competing-exponential element sampling for the bio media (liver.cpp
     computeDistance / glissonCapsule.cpp computeDistance) ->
-    (bio_type, distance, sampler)."""
+    (bio_type, distance, rate_total, rate_chosen, sampler).  The rates are
+    the differentiable event rates of the score estimator: the joint
+    density of (t, chosen element e) is rate_e * exp(-rate_total * t)."""
     n = channel.shape[0]
     # layer binning by tissue depth
     limits = prm[:, 36:40]
@@ -85,7 +90,9 @@ def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
         return torch.where(att > 0, d, INF)
 
     # glisson branch: collagen vs elastin, both attenuators
-    g_dist = torch.minimum(exp_dist(coll, u6[:, 0]), exp_dist(elas, u6[:, 1]))
+    d_coll = exp_dist(coll, u6[:, 0])
+    d_elas = exp_dist(elas, u6[:, 1])
+    g_dist = torch.minimum(d_coll, d_elas)
     # parenchyma branch: blood/bile/lipid absorbers + hepatocyte, whose
     # distance is -log10(sigma+1) * log(r) (liver.cpp)
     log10_hep = torch.log(torch.clamp(hep + 1.0, min=1.0)) / math.log(10.0)
@@ -100,7 +107,26 @@ def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
                         device=channel.device)
     bio_type = torch.where(in_glisson, g_type, p_type)
     distance = torch.where(in_glisson, g_dist, p_dist)
-    return bio_type, distance, sampler
+
+    # event rates; the hepatocyte's t = -log10(sigma+1) * log(u) is an
+    # exponential with rate 1/log10(sigma+1)
+    r_coll = _index_spectrum(coll, channel)
+    r_elas = _index_spectrum(elas, channel)
+    g_total = r_coll + r_elas
+    g_chosen = torch.where(d_coll <= d_elas, r_coll, r_elas)
+    rate_hep = torch.where(hep > 0,
+                           1.0 / torch.clamp(log10_hep, min=1e-12), 0.0)
+    r_blood = _index_spectrum(blood, channel)
+    r_bile = _index_spectrum(bile, channel)
+    r_lipid = _index_spectrum(lipid, channel)
+    p_total = torch.stack([r_blood, r_bile, r_lipid, rate_hep], -1).sum(-1)
+    p_chosen = torch.where(elem == 0, r_blood,
+                           torch.where(elem == 1, r_bile,
+                                       torch.where(elem == 2, r_lipid,
+                                                   rate_hep)))
+    rate_total = torch.where(in_glisson, g_total, p_total)
+    rate_chosen = torch.where(in_glisson, g_chosen, p_chosen)
+    return bio_type, distance, rate_total, rate_chosen, sampler
 
 
 def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
@@ -114,7 +140,7 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     midx = torch.clamp(medium_idx, min=0)
     med = scene.media
     mtype = med.mtype[midx]
-    prm = med.params[midx]
+    prm = m.table_lookup(med.params, midx)
     scale = prm[:, 6]
     sigma_t_base = prm[:, 0:3] * scale[:, None]
     albedo = prm[:, 3:6]
@@ -130,14 +156,17 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
                           device=ray_o.device)
     bio_present = any(t in tp for t in _BIO_TYPES) and bio_mode(scene)
     if bio_present:
-        btype, bdist, sampler = _bio_compute_distance(
-            scene, mtype, prm, channel, sampler, tissue_depth)
+        btype, bdist, rate_total, rate_chosen, sampler = \
+            _bio_compute_distance(scene, mtype, prm, channel, sampler,
+                                  tissue_depth)
         is_bio = mtype >= MEDIUM_GLISSON
         dist = torch.where(is_bio, bdist, dist)
         bio_type = torch.where(is_bio, btype, bio_type)
     else:
         is_bio = torch.zeros((n,), dtype=torch.bool, device=ray_o.device)
+        rate_total = rate_chosen = ray_o.new_zeros((n,))
 
+    # the sampled distance carries no derivative (detached sampling)
     dist = dist.detach()
     p = ray_o + ray_d * torch.where(torch.isfinite(dist), dist, 0.0)[:, None]
 
@@ -152,19 +181,22 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     sigma_n = torch.clamp(majorant - sigma_t, min=0.0)
     return dict(dist=dist, p=p, sigma_t=sigma_t, sigma_s=sigma_s,
                 sigma_n=sigma_n, majorant=majorant, bio_type=bio_type,
-                is_bio=is_bio, bio_present=bio_present), sampler
+                is_bio=is_bio, rate_total=rate_total,
+                rate_chosen=rate_chosen, bio_present=bio_present), sampler
 
 
 def finalize_interaction(cand, maxt, channel, active) -> MediumInteraction:
     """Phase 2: apply the true segment bound (the surface distance) to the
-    candidate collision: validity and the bio transmittance semantics
-    (liver.cpp: one-hot channel for attenuators, 0 for absorbers)."""
+    candidate collision: validity, the bio transmittance semantics
+    (liver.cpp: one-hot channel for attenuators, 0 for absorbers) and the
+    score estimator's log-likelihood of the realized event."""
     dist = cand["dist"]
     n = dist.shape[0]
     C = cand["sigma_t"].shape[-1]
     valid = active & (dist <= maxt) & (dist > 0)
     t = torch.where(valid, dist, INF)
     transmittance = torch.ones((n, C), device=dist.device)
+    log_p = torch.zeros((n,), device=dist.device)
     if cand["bio_present"]:
         bio_type = cand["bio_type"]
         absorbed = (bio_type == BIO_ABSORBER) \
@@ -176,10 +208,21 @@ def finalize_interaction(cand, maxt, channel, active) -> MediumInteraction:
                              1.0)
         transmittance = torch.where(cand["is_bio"][:, None], tr_bio,
                                     transmittance)
+        # score estimator: the sampled distance and element are detached;
+        # the log-likelihood of the realized event (scatter at t_det, or
+        # escape past it) carries the derivative
+        t_det = torch.minimum(dist, maxt).detach()
+        t_det = torch.where(torch.isfinite(t_det), t_det, 0.0)
+        scattered_b = valid.detach()
+        lp_scatter = torch.log(torch.clamp(cand["rate_chosen"], min=1e-20)) \
+            - cand["rate_total"] * t_det
+        lp_escape = -cand["rate_total"] * t_det
+        lp = torch.where(scattered_b, lp_scatter, lp_escape)
+        log_p = torch.where(cand["is_bio"] & active, lp, 0.0)
     return MediumInteraction(
         t=t, p=cand["p"], sigma_s=cand["sigma_s"], sigma_n=cand["sigma_n"],
         sigma_t=cand["sigma_t"], combined_extinction=cand["majorant"],
-        transmittance=transmittance)
+        transmittance=transmittance, log_p=log_p)
 
 
 def transmittance_eval_pdf(scene: Scene, medium_idx, mei: MediumInteraction,
@@ -196,7 +239,7 @@ def transmittance_eval_pdf(scene: Scene, medium_idx, mei: MediumInteraction,
 
 def medium_phase(scene: Scene, medium_idx):
     """(phase_type, g, param_row) lanes for the medium table."""
-    prm = scene.media.params[torch.clamp(medium_idx, min=0)]
+    prm = m.table_lookup(scene.media.params, torch.clamp(medium_idx, min=0))
     return prm[:, 8].to(torch.int64), prm[:, 7], prm
 
 
