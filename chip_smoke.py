@@ -48,9 +48,32 @@ result line):
   render_grad_trace  torch.profiler over an 8 spp render_grad: device busy
                    and idle share, kernel launches per regen iteration,
                    the top device ops
+  fog_small        the fog Cornell box (next-event estimation, the
+                   Beer-Lambert shadow branch) at 32x32, 4 spp, depth 6 on
+                   the card against the CPU render
+  nee_walk_small   the fog-cube plane scene (the ratio-tracked shadow walk
+                   and medium NEE) on the card against the CPU: the image
+                   and the media.params gradient
+  fog_render       the fog Cornell box at 1080x1080, 4 spp, depth 16
+                   (BASELINE's cornell_box_1080x1080_fog_st_albedo):
+                   seconds, paths/s, image checks, sweep and merge launches
+                   split into bounce and shadow queries; torch.profiler
+                   over a 256x256 1 spp render of it (one full wavefront):
+                   host kernel launches per regen iteration, device busy
+                   and idle share
+  shadow_kernel    the shadow queries of a 1 spp fog render, captured and
+                   held against the plain version (hit agreement, ms per
+                   launch in the render and replayed, bound as in
+                   kernel_vs_plain), and shadow rays to a point light on
+                   the liver proxy, whose split chunk range runs the merge
+  fog_render_grad  render_grad of the fog Cornell box's mean image at
+                   1080x1080, 2 spp, d/d media.params (the tiled replay
+                   schedule): median seconds of 3 after a warm-up, fwd+bwd
+                   paths/s and its cost per path against a 2 spp primal in
+                   the same call, launches, peak device memory
   kernels          every kernel of the path with the TPU kernels it
-                   replaces, its launches (render + render_grad),
-                   agreement, times and bound
+                   replaces, its launches (render + render_grad + fog
+                   render + fog render_grad), agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -66,6 +89,14 @@ KERNEL_SPP = 8                 # render_kernel phase
 GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
 TRACE_SPP = 8                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
+# the fog Cornell box: BASELINE's 1080x1080 film and depth 16, 4 spp for
+# the primal and 2 for the gradient (its host-bound walk runs at ~0.2
+# Mpaths/s, ~6.6 bounces per path, and the run has a time limit)
+FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 1080, 4, 2, 16
+FOG_TRACE_SPP = 1              # fog_render's profile, shadow_kernel
+FOG_TRACE_RES = 256            # fog_render's profile: one full wavefront
+FOG_SMALL = (32, 4, 6)         # fog_small: film, spp, depth
+WALK_SMALL = (12, 16)          # nee_walk_small: film, spp
 
 # tolerances: the kernel computes t with the plain version's fp32
 # operations in the same order (bit-identical), but contracts p, u and v to
@@ -324,18 +355,21 @@ def tie_regime_inputs(torch, ci):
             torch.from_numpy(expected).to(torch.int32).cuda())
 
 
-def capture_render(torch, lrt, ci, scene, spp):
+def capture_render(torch, lrt, ci, scene, spp, shadow_only=False):
     """Render with CUDA events around every intersect_closest call (the
     module attribute is wrapped for the call and restored after).
-    Returns (wall seconds, [(event ms, rays, tris, boxes)])."""
+    Returns (wall seconds, [(event ms, rays, tris, boxes)]) of every call,
+    or of the shadow queries only."""
     calls = []
     orig = ci.intersect_closest
 
-    def timed(rays, tris, boxes):
+    def timed(rays, tris, boxes, shadow=False):
+        if shadow_only and not shadow:
+            return orig(rays, tris, boxes, shadow=shadow)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = orig(rays, tris, boxes)
+        out = orig(rays, tris, boxes, shadow=shadow)
         b.record()
         calls.append((a, b, rays.clone(), tris, boxes))
         return out
@@ -353,22 +387,45 @@ def capture_render(torch, lrt, ci, scene, spp):
     return secs, [(a.elapsed_time(b), r, t, bx) for a, b, r, t, bx in calls]
 
 
-def grad_run(torch, lrt, ci, treplay, scene, spp):
+def launch_counts(ci):
+    """The kernels' launch counts: sweep and merge, and the shadow queries'
+    part of each."""
+    return (ci.LAUNCHES, ci.MERGE_LAUNCHES, ci.SHADOW_LAUNCHES,
+            ci.SHADOW_MERGE_LAUNCHES)
+
+
+def reset_counts(ci):
+    ci.LAUNCHES = ci.MERGE_LAUNCHES = 0
+    ci.SHADOW_LAUNCHES = ci.SHADOW_MERGE_LAUNCHES = 0
+
+
+def split_counts(c):
+    """Launch counts as bounce and shadow queries."""
+    sweep, merge, s_sweep, s_merge = c
+    return dict(bounce_launches=sweep - s_sweep, shadow_launches=s_sweep,
+                bounce_merge_launches=merge - s_merge,
+                shadow_merge_launches=s_merge)
+
+
+def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1):
     """One render_grad of mean(image) with respect to media.params, with
     the kernel counts set to 0 just before it and split at the replay
-    walk's entry (module attribute wrapped for the call) -> (seconds,
-    gradient, image, launches of the stored forward and of the walk)."""
-    at_walk = []
+    walks' entries and exits (module attribute wrapped for the call) ->
+    (seconds, gradient, image, launches of the stored forwards and of the
+    walks).  walks: the replay walks the schedule must run (1: the single
+    walk; the tiled schedule walks each partition)."""
+    spans = []
     orig = treplay._replay_walk
 
     def walk(*args, **kw):
-        at_walk.append((ci.LAUNCHES, ci.MERGE_LAUNCHES))
+        c0 = launch_counts(ci)
         with torch.profiler.record_function(REPLAY_SPAN):
-            return orig(*args, **kw)
+            out = orig(*args, **kw)
+        spans.append((c0, launch_counts(ci)))
+        return out
 
     torch.cuda.synchronize()
-    ci.LAUNCHES = 0
-    ci.MERGE_LAUNCHES = 0
+    reset_counts(ci)
     treplay._replay_walk = walk
     try:
         t0 = time.perf_counter()
@@ -380,12 +437,19 @@ def grad_run(torch, lrt, ci, treplay, scene, spp):
         secs = time.perf_counter() - t0
     finally:
         treplay._replay_walk = orig
-    check(len(at_walk) == 1, f"render_grad walked {len(at_walk)} times, "
-          "not the single-walk schedule")
-    (fs, fm), (ts, tm) = at_walk[0], (ci.LAUNCHES, ci.MERGE_LAUNCHES)
-    counts = dict(fwd_launches=fs, fwd_merge_launches=fm,
-                  replay_launches=ts - fs, replay_merge_launches=tm - fm)
-    return secs, grads["media.params"], img, counts
+    check(len(spans) == walks, f"render_grad walked {len(spans)} times, "
+          f"not {walks}")
+    total = launch_counts(ci)
+    replay = [sum(b[i] - a[i] for a, b in spans) for i in range(4)]
+    fwd = [t - r for t, r in zip(total, replay)]
+    out = dict(fwd_launches=fwd[0], fwd_merge_launches=fwd[1],
+               replay_launches=replay[0], replay_merge_launches=replay[1])
+    if total[2] or total[3]:
+        out.update(fwd_shadow_launches=fwd[2],
+                   fwd_shadow_merge_launches=fwd[3],
+                   replay_shadow_launches=replay[2],
+                   replay_shadow_merge_launches=replay[3])
+    return secs, grads["media.params"], img, out
 
 
 def _busy_us(spans):
@@ -396,6 +460,120 @@ def _busy_us(spans):
             busy += b - max(a, end)
             end = b
     return busy
+
+
+LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def primal_trace(prof, secs, iterations):
+    """Host kernel launches per regen iteration and the device's busy time
+    and idle share of a profiled primal render."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    dev = [e.time_range for e in events if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    launches = sum(1 for e in events if e.name in LAUNCH_NAMES)
+    busy = _busy_us((r.start, r.end) for r in dev) / 1e3
+    return dict(trace_seconds=secs, trace_iterations=iterations,
+                trace_host_launches=launches,
+                launches_per_iteration=launches / max(iterations, 1),
+                device_busy_ms=busy,
+                device_idle_share=1.0 - busy / 1e3 / secs)
+
+
+def image_vs_cpu(np, lrt, d, spp):
+    """The same render on the card and on the CPU (plain version) ->
+    (pixel fraction within tolerance, relative difference of the means,
+    card image mean)."""
+    img_cpu = lrt.render(lrt.load_dict(d, device="cpu"), spp=spp,
+                         seed=SEED).numpy()
+    img_gpu = lrt.render(lrt.load_dict(d), spp=spp, seed=SEED).cpu().numpy()
+    close = np.abs(img_gpu - img_cpu) <= PIX_ATOL + PIX_RTOL \
+        * np.abs(img_cpu)
+    return (float(close.all(-1).mean()),
+            float(abs(img_gpu.mean() - img_cpu.mean())
+                  / abs(img_cpu.mean())), float(img_gpu.mean()))
+
+
+def grad_vs_cpu(lrt, d, spp):
+    """media.params gradient of the mean image on the card and on the CPU
+    -> (cosine, relative difference of the norms, CPU gradient norm,
+    card gradient finite)."""
+    def grad(sc):
+        _, g, _ = lrt.render_grad(sc, {"media.params": sc.media.params},
+                                  lambda im: im.mean(), spp=spp, seed=SEED)
+        return g["media.params"].cpu().double()
+
+    b = grad(lrt.load_dict(d, device="cpu"))
+    a = grad(lrt.load_dict(d))
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    return (cos, abs(float(a.norm() / b.norm()) - 1.0), float(b.norm()),
+            bool(a.isfinite().all()))
+
+
+def shadow_vs_plain(torch, ci, calls, n_tris):
+    """Captured queries against the plain version: agreement, their bound
+    as kernel_vs_plain computes it (per launch), and the kernel's and the
+    plain version's ms per launch replayed back to back."""
+    agree = dict(n_rays=0, hits=0, hit_same=0, both=0, prim_same=0,
+                 max_rel_dt=0.0, needed=0, candidates=0, bytes=0)
+    for _, r, t, bx in calls:
+        tk, pk = ci.intersect_closest(r, t, bx)
+        tr, pr = ci.intersect_closest_reference(r, t, bx)
+        c = compare_hits(tk, pk, tr, pr)
+        agree["n_rays"] += c["n_rays"]
+        agree["hits"] += c["hits"]
+        agree["hit_same"] += int(((pk >= 0) == (pr >= 0)).sum())
+        agree["both"] += int(((pk >= 0) & (pr >= 0)).sum())
+        agree["prim_same"] += int(((pk == pr) & (pr >= 0)).sum())
+        agree["max_rel_dt"] = max(agree["max_rel_dt"], c["max_rel_dt"])
+        b = bounds(torch, r, t, bx, n_tris, tr, 1)
+        agree["needed"] += b["needed_tests"]
+        agree["candidates"] += b["candidate_tests"]
+        agree["bytes"] += b["bytes"]
+    n = len(calls)
+    ops = PREFILTER_FLOP * agree["needed"] \
+        + (FLOP_PER_TEST - PREFILTER_FLOP) * agree["candidates"]
+    b_ops = ops / PEAK_FP32 * 1e3 / n
+    b_bytes = agree["bytes"] / PEAK_BYTES * 1e3 / n
+
+    def replay(fn):
+        def run():
+            for _, r, t, bx in calls:
+                fn(r, t, bx)
+        return cuda_ms(run, reps=3, inner=1) / n
+
+    return dict(
+        launches=n, n_rays=agree["n_rays"], hits=agree["hits"],
+        hit_agree=agree["hit_same"] / agree["n_rays"],
+        prim_agree=agree["prim_same"] / max(agree["both"], 1),
+        max_rel_dt=agree["max_rel_dt"],
+        needed_tests_per_launch=agree["needed"] / n,
+        candidate_tests_per_launch=agree["candidates"] / n,
+        bound_ops_ms=b_ops, bound_bytes_ms=b_bytes,
+        bound_ms=max(b_ops, b_bytes),
+        bound_by="operations" if b_ops >= b_bytes else "bytes",
+        replay_ms_per_launch=replay(ci.intersect_closest),
+        plain_ms_per_launch=replay(ci.intersect_closest_reference))
+
+
+def liver_shadow_rays(torch, scene, n, gen):
+    """Shadow rays on the liver proxy: from points in its bounding box to a
+    point light above it, maxt just short of the light and origins offset
+    as the NEE shadow query offsets them (volpath
+    sample_emitter_attenuated)."""
+    dev = scene.device
+    p = (torch.rand((n, 3), generator=gen, device=dev) * 2 - 1) \
+        * torch.tensor([1.6, 1.0, 0.85], device=dev)
+    light = torch.tensor([0.4, 3.0, 2.0], device=dev)
+    dvec = light - p
+    dist = dvec.norm(dim=-1)
+    d = dvec / dist[:, None]
+    eps = (1.0 + p.abs().amax(-1)) * 1e-4
+    o = p + d * eps[:, None] - scene.tri_center
+    maxt = dist * (1.0 - 1e-3) - eps
+    return torch.cat([o.T, d.T, maxt[None], torch.zeros_like(maxt)[None]],
+                     0).contiguous()
 
 
 def trace_summary(prof, secs, iterations, top=10):
@@ -410,7 +588,7 @@ def trace_summary(prof, secs, iterations, top=10):
     spans = {name: [e.time_range for e in events if e.name == name
                     and e.device_type == DeviceType.CPU]
              for name in (GRAD_SPAN, REPLAY_SPAN)}
-    check(all(len(v) == 1 for v in spans.values()),
+    check(len(spans[GRAD_SPAN]) == 1 and len(spans[REPLAY_SPAN]) == 1,
           "trace: render_grad or replay walk span missing")
     t0, w0, w1 = (spans[GRAD_SPAN][0].start, spans[REPLAY_SPAN][0].start,
                   spans[REPLAY_SPAN][0].end)
@@ -419,9 +597,7 @@ def trace_summary(prof, secs, iterations, top=10):
               and not getattr(e, "is_user_annotation", False)
               and e.name not in spans]
     dev = [e.time_range for e in dev_ev]
-    launch = [e.time_range.start for e in events
-              if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                            "cudaLaunchKernelExC")]
+    launch = [e.time_range.start for e in events if e.name in LAUNCH_NAMES]
     out = dict(seconds=secs, device_events=len(dev),
                host_launches=len(launch),
                device_busy_ms=_busy_us((r.start, r.end) for r in dev) / 1e3)
@@ -446,6 +622,142 @@ def trace_summary(prof, secs, iterations, top=10):
     out["top_device_ops"] = [dict(name=k[:80], device_ms=us / 1e3, calls=n)
                              for k, (us, n) in ops]
     return out
+
+
+def nee_phases(torch, np, lrt, ci, treplay, smi, scene, gen):
+    """Phases fog_small, nee_walk_small, fog_render, shadow_kernel and
+    fog_render_grad -> the launch counts and shadow-query results the
+    kernels line reports.  scene: the liver proxy at full size."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.scene.cornell import (fog_cornell_box,
+                                                       plane_light_dict)
+    # ---- 6a. next-event estimation at test size, card against CPU
+    res_s, spp_s, depth_s = FOG_SMALL
+    frac, mean_rel, mean = image_vs_cpu(
+        np, lrt, fog_cornell_box(res_s, max_depth=depth_s), spp_s)
+    emit("fog_small", film=[res_s, res_s], spp=spp_s, max_depth=depth_s,
+         pixel_frac=frac, mean_rel=mean_rel, mean=mean)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "fog_small: the card's render disagrees with the CPU's")
+
+    res_w, spp_w = WALK_SMALL
+    walk_d = plane_light_dict(res_w, fog_cube=True)
+    frac, mean_rel, mean = image_vs_cpu(np, lrt, walk_d, spp_w)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, walk_d, spp_w)
+    emit("nee_walk_small", film=[res_w, res_w], spp=spp_w, pixel_frac=frac,
+         mean_rel=mean_rel, mean=mean, grad_cosine=cos,
+         grad_norm_rel=norm_rel, grad_norm=gnorm)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "nee_walk_small: the card's render disagrees with the CPU's")
+    check(gfin and gnorm > 0, "nee_walk_small: gradient not finite or zero")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "nee_walk_small: the card's gradient disagrees with the CPU's")
+
+    # ---- 6b. the fog Cornell box at full size: primal
+    fog = lrt.load_dict(fog_cornell_box(FOG_RES, max_depth=FOG_DEPTH))
+    check(fog.device.type == "cuda" and fog.needs_surface_nee,
+          "fog scene not on the card or without NEE")
+    lrt.render(fog, spp=1, seed=SEED + 1)                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    img = lrt.render(fog, spp=FOG_SPP, seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fog_counts = launch_counts(ci)
+    fog_split = split_counts(fog_counts)
+    finite = bool(torch.isfinite(img).all())
+    paths = FOG_RES * FOG_RES * FOG_SPP
+    fog_tr = lrt.load_dict(fog_cornell_box(FOG_TRACE_RES,
+                                           max_depth=FOG_DEPTH))
+    lrt.render(fog_tr, spp=FOG_TRACE_SPP, seed=SEED)           # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        reset_counts(ci)
+        t0 = time.perf_counter()
+        lrt.render(fog_tr, spp=FOG_TRACE_SPP, seed=SEED)
+        torch.cuda.synchronize()
+        secs_tr = time.perf_counter() - t0
+    # one bounce query per regen iteration
+    tr_iters = ci.LAUNCHES - ci.SHADOW_LAUNCHES
+    emit("fog_render", film=[FOG_RES, FOG_RES], spp=FOG_SPP,
+         max_depth=fog.max_depth, tris=fog.n_tris, card=smi,
+         seconds=round(secs, 3), paths_per_s=paths / secs, finite=finite,
+         shape=list(img.shape), mean=float(img.mean()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         iterations=fog_split["bounce_launches"], **fog_split,
+         trace_film=[FOG_TRACE_RES, FOG_TRACE_RES], trace_spp=FOG_TRACE_SPP,
+         **primal_trace(prof, secs_tr, tr_iters))
+    check(tuple(img.shape) == (FOG_RES, FOG_RES, 3), "fog image shape")
+    check(finite, "fog image has non-finite values")
+    check(0.0 < float(img.mean()) < 1.0, "fog image mean out of range")
+    check(fog_split["bounce_launches"] > 0
+          and fog_split["shadow_launches"] > 0,
+          "the fog render did not launch the sweep kernel for both queries")
+
+    # ---- 6c. the shadow queries against the plain version
+    _, calls_f = capture_render(torch, lrt, ci, fog, FOG_TRACE_SPP,
+                                shadow_only=True)
+    check(len(calls_f) > 0, "shadow_kernel: no shadow query captured")
+    inline = sum(c[0] for c in calls_f) / len(calls_f)
+    sh = shadow_vs_plain(torch, ci, calls_f, fog.n_tris)
+    sh_liver = shadow_vs_plain(
+        torch, ci, [(0.0, liver_shadow_rays(torch, scene, 65536, gen),
+                     scene.tri_buf, scene.tri_boxes)], scene.n_tris)
+    splits_l = ci.split_plan(65536, scene.tri_boxes.shape[0],
+                             scene.device)[0]
+    emit("shadow_kernel", card=smi, fog_render_ms_per_launch=inline,
+         fog=sh, liver_proxy_point_light=dict(splits=splits_l, **sh_liver))
+    for r, what in ((sh, "fog shadow rays"),
+                    (sh_liver, "liver proxy shadow rays")):
+        check_agreement(r, what)
+        check(r["bound_ms"] <= r["replay_ms_per_launch"],
+              f"{what}: a time below its bound: {r}")
+    check(sh["hits"] > 0 and sh_liver["hits"] > 0,
+          "shadow rays: no occluder hit")
+    check(splits_l > 1, "liver shadow rays: the chunk range was not split")
+
+    # ---- 6d. the fog Cornell box at full size: gradient (tiled schedule)
+    n_fog_walks = -(-FOG_RES * FOG_RES // treplay.regen_mod.TILE_PIX)
+    grad_run(torch, lrt, ci, treplay, fog, FOG_GRAD_SPP,
+             walks=n_fog_walks)                                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fruns = [grad_run(torch, lrt, ci, treplay, fog, FOG_GRAD_SPP,
+                      walks=n_fog_walks) for _ in range(3)]
+    fog_peak = torch.cuda.max_memory_allocated()
+    fog_grad_counts = fruns[0][3]
+    fg = fruns[0][1]
+    fprimal = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lrt.render(fog, spp=FOG_GRAD_SPP, seed=SEED)
+        torch.cuda.synchronize()
+        fprimal.append(time.perf_counter() - t0)
+    ft_grad = sorted(r[0] for r in fruns)[1]
+    ft_primal = sorted(fprimal)[1]
+    fpaths = FOG_RES * FOG_RES * FOG_GRAD_SPP
+    finite_fg = bool(torch.isfinite(fg).all())
+    emit("fog_render_grad", film=[FOG_RES, FOG_RES], spp=FOG_GRAD_SPP,
+         max_depth=fog.max_depth, card=smi, walks=n_fog_walks,
+         seconds=ft_grad, seconds_reps=[r[0] for r in fruns],
+         fwd_bwd_paths_per_s=fpaths / ft_grad, primal_seconds=ft_primal,
+         primal_seconds_reps=fprimal, primal_paths_per_s=fpaths / ft_primal,
+         fwd_bwd_over_primal=ft_grad / ft_primal, grad_finite=finite_fg,
+         grad_abs_max=float(fg.abs().max()),
+         grad_sigma_t_albedo=[float(x) for x in fg[0, 0:6]],
+         image_mean=float(fruns[0][2].mean()),
+         max_memory_allocated=fog_peak, **fog_grad_counts)
+    check(finite_fg and float(fg.abs().max()) > 0,
+          "fog render_grad: gradient not finite or zero")
+    check(all(r[3] == fog_grad_counts for r in fruns),
+          "fog render_grad: launch counts differ between reps")
+    for k in ("fwd_launches", "replay_launches", "fwd_shadow_launches",
+              "replay_shadow_launches"):
+        check(fog_grad_counts.get(k, 0) > 0, f"fog render_grad: {k} is 0")
+    return dict(fog_counts=fog_counts, fog_grad_counts=fog_grad_counts,
+                shadow=sh, liver_shadow=sh_liver)
 
 
 def main() -> int:
@@ -560,13 +872,13 @@ def main() -> int:
 
     # ---- 4b. the main path at full width
     torch.cuda.synchronize()
-    ci.LAUNCHES = 0
-    ci.MERGE_LAUNCHES = 0
+    reset_counts(ci)
     t0 = time.perf_counter()
     img = lrt.render(scene, spp=SPP, seed=SEED)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, merge_launches = ci.LAUNCHES, ci.MERGE_LAUNCHES
+    check(ci.SHADOW_LAUNCHES == 0, "the liver render made shadow queries")
     finite = bool(torch.isfinite(img).all())
     paths = WIDTH * HEIGHT * SPP
     emit("render", film=[WIDTH, HEIGHT], spp=SPP, max_depth=scene.max_depth,
@@ -710,7 +1022,12 @@ def main() -> int:
                                    (counts_t["fwd_launches"],
                                     counts_t["replay_launches"])))
 
-    # ---- 6. kernels
+    # ---- 6. next-event estimation: the fog Cornell box and the walk
+    nee = nee_phases(torch, np, lrt, ci, treplay, smi, scene, gen)
+    fog_counts, fog_grad_counts = nee["fog_counts"], nee["fog_grad_counts"]
+    sh, sh_liver = nee["shadow"], nee["liver_shadow"]
+
+    # ---- 7. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
     print(json.dumps({"kernels": [
         # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
@@ -722,9 +1039,19 @@ def main() -> int:
              tpu_kernels=["K1 _intersect_kernel",
                           "K2 _intersect_stream_kernel"],
              launches=launches + grad_counts["fwd_launches"]
-             + grad_counts["replay_launches"],
+             + grad_counts["replay_launches"] + fog_counts[0]
+             + fog_grad_counts["fwd_launches"]
+             + fog_grad_counts["replay_launches"],
              render_launches=launches,
              render_grad_launches=grad_counts,
+             fog_render_launches=split_counts(fog_counts),
+             fog_render_grad_launches=fog_grad_counts,
+             shadow_ms=sh["replay_ms_per_launch"],
+             shadow_plain_ms=sh["plain_ms_per_launch"],
+             shadow_bound_ms=sh["bound_ms"], shadow_bound_by=sh["bound_by"],
+             shadow_hit_agree=sh["hit_agree"],
+             liver_shadow_ms=sh_liver["replay_ms_per_launch"],
+             liver_shadow_hit_agree=sh_liver["hit_agree"],
              max_abs_err=res_a["max_abs_dt"],
              ms=res_a["sweep_ms"], plain_ms=res_a["plain_ms"],
              bound_ms=res_a["sweep_bound_ms"],
@@ -742,8 +1069,13 @@ def main() -> int:
              tpu_kernels=["K2 _intersect_stream_kernel (accumulation "
                           "across its sequential grid axis)"],
              launches=merge_launches + grad_counts["fwd_merge_launches"]
-             + grad_counts["replay_merge_launches"],
+             + grad_counts["replay_merge_launches"] + fog_counts[1]
+             + fog_grad_counts["fwd_merge_launches"]
+             + fog_grad_counts["replay_merge_launches"],
              render_launches=merge_launches,
+             # the fog box's 36 triangles fill one chunk: one split, no
+             # merge; the liver proxy's shadow rays run it
+             fog_render_launches=fog_counts[1],
              max_abs_err=merge["max_abs_err"],
              ms=merge["ms"], plain_ms=merge["plain_ms"],
              bound_ms=merge["bound_ms"], bound_by="bytes",

@@ -44,9 +44,12 @@ MAX_STREAM_TRIS = 1 << 21
 _INF = float("inf")
 
 # Kernel launches so far, sweep and merge (chip_smoke.py resets them and
-# reads them back to show that a run went through the kernels).
+# reads them back to show that a run went through the kernels); the SHADOW_
+# counts are the part of them made for next-event shadow queries.
 LAUNCHES = 0
 MERGE_LAUNCHES = 0
+SHADOW_LAUNCHES = 0
+SHADOW_MERGE_LAUNCHES = 0
 # Sweep blocks aimed for per call, in multiples of what the card holds at
 # once; the chunk range is split until the grid reaches it (chosen by
 # timing 2, 4, 8 and 16 on the card, PERF.md).
@@ -234,13 +237,15 @@ def split_plan(n: int, n_chunks: int, device):
 
 
 def intersect_closest(rays: torch.Tensor, tris: torch.Tensor,
-                      boxes: torch.Tensor):
+                      boxes: torch.Tensor, shadow: bool = False):
     """Closest hit of each ray over the packed triangle buffer ->
     (t (N,) f32, prim (N,) int32).  CUDA tensors launch the sweep kernel,
     and the merge kernel when the chunk range is split (or raise); CPU
     tensors take the plain version.  No gradient flows: the hit search is
-    sampling geometry, re-derived differentiably in compute_si."""
-    global LAUNCHES
+    sampling geometry, re-derived differentiably in compute_si.  `shadow`
+    marks a next-event shadow query: its launches also count in the
+    SHADOW_ counts."""
+    global LAUNCHES, SHADOW_LAUNCHES
     rays, tris, boxes = rays.detach(), tris.detach(), boxes.detach()
     _check(rays, tris, boxes)
     if rays.device.type == "cpu":
@@ -261,17 +266,19 @@ def intersect_closest(rays: torch.Tensor, tris: torch.Tensor,
             rays.data_ptr(), n, tris.data_ptr(), boxes.data_ptr(), n_chunks,
             per, splits, t_part.data_ptr(), prim_part.data_ptr())
     LAUNCHES += 1
+    SHADOW_LAUNCHES += shadow
     if splits == 1:
         return t_part[0], prim_part[0]
-    return merge_partials(t_part, prim_part)
+    return merge_partials(t_part, prim_part, shadow)
 
 
-def merge_partials(t_part: torch.Tensor, prim_part: torch.Tensor):
+def merge_partials(t_part: torch.Tensor, prim_part: torch.Tensor,
+                   shadow: bool = False):
     """Closest of the (S, N) per-split partial hits, walking the splits in
     order with strict '<' (an earlier split keeps a tie) -> (t, prim).
     CUDA tensors launch the merge kernel (or raise); CPU tensors take the
     plain version."""
-    global MERGE_LAUNCHES
+    global MERGE_LAUNCHES, SHADOW_MERGE_LAUNCHES
     if t_part.dim() != 2 or t_part.shape != prim_part.shape \
             or t_part.dtype != torch.float32 \
             or prim_part.dtype != torch.int32:
@@ -290,6 +297,7 @@ def merge_partials(t_part: torch.Tensor, prim_part: torch.Tensor):
             t_part.data_ptr(), prim_part.data_ptr(), n, splits, t.data_ptr(),
             prim.data_ptr())
     MERGE_LAUNCHES += 1
+    SHADOW_MERGE_LAUNCHES += shadow
     return t, prim
 
 
@@ -352,7 +360,7 @@ def intersect_closest_reference(rays: torch.Tensor, tris: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def intersect_tris(tri_buf, boxes, kperm, o, d, maxt, t_best,
-                   sort: bool = False, center=None):
+                   sort: bool = False, center=None, shadow: bool = False):
     """Closest hit over the packed (BVH-leaf-ordered) triangle buffer.
     Returns (t, prim, u, v) with prim == -1 for misses (original triangle
     ids); hits farther than `t_best` are rejected.  u, v are zeros: the
@@ -376,7 +384,7 @@ def intersect_tris(tri_buf, boxes, kperm, o, d, maxt, t_best,
         o, d, lim = o[order], d[order], lim[order]
     rays = torch.cat([o.T, d.T, lim[None], torch.zeros_like(lim)[None]],
                      0).contiguous()
-    t, prim = intersect_closest(rays, tri_buf, boxes)
+    t, prim = intersect_closest(rays, tri_buf, boxes, shadow=shadow)
     prim = prim.to(torch.int64)
     if sort:
         inv = torch.empty_like(order)

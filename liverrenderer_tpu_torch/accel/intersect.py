@@ -40,7 +40,8 @@ def _moeller_trumbore(o, d, p0, e1, e2):
     return t, u, v, hit
 
 
-def _brute_tris(scene: Scene, ray: Ray, t_best, any_hit: bool):
+def _brute_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
+                shadow: bool = False):
     """Chunked brute force over the global triangle stream."""
     T = scene.n_tris
     N = ray.o.shape[0]
@@ -69,11 +70,12 @@ def _brute_tris(scene: Scene, ray: Ray, t_best, any_hit: bool):
     return t_best, prim, uu, vv
 
 
-def _kernel_tris(scene: Scene, ray: Ray, t_best, any_hit: bool):
+def _kernel_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
+                 shadow: bool = False):
     t, prim, uu, vv = cuda_intersect.intersect_tris(
         scene.tri_buf, scene.tri_boxes, scene.tri_kperm, ray.o, ray.d,
         ray.maxt, t_best, sort=scene.ray_sort and not any_hit,
-        center=scene.tri_center)
+        center=scene.tri_center, shadow=shadow)
     better = t < t_best
     return torch.where(better, t, t_best), torch.where(better, prim, -1), \
         torch.where(better, uu, 0.0), torch.where(better, vv, 0.0)
@@ -121,11 +123,15 @@ def _spheres(scene: Scene, ray: Ray, t_best):
     return t_best, sph
 
 
-def ray_intersect_preliminary(scene: Scene, ray: Ray):
-    """(t, prim, u, v, sph_idx); prim = -1 and sph = -1 => miss."""
+def ray_intersect_preliminary(scene: Scene, ray: Ray, any_hit: bool = False,
+                              shadow: bool = False):
+    """(t, prim, u, v, sph_idx); prim = -1 and sph = -1 => miss.
+    any_hit: only occlusion is read (the ray sort is skipped); shadow: a
+    next-event shadow query (counted apart by the kernel's wrapper)."""
     t_best = torch.where(torch.isfinite(ray.maxt), ray.maxt, INF)
     strat = _tri_strategy(scene)
-    t_best, prim, uu, vv = strat(scene, ray, t_best, any_hit=False)
+    t_best, prim, uu, vv = strat(scene, ray, t_best, any_hit=any_hit,
+                                 shadow=shadow)
     t_best, sph = _spheres(scene, ray, t_best)
     prim = torch.where(sph >= 0, -1, prim)
     return t_best, prim, uu, vv, sph
@@ -133,7 +139,8 @@ def ray_intersect_preliminary(scene: Scene, ray: Ray):
 
 def ray_test(scene: Scene, ray: Ray):
     """Shadow-ray occlusion query."""
-    _, prim, _, _, sph = ray_intersect_preliminary(scene, ray)
+    _, prim, _, _, sph = ray_intersect_preliminary(scene, ray, any_hit=True,
+                                                   shadow=True)
     return (prim >= 0) | (sph >= 0)
 
 
@@ -202,9 +209,10 @@ def compute_si(scene: Scene, ray: Ray, t, prim, u, v, sph
         prim=torch.where(hit_sph, sph, prim), shape=shape)
 
 
-def ray_intersect(scene: Scene, ray: Ray) -> SurfaceInteraction:
+def ray_intersect(scene: Scene, ray: Ray,
+                  shadow: bool = False) -> SurfaceInteraction:
     # the search is never differentiated; compute_si re-derives the
     # winner's (t, u, v) from tri_si
-    t, prim, u, v, sph = (x.detach() for x in
-                          ray_intersect_preliminary(scene, ray))
+    t, prim, u, v, sph = (x.detach() for x in ray_intersect_preliminary(
+        scene, ray, shadow=shadow))
     return compute_si(scene, ray, t, prim, u, v, sph)

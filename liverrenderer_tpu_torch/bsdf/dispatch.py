@@ -1,11 +1,12 @@
-"""BSDF sampling over the wavefront (counterpart of
-liverrenderer_tpu/bsdf/dispatch.py), for the families of the liver slice:
-the smooth dielectric and the null BSDF.
+"""BSDF sampling and evaluation over the wavefront (counterpart of
+liverrenderer_tpu/bsdf/dispatch.py), for the families ported so far: the
+diffuse BSDF, the smooth dielectric and the null BSDF.
 
 Conventions: directions in the local shading frame, wi points away from
-the surface, `sample` returns weight = f * |cos| / pdf and the discrete
-lobe probability as the pdf of a delta lobe; twosided flips the frame when
-cos_theta(wi) < 0.
+the surface, `eval` returns f(wi, wo) * |cos_theta_o| (zero for delta
+lobes), `sample` returns weight = f * |cos| / pdf and the discrete lobe
+probability as the pdf of a delta lobe; twosided flips the frame when
+cos_theta(wi) < 0.  The blend and mask wrappers are not ported.
 """
 from __future__ import annotations
 
@@ -13,10 +14,12 @@ import torch
 
 from ..core import fresnel as fr
 from ..core import math as m
+from ..core import warp
 from ..core.types import BSDFSample
 from ..errors import not_ported
-from ..scene.ir import (BSDF_DIELECTRIC, BSDF_NULL, F_DELTA_REFL,
-                        F_DELTA_TRANS, F_NULL, TEX_CONST, Scene, Textures)
+from ..scene.ir import (BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_NULL,
+                        F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_NULL,
+                        TEX_CONST, Scene, Textures)
 
 
 def eval_texture(tex: Textures, tex_idx, types=None):
@@ -44,6 +47,26 @@ def _sanitize_dir(v):
                        v.new_tensor([0.0, 0.0, 1.0]))
 
 
+def _diffuse_sample(wi, u1, u2, p, t0, t1):
+    wo = warp.square_to_cosine_hemisphere(u2)
+    pdf = warp.square_to_cosine_hemisphere_pdf(wo)
+    active = m.cos_theta(wi) > 0
+    weight = torch.where(active[..., None], t0, 0.0)
+    pdf = torch.where(active, pdf, 0.0)
+    n = pdf.shape
+    return wo, pdf, weight, wi.new_ones(n), \
+        torch.full(n, F_DIFFUSE_REFL, dtype=torch.int64, device=wi.device)
+
+
+def _diffuse_eval(wi, wo, p, t0, t1):
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    act = (ci > 0) & (co > 0)
+    val = t0 * (warp.INV_PI * co)[..., None]
+    pdf = warp.square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(act[..., None], val, 0.0), torch.where(act, pdf, 0.0)
+
+
 def _dielectric_sample(wi, u1, u2, p, t0, t1):
     """Smooth dielectric (src/bsdfs/dielectric.cpp)."""
     eta = p[..., 0]
@@ -68,17 +91,27 @@ def _null_sample(wi, u1, u2, p, t0, t1):
 
 
 _SAMPLERS = {
+    BSDF_DIFFUSE: _diffuse_sample,
     BSDF_DIELECTRIC: _dielectric_sample,
     BSDF_NULL: _null_sample,
 }
+
+# families with a non-delta lobe; the others evaluate to zero
+_EVALS = {
+    BSDF_DIFFUSE: _diffuse_eval,
+}
+
+
+def _check_types(b):
+    bad = [t for t in b.types_present if t not in _SAMPLERS]
+    if bad:
+        raise not_ported(f"BSDF type codes {bad}", "Queue 1 M5")
 
 
 def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
     """Sample the BSDF at each lane; returns a local-frame wo."""
     b = scene.bsdfs
-    bad = [t for t in b.types_present if t not in _SAMPLERS]
-    if bad:
-        raise not_ported(f"BSDF type codes {bad}", "Queue 1 M5")
+    _check_types(b)
     idx = torch.clamp(bsdf_idx, min=0)
     btype = b.btype[idx]
     wi = _sanitize_dir(si.wi)
@@ -105,3 +138,42 @@ def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
     wo = torch.where(flip[..., None], _flip_z(wo), wo)
     return BSDFSample(wo=wo, pdf=pdf, eta=eta, sampled_type=st,
                       weight=weight)
+
+
+def bsdf_eval_pdf(scene: Scene, si, bsdf_idx, wo):
+    """(f * |cos_theta_o|, pdf) of each lane's BSDF for a local-frame wo;
+    delta lobes evaluate to zero."""
+    b = scene.bsdfs
+    _check_types(b)
+    idx = torch.clamp(bsdf_idx, min=0)
+    btype = b.btype[idx]
+    wi = _sanitize_dir(si.wi)
+    wo = _sanitize_dir(wo)
+    flip = b.twosided[idx] & (m.cos_theta(wi) < 0)
+    wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
+    wo_f = torch.where(flip[..., None], _flip_z(wo), wo)
+    p = m.table_lookup(b.params, idx)
+    t0 = eval_texture(scene.textures, b.tex0[idx], b.tex0_types)
+    t1 = eval_texture(scene.textures, b.tex1[idx], b.tex1_types)
+    n = wi.shape[:-1]
+    val = wi.new_zeros(n + (3,))
+    pdf = wi.new_zeros(n)
+    for ftype in b.types_present:
+        if ftype not in _EVALS:
+            continue
+        fv, fp = _EVALS[ftype](wi_f, wo_f, p, t0, t1)
+        sel = btype == ftype
+        val = torch.where(sel[..., None], fv, val)
+        pdf = torch.where(sel, fp, pdf)
+    return val, pdf
+
+
+def eval_null_transmission(scene: Scene, si, bsdf_idx):
+    """Transmission of a straight shadow ray through the hit surface: 1 for
+    the null BSDF, 0 for the others."""
+    _check_types(scene.bsdfs)
+    btype = scene.bsdfs.btype[torch.clamp(bsdf_idx, min=0)]
+    out = si.uv.new_zeros(si.uv.shape[:-1] + (3,))
+    if BSDF_NULL in scene.bsdfs.types_present:
+        out = torch.where((btype == BSDF_NULL)[..., None], 1.0, out)
+    return out

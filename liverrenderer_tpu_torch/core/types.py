@@ -62,6 +62,9 @@ class SurfaceInteraction:
     def valid(self) -> Tensor:
         return torch.isfinite(self.t)
 
+    def to_local(self, v):
+        return self.sh_frame.to_local(v)
+
     def to_world(self, v):
         return self.sh_frame.to_world(v)
 
@@ -101,3 +104,15 @@ class BSDFSample:
     eta: Tensor           # (N,)
     sampled_type: Tensor  # (N,) int64 BSDF flag bits of the sampled lobe
     weight: Tensor        # (N,3) f * cos / pdf
+
+
+@dataclass
+class DirectionSample:
+    """Emitter direction sample (next-event estimation)."""
+    p: Tensor        # (N,3) point on the emitter
+    n: Tensor        # (N,3) emitter normal there
+    d: Tensor        # (N,3) unit direction reference point -> emitter
+    dist: Tensor     # (N,)
+    pdf: Tensor      # (N,) solid-angle density (times the selection pdf)
+    delta: Tensor    # (N,) bool: a Dirac emitter (point)
+    emitter: Tensor  # (N,) emitter index

@@ -1,23 +1,213 @@
-"""Emitter evaluation (counterpart of liverrenderer_tpu/emitter/dispatch.py)
-for the slice's constant environment.  Emitter sampling belongs to the NEE
-walk, which comes with the diffuse/point/area emitters (ROADMAP)."""
+"""Emitter sampling and evaluation over the wavefront (counterpart of
+liverrenderer_tpu/emitter/dispatch.py) for the area, point and constant
+emitters: next-event estimation picks an emitter from the scene's discrete
+distribution and samples a direction toward it; BSDF-sampled rays that hit
+an area emitter evaluate it; escaped rays see the constant environment.
+
+Every emitter type present in the scene is evaluated on all lanes and
+combined with masked selects, as in the JAX package.  The other types
+raise, naming the ROADMAP item that brings them.
+"""
 from __future__ import annotations
 
 import torch
 
+from ..bsdf.dispatch import eval_texture
+from ..core import math as m
+from ..core import warp
+from ..core.types import DirectionSample
 from ..errors import not_ported
-from ..scene.ir import EMITTER_AREA, EMITTER_CONSTANT, EMITTER_ENVMAP, Scene
+from ..scene.ir import (EMITTER_AREA, EMITTER_CONSTANT, EMITTER_DIRECTIONAL,
+                        EMITTER_ENVMAP, EMITTER_POINT, EMITTER_PROJECTOR,
+                        EMITTER_SPOT, SHAPE_SPHERE, Scene)
+
+WORLD_RADIUS = 1e4  # distance placed on environment samples
+
+_NOT_PORTED = {
+    EMITTER_ENVMAP: ("the envmap emitter", "Queue 1 (bumpmap + envmap)"),
+    EMITTER_DIRECTIONAL: ("the directional emitter",
+                          "Queue 1 (directional, spot and projector "
+                          "emitters)"),
+    EMITTER_SPOT: ("the spot emitter",
+                   "Queue 1 (directional, spot and projector emitters)"),
+    EMITTER_PROJECTOR: ("the projector emitter",
+                        "Queue 1 (directional, spot and projector "
+                        "emitters)"),
+}
+
+
+def _check_types(scene: Scene):
+    for t in scene.emitters.types_present:
+        if t in _NOT_PORTED:
+            raise not_ported(*_NOT_PORTED[t])
+
+
+def _sample_shape_position(scene: Scene, shape_idx, u2, u_reuse):
+    """Uniform-area sample on an area emitter's shape (mesh triangles or an
+    analytic sphere) -> (p, n, pdf_area)."""
+    stype = m.table_lookup(scene.shape_type, shape_idx)
+    off = m.table_lookup(scene.shape_prim_offset, shape_idx)
+    cnt = m.table_lookup(scene.shape_prim_count, shape_idx)
+    area = m.table_lookup(scene.shape_area, shape_idx)
+
+    # mesh: pick a triangle in the shape's segment of the global area cdf
+    cdf = scene.tri_area_cdf
+    base = torch.where(off > 0, cdf[torch.clamp(off - 1, min=0)], 0.0)
+    x = base + u_reuse * area
+    tri = torch.searchsorted(cdf, x.contiguous())          # side="left"
+    tri = torch.minimum(torch.maximum(tri, off),
+                        off + torch.clamp(cnt - 1, min=0))
+    f = scene.faces[torch.clamp(tri, 0, scene.faces.shape[0] - 1)]
+    p0 = scene.vertices[f[:, 0]]
+    p1 = scene.vertices[f[:, 1]]
+    p2 = scene.vertices[f[:, 2]]
+    b = warp.square_to_uniform_triangle(u2)
+    w = 1.0 - b[..., 0] - b[..., 1]
+    p_mesh = p0 * w[:, None] + p1 * b[..., 0:1] + p2 * b[..., 1:2]
+    n_mesh = m.normalize(m.cross(p1 - p0, p2 - p0))
+
+    # sphere: uniform area
+    d_sph = warp.square_to_uniform_sphere(u2)
+    if scene.n_spheres > 0:
+        sp = torch.clamp(off, 0, scene.n_spheres - 1)
+        c = m.table_lookup(scene.sph_center, sp)
+        r = m.table_lookup(scene.sph_radius, sp)
+    else:
+        c = torch.zeros_like(p_mesh)
+        r = p_mesh.new_ones(p_mesh.shape[:-1])
+    p_sph = c + d_sph * r[..., None]
+
+    is_sph = (stype == SHAPE_SPHERE)[:, None]
+    p = torch.where(is_sph, p_sph, p_mesh)
+    n = torch.where(is_sph, d_sph, n_mesh)
+    return p, n, 1.0 / torch.clamp(area, min=1e-20)
+
+
+def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
+    """Pick an emitter (discrete distribution), then sample a direction
+    toward it -> (DirectionSample, emitted radiance / pdf).  Occlusion is
+    not tested here: the integrator traces its own shadow rays."""
+    em = scene.emitters
+    n = ref_p.shape[0]
+    if em.count == 0:
+        z3 = ref_p.new_zeros((n, 3))
+        return DirectionSample(
+            p=z3, n=z3, d=z3, dist=ref_p.new_zeros(n),
+            pdf=ref_p.new_zeros(n),
+            delta=torch.zeros(n, dtype=torch.bool, device=ref_p.device),
+            emitter=torch.full((n,), -1, dtype=torch.int64,
+                               device=ref_p.device)), z3
+    _check_types(scene)
+    eidx, u_sel, sel_pdf = em.distr.sample_reuse(u1)
+    etype = m.table_lookup(em.etype, eidx)
+    prm = m.table_lookup(em.params, eidx)
+
+    p = ref_p.new_zeros((n, 3))
+    nrm = ref_p.new_zeros((n, 3))
+    d = ref_p.new_zeros((n, 3))
+    dist = ref_p.new_full((n,), WORLD_RADIUS)
+    pdf = ref_p.new_zeros(n)
+    delta = torch.zeros(n, dtype=torch.bool, device=ref_p.device)
+    value = ref_p.new_zeros((n, 3))
+
+    tp = em.types_present
+    if EMITTER_AREA in tp:
+        sp, sn, pdf_area = _sample_shape_position(
+            scene, m.table_lookup(em.shape, eidx), u2, u_sel)
+        dvec = sp - ref_p
+        dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
+        dist_a = torch.sqrt(dist2)
+        dd = dvec / dist_a[:, None]
+        cos_e = -torch.sum(dd * sn, -1)
+        # area density -> solid angle
+        pdf_a = pdf_area * dist2 / torch.clamp(cos_e, min=1e-20)
+        pdf_a = torch.where(cos_e > 0, pdf_a, 0.0)
+        rad = eval_texture(scene.textures, m.table_lookup(em.tex0, eidx)) \
+            * prm[..., 0:3]
+        sel = etype == EMITTER_AREA
+        p = torch.where(sel[:, None], sp, p)
+        nrm = torch.where(sel[:, None], sn, nrm)
+        d = torch.where(sel[:, None], dd, d)
+        dist = torch.where(sel, dist_a, dist)
+        pdf = torch.where(sel, pdf_a, pdf)
+        value = torch.where(sel[:, None],
+                            torch.where((cos_e > 0)[:, None], rad, 0.0),
+                            value)
+
+    if EMITTER_POINT in tp:
+        pos = prm[..., 0:3]
+        dvec = pos - ref_p
+        dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
+        dist_p = torch.sqrt(dist2)
+        sel = etype == EMITTER_POINT
+        p = torch.where(sel[:, None], pos, p)
+        d = torch.where(sel[:, None], dvec / dist_p[:, None], d)
+        dist = torch.where(sel, dist_p, dist)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+        value = torch.where(sel[:, None], prm[..., 3:6] / dist2[:, None],
+                            value)
+
+    if EMITTER_CONSTANT in tp:
+        dd = warp.square_to_uniform_sphere(u2)
+        sel = etype == EMITTER_CONSTANT
+        p = torch.where(sel[:, None], ref_p + dd * WORLD_RADIUS, p)
+        d = torch.where(sel[:, None], dd, d)
+        pdf = torch.where(sel, warp.INV_FOURPI, pdf)
+        value = torch.where(sel[:, None], prm[..., 0:3], value)
+
+    pdf_total = pdf * sel_pdf
+    # detached sampling: the density is not differentiated, the radiance is
+    pdf_det = torch.clamp(pdf_total, min=1e-30).detach()
+    weight = torch.where((pdf_total > 0)[:, None],
+                         value / pdf_det[:, None], 0.0)
+    return DirectionSample(p=p, n=nrm, d=d, dist=dist, pdf=pdf_total,
+                           delta=delta, emitter=eidx), weight
+
+
+def pdf_emitter_direction(scene: Scene, ref_p, si_emitter, si_p, si_n, d):
+    """Solid-angle density with which NEE from ref_p samples direction d
+    toward emitter `si_emitter`, hit at si_p with normal si_n."""
+    em = scene.emitters
+    if em.count == 0:
+        return ref_p.new_zeros(ref_p.shape[:-1])
+    _check_types(scene)
+    eidx = torch.clamp(si_emitter, min=0)
+    etype = m.table_lookup(em.etype, eidx)
+    sel_pdf = em.distr.eval_pdf(eidx)
+    pdf = ref_p.new_zeros(ref_p.shape[:-1])
+    tp = em.types_present
+    if EMITTER_AREA in tp:
+        area = m.table_lookup(
+            scene.shape_area,
+            torch.clamp(m.table_lookup(em.shape, eidx), min=0))
+        dvec = si_p - ref_p
+        dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
+        cos_e = torch.abs(torch.sum(d * si_n, -1))
+        pdf_a = dist2 / torch.clamp(cos_e * area, min=1e-20)
+        pdf = torch.where(etype == EMITTER_AREA, pdf_a, pdf)
+    if EMITTER_CONSTANT in tp:
+        pdf = torch.where(etype == EMITTER_CONSTANT, warp.INV_FOURPI, pdf)
+    return pdf * sel_pdf
 
 
 def eval_emitter_hit(scene: Scene, si, d):
-    """Radiance of the emitter attached to the hit shape, seen from -d ->
-    (radiance, emitter_idx).  Only area emitters attach to shapes."""
+    """Radiance of the area emitter attached to the hit shape, seen from
+    -d (front side only) -> (radiance, emitter index or -1).  Only area
+    emitters attach to shapes: without one the evaluation is elided."""
     em = scene.emitters
     n = si.t.shape[0]
-    if em.count and EMITTER_AREA in em.types_present:
-        raise not_ported("area emitters", "Queue 1 (emitters with NEE)")
-    return si.p.new_zeros((n, 3)), \
-        torch.full((n,), -1, dtype=torch.int64, device=si.p.device)
+    if em.count == 0 or EMITTER_AREA not in em.types_present:
+        return si.p.new_zeros((n, 3)), \
+            torch.full((n,), -1, dtype=torch.int64, device=si.p.device)
+    shape = torch.clamp(si.shape, min=0)
+    eidx = torch.where(si.valid, m.table_lookup(scene.shape_emitter, shape),
+                       -1)
+    eidx_s = torch.clamp(eidx, min=0)
+    rad = eval_texture(scene.textures, em.tex0[eidx_s]) \
+        * m.table_lookup(em.params, eidx_s)[..., 0:3]
+    front = torch.sum(si.ng * d, -1) < 0
+    return torch.where(((eidx >= 0) & front)[:, None], rad, 0.0), eidx
 
 
 def eval_environment(scene: Scene, d):

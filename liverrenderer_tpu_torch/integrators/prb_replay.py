@@ -167,7 +167,11 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
         leaves = [v.requires_grad_() for v in (x.detach() for x in values)]
         with torch.enable_grad():
             sc = apply_params(scene, dict(zip(keys, leaves)))
-            st2 = vp.bounce(sc, st)
+            # the recorded bounce walks NEE shadow paths a fixed max_depth
+            # steps, as the JAX replay does (the stored forward walks them
+            # unbounded: a lane whose walk needs more steps does not
+            # rebuild its stored radiance exactly)
+            st2 = vp.bounce(sc, st, bounded_nee=True)
             outs = [st2.L, st2.throughput, st2.env_weight]
             if diff_env:
                 # the env radiance along the post-bounce ray both closes

@@ -173,7 +173,8 @@ def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
         if not bool(st.active.any()):        # the one host sync
             break
         was_active = st.active
-        st = vp.bounce(scene, st)
+        # the primal and the stored forward walk NEE shadow paths unbounded
+        st = vp.bounce(scene, st, bounded_nee=False)
         age = age + 1
         st = dataclasses.replace(st, active=st.active & (age < lane_cap))
         died = was_active & ~st.active

@@ -1,18 +1,21 @@
-"""Volumetric path tracer with null scattering and the fork's
-tissue-depth-threaded bio-media transport (counterpart of
-liverrenderer_tpu/integrators/volpath.py): the primal walk and, for the
-gradients, the bounded walk (`sample(mode="ad")`).
+"""Volumetric path tracer with null scattering, next-event estimation
+with MIS, and the fork's tissue-depth-threaded bio-media transport
+(counterpart of liverrenderer_tpu/integrators/volpath.py): the primal walk
+and, for the gradients, the bounded walk (`sample(mode="ad")`).
 
 Detached sampling (the reference's PRB rules): every sampling density and
 sampled direction is `.detach()`ed at the points where the JAX bounce
 stops its gradient, so parameter derivatives flow only through
 values, transmittances and the bio score term exp(log_p - log_p.detach()).
 
-The slice carries the configurations in which next-event estimation is
-statically unreachable: delta surfaces (dielectric, null) and bio media
-under biovolpath, as in every liver scene.  There the JAX package drops the
-whole NEE shadow walk when it traces the program; the port raises when a
-scene needs it (`needs_surface_nee` / `needs_medium_nee`).
+Next-event estimation (NEE) samples an emitter from surface lanes on a
+smooth BSDF and from real-scatter lanes of stock media, and attenuates it
+along the shadow path: Beer-Lambert over one occlusion query when every
+medium is homogeneous and no BSDF lets shadow rays through, else a
+ratio-tracked walk through media and null surfaces.  Where both are
+statically unreachable (delta surfaces and bio media, as in every liver
+scene) the block is not run at all, as the JAX package drops it when it
+traces the program.
 
 Every sampler draw of the JAX bounce happens here too, in the same order,
 including draws whose value goes unused: the counter RNG keys on the draw
@@ -26,23 +29,35 @@ from dataclasses import dataclass
 import torch
 import torch.utils.checkpoint
 
-from ..accel.intersect import ray_intersect
-from ..bsdf.dispatch import bsdf_sample
+from ..accel.intersect import ray_intersect, ray_test
+from ..bsdf.dispatch import (bsdf_eval_pdf, bsdf_sample,
+                             eval_null_transmission)
 from ..core import math as m
-from ..core.rng import Sampler
+from ..core.rng import M32, Sampler
 from ..core.types import INF, Ray
-from ..emitter.dispatch import eval_emitter_hit, eval_environment
+from ..emitter.dispatch import (eval_emitter_hit, eval_environment,
+                                pdf_emitter_direction,
+                                sample_emitter_direction)
 from ..errors import not_ported
 from ..media.dispatch import (_index_spectrum, bio_mode,
                               finalize_interaction, medium_is_bio,
-                              medium_phase, sample_interaction_candidate,
+                              medium_phase, sample_interaction,
+                              sample_interaction_candidate,
                               transmittance_eval_pdf)
 from ..phase.dispatch import phase_eval, phase_sample
-from ..scene.ir import (F_DELTA, F_NULL, MEDIUM_GLISSON, MEDIUM_LIVER,
+from ..scene.ir import (BSDF_MASK, BSDF_NULL, F_DELTA, F_NULL, F_SMOOTH,
+                        MEDIUM_GLISSON, MEDIUM_HOMOGENEOUS, MEDIUM_LIVER,
                         MEDIUM_PARENCHYMA, Scene)
 from .shading import shading_frame_with_bump
 
 Tensor = torch.Tensor
+
+# sampler dimensions the attenuated shadow walk consumes, whatever number
+# of steps it runs: a lane's later draws must not depend on how long the
+# wavefront's slowest walk took
+WALK_DIMS = 128
+# step cap of the unbounded walk (each step costs one host sync)
+WALK_MAX_STEPS = 4096
 
 
 @dataclass
@@ -74,13 +89,9 @@ def _has_bio(scene: Scene) -> bool:
 
 
 def check_supported(scene: Scene):
-    """Raise for what the slice does not carry."""
+    """Raise for what the port does not carry."""
     if scene.spectral:
         raise not_ported("the spectral variant", "Queue 1 M10")
-    if scene.needs_surface_nee or scene.needs_medium_nee:
-        raise not_ported("next-event estimation (diffuse, point and area "
-                         "emitters with the NEE shadow walk)",
-                         "Queue 1 (emitters with NEE)")
 
 
 def init_state(ray: Ray, sampler: Sampler, scene: Scene) -> VolpathState:
@@ -129,7 +140,128 @@ def _is_transition(scene: Scene, si):
                        | (scene.shape_ext_medium[shape] >= 0))
 
 
-def bounce(scene: Scene, st: VolpathState) -> VolpathState:
+def _nee_is_analytic(scene: Scene) -> bool:
+    """Static: the shadow transmittance has a closed form when every medium
+    is homogeneous and no BSDF lets shadow rays through (null, mask)."""
+    media_ok = all(t == MEDIUM_HOMOGENEOUS
+                   for t in scene.media.types_present)
+    bsdf_ok = not any(t in scene.bsdfs.types_present
+                      for t in (BSDF_NULL, BSDF_MASK))
+    return media_ok and bsdf_ok
+
+
+def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
+                              tissue_depth, sampler: Sampler, active,
+                              max_steps: int, bounded: bool):
+    """NEE with the transmittance along the shadow path through media and
+    null surfaces -> (DirectionSample, emitter weight * transmittance,
+    sampler).
+
+    Analytic scenes (_nee_is_analytic): Beer-Lambert in the lane's medium
+    times one occlusion query (ray_test).  Otherwise a ratio-tracked walk
+    through ray_intersect: `bounded` runs exactly max_steps steps (the
+    replay and scan adjoints), else it steps until no lane is active (at
+    most WALK_MAX_STEPS, one host sync each).  The walk's own draws come
+    from a sampler that is then replaced by dim + WALK_DIMS."""
+    u2, sampler = sampler.next_2d()
+    u1, sampler = sampler.next_1d()
+    ds, em_weight = sample_emitter_direction(scene, ref_p, u2, u1)
+    n = ref_p.shape[0]
+    active = active & (ds.pdf > 0)
+    eps = (1.0 + torch.amax(torch.abs(ref_p), -1)) * 1e-4
+    o0 = ref_p + ds.d * eps[:, None]
+    dist = ds.dist * (1.0 - 1e-3) - eps
+
+    if _nee_is_analytic(scene):
+        occ = ray_test(scene, Ray(o=o0, d=ds.d, maxt=dist))
+        prm = m.table_lookup(scene.media.params, torch.clamp(medium, min=0))
+        sig = prm[:, 0:3] * prm[:, 6:7]
+        # environment emitters have dist = inf: exp(-inf * sig) is 0 but
+        # its sigma derivative is nan (0 * inf); the limit (0, gradient 0)
+        # is taken explicitly
+        finite = torch.isfinite(dist)
+        dist_f = torch.where(finite, dist, 0.0)[:, None]
+        beer = torch.where(finite[:, None], torch.exp(-dist_f * sig), 0.0)
+        tr = torch.where((medium >= 0)[:, None], beer, 1.0)
+        tr = torch.where((active & ~occ)[:, None], tr, 0.0)
+        return ds, em_weight * tr, sampler
+
+    w_o, w_active, w_medium = o0, active, medium
+    remaining = dist
+    tr = ref_p.new_ones((n, 3))
+    w_sampler = sampler
+
+    def step():
+        nonlocal w_o, w_active, w_medium, remaining, tr, w_sampler
+        act = w_active & (remaining > 0)
+        si = ray_intersect(scene, Ray(o=w_o, d=ds.d, maxt=remaining),
+                           shadow=True)
+        surf_t = torch.minimum(si.t, remaining)
+        in_med = act & (w_medium >= 0)
+        mei, w_sampler = sample_interaction(
+            scene, w_medium, w_o, ds.d, surf_t, w_sampler, channel,
+            tissue_depth, in_med)
+        tr_a, ffpdf = transmittance_eval_pdf(scene, w_medium, mei, surf_t)
+        tr_pdf = _index_spectrum(ffpdf, channel)
+        # sampling densities are detached (PRB rule); undetached, the
+        # 1/max(x,1e-30)^2 backward overflows fp32 to inf, and masked lanes'
+        # zero cotangents turn it into nan
+        ratio = torch.where(
+            (tr_pdf > 0)[:, None],
+            tr_a / torch.clamp(tr_pdf, min=1e-30).detach()[:, None], 0.0)
+        tr = torch.where(in_med[:, None], tr * ratio, tr)
+
+        scattered = in_med & mei.valid
+        is_bio = medium_is_bio(scene, w_medium)
+        # stock media: ratio-track through the (null) collision
+        maj_c = _index_spectrum(mei.combined_extinction, channel)
+        sn_c = _index_spectrum(mei.sigma_n, channel)
+        w_null = mei.sigma_n \
+            * (maj_c / torch.clamp(sn_c, min=1e-30)).detach()[:, None]
+        w_evt = torch.where(is_bio[:, None], mei.transmittance, w_null)
+        tr = torch.where(scattered[:, None], tr * w_evt, tr)
+
+        # lanes that reached a surface first pass through null surfaces
+        hit_surface = act & ~scattered & si.valid & (si.t < remaining)
+        null_tr = eval_null_transmission(
+            scene, si, m.table_lookup(scene.shape_bsdf,
+                                      torch.clamp(si.shape, min=0)))
+        tr = torch.where(hit_surface[:, None], tr * null_tr, tr)
+
+        # only lanes that keep walking move: a lane that escaped toward an
+        # environment emitter must not step by remaining = inf (nan
+        # origins would poison the masked lanes' gradients)
+        stp = torch.where(scattered, mei.t,
+                          torch.where(hit_surface, si.t + 2e-4, 0.0))
+        w_o = w_o + ds.d * stp[:, None]
+        remaining = remaining - stp
+        w_medium = torch.where(hit_surface & _is_transition(scene, si),
+                               _target_medium(scene, si, ds.d), w_medium)
+        # a walk whose transmittance fell below any visible contribution
+        # ends: a grazing lane (steps of 2e-4 toward an environment emitter
+        # at remaining = inf) would otherwise walk to the step cap
+        w_active = (scattered | hit_surface) & (remaining > 0) \
+            & (torch.amax(tr, -1) > 1e-6) & act
+
+    if bounded:
+        for _ in range(max_steps):
+            step()
+    else:
+        for _ in range(WALK_MAX_STEPS):
+            if not bool(w_active.any()):         # one host sync per step
+                break
+            step()
+    tr = torch.where(active[:, None], tr, 0.0)
+    sampler_out = dataclasses.replace(
+        sampler, dim=(sampler.dim + WALK_DIMS) & M32)
+    return ds, em_weight * tr, sampler_out
+
+
+def bounce(scene: Scene, st: VolpathState,
+           bounded_nee: bool = False) -> VolpathState:
+    """One bounce of every lane.  bounded_nee: the NEE shadow walk runs a
+    fixed max_depth steps (the gradients' walks) instead of until its
+    lanes end (the primal and the stored forward)."""
     check_supported(scene)
     n = st.ray_o.shape[0]
     sampler = st.sampler
@@ -207,6 +339,10 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     # carry no derivative; the phase parameter's gradient re-enters
     # through the value/pdf ratio
     ptype, g, pprm = medium_phase(scene, st.medium)
+    nee_med = act_real & ~is_bio & (depth + 1 < scene.max_depth)
+    if not scene.needs_medium_nee:
+        nee_med = torch.zeros_like(nee_med)      # biovolpath / no stock media
+    throughput_pre_phase = throughput
     u2p, sampler = sampler.next_2d()
     wo_med, _, ppdf = phase_sample(ptype, g, st.ray_d, u2p, pprm,
                                    scene.media.phase_types)
@@ -227,8 +363,21 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
     # per path after the loop (env_weight records the weight)
     em_val, eidx = eval_emitter_hit(scene, si, st.ray_d)
     esc_env = ~si.valid
-    # no NEE anywhere: BSDF sampling owns MIS (emitter pdf 0)
-    mis_b = m.mis_weight(st.prev_pdf, torch.zeros_like(st.prev_pdf))
+    needs_nee = scene.needs_surface_nee or scene.needs_medium_nee
+    if needs_nee:
+        # MIS against the density with which NEE would have sampled the
+        # emitter this ray hit (or the environment it escaped to)
+        eidx_mis = eidx
+        if scene.emitters.env_index >= 0:
+            eidx_mis = torch.where(esc_env, scene.emitters.env_index, eidx)
+        em_pdf = pdf_emitter_direction(scene, st.prev_p, eidx_mis, si.p,
+                                       si.ng, st.ray_d)
+        count_direct = (st.depth == 0) | st.specular_chain
+        em_pdf = torch.where(count_direct, 0.0, em_pdf)
+    else:
+        # no NEE anywhere: BSDF sampling owns MIS (emitter pdf 0)
+        em_pdf = torch.zeros_like(st.prev_pdf)
+    mis_b = m.mis_weight(st.prev_pdf, em_pdf)
     contrib = torch.where(((eidx >= 0) & si.valid)[:, None], em_val, 0.0)
     hide = scene.hide_emitters & (st.depth == 0)
     gather = active_surface & ~hide & ~reached_max
@@ -239,6 +388,30 @@ def bounce(scene: Scene, st: VolpathState) -> VolpathState:
 
     active_surface = active_surface & si.valid & ~reached_max
     valid = st.valid | active_surface | act_real
+
+    # ---- NEE: one shared attenuated walk for medium-scatter and surface
+    # lanes (mutually exclusive per lane)
+    if needs_nee:
+        flags = scene.bsdfs.flags[torch.clamp(bsdf_idx, min=0)]
+        nee_s = active_surface & ((flags & F_SMOOTH) != 0) \
+            & (depth + 1 < scene.max_depth)
+        if not scene.needs_surface_nee:
+            nee_s = torch.zeros_like(nee_s)
+        nee_any = nee_s | nee_med
+        ref_p = torch.where(nee_med[:, None], mei.p, si.p)
+        ds, emw, sampler = sample_emitter_attenuated(
+            scene, ref_p, st.medium, st.channel, tissue_depth, sampler,
+            nee_any, scene.max_depth, bounded_nee)
+        bval, bpdf = bsdf_eval_pdf(scene, si, bsdf_idx, si.to_local(ds.d))
+        ph_val = phase_eval(ptype, g, m.dot(st.ray_d, ds.d), pprm, st.ray_d,
+                            ds.d, scene.media.phase_types)
+        cpdf = torch.where(nee_med, ph_val, bpdf)
+        cval = torch.where(nee_med[:, None], ph_val[:, None], bval)
+        mis_e = m.mis_weight(ds.pdf, torch.where(ds.delta, 0.0, cpdf))
+        tp_nee = torch.where(nee_med[:, None], throughput_pre_phase,
+                             throughput)
+        L = L + torch.where(nee_any[:, None],
+                            tp_nee * cval * emw * mis_e[:, None], 0.0)
 
     # ---- BSDF sampling
     ub1, sampler = sampler.next_1d()
@@ -306,11 +479,11 @@ def sample(scene: Scene, sampler: Sampler, ray: Ray, mode: str = "primal"):
         for _ in range(scene.max_depth * 4):
             if not bool(st.active.any()):
                 break
-            st = bounce(scene, st)
+            st = bounce(scene, st, False)
     elif mode == "ad":
         for _ in range(scene.max_depth):
             st = torch.utils.checkpoint.checkpoint(
-                bounce, scene, st, use_reentrant=False)
+                bounce, scene, st, True, use_reentrant=False)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     env = eval_environment(scene, st.ray_d)

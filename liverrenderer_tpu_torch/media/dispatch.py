@@ -225,6 +225,17 @@ def finalize_interaction(cand, maxt, channel, active) -> MediumInteraction:
         transmittance=transmittance, log_p=log_p)
 
 
+def sample_interaction(scene: Scene, medium_idx, ray_o, ray_d, maxt,
+                       sampler, channel, tissue_depth, active):
+    """Free-flight sample in each lane's medium over [0, maxt] ->
+    (MediumInteraction, sampler); mei.t = inf where the lane reached maxt
+    first.  The NEE shadow walk calls it once per step."""
+    cand, sampler = sample_interaction_candidate(
+        scene, medium_idx, ray_o, ray_d, sampler, channel, tissue_depth,
+        active)
+    return finalize_interaction(cand, maxt, channel, active), sampler
+
+
 def transmittance_eval_pdf(scene: Scene, medium_idx, mei: MediumInteraction,
                            surf_t):
     """Analytic transmittance + free-flight pdf along

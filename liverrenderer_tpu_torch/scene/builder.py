@@ -1,14 +1,15 @@
 """Scene builder: Mitsuba-style dict -> the port's Scene (counterpart of
-liverrenderer_tpu/scene/builder.py), cut to the plugins of the primal liver
-slice:
+liverrenderer_tpu/scene/builder.py), cut to the plugins of the slices
+ported so far:
 
   integrators  biovolpath, volpath
   sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box
                or tent filter, the independent sampler
-  shapes       mesh, rectangle, sphere (analytic)
-  bsdfs        dielectric, null
+  shapes       mesh, rectangle, cube, sphere (analytic)
+  bsdfs        diffuse (also the default of a shape without a BSDF),
+               dielectric, null
   media        liver, homogeneous (isotropic or HG phase)
-  emitters     constant
+  emitters     area (attached to a shape), point, constant
 
 Entities are packed host-side into the same numpy tables, in the same
 order, as the JAX builder packs them; `bridge.scene_from_numpy` uploads
@@ -25,11 +26,13 @@ from ..accel.bvh import build_bvh
 from ..accel.cuda_intersect import pack_tris
 from ..errors import not_ported
 from . import geometry as geo
-from .ir import (BSDF_DIELECTRIC, BSDF_NULL, BSDF_P, EMITTER_CONSTANT,
-                 EMITTER_P, F_DELTA_REFL, F_DELTA_TRANS, F_NULL, F_SMOOTH,
-                 FILTER_BOX, FILTER_TENT, MEDIUM_GLISSON, MEDIUM_HOMOGENEOUS,
-                 MEDIUM_LIVER, MEDIUM_P, PHASE_HG, PHASE_ISOTROPIC,
-                 SENSOR_PERSPECTIVE, TEX_CONST, TEX_P)
+from .ir import (BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_NULL, BSDF_P,
+                 EMITTER_AREA, EMITTER_CONSTANT, EMITTER_P, EMITTER_POINT,
+                 F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_NULL,
+                 F_SMOOTH, FILTER_BOX, FILTER_TENT, MEDIUM_GLISSON,
+                 MEDIUM_HOMOGENEOUS, MEDIUM_LIVER, MEDIUM_P, PHASE_HG,
+                 PHASE_ISOTROPIC, SENSOR_PERSPECTIVE, SHAPE_MESH,
+                 SHAPE_SPHERE, TEX_CONST, TEX_P)
 from .transform import Transform, from_any
 
 IOR_NAMES = {
@@ -41,10 +44,10 @@ IOR_NAMES = {
 }
 
 _INTEGRATORS = ("biovolpath", "volpath")
-_SHAPE_TYPES = ("mesh", "rectangle", "sphere")
-_BSDF_TYPES = ("dielectric", "null")
+_SHAPE_TYPES = ("mesh", "rectangle", "cube", "sphere")
+_BSDF_TYPES = ("diffuse", "dielectric", "null")
 _MEDIUM_TYPES = ("liver", "homogeneous")
-_EMITTER_TYPES = ("constant",)
+_EMITTER_TYPES = ("point", "constant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
     "path": "Queue 1 M8", "direct": "Queue 1 M8", "volpathmis": "Queue 1 M10",
@@ -56,19 +59,16 @@ _OTHER_TYPES = {
     "thinlens": "Queue 1 M10", "orthographic": "Queue 1 M10",
     "distant": "Queue 1 M10", "radiancemeter": "Queue 1 M10",
     "irradiancemeter": "Queue 1 M10", "batch": "Queue 1 M10",
-    "cube": "Queue 1 M9", "disk": "Queue 1 M9", "cylinder": "Queue 1 M9",
+    "disk": "Queue 1 M9", "cylinder": "Queue 1 M9",
     "obj": "Queue 1 M9", "ply": "Queue 1 M9", "serialized": "Queue 1 M9",
     "linearcurve": "Queue 1 M10", "bsplinecurve": "Queue 1 M10",
     "sdfgrid": "Queue 1 M10", "blender": "Queue 1 M9",
     "ellipsoids": "Queue 1 M10", "ellipsoidsmesh": "Queue 1 M10",
     "merge": "Queue 1 M9", "instance": "Queue 1 M10",
     "shapegroup": "Queue 1 M10",
-    "diffuse": "Queue 1 (emitters with NEE)",
     "bumpmap": "Queue 1 (bumpmap + envmap)",
     "normalmap": "Queue 1 (bumpmap + envmap)",
     "envmap": "Queue 1 (bumpmap + envmap)",
-    "area": "Queue 1 (emitters with NEE)",
-    "point": "Queue 1 (emitters with NEE)",
     "heterogeneous": "Queue 1 M10", "glissonCapsule": "Queue 1 M10",
     "glisson": "Queue 1 M10", "parenchyma": "Queue 1 M10",
     "bitmap": "Queue 1 (bumpmap + envmap)", "checkerboard": "Queue 1 M5",
@@ -79,9 +79,10 @@ for _t in ("thindielectric", "conductor", "roughconductor", "plastic",
            "mask", "blendbsdf", "twosided", "roughdielectric", "hair",
            "polarizer", "retarder", "circular", "measured"):
     _OTHER_TYPES[_t] = "Queue 1 M5/M10"
-for _t in ("directional", "spot", "directionalarea", "projector", "sunsky",
-           "sun", "sky", "timed_sunsky"):
-    _OTHER_TYPES[_t] = "Queue 1 (emitters with NEE)"
+for _t in ("directional", "spot", "directionalarea", "projector"):
+    _OTHER_TYPES[_t] = "Queue 1 (directional, spot and projector emitters)"
+for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
+    _OTHER_TYPES[_t] = "Queue 1 M10"
 
 
 def _unsupported(t):
@@ -154,6 +155,8 @@ class _Builder:
         self.b_twosided: List[bool] = []
         self.e_type: List[int] = []
         self.e_params: List[np.ndarray] = []
+        self.e_shape: List[int] = []
+        self.e_tex0: List[int] = []
         self.env_index = -1
         self.m_type: List[int] = []
         self.m_params: List[np.ndarray] = []
@@ -167,8 +170,13 @@ class _Builder:
         self.sph_radius: List[float] = []
         self.sph_shape: List[int] = []
         self.s_bsdf: List[int] = []
+        self.s_emitter: List[int] = []
         self.s_int_med: List[int] = []
         self.s_ext_med: List[int] = []
+        self.s_type: List[int] = []
+        self.s_prim_off: List[int] = []
+        self.s_prim_cnt: List[int] = []
+        self.s_area: List[float] = []
         self.named: Dict[str, tuple] = {}
         self.sensor_to_world = np.eye(4, dtype=np.float32)
         self.fov_x = 45.0
@@ -207,9 +215,10 @@ class _Builder:
 
     def build_bsdf(self, d) -> int:
         if d is None:
-            # the JAX builder gives such a shape the default diffuse BSDF
-            raise not_ported("a shape without a BSDF (default diffuse)",
-                             "Queue 1 (emitters with NEE)")
+            # default: plain diffuse 0.5 (the reference's shape default)
+            return self._push_bsdf(
+                BSDF_DIFFUSE, np.zeros(BSDF_P, np.float32),
+                tex0=self.build_texture([.5, .5, .5]), flags=F_DIFFUSE_REFL)
         if d.get("type") == "ref":
             kind, idx = self.named[d["id"]]
             if kind != "bsdf":
@@ -217,6 +226,10 @@ class _Builder:
             return idx
         t = d["type"]
         p = np.zeros(BSDF_P, np.float32)
+        if t == "diffuse":
+            tex0 = self.build_texture(d.get("reflectance", 0.5), 0.5)
+            return self._push_bsdf(BSDF_DIFFUSE, p, tex0=tex0,
+                                   flags=F_DIFFUSE_REFL)
         if t == "dielectric":
             p[0] = _ior(d.get("int_ior"), 1.5046) \
                 / _ior(d.get("ext_ior"), 1.000277)
@@ -269,30 +282,52 @@ class _Builder:
         return len(self.m_type) - 1
 
     # --- emitters ---------------------------------------------------------
-    def build_emitter(self, d) -> int:
+    def _push_emitter(self, etype, params, shape=-1, tex0=-1) -> int:
+        self.e_type.append(etype)
+        self.e_params.append(params)
+        self.e_shape.append(shape)
+        self.e_tex0.append(tex0)
+        return len(self.e_type) - 1
+
+    def build_emitter(self, d, shape_idx=-1) -> int:
         t = d["type"]
+        p = np.zeros(EMITTER_P, np.float32)
+        if t == "area":
+            rad = d.get("radiance", 1.0)
+            if isinstance(rad, dict) and rad.get("type") not in ("rgb",):
+                tex0 = self.build_texture(rad)
+                p[0:3] = 1.0
+            else:
+                tex0 = -1
+                p[0:3] = _spectrum_to_rgb(rad, 1.0)
+            return self._push_emitter(EMITTER_AREA, p, shape=shape_idx,
+                                      tex0=tex0)
+        if t == "point":
+            pos = np.asarray(d.get("position", [0, 0, 0]), np.float32)
+            if d.get("to_world") is not None:
+                pos = from_any(d["to_world"]).apply_points(pos[None])[0]
+            p[0:3] = pos
+            p[3:6] = _spectrum_to_rgb(d.get("intensity", 1.0), 1.0)
+            return self._push_emitter(EMITTER_POINT, p)
         if t != "constant":
             raise _unsupported(t)
-        p = np.zeros(EMITTER_P, np.float32)
         p[0:3] = _spectrum_to_rgb(d.get("radiance", 1.0), 1.0)
-        self.e_type.append(EMITTER_CONSTANT)
-        self.e_params.append(p)
-        self.env_index = len(self.e_type) - 1
+        self.env_index = self._push_emitter(EMITTER_CONSTANT, p)
         return self.env_index
 
     # --- shapes -------------------------------------------------------------
     def add_shape(self, d):
         t = d["type"]
         to_w = from_any(d["to_world"]) if "to_world" in d else Transform()
-        bsdf_d = None
+        bsdf_d = emitter_d = None
         int_med = ext_med = -1
         for k, v in d.items():
             if not isinstance(v, dict):
                 continue
             vt = v.get("type")
             if k == "emitter" or vt == "area":
-                raise _unsupported("area")
-            if k == "interior":
+                emitter_d = v
+            elif k == "interior":
                 int_med = self.build_medium(v)
             elif k == "exterior":
                 ext_med = self.build_medium(v)
@@ -315,9 +350,14 @@ class _Builder:
             self.sph_center.append(center.astype(np.float32))
             self.sph_radius.append(radius)
             self.sph_shape.append(shape_idx)
+            stype, prim_cnt = SHAPE_SPHERE, 1
+            prim_off = len(self.sph_radius) - 1
+            area = 4.0 * np.pi * radius * radius
         else:
             if t == "rectangle":
                 mesh = geo.rectangle()
+            elif t == "cube":
+                mesh = geo.cube()
             else:
                 mesh = geo.MeshData(d["vertices"], d["faces"],
                                     d.get("normals"), d.get("uvs"))
@@ -330,6 +370,8 @@ class _Builder:
                 mesh.faces = mesh.faces[:, ::-1].copy()
             if mesh.uvs is None:
                 mesh.uvs = np.zeros((len(mesh.vertices), 2), np.float32)
+            stype, prim_off = SHAPE_MESH, sum(len(f) for f in self.faces)
+            prim_cnt, area = len(mesh.faces), float(mesh.face_areas.sum())
             self.vertices.append(mesh.vertices)
             self.faces.append(mesh.faces + self.v_count)
             self.normals.append(mesh.normals)
@@ -337,9 +379,16 @@ class _Builder:
             self.tri_shape.append(
                 np.full(len(mesh.faces), shape_idx, np.int32))
             self.v_count += len(mesh.vertices)
+        emitter_idx = -1 if emitter_d is None \
+            else self.build_emitter(emitter_d, shape_idx)
         self.s_bsdf.append(bsdf_idx)
+        self.s_emitter.append(emitter_idx)
         self.s_int_med.append(int_med)
         self.s_ext_med.append(ext_med)
+        self.s_type.append(stype)
+        self.s_prim_off.append(prim_off)
+        self.s_prim_cnt.append(prim_cnt)
+        self.s_area.append(area)
 
     # --- sensor / film ------------------------------------------------------
     def build_sensor(self, d):
@@ -392,6 +441,14 @@ class _Builder:
         TS = np.concatenate(self.tri_shape).astype(np.int32) \
             if self.tri_shape else np.zeros((1,), np.int32)
         v0, v1, v2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
+        # triangle areas and their global cumulative sum (area emitters
+        # pick a triangle by it), in the JAX builder's numpy operations
+        ta = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+        if not T:
+            ta = np.zeros_like(ta)
+        ta_cdf = np.cumsum(ta).astype(np.float32)
+        # emitter selection: uniform weights
+        e_cdf = np.cumsum(np.ones(max(len(self.e_type), 1), np.float32))
         z3 = np.zeros((0, 3), np.float32)
         bvh = build_bvh(v0, v1, v2) if T else build_bvh(z3, z3, z3)
         if T:
@@ -421,8 +478,14 @@ class _Builder:
             "sph_radius": np.asarray(self.sph_radius or [1.0], np.float32),
             "sph_shape": np.asarray(self.sph_shape or [-1], i32),
             "shape_bsdf": np.asarray(self.s_bsdf or [0], i32),
+            "shape_emitter": np.asarray(self.s_emitter or [-1], i32),
             "shape_int_medium": np.asarray(self.s_int_med or [-1], i32),
             "shape_ext_medium": np.asarray(self.s_ext_med or [-1], i32),
+            "shape_type": np.asarray(self.s_type or [0], i32),
+            "shape_prim_offset": np.asarray(self.s_prim_off or [0], i32),
+            "shape_prim_count": np.asarray(self.s_prim_cnt or [0], i32),
+            "shape_area": np.asarray(self.s_area or [1.0], np.float32),
+            "tri_area_cdf": ta_cdf,
             "tri_buf": tri_buf, "tri_boxes": boxes, "tri_kperm": kperm,
             "tri_center": center, "tri_si": tri_si,
             "textures.ttype": np.asarray(self.tex_type or [0], i32),
@@ -439,6 +502,11 @@ class _Builder:
             "emitters.params": (np.stack(self.e_params) if self.e_params
                                 else np.zeros((1, EMITTER_P))
                                 ).astype(np.float32),
+            "emitters.shape": np.asarray(self.e_shape or [-1], i32),
+            "emitters.tex0": np.asarray(self.e_tex0 or [-1], i32),
+            "emitters.distr.cdf": e_cdf,
+            "emitters.distr.pmf": np.ones_like(e_cdf),
+            "emitters.distr.total": e_cdf[-1],
             "media.mtype": np.asarray(self.m_type or [0], i32),
             "media.params": (np.stack(self.m_params) if self.m_params
                              else np.zeros((1, MEDIUM_P))).astype(np.float32),
@@ -449,8 +517,9 @@ class _Builder:
             "sensor.fov_x": np.asarray(self.fov_x, np.float32),
         }
         # static NEE reachability (as the JAX builder): surface NEE needs a
-        # shape-referenced smooth BSDF, medium NEE a non-bio medium under
-        # a stock volpath integrator
+        # shape-referenced smooth BSDF, medium NEE a non-bio medium of a
+        # shape (a sensor medium does not count) under a stock volpath
+        # integrator
         used_media = {m for m in self.s_int_med + self.s_ext_med if m >= 0}
         statics = {
             "textures.types_present": tuple(sorted(set(self.tex_type)))
@@ -482,7 +551,7 @@ class _Builder:
             "needs_surface_nee": bool(self.e_type) and any(
                 (self.b_flags[i] & F_SMOOTH) != 0 for i in set(self.s_bsdf)),
             "needs_medium_nee": bool(self.e_type)
-            and self.integrator == "volpath"
+            and self.integrator in ("volpath", "volpathmis", "prbvolpath")
             and any(self.m_type[m] < MEDIUM_GLISSON for m in used_media),
         }
         return arrays, statics

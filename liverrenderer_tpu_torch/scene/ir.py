@@ -3,7 +3,7 @@
 
 The type codes below are copied verbatim from the JAX package: they are the
 ABI both packages share, so a scene built by either loads into the other.
-The tables keep only the fields and statics the primal liver slice reads;
+The tables keep only the fields and statics the slices ported so far read;
 `bridge.scene_from_numpy` fills them from numpy arrays keyed by the JAX
 Scene's dotted field paths.
 """
@@ -14,6 +14,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+
+from ..core.distr import DiscreteDistribution
 
 Tensor = torch.Tensor
 
@@ -113,7 +115,7 @@ class _Table:
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (Tensor, _Table)):
+            if isinstance(v, (Tensor, _Table, DiscreteDistribution)):
                 kw[f.name] = v.to(device)
         return dataclasses.replace(self, **kw)
 
@@ -143,8 +145,13 @@ class BSDFs(_Table):
 
 @dataclass
 class Emitters(_Table):
+    """params rows: AREA p0:3 radiance (times the tex0 texture), POINT p0:3
+    position and p3:6 intensity, CONSTANT p0:3 radiance."""
     etype: Tensor      # (E,)
-    params: Tensor     # (E, EMITTER_P)  CONSTANT: p0:3 radiance
+    params: Tensor     # (E, EMITTER_P)
+    shape: Tensor      # (E,) owning shape of an area emitter, -1 else
+    tex0: Tensor       # (E,) radiance texture (-1 => white)
+    distr: DiscreteDistribution   # emitter selection (uniform)
     env_index: int = -1
     types_present: Tuple[int, ...] = ()
     count: int = 0
@@ -193,8 +200,15 @@ class Scene(_Table):
     sph_shape: Tensor        # (Sp,)
     # shape table (S,)
     shape_bsdf: Tensor
+    shape_emitter: Tensor     # (S,) attached area emitter, -1 none
     shape_int_medium: Tensor
     shape_ext_medium: Tensor
+    shape_type: Tensor        # (S,) SHAPE_MESH / SHAPE_SPHERE
+    shape_prim_offset: Tensor  # (S,) first triangle or sphere index
+    shape_prim_count: Tensor  # (S,)
+    shape_area: Tensor        # (S,) total surface area
+    # (T,) global cumulative triangle areas (area-emitter triangle picks)
+    tri_area_cdf: Tensor
     # packed (Tpad, 16) Baldwin-Weber rows in BVH-leaf order, (Tpad/128, 8)
     # chunk AABBs, kernel row -> original id, (3,) local-frame origin
     tri_buf: Tensor
@@ -242,4 +256,5 @@ class Scene(_Table):
 
 # sub-table classes by the annotation their Scene field carries
 TABLES = {cls.__name__: cls for cls in
-          (Textures, BSDFs, Emitters, Media, BVH, Sensor)}
+          (Textures, BSDFs, Emitters, Media, BVH, Sensor,
+           DiscreteDistribution)}

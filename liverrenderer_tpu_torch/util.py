@@ -8,8 +8,10 @@ the same tensor inside the new Scene, so autograd follows it through a
 render.  `SceneParameters` gives the reference's dict-of-parameters UX
 (keys, getitem, update) on top of it.
 
-Keys the port carries: media.params, bsdfs.params, emitters.params.  The
-JAX package's other keys raise `not_ported` naming their ROADMAP item.
+Keys the port carries: media.params, bsdfs.params, emitters.params (the
+constant environment's radiance, an area light's radiance, a point light's
+position and intensity).  The JAX package's other keys raise `not_ported`
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ _LEAVES: Dict[str, tuple] = {
 
 # the JAX package's keys whose modules the port does not carry yet
 _NOT_PORTED = {
-    "textures.data": ("gradients of textures", "Queue 1 item 1"),
-    "textures.bitmaps": ("gradients of bitmap textures", "Queue 1 item 1"),
+    "textures.data": ("gradients of textures", "Queue 1 M8"),
+    "textures.bitmaps": ("gradients of bitmap textures",
+                         "Queue 1 (bumpmap + envmap)"),
     "vertices": ("vertex gradients (projective boundary terms)",
                  "Queue 1 M10"),
     "media.grids": ("gradients of heterogeneous media grids", "Queue 1 M10"),

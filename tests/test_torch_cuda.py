@@ -169,3 +169,66 @@ def test_render_grad_runs_through_kernel_in_the_replay():
     cos = float((g * ref).sum() / (g.norm() * ref.norm()))
     assert cos >= 0.999
     assert abs(float(g.norm() / ref.norm()) - 1.0) <= 1e-2
+
+
+def _capture_shadow_queries(scene, spp):
+    """Render with the kernel's wrapper wrapped to keep the rays of every
+    shadow query -> [(rays, tris, boxes)]."""
+    calls = []
+    orig = tci.intersect_closest
+
+    def keep(rays, tris, boxes, shadow=False):
+        if shadow:
+            calls.append((rays.clone(), tris, boxes))
+        return orig(rays, tris, boxes, shadow=shadow)
+
+    tci.intersect_closest = keep
+    try:
+        lrt.render(scene, spp=spp, seed=0)
+    finally:
+        tci.intersect_closest = orig
+    return calls
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_shadow_rays():
+    """NEE shadow queries of the fog Cornell box (finite maxt just short of
+    the light, offset origins, no ray sort): the kernel against its plain
+    version on the rays a render hands it, and the launches counted as
+    shadow launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.cornell import fog_cornell_box
+    scene = lrt.load_dict(fog_cornell_box(64, max_depth=6))
+    before = tci.SHADOW_LAUNCHES
+    calls = _capture_shadow_queries(scene, 2)
+    assert len(calls) > 0 and tci.SHADOW_LAUNCHES == before + len(calls)
+    hits = total = 0
+    for rays, tris, boxes in calls:
+        assert torch.isfinite(rays[6]).all()          # maxt is finite
+        tk, pk = tci.intersect_closest(rays, tris, boxes)
+        tr, pr = tci.intersect_closest_reference(rays, tris, boxes)
+        hits += int((pr >= 0).sum())
+        total += int(((pk >= 0) == (pr >= 0)).sum())
+        same = (pk == pr) & (pr >= 0)
+        torch.testing.assert_close(tk[same], tr[same], rtol=T_RTOL, atol=0)
+    assert hits > 0
+    assert total >= HIT_AGREE_MIN * sum(r.shape[1] for r, _, _ in calls)
+
+
+@pytest.mark.cuda
+def test_fog_cornell_render_on_the_card_matches_cpu():
+    """The fog Cornell box (surface NEE) rendered on the card against the
+    CPU render (plain version): >= 99 % of pixels within rtol 1e-3 /
+    atol 1e-4, and shadow queries launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.cornell import fog_cornell_box
+    d = fog_cornell_box(24, max_depth=6)
+    ref = lrt.render(lrt.load_dict(d, device="cpu"), spp=4).numpy()
+    before = tci.SHADOW_LAUNCHES
+    img = lrt.render(lrt.load_dict(d), spp=4).cpu().numpy()
+    assert tci.SHADOW_LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())

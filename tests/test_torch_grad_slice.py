@@ -5,9 +5,9 @@ proxy.
 The slab scenes are those of test_prb_replay.py (a null-BSDF sphere around
 a homogeneous medium under a constant environment) rendered by biovolpath
 instead of volpath: biovolpath runs the stock transport in a homogeneous
-medium and never reaches next-event estimation there, which the port does
-not carry yet (ROADMAP Queue 1), while volpath would add NEE through the
-medium.  Both packages render the same dict.
+medium and never reaches next-event estimation there, while volpath would
+add NEE through the medium (tests/test_torch_nee_slice.py covers that).
+Both packages render the same dict.
 
 Tolerances.  Both packages walk the same paths (bit-identical counter RNG),
 so gradients agree to the order in which per-lane terms are summed:

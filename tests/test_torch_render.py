@@ -114,11 +114,17 @@ def test_tent_filter_matches_jax():
 
 
 def test_nee_scenes_raise():
+    """Next-event estimation is ported: the liver under stock volpath in a
+    fog (medium NEE through the ratio-tracked shadow walk) renders.  An
+    NEE scene whose emitter the port does not carry yet still raises,
+    naming its ROADMAP item."""
     d = liver_proxy_dict(4, 4, 1, 0)
     d["integrator"]["type"] = "volpath"
     d["fog"] = {"type": "homogeneous", "sigma_t": 0.5}
     d["liver"]["exterior"] = {"type": "ref", "id": "fog"}
     ts = lrt.load_dict(d, device="cpu")
     assert ts.needs_medium_nee
+    assert torch.isfinite(lrt.render(ts, spp=1)).all()
+    d["sun"] = {"type": "directional", "direction": [0, -1, 0]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lrt.render(ts, spp=1)
+        lrt.load_dict(d, device="cpu")
