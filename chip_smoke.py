@@ -67,13 +67,32 @@ result line):
                    kernel_vs_plain), and shadow rays to a point light on
                    the liver proxy, whose split chunk range runs the merge
   fog_render_grad  render_grad of the fog Cornell box's mean image at
-                   1080x1080, 2 spp, d/d media.params (the tiled replay
+                   1080x1080, 1 spp, d/d media.params (the tiled replay
                    schedule): median seconds of 3 after a warm-up, fwd+bwd
-                   paths/s and its cost per path against a 2 spp primal in
+                   paths/s and its cost per path against a 1 spp primal in
                    the same call, launches, peak device memory
+  bump_env_small   the bumped, sky-lit liver proxy (a height map on the
+                   dielectric, a lat-long envmap) at 16x12, 4 spp on the
+                   card against the CPU: image, and the media.params and
+                   emitters.params gradient
+  env_nee_small    a diffuse plane lit by the envmap alone (NEE samples its
+                   2-D importance map) on the card against the CPU: image
+                   and the emitters.params gradient
+  bump_env_render  the bumped, sky-lit liver proxy at 428x240, 64 spp, depth
+                   12 (bench.py's workload path; 1,024^2 height map, 1,024
+                   x 512 sky): seconds, paths/s, image checks, sweep and
+                   merge launches, peak memory, in turns with the plain
+                   proxy (the ratio compares them within this call); host
+                   launches per iteration of both from torch.profiler
+  bump_env_render_grad  render_grad of its mean image at 16 spp, d/d
+                   media.params: median seconds of 3 after a warm-up
+                   against a 16 spp primal in the same call, launches of
+                   the stored forward and the replay walk, peak memory
+  total            the script's seconds so far
   kernels          every kernel of the path with the TPU kernels it
                    replaces, its launches (render + render_grad + fog
-                   render + fog render_grad), agreement, times and bound
+                   render + fog render_grad + bumped render + bumped
+                   render_grad), agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -90,13 +109,18 @@ GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
 TRACE_SPP = 8                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
 # the fog Cornell box: BASELINE's 1080x1080 film and depth 16, 4 spp for
-# the primal and 2 for the gradient (its host-bound walk runs at ~0.2
-# Mpaths/s, ~6.6 bounces per path, and the run has a time limit)
-FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 1080, 4, 2, 16
+# the primal and 1 for the gradient (its host-bound walk runs at ~0.2
+# Mpaths/s, ~6.6 bounces per path, and the whole run should take at most
+# half of its 1,200 s limit)
+FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 1080, 4, 1, 16
 FOG_TRACE_SPP = 1              # fog_render's profile, shadow_kernel
 FOG_TRACE_RES = 256            # fog_render's profile: one full wavefront
 FOG_SMALL = (32, 4, 6)         # fog_small: film, spp, depth
 WALK_SMALL = (12, 16)          # nee_walk_small: film, spp
+# bump_env_small: the proxy at subdiv 2 with a 32^2 height map at the
+# full-size scale and a 64 x 32 sky; env_nee_small: film, spp
+BUMP_SMALL, SKY_SMALL, ENV_NEE_SMALL = (32, 0.05), (64, 32), (12, 8)
+BUMP_TRACE_SPP = 8             # bump_env_render's profiles
 
 # tolerances: the kernel computes t with the plain version's fp32
 # operations in the same order (bit-identical), but contracts p, u and v to
@@ -178,6 +202,11 @@ def check_agreement(r, what):
     check(r["hit_agree"] >= HIT_AGREE_MIN, f"{what}: hit sets {r}")
     check(r["prim_agree"] >= PRIM_AGREE_MIN, f"{what}: prims {r}")
     check(r["max_rel_dt"] <= T_RTOL, f"{what}: t {r}")
+
+
+def merge_library(torch, t_part, p_part):
+    t, idx = torch.min(t_part, dim=0)
+    return t, torch.gather(p_part, 0, idx[None])[0]
 
 
 def needed_work(torch, rays, tris, boxes, n_tris, t_hit):
@@ -407,6 +436,15 @@ def split_counts(c):
                 shadow_merge_launches=s_merge)
 
 
+def timed_render(torch, lrt, scene, spp):
+    """Wall seconds of one render, from a synchronised card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = lrt.render(scene, spp=spp, seed=SEED)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, img
+
+
 def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1):
     """One render_grad of mean(image) with respect to media.params, with
     the kernel counts set to 0 just before it and split at the replay
@@ -484,7 +522,7 @@ def primal_trace(prof, secs, iterations):
 def image_vs_cpu(np, lrt, d, spp):
     """The same render on the card and on the CPU (plain version) ->
     (pixel fraction within tolerance, relative difference of the means,
-    card image mean)."""
+    card image mean, pixel fraction exactly equal)."""
     img_cpu = lrt.render(lrt.load_dict(d, device="cpu"), spp=spp,
                          seed=SEED).numpy()
     img_gpu = lrt.render(lrt.load_dict(d), spp=spp, seed=SEED).cpu().numpy()
@@ -492,17 +530,21 @@ def image_vs_cpu(np, lrt, d, spp):
         * np.abs(img_cpu)
     return (float(close.all(-1).mean()),
             float(abs(img_gpu.mean() - img_cpu.mean())
-                  / abs(img_cpu.mean())), float(img_gpu.mean()))
+                  / abs(img_cpu.mean())), float(img_gpu.mean()),
+            float((img_gpu == img_cpu).all(-1).mean()))
 
 
-def grad_vs_cpu(lrt, d, spp):
-    """media.params gradient of the mean image on the card and on the CPU
-    -> (cosine, relative difference of the norms, CPU gradient norm,
-    card gradient finite)."""
+def grad_vs_cpu(lrt, d, spp, keys=("media.params",)):
+    """Gradient of the mean image with respect to `keys` (flattened and
+    joined) on the card and on the CPU -> (cosine, relative difference of
+    the norms, CPU gradient norm, card gradient finite)."""
+    import torch
+
     def grad(sc):
-        _, g, _ = lrt.render_grad(sc, {"media.params": sc.media.params},
+        prm = lrt.traverse(sc, keys)
+        _, g, _ = lrt.render_grad(sc, {k: prm[k] for k in keys},
                                   lambda im: im.mean(), spp=spp, seed=SEED)
-        return g["media.params"].cpu().double()
+        return torch.cat([g[k].cpu().double().reshape(-1) for k in keys])
 
     b = grad(lrt.load_dict(d, device="cpu"))
     a = grad(lrt.load_dict(d))
@@ -633,19 +675,19 @@ def nee_phases(torch, np, lrt, ci, treplay, smi, scene, gen):
                                                        plane_light_dict)
     # ---- 6a. next-event estimation at test size, card against CPU
     res_s, spp_s, depth_s = FOG_SMALL
-    frac, mean_rel, mean = image_vs_cpu(
+    frac, mean_rel, mean, exact = image_vs_cpu(
         np, lrt, fog_cornell_box(res_s, max_depth=depth_s), spp_s)
     emit("fog_small", film=[res_s, res_s], spp=spp_s, max_depth=depth_s,
-         pixel_frac=frac, mean_rel=mean_rel, mean=mean)
+         pixel_frac=frac, pixel_exact=exact, mean_rel=mean_rel, mean=mean)
     check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
           "fog_small: the card's render disagrees with the CPU's")
 
     res_w, spp_w = WALK_SMALL
     walk_d = plane_light_dict(res_w, fog_cube=True)
-    frac, mean_rel, mean = image_vs_cpu(np, lrt, walk_d, spp_w)
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, walk_d, spp_w)
     cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, walk_d, spp_w)
     emit("nee_walk_small", film=[res_w, res_w], spp=spp_w, pixel_frac=frac,
-         mean_rel=mean_rel, mean=mean, grad_cosine=cos,
+         pixel_exact=exact, mean_rel=mean_rel, mean=mean, grad_cosine=cos,
          grad_norm_rel=norm_rel, grad_norm=gnorm)
     check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
           "nee_walk_small: the card's render disagrees with the CPU's")
@@ -760,7 +802,139 @@ def nee_phases(torch, np, lrt, ci, treplay, smi, scene, gen):
                 shadow=sh, liver_shadow=sh_liver)
 
 
+def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
+    """Phases bump_env_small, env_nee_small, bump_env_render and
+    bump_env_render_grad -> the launch counts the kernels line reports.
+    plain: the plain liver proxy at full size (the render's comparison)."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.scene.cornell import plane_light_dict
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict,
+                                                           sky_map)
+    # ---- 7a. at test size, card against CPU
+    small = liver_proxy_dict(16, 12, 4, 2, SEED, bump=BUMP_SMALL,
+                             sky=SKY_SMALL)
+    keys = ("media.params", "emitters.params")
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, small, 4, keys)
+    emit("bump_env_small", film=[16, 12], spp=4, bump=list(BUMP_SMALL),
+         sky=list(SKY_SMALL), pixel_frac=frac, pixel_exact=exact,
+         mean_rel=mean_rel, mean=mean,
+         grad_keys=list(keys), grad_cosine=cos, grad_norm_rel=norm_rel,
+         grad_norm=gnorm)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "bump_env_small: the card's render disagrees with the CPU's")
+    check(gfin and gnorm > 0, "bump_env_small: gradient not finite or zero")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "bump_env_small: the card's gradient disagrees with the CPU's")
+
+    res_e, spp_e = ENV_NEE_SMALL
+    env_d = plane_light_dict(res_e, light={"type": "envmap",
+                                           "data": sky_map(*SKY_SMALL)})
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, env_d, spp_e)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, env_d, spp_e,
+                                             ("emitters.params",))
+    emit("env_nee_small", film=[res_e, res_e], spp=spp_e,
+         sky=list(SKY_SMALL), pixel_frac=frac, pixel_exact=exact,
+         mean_rel=mean_rel, mean=mean,
+         grad_keys=["emitters.params"], grad_cosine=cos,
+         grad_norm_rel=norm_rel, grad_norm=gnorm)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "env_nee_small: the card's render disagrees with the CPU's")
+    check(gfin and gnorm > 0, "env_nee_small: gradient not finite or zero")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "env_nee_small: the card's gradient disagrees with the CPU's")
+
+    # ---- 7b. bench.py's workload path at full size: primal
+    t0 = time.perf_counter()
+    bumped = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+                                            bump=BUMP, sky=SKY))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(bumped.device.type == "cuda" and bumped.has_heightmap
+          and bumped.emitters.env_index >= 0
+          and bumped.textures.has_quads and not bumped.needs_surface_nee,
+          "bumped proxy: not on the card, or without its bump map or sky")
+    lrt.render(bumped, spp=1, seed=SEED + 1)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    secs, img = timed_render(torch, lrt, bumped, SPP)
+    counts = launch_counts(ci)
+    peak = torch.cuda.max_memory_allocated()
+    # in turns with the plain proxy: plain, bumped, plain
+    torch.cuda.reset_peak_memory_stats()
+    plain_s = [timed_render(torch, lrt, plain, SPP)[0]]
+    plain_peak = torch.cuda.max_memory_allocated()
+    bumped_s = [secs, timed_render(torch, lrt, bumped, SPP)[0]]
+    plain_s.append(timed_render(torch, lrt, plain, SPP)[0])
+    traces = {}
+    for name, sc in (("bumped", bumped), ("plain", plain)):
+        lrt.render(sc, spp=BUMP_TRACE_SPP, seed=SEED)            # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            reset_counts(ci)
+            secs_tr, _ = timed_render(torch, lrt, sc, BUMP_TRACE_SPP)
+        traces[name] = primal_trace(prof, secs_tr, ci.LAUNCHES)
+    finite = bool(torch.isfinite(img).all())
+    paths = WIDTH * HEIGHT * SPP
+    t_b, t_p = sum(bumped_s) / 2, sum(plain_s) / 2
+    emit("bump_env_render", film=[WIDTH, HEIGHT], spp=SPP,
+         max_depth=bumped.max_depth, tris=bumped.n_tris, bump=list(BUMP),
+         sky=list(SKY), card=smi, build_seconds=build_s,
+         seconds=round(secs, 3), paths_per_s=paths / secs, finite=finite,
+         shape=list(img.shape), mean=float(img.mean()),
+         max_memory_allocated=peak,
+         plain_max_memory_allocated=plain_peak, launches=counts[0],
+         merge_launches=counts[1], shadow_launches=counts[2],
+         bumped_seconds_reps=bumped_s, plain_seconds_reps=plain_s,
+         bumped_over_plain=t_b / t_p,
+         trace_spp=BUMP_TRACE_SPP, trace=traces,
+         launches_per_iteration_added=traces["bumped"][
+             "launches_per_iteration"] - traces["plain"][
+             "launches_per_iteration"])
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 3), "bumped image shape")
+    check(finite, "bumped image has non-finite values")
+    check(0.05 < float(img.mean()) < 5.0, "bumped image mean out of range")
+    check(counts[0] > 0 and counts[1] > 0,
+          "the bumped render did not launch the sweep and merge kernels")
+    check(counts[2] == 0, "the bumped liver render made shadow queries")
+
+    # ---- 7c. its gradient (single walk)
+    grad_run(torch, lrt, ci, treplay, bumped, GRAD_SPP)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = [grad_run(torch, lrt, ci, treplay, bumped, GRAD_SPP)
+            for _ in range(3)]
+    gpeak = torch.cuda.max_memory_allocated()
+    grad_counts = runs[0][3]
+    check(all(r[3] == grad_counts for r in runs),
+          "bumped render_grad: launch counts differ between reps")
+    g = runs[0][1]
+    primal = [timed_render(torch, lrt, bumped, GRAD_SPP)[0]
+              for _ in range(3)]
+    t_grad, t_primal = sorted(r[0] for r in runs)[1], sorted(primal)[1]
+    gpaths = WIDTH * HEIGHT * GRAD_SPP
+    finite_g = bool(torch.isfinite(g).all())
+    emit("bump_env_render_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+         max_depth=bumped.max_depth, card=smi, seconds=t_grad,
+         seconds_reps=[r[0] for r in runs],
+         fwd_bwd_paths_per_s=gpaths / t_grad, primal_seconds=t_primal,
+         primal_seconds_reps=primal, primal_paths_per_s=gpaths / t_primal,
+         fwd_bwd_over_primal=t_grad / t_primal, grad_finite=finite_g,
+         grad_abs_max=float(g.abs().max()),
+         grad_sigma_t=[float(x) for x in g[0, 0:3]],
+         image_mean=float(runs[0][2].mean()), max_memory_allocated=gpeak,
+         **grad_counts)
+    check(finite_g and float(g.abs().max()) > 0,
+          "bumped render_grad: gradient not finite or zero")
+    for k in ("fwd_launches", "fwd_merge_launches", "replay_launches",
+              "replay_merge_launches"):
+        check(grad_counts[k] > 0, f"bumped render_grad: {k} is 0")
+    return dict(counts=counts, grad_counts=grad_counts)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -848,6 +1022,11 @@ def main() -> int:
         ms=cuda_ms(lambda: ci.merge_partials(t_part, p_part), 7, 10),
         plain_ms=cuda_ms(lambda: ci.merge_partials_reference(t_part, p_part),
                          7, 10),
+        # two PyTorch calls compute the merge: min over the splits with its
+        # index, then a gather of the prims (their tie rule may differ, so
+        # this times them only)
+        library_ms=cuda_ms(lambda: merge_library(torch, t_part, p_part), 7,
+                           10),
         # t of every split read, the winner's prim read, t and prim written
         bytes=4 * t_part.numel() + 12 * t_part.shape[1])
     merge["bound_ms"] = merge["bytes"] / PEAK_BYTES * 1e3
@@ -1027,7 +1206,12 @@ def main() -> int:
     fog_counts, fog_grad_counts = nee["fog_counts"], nee["fog_grad_counts"]
     sh, sh_liver = nee["shadow"], nee["liver_shadow"]
 
-    # ---- 7. kernels
+    # ---- 7. bump mapping and the envmap: bench.py's workload path
+    bump = bump_env_phases(torch, np, lrt, ci, treplay, smi, scene)
+    bump_counts, bump_grad = bump["counts"], bump["grad_counts"]
+    emit("total", seconds=time.perf_counter() - t_start)
+
+    # ---- 8. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
     print(json.dumps({"kernels": [
         # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
@@ -1041,11 +1225,14 @@ def main() -> int:
              launches=launches + grad_counts["fwd_launches"]
              + grad_counts["replay_launches"] + fog_counts[0]
              + fog_grad_counts["fwd_launches"]
-             + fog_grad_counts["replay_launches"],
+             + fog_grad_counts["replay_launches"] + bump_counts[0]
+             + bump_grad["fwd_launches"] + bump_grad["replay_launches"],
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
              fog_render_grad_launches=fog_grad_counts,
+             bump_env_render_launches=bump_counts[0],
+             bump_env_render_grad_launches=bump_grad,
              shadow_ms=sh["replay_ms_per_launch"],
              shadow_plain_ms=sh["plain_ms_per_launch"],
              shadow_bound_ms=sh["bound_ms"], shadow_bound_by=sh["bound_by"],
@@ -1071,15 +1258,20 @@ def main() -> int:
              launches=merge_launches + grad_counts["fwd_merge_launches"]
              + grad_counts["replay_merge_launches"] + fog_counts[1]
              + fog_grad_counts["fwd_merge_launches"]
-             + fog_grad_counts["replay_merge_launches"],
+             + fog_grad_counts["replay_merge_launches"] + bump_counts[1]
+             + bump_grad["fwd_merge_launches"]
+             + bump_grad["replay_merge_launches"],
              render_launches=merge_launches,
+             bump_env_render_launches=bump_counts[1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],
              max_abs_err=merge["max_abs_err"],
              ms=merge["ms"], plain_ms=merge["plain_ms"],
              bound_ms=merge["bound_ms"], bound_by="bytes",
-             library_ms=None)]}), flush=True)
+             library_ms=merge["library_ms"],
+             library_call="torch.min(t, dim=0) + torch.gather of the prims "
+             "(time only: its tie rule may differ)")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

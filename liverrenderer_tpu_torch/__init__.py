@@ -4,6 +4,7 @@ The port follows ROADMAP.md slice by slice; liverrenderer_tpu (JAX) stays
 the reference.  Plain tensor code is PyTorch; the closest-hit intersection,
 the JAX package's only Pallas kernels, is a hand-written CUDA kernel for
 Hopper (csrc/intersect.cu).  The port renders the biovolpath liver path
+(bump and normal maps, bitmap textures, the envmap, next-event estimation)
 on the regenerating wavefront and differentiates it through the PRB replay
 adjoint.
 
@@ -15,6 +16,10 @@ adjoint.
         scene, {"media.params": scene.media.params}, lambda im: im.mean(),
         spp=16, seed=0)                          # grads["media.params"]
     cpu = lrt.load_dict(liver_proxy_dict(16, 12, 4), device="cpu")
+    # bench.py's workload path: a height map on the liver and a sky
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, SKY
+    bumped = lrt.load_dict(liver_proxy_dict(428, 240, 64, bump=BUMP,
+                                            sky=SKY))
 """
 
 import torch as _torch

@@ -19,20 +19,8 @@ from ..core.types import BSDFSample
 from ..errors import not_ported
 from ..scene.ir import (BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_NULL,
                         F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_NULL,
-                        TEX_CONST, Scene, Textures)
-
-
-def eval_texture(tex: Textures, tex_idx, types=None):
-    """(N,3) linear RGB of texture tex_idx (-1 => white); constant
-    textures only in this slice."""
-    present = tex.types_present if types is None \
-        else tuple(set(tex.types_present) & set(types))
-    if any(t != TEX_CONST for t in present):
-        raise not_ported("bitmap / procedural textures", "Queue 1 M5")
-    idx = torch.clamp(tex_idx, min=0)
-    out = torch.where((tex.ttype[idx] == TEX_CONST)[:, None],
-                      tex.data[idx, 0:3], 1.0)
-    return torch.where((tex_idx >= 0)[:, None], out, 1.0)
+                        Scene)
+from ..texture.eval import eval_texture
 
 
 def _flip_z(v):
@@ -118,8 +106,8 @@ def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
     flip = b.twosided[idx] & (m.cos_theta(wi) < 0)
     wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
     p = m.table_lookup(b.params, idx)
-    t0 = eval_texture(scene.textures, b.tex0[idx], b.tex0_types)
-    t1 = eval_texture(scene.textures, b.tex1[idx], b.tex1_types)
+    t0 = eval_texture(scene.textures, b.tex0[idx], si.uv, b.tex0_types)
+    t1 = eval_texture(scene.textures, b.tex1[idx], si.uv, b.tex1_types)
 
     n = wi.shape[:-1]
     wo = torch.broadcast_to(wi.new_tensor([0.0, 0.0, 1.0]), wi.shape)
@@ -153,8 +141,8 @@ def bsdf_eval_pdf(scene: Scene, si, bsdf_idx, wo):
     wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
     wo_f = torch.where(flip[..., None], _flip_z(wo), wo)
     p = m.table_lookup(b.params, idx)
-    t0 = eval_texture(scene.textures, b.tex0[idx], b.tex0_types)
-    t1 = eval_texture(scene.textures, b.tex1[idx], b.tex1_types)
+    t0 = eval_texture(scene.textures, b.tex0[idx], si.uv, b.tex0_types)
+    t1 = eval_texture(scene.textures, b.tex1[idx], si.uv, b.tex1_types)
     n = wi.shape[:-1]
     val = wi.new_zeros(n + (3,))
     pdf = wi.new_zeros(n)

@@ -1,8 +1,9 @@
 """Emitter sampling and evaluation over the wavefront (counterpart of
-liverrenderer_tpu/emitter/dispatch.py) for the area, point and constant
-emitters: next-event estimation picks an emitter from the scene's discrete
-distribution and samples a direction toward it; BSDF-sampled rays that hit
-an area emitter evaluate it; escaped rays see the constant environment.
+liverrenderer_tpu/emitter/dispatch.py) for the area, point, constant and
+envmap emitters: next-event estimation picks an emitter from the scene's
+discrete distribution and samples a direction toward it (the envmap by its
+2-D importance map); BSDF-sampled rays that hit an area emitter evaluate
+it; escaped rays see the environment (constant or lat-long envmap).
 
 Every emitter type present in the scene is evaluated on all lanes and
 combined with masked selects, as in the JAX package.  The other types
@@ -10,9 +11,10 @@ raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..bsdf.dispatch import eval_texture
 from ..core import math as m
 from ..core import warp
 from ..core.types import DirectionSample
@@ -20,11 +22,11 @@ from ..errors import not_ported
 from ..scene.ir import (EMITTER_AREA, EMITTER_CONSTANT, EMITTER_DIRECTIONAL,
                         EMITTER_ENVMAP, EMITTER_POINT, EMITTER_PROJECTOR,
                         EMITTER_SPOT, SHAPE_SPHERE, Scene)
+from ..texture.eval import eval_texture
 
 WORLD_RADIUS = 1e4  # distance placed on environment samples
 
 _NOT_PORTED = {
-    EMITTER_ENVMAP: ("the envmap emitter", "Queue 1 (bumpmap + envmap)"),
     EMITTER_DIRECTIONAL: ("the directional emitter",
                           "Queue 1 (directional, spot and projector "
                           "emitters)"),
@@ -122,8 +124,8 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
         # area density -> solid angle
         pdf_a = pdf_area * dist2 / torch.clamp(cos_e, min=1e-20)
         pdf_a = torch.where(cos_e > 0, pdf_a, 0.0)
-        rad = eval_texture(scene.textures, m.table_lookup(em.tex0, eidx)) \
-            * prm[..., 0:3]
+        rad = eval_texture(scene.textures, m.table_lookup(em.tex0, eidx),
+                           ref_p.new_zeros((n, 2))) * prm[..., 0:3]
         sel = etype == EMITTER_AREA
         p = torch.where(sel[:, None], sp, p)
         nrm = torch.where(sel[:, None], sn, nrm)
@@ -155,6 +157,26 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
         d = torch.where(sel[:, None], dd, d)
         pdf = torch.where(sel, warp.INV_FOURPI, pdf)
         value = torch.where(sel[:, None], prm[..., 0:3], value)
+
+    if EMITTER_ENVMAP in tp:
+        # importance-sample the lat-long map (v = theta, u = phi)
+        pos_lm, cell_pdf = em.env_distr.sample(u2)
+        h, w = em.env_distr.data.shape
+        phi = pos_lm[..., 0] / w * (2 * math.pi)
+        theta = pos_lm[..., 1] / h * math.pi
+        st = torch.sin(theta)
+        d_loc = torch.stack([st * torch.sin(phi), torch.cos(theta),
+                             -st * torch.cos(phi)], -1)
+        tw = m.table_lookup(em.to_world, eidx)
+        dd = torch.einsum("nij,nj->ni", tw[:, :3, :3], d_loc)
+        pdf_e = cell_pdf * (h * w) / (2.0 * math.pi * math.pi
+                                      * torch.clamp(st, min=1e-6))
+        sel = etype == EMITTER_ENVMAP
+        p = torch.where(sel[:, None], ref_p + dd * WORLD_RADIUS, p)
+        d = torch.where(sel[:, None], dd, d)
+        pdf = torch.where(sel, pdf_e, pdf)
+        value = torch.where(sel[:, None], _env_radiance(scene, eidx, dd),
+                            value)
 
     pdf_total = pdf * sel_pdf
     # detached sampling: the density is not differentiated, the radiance is
@@ -188,7 +210,42 @@ def pdf_emitter_direction(scene: Scene, ref_p, si_emitter, si_p, si_n, d):
         pdf = torch.where(etype == EMITTER_AREA, pdf_a, pdf)
     if EMITTER_CONSTANT in tp:
         pdf = torch.where(etype == EMITTER_CONSTANT, warp.INV_FOURPI, pdf)
+    if EMITTER_ENVMAP in tp:
+        pdf = torch.where(etype == EMITTER_ENVMAP, _env_pdf(scene, eidx, d),
+                          pdf)
     return pdf * sel_pdf
+
+
+def _env_uv(scene: Scene, eidx, d):
+    """Lat-long (u, v) of world direction d in the envmap's frame, and
+    its polar angle."""
+    tw = m.table_lookup(scene.emitters.to_world, eidx)
+    d_loc = torch.einsum("nji,nj->ni", tw[:, :3, :3], d)  # inverse rotation
+    theta = m.safe_acos(d_loc[..., 1])
+    phi = torch.atan2(d_loc[..., 0], -d_loc[..., 2])
+    u = phi / (2 * math.pi)
+    u = u - torch.floor(u)
+    v = theta / math.pi
+    return torch.stack([u, v], -1), theta
+
+
+def _env_radiance(scene: Scene, eidx, d):
+    em = scene.emitters
+    uv, _ = _env_uv(scene, eidx, d)
+    rad = eval_texture(scene.textures, em.tex0[eidx], uv)
+    return rad * m.table_lookup(em.params, eidx)[..., 6:7]
+
+
+def _env_pdf(scene: Scene, eidx, d):
+    """Solid-angle density of the envmap's importance sampling."""
+    em = scene.emitters
+    uv, theta = _env_uv(scene, eidx, d)
+    h, w = em.env_distr.data.shape
+    col = torch.clamp((uv[..., 0] * w).to(torch.int64), 0, w - 1)
+    row = torch.clamp((uv[..., 1] * h).to(torch.int64), 0, h - 1)
+    cell_pdf = em.env_distr.eval_pdf(col, row)
+    st = torch.clamp(torch.sin(theta), min=1e-6)
+    return cell_pdf * (h * w) / (2.0 * math.pi * math.pi * st)
 
 
 def eval_emitter_hit(scene: Scene, si, d):
@@ -204,20 +261,25 @@ def eval_emitter_hit(scene: Scene, si, d):
     eidx = torch.where(si.valid, m.table_lookup(scene.shape_emitter, shape),
                        -1)
     eidx_s = torch.clamp(eidx, min=0)
-    rad = eval_texture(scene.textures, em.tex0[eidx_s]) \
+    rad = eval_texture(scene.textures, em.tex0[eidx_s], si.uv) \
         * m.table_lookup(em.params, eidx_s)[..., 0:3]
     front = torch.sum(si.ng * d, -1) < 0
     return torch.where(((eidx >= 0) & front)[:, None], rad, 0.0), eidx
 
 
 def eval_environment(scene: Scene, d):
-    """Environment radiance for escaped rays."""
+    """Environment radiance for escaped rays (constant or envmap)."""
     em = scene.emitters
     n = d.shape[0]
     if em.env_index < 0:
         return d.new_zeros((n, 3))
+    et = em.etype[em.env_index]
+    out = torch.broadcast_to(
+        torch.where(et == EMITTER_CONSTANT, em.params[em.env_index, 0:3], 0.0),
+        (n, 3))
     if EMITTER_ENVMAP in em.types_present:
-        raise not_ported("the envmap emitter", "Queue 1 (bumpmap + envmap)")
-    rad = torch.where(em.etype[em.env_index] == EMITTER_CONSTANT,
-                      em.params[em.env_index, 0:3], 0.0)
-    return torch.broadcast_to(rad, (n, 3))
+        eidx = torch.full((n,), em.env_index, dtype=torch.int64,
+                          device=d.device)
+        out = torch.where(et == EMITTER_ENVMAP,
+                          _env_radiance(scene, eidx, d), out)
+    return out

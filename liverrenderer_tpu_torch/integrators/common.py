@@ -14,7 +14,7 @@ from . import volpath as volpath_mod
 
 MAX_WAVEFRONT = 1 << 22   # lanes per pass
 
-_VOLPATH_FAMILY = ("volpath", "biovolpath", "biovolpath06")
+_VOLPATH_FAMILY = ("volpath", "biovolpath", "biovolpath06", "prbvolpath")
 
 
 def _integrator_sample(scene: Scene, sampler, ray, mode="primal"):

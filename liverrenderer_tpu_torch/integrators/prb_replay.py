@@ -60,7 +60,7 @@ POOL_BYTES_CAP = 2 << 30
 # parameter keys whose leaves reach eval_environment: when one is
 # differentiated, the environment is evaluated inside the per-bounce
 # gradient so its own cotangent carries the deferred env term
-_ENV_KEYS = ("emitters.params",)
+_ENV_KEYS = ("emitters.params", "textures.bitmaps")
 
 
 def replay_applicable(scene: Scene, params: Dict[str, Tensor], spp: int) \

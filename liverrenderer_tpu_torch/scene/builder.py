@@ -2,14 +2,18 @@
 liverrenderer_tpu/scene/builder.py), cut to the plugins of the slices
 ported so far:
 
-  integrators  biovolpath, volpath
+  integrators  biovolpath, biovolpath06, volpath, prbvolpath
   sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box
                or tent filter, the independent sampler
   shapes       mesh, rectangle, cube, sphere (analytic)
   bsdfs        diffuse (also the default of a shape without a BSDF),
-               dielectric, null
-  media        liver, homogeneous (isotropic or HG phase)
-  emitters     area (attached to a shape), point, constant
+               dielectric, null, and the bumpmap / normalmap wrappers
+               (folded into the shape table, also through a ref)
+  textures     constant, checkerboard, bitmap (inline `data` only)
+  media        liver, glissonCapsule / glisson, parenchyma, homogeneous
+               (isotropic or HG phase)
+  emitters     area (attached to a shape), point, constant, envmap (inline
+               `data` only)
 
 Entities are packed host-side into the same numpy tables, in the same
 order, as the JAX builder packs them; `bridge.scene_from_numpy` uploads
@@ -24,15 +28,17 @@ import numpy as np
 
 from ..accel.bvh import build_bvh
 from ..accel.cuda_intersect import pack_tris
+from ..core.distr import build_distribution_2d_np
 from ..errors import not_ported
 from . import geometry as geo
 from .ir import (BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_NULL, BSDF_P,
-                 EMITTER_AREA, EMITTER_CONSTANT, EMITTER_P, EMITTER_POINT,
-                 F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_NULL,
-                 F_SMOOTH, FILTER_BOX, FILTER_TENT, MEDIUM_GLISSON,
-                 MEDIUM_HOMOGENEOUS, MEDIUM_LIVER, MEDIUM_P, PHASE_HG,
-                 PHASE_ISOTROPIC, SENSOR_PERSPECTIVE, SHAPE_MESH,
-                 SHAPE_SPHERE, TEX_CONST, TEX_P)
+                 EMITTER_AREA, EMITTER_CONSTANT, EMITTER_ENVMAP, EMITTER_P,
+                 EMITTER_POINT, F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL,
+                 F_NULL, F_SMOOTH, FILTER_BOX, FILTER_TENT, MEDIUM_GLISSON,
+                 MEDIUM_HOMOGENEOUS, MEDIUM_LIVER, MEDIUM_P,
+                 MEDIUM_PARENCHYMA, PHASE_HG, PHASE_ISOTROPIC,
+                 SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, TEX_BITMAP,
+                 TEX_CHECKERBOARD, TEX_CONST, TEX_P)
 from .transform import Transform, from_any
 
 IOR_NAMES = {
@@ -43,16 +49,18 @@ IOR_NAMES = {
     "bromine": 1.661, "amber": 1.55,
 }
 
-_INTEGRATORS = ("biovolpath", "volpath")
+_INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "prbvolpath")
 _SHAPE_TYPES = ("mesh", "rectangle", "cube", "sphere")
-_BSDF_TYPES = ("diffuse", "dielectric", "null")
-_MEDIUM_TYPES = ("liver", "homogeneous")
-_EMITTER_TYPES = ("point", "constant")
+_BSDF_TYPES = ("diffuse", "dielectric", "null", "bumpmap", "normalmap")
+_MEDIUM_TYPES = ("liver", "glissonCapsule", "glisson", "parenchyma",
+                 "homogeneous")
+_EMITTER_TYPES = ("point", "constant", "envmap")
+_TEXTURE_TYPES = ("bitmap", "checkerboard")
+_CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
     "path": "Queue 1 M8", "direct": "Queue 1 M8", "volpathmis": "Queue 1 M10",
-    "biovolpath06": "Queue 1 M10", "prb": "Queue 1 M7",
-    "prbvolpath": "Queue 1 M7", "prb_basic": "Queue 1 M7",
+    "prb": "Queue 1 M8", "prb_basic": "Queue 1 M8",
     "aov": "Queue 1 M10", "depth": "Queue 1 M10", "moment": "Queue 1 M10",
     "ptracer": "Queue 1 M10", "stokes": "Queue 1 M10",
     "volprim_rf_basic": "Queue 1 M10",
@@ -66,13 +74,12 @@ _OTHER_TYPES = {
     "ellipsoids": "Queue 1 M10", "ellipsoidsmesh": "Queue 1 M10",
     "merge": "Queue 1 M9", "instance": "Queue 1 M10",
     "shapegroup": "Queue 1 M10",
-    "bumpmap": "Queue 1 (bumpmap + envmap)",
-    "normalmap": "Queue 1 (bumpmap + envmap)",
-    "envmap": "Queue 1 (bumpmap + envmap)",
-    "heterogeneous": "Queue 1 M10", "glissonCapsule": "Queue 1 M10",
-    "glisson": "Queue 1 M10", "parenchyma": "Queue 1 M10",
-    "bitmap": "Queue 1 (bumpmap + envmap)", "checkerboard": "Queue 1 M5",
+    "heterogeneous": "Queue 1 M10", "mesh_attribute": "Queue 1 M10",
+    "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
     "vaescatter": "Queue 1 M10", "dipole": "Queue 1 M10",
+    # spectra other than rgb / uniform / d65 / rawconstant
+    "srgb": "Queue 1 M10", "blackbody": "Queue 1 M10",
+    "regular": "Queue 1 M10", "irregular": "Queue 1 M10",
 }
 for _t in ("thindielectric", "conductor", "roughconductor", "plastic",
            "roughplastic", "pplastic", "principled", "principledthin",
@@ -86,7 +93,9 @@ for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
 
 
 def _unsupported(t):
-    return not_ported(f"the {t!r} plugin", _OTHER_TYPES.get(t, "Queue 1"))
+    if t not in _OTHER_TYPES:
+        return ValueError(f"unknown plugin type {t!r}")
+    return not_ported(f"the {t!r} plugin", _OTHER_TYPES[t])
 
 
 def _spectrum_to_rgb(val, default=1.0) -> np.ndarray:
@@ -134,19 +143,87 @@ def _pack_glisson(p: np.ndarray, d: dict):
                 f"sigma_elastin{layer}_{ch}", 1.0)
 
 
-def _pack_liver_parenchyma(p: np.ndarray, d: dict):
-    """LIVER parenchyma block: blood 40:43, bile 43:46, hepatocity 46,
-    lipid_water 48:51 (slots 3:6 stay the medium albedo)."""
-    p[40:43] = _spectrum_to_rgb(d.get("sigma_blood", 1.0), 1.0)
-    p[43:46] = _spectrum_to_rgb(d.get("sigma_bile", 1.0), 1.0)
-    p[46] = float(_spectrum_to_rgb(d.get("sigma_hepatocity", 1.0), 1.0)[0])
-    p[48:51] = _spectrum_to_rgb(d.get("sigma_lipid_water", 1.0), 1.0)
+def _pack_parenchyma(p: np.ndarray, d: dict, base: int):
+    """Parenchyma absorber coefficients.  PARENCHYMA (base=12): blood
+    12:15, bile 15:18, lipid_water 18:21, hepatocity 21.  LIVER (base=40):
+    blood 40:43, bile 43:46, hepatocity 46, lipid_water 48:51 (slots 3:6
+    stay the medium albedo)."""
+    blood = _spectrum_to_rgb(d.get("sigma_blood", 1.0), 1.0)
+    bile = _spectrum_to_rgb(d.get("sigma_bile", 1.0), 1.0)
+    lipid = _spectrum_to_rgb(d.get("sigma_lipid_water", 1.0), 1.0)
+    hep = float(_spectrum_to_rgb(d.get("sigma_hepatocity", 1.0), 1.0)[0])
+    if base == 12:
+        p[12:15] = blood
+        p[15:18] = bile
+        p[18:21] = lipid
+        p[21] = hep
+    else:
+        p[40:43] = blood
+        p[43:46] = bile
+        p[46] = hep
+        p[48:51] = lipid
+
+
+def _uv_transform(data: np.ndarray, d: dict):
+    """A texture's `to_uv`: uv scale into data[6:8], offset into [8:10]."""
+    if "to_uv" in d:
+        m = from_any(d["to_uv"]).matrix
+        data[6], data[7] = m[0, 0], m[1, 1]
+        data[8], data[9] = m[0, 3], m[1, 3]
+
+
+def _env_importance(img: np.ndarray) -> dict:
+    """The envmap's importance map: luminance times sin(theta) per texel
+    (+1e-8, so no cell has zero density)."""
+    lum = img[..., :3].mean(-1)
+    h = lum.shape[0]
+    sin_t = np.sin((np.arange(h) + 0.5) / h * np.pi)
+    return build_distribution_2d_np(np.maximum(lum * sin_t[:, None], 0)
+                                    + 1e-8)
+
+
+def _pack_bitmaps(bitmaps):
+    """(stack, hw, quads, has_quads): the bitmaps padded to a common
+    (H, W), grey as rgb, their true (h, w), and the quads, [c00 c10 c01
+    c11] per texel with the repeat wrap baked in (four times the stack's
+    memory, so only up to 64 Mi floats; a 1x1x1 placeholder past it)."""
+    if bitmaps:
+        mh = max(b.shape[0] for b in bitmaps)
+        mw = max(b.shape[1] for b in bitmaps)
+        stack = np.zeros((len(bitmaps), mh, mw, 3), np.float32)
+        hw = np.zeros((len(bitmaps), 2), np.int32)
+        for i, b in enumerate(bitmaps):
+            if b.ndim == 2:
+                b = b[..., None]
+            if b.shape[-1] == 1:
+                b = np.repeat(b, 3, -1)
+            stack[i, :b.shape[0], :b.shape[1]] = b[..., :3]
+            hw[i] = (b.shape[0], b.shape[1])
+    else:
+        stack = np.zeros((1, 1, 1, 3), np.float32)
+        hw = np.ones((1, 2), np.int32)
+    has_quads = stack.size <= 64 << 20
+    quads = np.zeros(stack.shape[:3] + (12,) if has_quads else (1, 1, 1, 12),
+                     np.float32)
+    if has_quads:
+        for i in range(stack.shape[0]):
+            h_i, w_i = int(hw[i, 0]), int(hw[i, 1])
+            img = stack[i, :h_i, :w_i]
+            xp = (np.arange(w_i) + 1) % w_i
+            yp = (np.arange(h_i) + 1) % h_i
+            quads[i, :h_i, :w_i, 0:3] = img
+            quads[i, :h_i, :w_i, 3:6] = img[:, xp]
+            quads[i, :h_i, :w_i, 6:9] = img[yp]
+            quads[i, :h_i, :w_i, 9:12] = img[yp][:, xp]
+    return stack, hw, quads, has_quads
 
 
 class _Builder:
     def __init__(self):
         self.tex_type: List[int] = []
         self.tex_data: List[np.ndarray] = []
+        self.tex_bitmap: List[int] = []
+        self.bitmaps: List[np.ndarray] = []
         self.b_type: List[int] = []
         self.b_params: List[np.ndarray] = []
         self.b_tex0: List[int] = []
@@ -157,7 +234,9 @@ class _Builder:
         self.e_params: List[np.ndarray] = []
         self.e_shape: List[int] = []
         self.e_tex0: List[int] = []
+        self.e_to_world: List[np.ndarray] = []
         self.env_index = -1
+        self.env_bitmap = -1
         self.m_type: List[int] = []
         self.m_params: List[np.ndarray] = []
         self.vertices: List[np.ndarray] = []
@@ -173,6 +252,8 @@ class _Builder:
         self.s_emitter: List[int] = []
         self.s_int_med: List[int] = []
         self.s_ext_med: List[int] = []
+        self.s_bump_tex: List[int] = []
+        self.s_bump_scale: List[float] = []
         self.s_type: List[int] = []
         self.s_prim_off: List[int] = []
         self.s_prim_cnt: List[int] = []
@@ -192,15 +273,45 @@ class _Builder:
         self.camera_medium = -1
 
     # --- textures ---------------------------------------------------------
-    def build_texture(self, d, default=1.0) -> int:
-        if isinstance(d, dict) and d.get("type") not in (
-                "rgb", "uniform", "d65", "rawconstant"):
-            raise _unsupported(d.get("type"))
-        data = np.zeros(TEX_P, np.float32)
-        data[0:3] = _spectrum_to_rgb(d, default)
-        self.tex_type.append(TEX_CONST)
+    def _push_texture(self, ttype, data, bitmap=-1) -> int:
+        self.tex_type.append(ttype)
         self.tex_data.append(data)
+        self.tex_bitmap.append(bitmap)
         return len(self.tex_type) - 1
+
+    def add_bitmap(self, img) -> int:
+        self.bitmaps.append(np.asarray(img, np.float32))
+        return len(self.bitmaps) - 1
+
+    def build_texture(self, d, default=1.0) -> int:
+        """Texture slot of a dict / rgb / scalar -> texture index (-1 for
+        none)."""
+        if d is None:
+            return -1
+        if isinstance(d, dict) and d.get("type") == "ref":
+            kind, idx = self.named[d["id"]][:2]
+            if kind != "texture":
+                raise ValueError(f"{d['id']!r} is a {kind}, not a texture")
+            return idx
+        if not isinstance(d, dict) or d.get("type") in _CONST_TEXTURE_TYPES:
+            data = np.zeros(TEX_P, np.float32)
+            data[0:3] = _spectrum_to_rgb(d, default)
+            return self._push_texture(TEX_CONST, data)
+        t = d["type"]
+        data = np.zeros(TEX_P, np.float32)
+        data[6:8] = 1.0  # uv scale
+        if t == "checkerboard":
+            data[0:3] = _spectrum_to_rgb(d.get("color0", 0.4))
+            data[3:6] = _spectrum_to_rgb(d.get("color1", 0.2))
+            _uv_transform(data, d)
+            return self._push_texture(TEX_CHECKERBOARD, data)
+        if t == "bitmap":
+            if "data" not in d:
+                raise not_ported("bitmap files", "Queue 1 M9")
+            bid = self.add_bitmap(d["data"])
+            _uv_transform(data, d)
+            return self._push_texture(TEX_BITMAP, data, bid)
+        raise _unsupported(t)
 
     # --- bsdfs ------------------------------------------------------------
     def _push_bsdf(self, btype, params, tex0=-1, tex1=-1, flags=0,
@@ -213,23 +324,39 @@ class _Builder:
         self.b_twosided.append(twosided)
         return len(self.b_type) - 1
 
-    def build_bsdf(self, d) -> int:
+    def build_bsdf(self, d) -> tuple:
+        """(bsdf index, bump texture, bump scale): the bumpmap and normalmap
+        wrappers fold into the shape's slots (a normal map as a negative
+        scale), and survive a ref."""
         if d is None:
             # default: plain diffuse 0.5 (the reference's shape default)
             return self._push_bsdf(
                 BSDF_DIFFUSE, np.zeros(BSDF_P, np.float32),
-                tex0=self.build_texture([.5, .5, .5]), flags=F_DIFFUSE_REFL)
+                tex0=self.build_texture([.5, .5, .5]),
+                flags=F_DIFFUSE_REFL), -1, 0.0
         if d.get("type") == "ref":
-            kind, idx = self.named[d["id"]]
-            if kind != "bsdf":
-                raise ValueError(f"{d['id']!r} is a {kind}, not a bsdf")
-            return idx
+            ent = self.named[d["id"]]
+            if ent[0] != "bsdf":
+                raise ValueError(f"{d['id']!r} is a {ent[0]}, not a bsdf")
+            return ent[1], ent[2], ent[3]
         t = d["type"]
+        if t in ("bumpmap", "normalmap"):
+            bump_tex = self.build_texture(d.get("texture")
+                                          or d.get("normalmap"))
+            scale = float(d.get("scale", 1.0))
+            inner = [v for k, v in d.items()
+                     if isinstance(v, dict)
+                     and k not in ("texture", "normalmap")
+                     and "type" in v and v["type"] != "bitmap"]
+            idx, _, _ = self.build_bsdf(inner[0] if inner else None)
+            if t == "normalmap":
+                scale = -abs(scale)
+            return idx, bump_tex, scale
         p = np.zeros(BSDF_P, np.float32)
         if t == "diffuse":
             tex0 = self.build_texture(d.get("reflectance", 0.5), 0.5)
             return self._push_bsdf(BSDF_DIFFUSE, p, tex0=tex0,
-                                   flags=F_DIFFUSE_REFL)
+                                   flags=F_DIFFUSE_REFL), -1, 0.0
         if t == "dielectric":
             p[0] = _ior(d.get("int_ior"), 1.5046) \
                 / _ior(d.get("ext_ior"), 1.000277)
@@ -237,9 +364,11 @@ class _Builder:
             tex1 = self.build_texture(d.get("specular_transmittance", 1.0),
                                       1.0)
             return self._push_bsdf(BSDF_DIELECTRIC, p, tex0=tex0, tex1=tex1,
-                                   flags=F_DELTA_REFL | F_DELTA_TRANS)
+                                   flags=F_DELTA_REFL | F_DELTA_TRANS), \
+                -1, 0.0
         if t == "null":
-            return self._push_bsdf(BSDF_NULL, p, flags=F_NULL, twosided=True)
+            return self._push_bsdf(BSDF_NULL, p, flags=F_NULL,
+                                   twosided=True), -1, 0.0
         raise _unsupported(t)
 
     # --- media ------------------------------------------------------------
@@ -247,7 +376,7 @@ class _Builder:
         if d is None:
             return -1
         if d.get("type") == "ref":
-            kind, idx = self.named[d["id"]]
+            kind, idx = self.named[d["id"]][:2]
             if kind != "medium":
                 raise ValueError(f"{d['id']!r} is a {kind}, not a medium")
             return idx
@@ -273,20 +402,30 @@ class _Builder:
         p[9] = 1.0 if d.get("has_spectral_extinction", True) else 0.0
         if t == "homogeneous":
             mtype = MEDIUM_HOMOGENEOUS
+        elif t in ("glissonCapsule", "glisson"):
+            mtype = MEDIUM_GLISSON
+            _pack_glisson(p, d)
+        elif t == "parenchyma":
+            mtype = MEDIUM_PARENCHYMA
+            _pack_parenchyma(p, d, base=12)
         else:
             mtype = MEDIUM_LIVER
             _pack_glisson(p, d)
-            _pack_liver_parenchyma(p, d)
+            _pack_parenchyma(p, d, base=40)
         self.m_type.append(mtype)
         self.m_params.append(p)
         return len(self.m_type) - 1
 
     # --- emitters ---------------------------------------------------------
-    def _push_emitter(self, etype, params, shape=-1, tex0=-1) -> int:
+    def _push_emitter(self, etype, params, shape=-1, tex0=-1,
+                      to_world=None) -> int:
         self.e_type.append(etype)
         self.e_params.append(params)
         self.e_shape.append(shape)
         self.e_tex0.append(tex0)
+        self.e_to_world.append(
+            np.eye(4, dtype=np.float32) if to_world is None
+            else np.asarray(to_world, np.float32))
         return len(self.e_type) - 1
 
     def build_emitter(self, d, shape_idx=-1) -> int:
@@ -309,10 +448,24 @@ class _Builder:
             p[0:3] = pos
             p[3:6] = _spectrum_to_rgb(d.get("intensity", 1.0), 1.0)
             return self._push_emitter(EMITTER_POINT, p)
-        if t != "constant":
+        if t == "constant":
+            p[0:3] = _spectrum_to_rgb(d.get("radiance", 1.0), 1.0)
+            self.env_index = self._push_emitter(EMITTER_CONSTANT, p)
+            return self.env_index
+        if t != "envmap":
             raise _unsupported(t)
-        p[0:3] = _spectrum_to_rgb(d.get("radiance", 1.0), 1.0)
-        self.env_index = self._push_emitter(EMITTER_CONSTANT, p)
+        p[6] = float(d.get("scale", 1.0))
+        if "data" not in d:
+            raise not_ported("envmap files", "Queue 1 M9")
+        bid = self.add_bitmap(d["data"])
+        data = np.zeros(TEX_P, np.float32)
+        data[6:8] = 1.0
+        tex0 = self._push_texture(TEX_BITMAP, data, bid)
+        to_w = d.get("to_world")
+        m = from_any(to_w).matrix if to_w is not None else np.eye(4)
+        self.env_index = self._push_emitter(EMITTER_ENVMAP, p, tex0=tex0,
+                                            to_world=m)
+        self.env_bitmap = bid
         return self.env_index
 
     # --- shapes -------------------------------------------------------------
@@ -338,7 +491,7 @@ class _Builder:
                 bsdf_d = v
             elif vt in _OTHER_TYPES or k in ("subsurface", "sensor"):
                 raise _unsupported(vt)
-        bsdf_idx = self.build_bsdf(bsdf_d)
+        bsdf_idx, bump_tex, bump_scale = self.build_bsdf(bsdf_d)
         shape_idx = len(self.s_bsdf)
 
         if t == "sphere":
@@ -385,6 +538,8 @@ class _Builder:
         self.s_emitter.append(emitter_idx)
         self.s_int_med.append(int_med)
         self.s_ext_med.append(ext_med)
+        self.s_bump_tex.append(bump_tex)
+        self.s_bump_scale.append(bump_scale)
         self.s_type.append(stype)
         self.s_prim_off.append(prim_off)
         self.s_prim_cnt.append(prim_cnt)
@@ -469,6 +624,12 @@ class _Builder:
             tri_si[:, 22:24] = UV[F[:, 2]]
             tri_si[:, 24] = TS
 
+        if self.env_bitmap >= 0:
+            env = _env_importance(self.bitmaps[self.env_bitmap])
+        else:
+            env = build_distribution_2d_np(np.ones((1, 1), np.float32))
+        stack, hw, quads, has_quads = _pack_bitmaps(self.bitmaps)
+
         n_s = len(self.s_bsdf)
         i32 = np.int32
         arrays = {
@@ -481,6 +642,9 @@ class _Builder:
             "shape_emitter": np.asarray(self.s_emitter or [-1], i32),
             "shape_int_medium": np.asarray(self.s_int_med or [-1], i32),
             "shape_ext_medium": np.asarray(self.s_ext_med or [-1], i32),
+            "shape_bump_tex": np.asarray(self.s_bump_tex or [-1], i32),
+            "shape_bump_scale": np.asarray(self.s_bump_scale or [0.0],
+                                           np.float32),
             "shape_type": np.asarray(self.s_type or [0], i32),
             "shape_prim_offset": np.asarray(self.s_prim_off or [0], i32),
             "shape_prim_count": np.asarray(self.s_prim_cnt or [0], i32),
@@ -491,6 +655,9 @@ class _Builder:
             "textures.ttype": np.asarray(self.tex_type or [0], i32),
             "textures.data": (np.stack(self.tex_data) if self.tex_data
                               else np.zeros((1, TEX_P))).astype(np.float32),
+            "textures.bitmap_id": np.asarray(self.tex_bitmap or [-1], i32),
+            "textures.bitmaps": stack, "textures.bitmap_hw": hw,
+            "textures.quads": quads,
             "bsdfs.btype": np.asarray(self.b_type or [0], i32),
             "bsdfs.params": (np.stack(self.b_params) if self.b_params
                              else np.zeros((1, BSDF_P))).astype(np.float32),
@@ -504,9 +671,12 @@ class _Builder:
                                 ).astype(np.float32),
             "emitters.shape": np.asarray(self.e_shape or [-1], i32),
             "emitters.tex0": np.asarray(self.e_tex0 or [-1], i32),
+            "emitters.to_world": (np.stack(self.e_to_world) if self.e_to_world
+                                  else np.eye(4)[None]).astype(np.float32),
             "emitters.distr.cdf": e_cdf,
             "emitters.distr.pmf": np.ones_like(e_cdf),
             "emitters.distr.total": e_cdf[-1],
+            **{f"emitters.env_distr.{k}": v for k, v in env.items()},
             "media.mtype": np.asarray(self.m_type or [0], i32),
             "media.params": (np.stack(self.m_params) if self.m_params
                              else np.zeros((1, MEDIUM_P))).astype(np.float32),
@@ -524,6 +694,7 @@ class _Builder:
         statics = {
             "textures.types_present": tuple(sorted(set(self.tex_type)))
             or (TEX_CONST,),
+            "textures.has_quads": has_quads,
             "bsdfs.types_present": tuple(sorted(set(self.b_type))) or (0,),
             "bsdfs.tex0_types": tuple(sorted({self.tex_type[t] for t in
                                               self.b_tex0 if t >= 0})
@@ -548,6 +719,11 @@ class _Builder:
             "integrator": self.integrator, "max_depth": self.max_depth,
             "rr_depth": self.rr_depth, "hide_emitters": self.hide_emitters,
             "camera_medium": self.camera_medium,
+            "has_bump": any(t >= 0 for t in self.s_bump_tex),
+            "has_heightmap": any(t >= 0 and sc > 0 for t, sc in
+                                 zip(self.s_bump_tex, self.s_bump_scale)),
+            "has_normalmap": any(t >= 0 and sc < 0 for t, sc in
+                                 zip(self.s_bump_tex, self.s_bump_scale)),
             "needs_surface_nee": bool(self.e_type) and any(
                 (self.b_flags[i] & F_SMOOTH) != 0 for i in set(self.s_bsdf)),
             "needs_medium_nee": bool(self.e_type)
@@ -571,11 +747,13 @@ def build_numpy(d: Dict[str, Any]):
         t = val.get("type")
         vid = val.get("id", key)
         if t in _BSDF_TYPES:
-            idx = b.build_bsdf(val)
-            b.named[vid] = b.named[key] = ("bsdf", idx)
+            b.named[vid] = b.named[key] = ("bsdf",) + b.build_bsdf(val)
         elif t in _MEDIUM_TYPES:
             idx = b.build_medium(val)
             b.named[vid] = b.named[key] = ("medium", idx)
+        elif t in _TEXTURE_TYPES:
+            idx = b.build_texture(val)
+            b.named[vid] = b.named[key] = ("texture", idx)
         elif t in _OTHER_TYPES:
             raise _unsupported(t)
     # pass 2: integrator + sensor

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from ..core.distr import DiscreteDistribution
+from ..core.distr import DiscreteDistribution, Distribution2D
 
 Tensor = torch.Tensor
 
@@ -115,7 +115,8 @@ class _Table:
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (Tensor, _Table, DiscreteDistribution)):
+            if isinstance(v, (Tensor, _Table, DiscreteDistribution,
+                              Distribution2D)):
                 kw[f.name] = v.to(device)
         return dataclasses.replace(self, **kw)
 
@@ -125,8 +126,18 @@ class _Table:
 
 @dataclass
 class Textures(_Table):
+    """data rows: TEX_CONST rgb [0:3]; TEX_CHECKERBOARD color0 [0:3],
+    color1 [3:6], uv scale [6:8], uv offset [8:10]; TEX_BITMAP uv scale
+    [6:8], uv offset [8:10] and its bitmap in `bitmap_id`."""
     ttype: Tensor      # (Tx,) texture type code
-    data: Tensor       # (Tx, TEX_P) TEX_CONST rgb in [0:3]
+    data: Tensor       # (Tx, TEX_P)
+    bitmap_id: Tensor  # (Tx,) bitmap index, -1 if none
+    bitmaps: Tensor    # (K, H, W, 3) linear RGB, padded to a common size
+    bitmap_hw: Tensor  # (K, 2) true (h, w) of each bitmap
+    # (K, H, W, 12) [c00 c10 c01 c11] per texel, repeat wrap baked in: one
+    # bilinear tap is one gather (filled when has_quads)
+    quads: Tensor
+    has_quads: bool = False
     types_present: Tuple[int, ...] = (TEX_CONST,)
 
 
@@ -146,12 +157,16 @@ class BSDFs(_Table):
 @dataclass
 class Emitters(_Table):
     """params rows: AREA p0:3 radiance (times the tex0 texture), POINT p0:3
-    position and p3:6 intensity, CONSTANT p0:3 radiance."""
+    position and p3:6 intensity, CONSTANT p0:3 radiance, ENVMAP p6 scale
+    (its lat-long bitmap through tex0, its orientation in to_world)."""
     etype: Tensor      # (E,)
     params: Tensor     # (E, EMITTER_P)
     shape: Tensor      # (E,) owning shape of an area emitter, -1 else
     tex0: Tensor       # (E,) radiance texture (-1 => white)
+    to_world: Tensor   # (E, 4, 4) envmap orientation (identity for others)
     distr: DiscreteDistribution   # emitter selection (uniform)
+    # the envmap's importance map (a 1x1 placeholder without one)
+    env_distr: Distribution2D
     env_index: int = -1
     types_present: Tuple[int, ...] = ()
     count: int = 0
@@ -203,6 +218,8 @@ class Scene(_Table):
     shape_emitter: Tensor     # (S,) attached area emitter, -1 none
     shape_int_medium: Tensor
     shape_ext_medium: Tensor
+    shape_bump_tex: Tensor    # (S,) bump / normal-map texture, -1 none
+    shape_bump_scale: Tensor  # (S,) > 0 height map, < 0 normal map
     shape_type: Tensor        # (S,) SHAPE_MESH / SHAPE_SPHERE
     shape_prim_offset: Tensor  # (S,) first triangle or sphere index
     shape_prim_count: Tensor  # (S,)
@@ -242,6 +259,9 @@ class Scene(_Table):
     camera_medium: int = -1
     intersector: str = "auto"
     has_bump: bool = False
+    # which perturbation families exist (the bump scale's sign tells them)
+    has_heightmap: bool = False
+    has_normalmap: bool = False
     has_tangents: bool = False
     has_vertex_attr: bool = False
     ray_sort: bool = False
@@ -257,4 +277,4 @@ class Scene(_Table):
 # sub-table classes by the annotation their Scene field carries
 TABLES = {cls.__name__: cls for cls in
           (Textures, BSDFs, Emitters, Media, BVH, Sensor,
-           DiscreteDistribution)}
+           DiscreteDistribution, Distribution2D)}

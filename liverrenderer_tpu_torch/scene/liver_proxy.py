@@ -1,10 +1,14 @@
-"""A procedural liver-sized scene for the primal biovolpath slice.
+"""A procedural liver-sized scene for the biovolpath slices.
 
 It stands in for the Liver-SingleMesh scene, whose mesh, bitmap and envmap
 files are not in the repository: an elongated, smoothly dented ellipsoid of
 liver-mesh size (5,120 triangles at subdiv=4; the liver meshes hold 2.4k to
 4.8k), a dielectric boundary (IOR 1.38) around the layered liver medium,
 under a constant white environment, rendered by biovolpath at depth 12.
+Two options put bench.py's workload path through it: `bump` wraps the
+dielectric in a bumpmap whose height map is a seeded field on the mesh's
+uvs, and `sky` replaces the constant environment with a lat-long envmap of
+a synthetic sky.  Both images are inline numpy data, so no file is read.
 
 Plain numpy: the dict loads into both liverrenderer_tpu.load_dict and
 liverrenderer_tpu_torch.load_dict, with `to_world` as a 4x4 array.
@@ -18,6 +22,12 @@ from .transform import Transform
 
 # semi-axes of the ellipsoid before the radial displacement
 _AXES = np.array([1.5, 0.9, 0.75])
+
+# full-size options (bench.py's workload): a 1,024 x 1,024 height map at
+# scale 0.05, whose perturbed normals tilt by 11 degrees at the median and
+# 27 at most (21 at the 90th percentile), and a 1,024 x 512 sky
+BUMP = (1024, 0.05)
+SKY = (1024, 512)
 
 
 def liver_medium() -> dict:
@@ -55,12 +65,64 @@ def liver_mesh(subdiv: int, seed: int):
     return v, sph.faces, normals, sph.uvs
 
 
+def height_map(res: int, seed: int) -> np.ndarray:
+    """(res, res) float32 height field in [0, 1] over uv (rows v, columns
+    u, sampled at texel centres): six seeded plane waves of integer
+    frequencies 1-4 in u and 1-3 in v, so it wraps without a seam."""
+    rng = np.random.default_rng(seed + 1)
+    a = rng.integers(1, 5, 6)
+    b = rng.integers(1, 4, 6)
+    phase = rng.uniform(0.0, 2.0 * np.pi, 6)
+    amp = rng.uniform(0.5, 1.0, 6)
+    c = (np.arange(res) + 0.5) / res
+    u, v = np.meshgrid(c, c)
+    f = (amp * np.sin(2.0 * np.pi * (u[..., None] * a + v[..., None] * b)
+                      + phase)).sum(-1)
+    return ((f - f.min()) / (f.max() - f.min())).astype(np.float32)
+
+
+def sky_map(w: int, h: int) -> np.ndarray:
+    """(h, w, 3) float32 lat-long sky in the envmap's convention (rows
+    theta from +y down, columns phi = atan2(x, -z)): a horizon-to-zenith
+    gradient above a dim ground, and one sun lobe (peak ~20, ~5 degrees
+    wide) at 35 degrees elevation.  Every value is > 0."""
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2.0 * np.pi
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    d = np.stack(np.broadcast_arrays(st * np.sin(phi)[None], ct,
+                                     -st * np.cos(phi)[None]), -1)
+    up = np.clip(ct, 0.0, 1.0)[..., None]
+    horizon = np.array([1.0, 0.95, 0.85])
+    sky = horizon + (np.array([0.35, 0.55, 1.0]) - horizon) * np.sqrt(up)
+    down = np.clip(-ct * 4.0, 0.0, 1.0)[..., None]
+    sky = sky + (np.array([0.35, 0.3, 0.25]) - sky) * down
+    el, az = np.deg2rad(35.0), 0.8
+    sun = np.array([np.cos(el) * np.sin(az), np.sin(el),
+                    -np.cos(el) * np.cos(az)])
+    lobe = 20.0 * np.exp((d @ sun - 1.0) / 0.004)
+    return (sky + lobe[..., None] * np.array([1.0, 0.9, 0.75])) \
+        .astype(np.float32)
+
+
 def liver_proxy_dict(width: int, height: int, spp: int, subdiv: int = 4,
-                     seed: int = 0) -> dict:
-    """The slice's scene dict at the given film size and sample count."""
+                     seed: int = 0, bump=None, sky=None) -> dict:
+    """The slices' scene dict at the given film size and sample count.
+    bump=(res, scale): a res x res height map on the liver's dielectric;
+    sky=(w, h): a w x h lat-long sky instead of the constant environment
+    (BUMP and SKY are the full-size values)."""
     v, f, n, uv = liver_mesh(subdiv, seed)
     cam = Transform().look_at([0.0, 0.8, 5.0], [0.0, 0.0, 0.0],
                               [0.0, 1.0, 0.0])
+    bsdf = {"type": "dielectric", "int_ior": 1.38, "ext_ior": 1.0}
+    if bump is not None:
+        bsdf = {"type": "bumpmap", "scale": float(bump[1]),
+                "texture": {"type": "bitmap",
+                            "data": height_map(int(bump[0]), seed)},
+                "bsdf": bsdf}
+    env = {"type": "constant",
+           "radiance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}}
+    if sky is not None:
+        env = {"type": "envmap", "data": sky_map(int(sky[0]), int(sky[1]))}
     return {
         "type": "scene",
         "integrator": {"type": "biovolpath", "max_depth": 12},
@@ -74,9 +136,7 @@ def liver_proxy_dict(width: int, height: int, spp: int, subdiv: int = 4,
         "liver_med": liver_medium(),
         "liver": {"type": "mesh", "vertices": v, "faces": f, "normals": n,
                   "uvs": uv,
-                  "bsdf": {"type": "dielectric", "int_ior": 1.38,
-                           "ext_ior": 1.0},
+                  "bsdf": bsdf,
                   "interior": {"type": "ref", "id": "liver_med"}},
-        "env": {"type": "constant",
-                "radiance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+        "env": env,
     }

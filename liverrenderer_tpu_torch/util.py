@@ -9,9 +9,11 @@ render.  `SceneParameters` gives the reference's dict-of-parameters UX
 (keys, getitem, update) on top of it.
 
 Keys the port carries: media.params, bsdfs.params, emitters.params (the
-constant environment's radiance, an area light's radiance, a point light's
-position and intensity).  The JAX package's other keys raise `not_ported`
-naming their ROADMAP item.
+constant environment's radiance, the envmap's scale, an area light's
+radiance, a point light's position and intensity) and textures.bitmaps
+(the bitmap stack; its bilinear taps read it only when the scene packs no
+quads, so with quads its gradient is zero, as in the JAX package).  The
+JAX package's other keys raise `not_ported` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,13 +33,14 @@ _LEAVES: Dict[str, tuple] = {
                             emitters=s.emitters.replace(params=v))),
     "media.params": (lambda s: s.media.params,
                      lambda s, v: s.replace(media=s.media.replace(params=v))),
+    "textures.bitmaps": (lambda s: s.textures.bitmaps,
+                         lambda s, v: s.replace(
+                             textures=s.textures.replace(bitmaps=v))),
 }
 
 # the JAX package's keys whose modules the port does not carry yet
 _NOT_PORTED = {
     "textures.data": ("gradients of textures", "Queue 1 M8"),
-    "textures.bitmaps": ("gradients of bitmap textures",
-                         "Queue 1 (bumpmap + envmap)"),
     "vertices": ("vertex gradients (projective boundary terms)",
                  "Queue 1 M10"),
     "media.grids": ("gradients of heterogeneous media grids", "Queue 1 M10"),

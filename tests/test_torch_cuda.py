@@ -232,3 +232,39 @@ def test_fog_cornell_render_on_the_card_matches_cpu():
     close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
     assert close.all(-1).mean() >= 0.99
     assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+def _card_vs_cpu(d, spp):
+    ref = lrt.render(lrt.load_dict(d, device="cpu"), spp=spp).numpy()
+    img = lrt.render(lrt.load_dict(d), spp=spp).cpu().numpy()
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+def test_bump_env_render_on_the_card_matches_cpu():
+    """The bumped, sky-lit liver proxy (bench.py's workload path at test
+    size: a height map on the dielectric, a lat-long envmap) on the card
+    against the CPU render (plain version), through the sweep kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = liver_proxy_dict(16, 12, 4, 2, 0, bump=(32, 0.05), sky=(64, 32))
+    before = tci.LAUNCHES
+    _card_vs_cpu(d, 4)
+    assert tci.LAUNCHES > before
+
+
+@pytest.mark.cuda
+def test_env_nee_plane_on_the_card_matches_cpu():
+    """A diffuse plane lit by the envmap alone: NEE samples the envmap's
+    2-D importance map and the shadow queries launch the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.cornell import plane_light_dict
+    from liverrenderer_tpu_torch.scene.liver_proxy import sky_map
+    d = plane_light_dict(12, light={"type": "envmap",
+                                    "data": sky_map(64, 32)})
+    before = tci.SHADOW_LAUNCHES
+    _card_vs_cpu(d, 8)
+    assert tci.SHADOW_LAUNCHES > before

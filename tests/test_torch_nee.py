@@ -354,12 +354,14 @@ def test_nee_scene_buffers_equal_bit_for_bit(monkeypatch, kind):
 
 
 def test_unported_gradient_keys_name_their_item():
-    """Texture gradients raise naming the ROADMAP item that brings them:
-    constant-texture data with the path family (M8), bitmaps with the
-    bump map and envmap."""
+    """Constant-texture data raises naming the ROADMAP item that brings it
+    (the path family, M8).  The bitmap stack is a key: on a scene whose
+    taps read quads its gradient is zero, as in the JAX package."""
     ts = lrt.load_dict(tcornell.plane_light_dict(4), device="cpu")
-    for key, item in (("textures.data", "M8"),
-                      ("textures.bitmaps", "bumpmap")):
-        with pytest.raises(NotImplementedError, match=item):
-            lrt.render_grad(ts, {key: ts.textures.data},
-                            lambda im: im.mean(), spp=1)
+    with pytest.raises(NotImplementedError, match="M8"):
+        lrt.render_grad(ts, {"textures.data": ts.textures.data},
+                        lambda im: im.mean(), spp=1)
+    _, g, _ = lrt.render_grad(ts, {"textures.bitmaps": ts.textures.bitmaps},
+                              lambda im: im.mean(), spp=1)
+    assert g["textures.bitmaps"].shape == ts.textures.bitmaps.shape
+    assert not g["textures.bitmaps"].any()
