@@ -45,7 +45,7 @@ result line):
                    primal timed in the same call, the sweep and merge
                    launches of the stored forward and of the replay walk,
                    peak device memory
-  render_grad_trace  torch.profiler over an 8 spp render_grad: device busy
+  render_grad_trace  torch.profiler over a 4 spp render_grad: device busy
                    and idle share, kernel launches per regen iteration,
                    the top device ops
   fog_small        the fog Cornell box (next-event estimation, the
@@ -54,7 +54,7 @@ result line):
   nee_walk_small   the fog-cube plane scene (the ratio-tracked shadow walk
                    and medium NEE) on the card against the CPU: the image
                    and the media.params gradient
-  fog_render       the fog Cornell box at 1080x1080, 4 spp, depth 16
+  fog_render       the fog Cornell box at 1080x1080, 2 spp, depth 16
                    (BASELINE's cornell_box_1080x1080_fog_st_albedo):
                    seconds, paths/s, image checks, sweep and merge launches
                    split into bounce and shadow queries; torch.profiler
@@ -68,7 +68,7 @@ result line):
                    the liver proxy, whose split chunk range runs the merge
   fog_render_grad  render_grad of the fog Cornell box's mean image at
                    1080x1080, 1 spp, d/d media.params (the tiled replay
-                   schedule): median seconds of 3 after a warm-up, fwd+bwd
+                   schedule): seconds of one run after a warm-up, fwd+bwd
                    paths/s and its cost per path against a 1 spp primal in
                    the same call, launches, peak device memory
   bump_env_small   the bumped, sky-lit liver proxy (a height map on the
@@ -88,11 +88,42 @@ result line):
                    media.params: median seconds of 3 after a warm-up
                    against a 16 spp primal in the same call, launches of
                    the stored forward and the replay walk, peak memory
-  total            the script's seconds so far
+  cornell_small    BASELINE's Cornell box (path, depth 8) at 32x32, 4 spp
+                   on the card against the CPU: its gaussian filter on the
+                   fixed wavefront, a box filter on the regenerating one
+  bsdf_small       the gradient tests' plane (path, depth 3) at 12x12, 8 spp
+                   under each stock BSDF and wrapper (thindielectric,
+                   conductor, roughconductor, plastic, roughplastic,
+                   pplastic, roughdielectric, twosided, blendbsdf, mask),
+                   card against CPU; the textures.data gradient of the
+                   diffuse plane (box filter: the replay adjoint; gaussian:
+                   the scan adjoint) and the bsdfs.params gradient of the
+                   rough conductor
+  wide_kernel      the sweep kernel on the Cornell box's full camera
+                   wavefront and its first shadow query (4,194,304 rays
+                   each, one launch) against the plain version run in
+                   blocks of 262,144 rays: agreement, ms, bound, share
+  cornell_render   the Cornell box at 256x256, 64 spp, depth 8, gaussian:
+                   one fixed pass of 4,194,304 lanes (median of 3 after a
+                   warm-up), in turns with bench.py's box-filter variant
+                   on the regenerating wavefront: seconds, paths/s, image
+                   checks, bounce and shadow sweeps, peak memory, and
+                   torch.profiler's launches per iteration and device idle
+                   share of each
+  cornell_render_grad  render_grad of its mean image with respect to
+                   textures.data at 16 spp: the box variant through the
+                   replay adjoint, the gaussian scene through the scan
+                   adjoint (its primal's fixed pass, then the
+                   differentiated one), each against a 16 spp primal in
+                   the same call, launches, peak memory, and the two
+                   routes' gradients held to each other
+  total            the script's seconds so far (every line's at_s: the
+                   script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
                    replaces, its launches (render + render_grad + fog
                    render + fog render_grad + bumped render + bumped
-                   render_grad), agreement, times and bound
+                   render_grad + the Cornell renders and gradients),
+                   agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -106,13 +137,13 @@ import time
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
 KERNEL_SPP = 8                 # render_kernel phase
 GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
-TRACE_SPP = 8                  # render_grad_trace phase
+TRACE_SPP = 4                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
-# the fog Cornell box: BASELINE's 1080x1080 film and depth 16, 4 spp for
-# the primal and 1 for the gradient (its host-bound walk runs at ~0.2
-# Mpaths/s, ~6.6 bounces per path, and the whole run should take at most
-# half of its 1,200 s limit)
-FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 1080, 4, 1, 16
+# the fog Cornell box: BASELINE's 1080x1080 film and depth 16, 2 spp for
+# the primal and 1 for the gradient, timed once after a warm-up (its
+# host-bound walk runs at ~0.2 Mpaths/s, ~6.6 bounces per path, and the
+# whole run should take at most half of its 1,200 s limit)
+FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 1080, 2, 1, 16
 FOG_TRACE_SPP = 1              # fog_render's profile, shadow_kernel
 FOG_TRACE_RES = 256            # fog_render's profile: one full wavefront
 FOG_SMALL = (32, 4, 6)         # fog_small: film, spp, depth
@@ -120,7 +151,34 @@ WALK_SMALL = (12, 16)          # nee_walk_small: film, spp
 # bump_env_small: the proxy at subdiv 2 with a 32^2 height map at the
 # full-size scale and a 64 x 32 sky; env_nee_small: film, spp
 BUMP_SMALL, SKY_SMALL, ENV_NEE_SMALL = (32, 0.05), (64, 32), (12, 8)
-BUMP_TRACE_SPP = 8             # bump_env_render's profiles
+BUMP_TRACE_SPP = 4             # bump_env_render's profiles
+# BASELINE's Cornell box: 256x256, 64 spp, path depth 8, its gaussian
+# filter (one fixed pass of 4,194,304 lanes), against bench.py's box-filter
+# variant on the regen wavefront; the gradients at 16 spp
+CORNELL_RES, CORNELL_SPP, CORNELL_DEPTH = 256, 64, 8
+CORNELL_GRAD_SPP = 16
+CORNELL_TRACE_SPP = 8          # the regen variant's profile
+CORNELL_SMALL = (32, 4)        # cornell_small: film, spp
+BSDF_SMALL = (12, 8)           # bsdf_small: film, spp
+# wide_kernel: the plain version runs in blocks of this many rays
+WIDE_BLOCK = 1 << 18
+# bsdf_small: one plane per stock BSDF (and wrapper) the port carries
+BSDF_PLANES = {
+    "thindielectric": {"type": "thindielectric"},
+    "conductor": {"type": "conductor", "material": "Au"},
+    "roughconductor": {"type": "roughconductor", "alpha": 0.3,
+                       "material": "Al"},
+    "plastic": {"type": "plastic"},
+    "roughplastic": {"type": "roughplastic", "alpha": 0.2},
+    "pplastic": {"type": "pplastic", "alpha": 0.3},
+    "roughdielectric": {"type": "roughdielectric", "alpha": 0.3},
+    "twosided": {"type": "twosided", "bsdf": {"type": "diffuse"}},
+    "blendbsdf": {"type": "blendbsdf", "weight": 0.4,
+                  "a": {"type": "diffuse"},
+                  "b": {"type": "roughconductor", "alpha": 0.2,
+                        "material": "Cu"}},
+    "mask": {"type": "mask", "opacity": 0.7, "bsdf": {"type": "plastic"}},
+}
 
 # tolerances: the kernel computes t with the plain version's fp32
 # operations in the same order (bit-identical), but contracts p, u and v to
@@ -148,6 +206,9 @@ PEAK_BYTES = 3.35e12
 # 2 adds each) and t_num = dn - n.o
 FLOP_PER_TEST = 38
 PREFILTER_FLOP = 11
+# ray rows the sweep reads of the (8, N) ray table: ox oy oz dx dy dz maxt
+# (csrc/intersect.cu; row 7 is unused)
+RAY_ROWS = 7
 # a hit closer than this is counted as short (a self-hit would be one:
 # spawned rays start ~1e-4 off the surface, core/types.py RAY_EPS)
 SHORT_T = 1e-3
@@ -156,8 +217,13 @@ GRAD_SPAN = "chip_smoke.render_grad"
 REPLAY_SPAN = "chip_smoke.replay_walk"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase; at_s: the script's seconds at its end."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond: bool, what: str):
@@ -244,31 +310,38 @@ def needed_work(torch, rays, tris, boxes, n_tris, t_hit):
     return needed, cand
 
 
+def query_bytes(n, tris, boxes, splits=1):
+    """Bytes a query of n rays must move: the RAY_ROWS ray rows the sweep
+    reads, triangle rows and boxes read once, t and prim written once per
+    split (once for the query, whose merge leaves one)."""
+    return 4 * (RAY_ROWS * n + tris.numel() + boxes.numel()) \
+        + 8 * splits * n
+
+
+def roofline(need, cand, nbytes):
+    """The bound of a query's work: every needed pair pays the prefilter,
+    each candidate the rest of the test, over the fp32 peak; nbytes over
+    the memory rate; the larger of the two, and which one it is."""
+    ops = PREFILTER_FLOP * need + (FLOP_PER_TEST - PREFILTER_FLOP) * cand
+    b_ops, b_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(flop=ops, bound_needed_ms=b_ops, bytes=nbytes,
+                bound_bytes_ms=b_bytes, bound_ms=max(b_ops, b_bytes),
+                bound_by="operations" if b_ops >= b_bytes else "bytes")
+
+
 def bounds(torch, rays, tris, boxes, n_tris, t_hit, splits):
     """Dense and data-dependent bounds of one query (sweep + merge) and of
-    its sweep alone.  Operations: every needed pair pays the prefilter,
-    each candidate the rest of the test; bytes: ray rows, triangle rows and
-    boxes read once, t and prim written once (the sweep alone writes them
-    once per split)."""
+    its sweep alone (which writes t and prim once per split)."""
     n = rays.shape[1]
     dense = n * n_tris
     need, cand = needed_work(torch, rays, tris, boxes, n_tris, t_hit)
-    ops = PREFILTER_FLOP * need + (FLOP_PER_TEST - PREFILTER_FLOP) * cand
-    b_dense = dense * FLOP_PER_TEST / PEAK_FP32 * 1e3
-    b_need = ops / PEAK_FP32 * 1e3
-    inputs = 4 * (rays.numel() + tris.numel() + boxes.numel())
-    nbytes, sweep_bytes = inputs + 8 * n, inputs + 8 * splits * n
-    b_bytes = nbytes / PEAK_BYTES * 1e3
-    b_sweep_bytes = sweep_bytes / PEAK_BYTES * 1e3
-    return dict(dense_tests=dense, bound_dense_ms=b_dense,
-                needed_tests=need, candidate_tests=cand, flop=ops,
-                bound_needed_ms=b_need, bytes=nbytes, bound_bytes_ms=b_bytes,
-                bound_ms=max(b_need, b_bytes),
-                bound_by="operations" if b_need >= b_bytes else "bytes",
-                sweep_bytes=sweep_bytes,
-                sweep_bound_ms=max(b_need, b_sweep_bytes),
-                sweep_bound_by="operations" if b_need >= b_sweep_bytes
-                else "bytes")
+    sweep = roofline(need, cand, query_bytes(n, tris, boxes, splits))
+    return dict(dense_tests=dense,
+                bound_dense_ms=dense * FLOP_PER_TEST / PEAK_FP32 * 1e3,
+                needed_tests=need, candidate_tests=cand,
+                **roofline(need, cand, query_bytes(n, tris, boxes)),
+                sweep_bytes=sweep["bytes"], sweep_bound_ms=sweep["bound_ms"],
+                sweep_bound_by=sweep["bound_by"])
 
 
 def sweep_alone(torch, ci, rays, tris, boxes):
@@ -445,13 +518,14 @@ def timed_render(torch, lrt, scene, spp):
     return time.perf_counter() - t0, img
 
 
-def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1):
-    """One render_grad of mean(image) with respect to media.params, with
-    the kernel counts set to 0 just before it and split at the replay
-    walks' entries and exits (module attribute wrapped for the call) ->
-    (seconds, gradient, image, launches of the stored forwards and of the
-    walks).  walks: the replay walks the schedule must run (1: the single
-    walk; the tiled schedule walks each partition)."""
+def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1,
+             key="media.params"):
+    """One render_grad of mean(image) with respect to `key`, with the
+    kernel counts set to 0 just before it and split at the replay walks'
+    entries and exits (module attribute wrapped for the call) -> (seconds,
+    gradient, image, launches of the stored forwards and of the walks).
+    walks: the replay walks the schedule must run (1: the single walk; the
+    tiled schedule walks each partition; 0: the scan adjoint)."""
     spans = []
     orig = treplay._replay_walk
 
@@ -469,7 +543,7 @@ def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1):
         t0 = time.perf_counter()
         with torch.profiler.record_function(GRAD_SPAN):
             _, grads, img = lrt.render_grad(
-                scene, {"media.params": scene.media.params},
+                scene, {key: lrt.traverse(scene, [key])[key]},
                 lambda im: im.mean(), spp=spp, seed=SEED)
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -487,7 +561,7 @@ def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1):
                    fwd_shadow_merge_launches=fwd[3],
                    replay_shadow_launches=replay[2],
                    replay_shadow_merge_launches=replay[3])
-    return secs, grads["media.params"], img, out
+    return secs, grads[key], img, out
 
 
 def _busy_us(spans):
@@ -574,10 +648,8 @@ def shadow_vs_plain(torch, ci, calls, n_tris):
         agree["candidates"] += b["candidate_tests"]
         agree["bytes"] += b["bytes"]
     n = len(calls)
-    ops = PREFILTER_FLOP * agree["needed"] \
-        + (FLOP_PER_TEST - PREFILTER_FLOP) * agree["candidates"]
-    b_ops = ops / PEAK_FP32 * 1e3 / n
-    b_bytes = agree["bytes"] / PEAK_BYTES * 1e3 / n
+    bound = roofline(agree["needed"] / n, agree["candidates"] / n,
+                     agree["bytes"] / n)
 
     def replay(fn):
         def run():
@@ -592,9 +664,9 @@ def shadow_vs_plain(torch, ci, calls, n_tris):
         max_rel_dt=agree["max_rel_dt"],
         needed_tests_per_launch=agree["needed"] / n,
         candidate_tests_per_launch=agree["candidates"] / n,
-        bound_ops_ms=b_ops, bound_bytes_ms=b_bytes,
-        bound_ms=max(b_ops, b_bytes),
-        bound_by="operations" if b_ops >= b_bytes else "bytes",
+        bound_ops_ms=bound["bound_needed_ms"],
+        bound_bytes_ms=bound["bound_bytes_ms"], bound_ms=bound["bound_ms"],
+        bound_by=bound["bound_by"],
         replay_ms_per_launch=replay(ci.intersect_closest),
         plain_ms_per_launch=replay(ci.intersect_closest_reference))
 
@@ -761,35 +833,29 @@ def nee_phases(torch, np, lrt, ci, treplay, smi, scene, gen):
     check(splits_l > 1, "liver shadow rays: the chunk range was not split")
 
     # ---- 6d. the fog Cornell box at full size: gradient (tiled schedule)
+    # one timed run after a warm-up (the script's longest phase)
     n_fog_walks = -(-FOG_RES * FOG_RES // treplay.regen_mod.TILE_PIX)
-    grad_run(torch, lrt, ci, treplay, fog, FOG_GRAD_SPP,
-             walks=n_fog_walks)                                 # warm-up
-    torch.cuda.reset_peak_memory_stats()
     fruns = [grad_run(torch, lrt, ci, treplay, fog, FOG_GRAD_SPP,
-                      walks=n_fog_walks) for _ in range(3)]
+                      walks=n_fog_walks)]                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fruns.append(grad_run(torch, lrt, ci, treplay, fog, FOG_GRAD_SPP,
+                          walks=n_fog_walks))
     fog_peak = torch.cuda.max_memory_allocated()
-    fog_grad_counts = fruns[0][3]
-    fg = fruns[0][1]
-    fprimal = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lrt.render(fog, spp=FOG_GRAD_SPP, seed=SEED)
-        torch.cuda.synchronize()
-        fprimal.append(time.perf_counter() - t0)
-    ft_grad = sorted(r[0] for r in fruns)[1]
-    ft_primal = sorted(fprimal)[1]
+    fog_grad_counts = fruns[1][3]
+    fg = fruns[1][1]
+    ft_primal, _ = timed_render(torch, lrt, fog, FOG_GRAD_SPP)
+    ft_grad = fruns[1][0]
     fpaths = FOG_RES * FOG_RES * FOG_GRAD_SPP
     finite_fg = bool(torch.isfinite(fg).all())
     emit("fog_render_grad", film=[FOG_RES, FOG_RES], spp=FOG_GRAD_SPP,
          max_depth=fog.max_depth, card=smi, walks=n_fog_walks,
-         seconds=ft_grad, seconds_reps=[r[0] for r in fruns],
+         seconds=ft_grad, warm_up_seconds=fruns[0][0],
          fwd_bwd_paths_per_s=fpaths / ft_grad, primal_seconds=ft_primal,
-         primal_seconds_reps=fprimal, primal_paths_per_s=fpaths / ft_primal,
+         primal_paths_per_s=fpaths / ft_primal,
          fwd_bwd_over_primal=ft_grad / ft_primal, grad_finite=finite_fg,
          grad_abs_max=float(fg.abs().max()),
          grad_sigma_t_albedo=[float(x) for x in fg[0, 0:6]],
-         image_mean=float(fruns[0][2].mean()),
+         image_mean=float(fruns[1][2].mean()),
          max_memory_allocated=fog_peak, **fog_grad_counts)
     check(finite_fg and float(fg.abs().max()) > 0,
           "fog render_grad: gradient not finite or zero")
@@ -933,8 +999,302 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
     return dict(counts=counts, grad_counts=grad_counts)
 
 
+def _first_queries(torch, lrt, ci, scene, spp):
+    """Render once and keep copies of the first bounce query (the camera
+    wavefront) and the first shadow query -> {kind: (rays, tris, boxes)}."""
+    kept = {}
+    orig = ci.intersect_closest
+
+    def keep(rays, tris, boxes, shadow=False):
+        kind = "shadow" if shadow else "camera"
+        if kind not in kept:
+            kept[kind] = (rays.clone(), tris, boxes)
+        return orig(rays, tris, boxes, shadow=shadow)
+
+    ci.intersect_closest = keep
+    try:
+        lrt.render(scene, spp=spp, seed=SEED)
+        torch.cuda.synchronize()
+    finally:
+        ci.intersect_closest = orig
+    return kept
+
+
+def wide_vs_plain(torch, ci, rays, tris, boxes, n_tris):
+    """The sweep kernel on one wide wavefront (one launch) against its plain
+    version, run in blocks of WIDE_BLOCK rays (its (128, N) temporaries
+    would take tens of GB at 4 M rays): agreement, ms per launch, the
+    blocked plain version's ms, and the bound as kernel_vs_plain computes
+    it (needed and candidate pairs summed over the blocks)."""
+    n = rays.shape[1]
+    tk, pk = ci.intersect_closest(rays, tris, boxes)
+    blocks = [ci.intersect_closest_reference(
+        rays[:, i:i + WIDE_BLOCK].contiguous(), tris, boxes)
+        for i in range(0, n, WIDE_BLOCK)]
+    tr = torch.cat([b[0] for b in blocks])
+    pr = torch.cat([b[1] for b in blocks])
+    res = compare_hits(tk, pk, tr, pr)
+    res["splits"], res["chunks_per_split"] = ci.split_plan(
+        n, boxes.shape[0], rays.device)
+    res["ms"] = cuda_ms(lambda: ci.intersect_closest(rays, tris, boxes),
+                        reps=5, inner=3)
+
+    def plain():
+        for i in range(0, n, WIDE_BLOCK):
+            ci.intersect_closest_reference(rays[:, i:i + WIDE_BLOCK], tris,
+                                           boxes)
+    res["plain_ms"] = cuda_ms(plain, reps=3, inner=1)
+    res["plain_blocks"] = len(blocks)
+    need = cand = 0
+    for i in range(0, n, WIDE_BLOCK):
+        a, b = needed_work(torch, rays[:, i:i + WIDE_BLOCK], tris, boxes,
+                           n_tris, tr[i:i + WIDE_BLOCK])
+        need, cand = need + a, cand + b
+    res.update(needed_tests=need, candidate_tests=cand,
+               **roofline(need, cand, query_bytes(n, tris, boxes)))
+    res["share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def _cornell_dict(cornell_box, res, rfilter, depth=CORNELL_DEPTH):
+    d = cornell_box()
+    d["integrator"] = {"type": "path", "max_depth": depth}
+    d["sensor"]["film"] = {"type": "hdrfilm", "width": res, "height": res,
+                           "rfilter": {"type": rfilter}}
+    return d
+
+
+def cornell_phases(torch, np, lrt, ci, treplay, smi):
+    """Phases cornell_small, bsdf_small, wide_kernel, cornell_render and
+    cornell_render_grad -> the launch counts and wide-wavefront results the
+    kernels line reports."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.integrators import prb as tprb
+    from liverrenderer_tpu_torch.integrators.common import MAX_WAVEFRONT
+    from liverrenderer_tpu_torch.integrators.regen import regen_applicable
+    from liverrenderer_tpu_torch.scene.cornell import (cornell_box,
+                                                       plane_light_dict)
+    # ---- 8a. the Cornell box at test size on both wavefronts, card
+    # against CPU
+    res_s, spp_s = CORNELL_SMALL
+    small = {}
+    for rf in ("gaussian", "box"):
+        frac, mean_rel, mean, exact = image_vs_cpu(
+            np, lrt, _cornell_dict(cornell_box, res_s, rf), spp_s)
+        small[rf] = dict(pixel_frac=frac, pixel_exact=exact,
+                         mean_rel=mean_rel, mean=mean)
+    emit("cornell_small", film=[res_s, res_s], spp=spp_s,
+         max_depth=CORNELL_DEPTH, fixed_gaussian=small["gaussian"],
+         regen_box=small["box"])
+    for rf, r in small.items():
+        check(r["pixel_frac"] >= PIX_FRAC_MIN and r["mean_rel"] <= MEAN_RTOL,
+              f"cornell_small ({rf}): the card's render disagrees with the "
+              f"CPU's: {r}")
+
+    # ---- 8b. the stock BSDFs on the gradient tests' plane, card against
+    # CPU: images of one plane per BSDF, and two gradients
+    res_p, spp_p = BSDF_SMALL
+    planes = {}
+    for name, bsdf in BSDF_PLANES.items():
+        d = plane_light_dict(res_p, integrator="path", max_depth=3,
+                             bsdf=bsdf)
+        frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, d, spp_p)
+        planes[name] = dict(pixel_frac=frac, pixel_exact=exact,
+                            mean_rel=mean_rel, mean=mean)
+        check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+              f"bsdf_small ({name}): the card's render disagrees with the "
+              f"CPU's: {planes[name]}")
+    grads = {}
+    for name, bsdf, rfilter, key in (
+            ("diffuse_albedo", None, "box", "textures.data"),
+            ("rough_alpha", BSDF_PLANES["roughconductor"], "box",
+             "bsdfs.params"),
+            # the gaussian filter is not regen-able: the scan adjoint
+            ("diffuse_albedo_scan", None, "gaussian", "textures.data")):
+        d = plane_light_dict(res_p, integrator="path", max_depth=3,
+                             bsdf=bsdf)
+        d["sensor"]["film"]["rfilter"] = {"type": rfilter}
+        check(regen_applicable(lrt.load_dict(d, device="cpu"), "primal")
+              == (rfilter == "box"), f"bsdf_small ({name}): the gradient "
+              "takes the wrong adjoint")
+        cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, d, spp_p, (key,))
+        grads[name] = dict(key=key, rfilter=rfilter, grad_cosine=cos,
+                           grad_norm_rel=norm_rel, grad_norm=gnorm)
+        check(gfin and gnorm > 0, f"bsdf_small ({name}): gradient not "
+              "finite or zero")
+        check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+              f"bsdf_small ({name}): the card's gradient disagrees with the "
+              f"CPU's: {grads[name]}")
+    emit("bsdf_small", film=[res_p, res_p], spp=spp_p, max_depth=3,
+         images=planes, grads=grads)
+
+    # ---- 8c. the sweep kernel on BASELINE's full Cornell wavefront
+    scene_g = lrt.load_dict(_cornell_dict(cornell_box, CORNELL_RES,
+                                          "gaussian"))
+    scene_b = lrt.load_dict(_cornell_dict(cornell_box, CORNELL_RES, "box"))
+    n_lanes = CORNELL_RES * CORNELL_RES * CORNELL_SPP
+    check(not regen_applicable(scene_g, "primal")
+          and regen_applicable(scene_b, "primal"),
+          "Cornell: the gaussian scene must take the fixed wavefront and the "
+          "box scene the regenerating one")
+    check(n_lanes <= MAX_WAVEFRONT, "Cornell: more lanes than one pass")
+    kept = _first_queries(torch, lrt, ci, scene_g, CORNELL_SPP)
+    wide = {}
+    for kind in ("camera", "shadow"):
+        rays, tris, boxes = kept[kind]
+        check(rays.shape[1] == n_lanes, f"wide_kernel: the {kind} query has "
+              f"{rays.shape[1]} rays, not {n_lanes}")
+        wide[kind] = wide_vs_plain(torch, ci, rays, tris, boxes,
+                                   scene_g.n_tris)
+    emit("wide_kernel", card=smi, tris=scene_g.n_tris,
+         chunks=int(scene_g.tri_boxes.shape[0]), plain_block=WIDE_BLOCK,
+         **wide)
+    for kind, r in wide.items():
+        check_agreement(r, f"wide {kind} rays")
+        check(r["share"] <= 1, f"wide {kind} rays: a time below its bound "
+              f"{r}")
+    del kept
+
+    # ---- 8d. BASELINE's Cornell box: one fixed pass of 4,194,304 lanes,
+    # in turns with bench.py's box-filter variant on the regen wavefront
+    lrt.render(scene_g, spp=CORNELL_SPP, seed=SEED + 1)         # warm-ups
+    lrt.render(scene_b, spp=CORNELL_TRACE_SPP, seed=SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    fixed_s, img = timed_render(torch, lrt, scene_g, CORNELL_SPP)
+    fixed_counts = launch_counts(ci)
+    fixed_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    regen_s, img_b = timed_render(torch, lrt, scene_b, CORNELL_SPP)
+    regen_counts = launch_counts(ci)
+    regen_peak = torch.cuda.max_memory_allocated()
+    fixed_reps, regen_reps = [fixed_s], [regen_s]
+    for _ in range(2):
+        fixed_reps.append(timed_render(torch, lrt, scene_g, CORNELL_SPP)[0])
+        regen_reps.append(timed_render(torch, lrt, scene_b, CORNELL_SPP)[0])
+    traces = {}
+    for name, sc, spp in (("fixed", scene_g, CORNELL_SPP),
+                          ("regen", scene_b, CORNELL_TRACE_SPP)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            reset_counts(ci)
+            secs_tr, _ = timed_render(torch, lrt, sc, spp)
+        traces[name] = dict(spp=spp, **primal_trace(
+            prof, secs_tr, ci.LAUNCHES - ci.SHADOW_LAUNCHES))
+    t_fixed, t_regen = sorted(fixed_reps)[1], sorted(regen_reps)[1]
+    finite = bool(torch.isfinite(img).all())
+    emit("cornell_render", film=[CORNELL_RES, CORNELL_RES], spp=CORNELL_SPP,
+         max_depth=scene_g.max_depth, tris=scene_g.n_tris, card=smi,
+         lanes_per_pass=n_lanes, seconds=t_fixed, seconds_reps=fixed_reps,
+         paths_per_s=n_lanes / t_fixed, finite=finite,
+         shape=list(img.shape), mean=float(img.mean()),
+         max_memory_allocated=fixed_peak, **split_counts(fixed_counts),
+         regen_box=dict(seconds=t_regen, seconds_reps=regen_reps,
+                        paths_per_s=n_lanes / t_regen,
+                        mean=float(img_b.mean()),
+                        finite=bool(torch.isfinite(img_b).all()),
+                        max_memory_allocated=regen_peak,
+                        **split_counts(regen_counts)),
+         regen_over_fixed=t_regen / t_fixed, trace=traces)
+    check(tuple(img.shape) == (CORNELL_RES, CORNELL_RES, 3),
+          "Cornell image shape")
+    check(finite and bool(torch.isfinite(img_b).all()),
+          "Cornell image has non-finite values")
+    # the two filters weight the same paths differently; their means agree
+    # to the noise of 4 M paths
+    check(0.05 < float(img.mean()) < 1.0
+          and abs(float(img.mean()) / float(img_b.mean()) - 1) < 0.02,
+          "Cornell image mean out of range")
+    for what, c in (("fixed", fixed_counts), ("regen", regen_counts)):
+        sc = split_counts(c)
+        check(sc["bounce_launches"] > 0 and sc["shadow_launches"] > 0,
+              f"the {what} Cornell render did not launch the sweep kernel "
+              "for both queries")
+    check(fixed_counts[0] == 2 * traces["fixed"]["trace_iterations"],
+          "the fixed Cornell render: one shadow query per bounce")
+
+    # ---- 8e. its gradients: the box variant through the replay adjoint,
+    # the gaussian scene through the scan adjoint
+    key = "textures.data"
+    prim_calls = []
+    orig_pass = tprb.render_pass
+
+    def counted_pass(*a, **kw):
+        c0 = launch_counts(ci)
+        out = orig_pass(*a, **kw)
+        if not torch.is_grad_enabled():
+            prim_calls.append((c0, launch_counts(ci)))
+        return out
+
+    gruns, gvec = {}, {}
+    for name, sc, walks in (("replay_box", scene_b, 1),
+                            ("scan_gaussian", scene_g, 0)):
+        tprb.render_pass = counted_pass
+        try:
+            grad_run(torch, lrt, ci, treplay, sc, CORNELL_GRAD_SPP, walks,
+                     key)                                        # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(3):
+                prim_calls.clear()
+                runs.append(grad_run(torch, lrt, ci, treplay, sc,
+                                     CORNELL_GRAD_SPP, walks, key))
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            tprb.render_pass = orig_pass
+        counts = dict(runs[0][3])
+        if walks == 0:
+            # the scan adjoint: the primal's fixed passes (no grad), then
+            # the differentiated passes (forward + checkpointed backward)
+            prim = sum(b[0] - a[0] for a, b in prim_calls)
+            counts.update(primal_launches=prim,
+                          adjoint_launches=counts["fwd_launches"] - prim)
+        check(all(r[3] == runs[0][3] for r in runs),
+              f"Cornell render_grad ({name}): launch counts differ")
+        primal = [timed_render(torch, lrt, sc, CORNELL_GRAD_SPP)[0]
+                  for _ in range(3)]
+        g = runs[0][1]
+        t_grad, t_primal = sorted(r[0] for r in runs)[1], sorted(primal)[1]
+        paths = CORNELL_RES * CORNELL_RES * CORNELL_GRAD_SPP
+        gruns[name] = dict(
+            seconds=t_grad, seconds_reps=[r[0] for r in runs],
+            fwd_bwd_paths_per_s=paths / t_grad, primal_seconds=t_primal,
+            primal_seconds_reps=primal, fwd_bwd_over_primal=t_grad / t_primal,
+            grad_finite=bool(torch.isfinite(g).all()),
+            grad_albedo=[[float(x) for x in g[i, 0:3]] for i in range(3)],
+            image_mean=float(runs[0][2].mean()), max_memory_allocated=peak,
+            **counts)
+        check(gruns[name]["grad_finite"] and float(g[:, 0:3].sum()) > 0,
+              f"Cornell render_grad ({name}): gradient not finite or not "
+              "positive")
+        check(counts["fwd_launches"] > 0 and counts["fwd_shadow_launches"]
+              > 0, f"Cornell render_grad ({name}): no forward launches")
+        if walks:
+            check(counts["replay_launches"] > 0
+                  and counts["replay_shadow_launches"] > 0,
+                  f"Cornell render_grad ({name}): no replay launches")
+        gvec[name] = g.double().reshape(-1)
+    # the two routes walk the same paths (one sampler stream per pixel
+    # sample); only the filters' weights differ, most at the film's border
+    # (0.6 % in the gradient's norm at 32x32, on the CPU), so the adjoints
+    # agree
+    a, b = gvec["scan_gaussian"], gvec["replay_box"]
+    routes = dict(cosine=float((a * b).sum() / (a.norm() * b.norm())),
+                  norm_rel=abs(float(a.norm() / b.norm()) - 1.0))
+    emit("cornell_render_grad", film=[CORNELL_RES, CORNELL_RES],
+         spp=CORNELL_GRAD_SPP, key=key, card=smi, scan_vs_replay=routes,
+         **gruns)
+    check(routes["cosine"] >= GRAD_COS_MIN
+          and routes["norm_rel"] <= GRAD_NORM_RTOL,
+          f"Cornell render_grad: the scan adjoint disagrees with the replay "
+          f"adjoint: {routes}")
+    return dict(fixed=fixed_counts, regen=regen_counts, grads=gruns,
+                wide=wide)
+
+
 def main() -> int:
-    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1107,9 +1467,8 @@ def main() -> int:
         agree["dense"] += r.shape[1] * scene.n_tris
     hit_agree = agree["hit_same"] / agree["n_rays"]
     prim_agree = agree["prim_same"] / max(agree["both"], 1)
-    ops = PREFILTER_FLOP * agree["needed"] \
-        + (FLOP_PER_TEST - PREFILTER_FLOP) * agree["candidates"]
-    b_need = ops / PEAK_FP32 * 1e3 / len(calls)
+    b_need = roofline(agree["needed"], agree["candidates"], 0)[
+        "bound_needed_ms"] / len(calls)
     b_dense = agree["dense"] * FLOP_PER_TEST / PEAK_FP32 * 1e3 / len(calls)
     emit("render_kernel", film=[WIDTH, HEIGHT], spp=KERNEL_SPP,
          max_depth=scene.max_depth, card=smi, seconds=secs_k,
@@ -1209,9 +1568,18 @@ def main() -> int:
     # ---- 7. bump mapping and the envmap: bench.py's workload path
     bump = bump_env_phases(torch, np, lrt, ci, treplay, smi, scene)
     bump_counts, bump_grad = bump["counts"], bump["grad_counts"]
-    emit("total", seconds=time.perf_counter() - t_start)
 
-    # ---- 8. kernels
+    # ---- 8. the surface path family: BASELINE's Cornell box
+    cb = cornell_phases(torch, np, lrt, ci, treplay, smi)
+    cb_grads = cb["grads"]
+    cb_launches = cb["fixed"][0] + cb["regen"][0] + sum(
+        g["fwd_launches"] + g["replay_launches"] for g in cb_grads.values())
+    cb_merge = cb["fixed"][1] + cb["regen"][1] + sum(
+        g["fwd_merge_launches"] + g["replay_merge_launches"]
+        for g in cb_grads.values())
+    emit("total", seconds=time.perf_counter() - _T0)
+
+    # ---- 9. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
     print(json.dumps({"kernels": [
         # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
@@ -1226,13 +1594,27 @@ def main() -> int:
              + grad_counts["replay_launches"] + fog_counts[0]
              + fog_grad_counts["fwd_launches"]
              + fog_grad_counts["replay_launches"] + bump_counts[0]
-             + bump_grad["fwd_launches"] + bump_grad["replay_launches"],
+             + bump_grad["fwd_launches"] + bump_grad["replay_launches"]
+             + cb_launches,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
              fog_render_grad_launches=fog_grad_counts,
              bump_env_render_launches=bump_counts[0],
              bump_env_render_grad_launches=bump_grad,
+             cornell_render_launches=split_counts(cb["fixed"]),
+             cornell_regen_render_launches=split_counts(cb["regen"]),
+             cornell_render_grad_launches={
+                 k: {c: v[c] for c in v if c.endswith("launches")}
+                 for k, v in cb_grads.items()},
+             wide_ms=cb["wide"]["camera"]["ms"],
+             wide_plain_ms=cb["wide"]["camera"]["plain_ms"],
+             wide_bound_ms=cb["wide"]["camera"]["bound_ms"],
+             wide_bound_by=cb["wide"]["camera"]["bound_by"],
+             wide_share=cb["wide"]["camera"]["share"],
+             wide_shadow_ms=cb["wide"]["shadow"]["ms"],
+             wide_shadow_bound_ms=cb["wide"]["shadow"]["bound_ms"],
+             wide_shadow_share=cb["wide"]["shadow"]["share"],
              shadow_ms=sh["replay_ms_per_launch"],
              shadow_plain_ms=sh["plain_ms_per_launch"],
              shadow_bound_ms=sh["bound_ms"], shadow_bound_by=sh["bound_by"],
@@ -1260,7 +1642,7 @@ def main() -> int:
              + fog_grad_counts["fwd_merge_launches"]
              + fog_grad_counts["replay_merge_launches"] + bump_counts[1]
              + bump_grad["fwd_merge_launches"]
-             + bump_grad["replay_merge_launches"],
+             + bump_grad["replay_merge_launches"] + cb_merge,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              # the fog box's 36 triangles fill one chunk: one split, no

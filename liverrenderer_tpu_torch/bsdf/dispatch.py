@@ -1,12 +1,18 @@
 """BSDF sampling and evaluation over the wavefront (counterpart of
-liverrenderer_tpu/bsdf/dispatch.py), for the families ported so far: the
-diffuse BSDF, the smooth dielectric and the null BSDF.
+liverrenderer_tpu/bsdf/dispatch.py) for the stock families: diffuse,
+smooth, thin and rough dielectric, smooth and rough conductor, smooth,
+rough and polarized plastic (its unpolarized projection), null, and the
+one-level blendbsdf and mask wrappers.  Every family present in the scene
+is evaluated on all lanes and combined with masked selects.
 
 Conventions: directions in the local shading frame, wi points away from
 the surface, `eval` returns f(wi, wo) * |cos_theta_o| (zero for delta
 lobes), `sample` returns weight = f * |cos| / pdf and the discrete lobe
 probability as the pdf of a delta lobe; twosided flips the frame when
-cos_theta(wi) < 0.  The blend and mask wrappers are not ported.
+cos_theta(wi) < 0.  Per-lane rows (type, twosided, texture slots, nested
+BSDFs, params) are read with core/math.table_lookup, as in the JAX
+package, so that a parameter's gradient is one reduction per row.
+Principled, principledthin, hair, measured and the polarizers raise.
 """
 from __future__ import annotations
 
@@ -14,12 +20,17 @@ import torch
 
 from ..core import fresnel as fr
 from ..core import math as m
+from ..core import microfacet as mf
 from ..core import warp
 from ..core.types import BSDFSample
 from ..errors import not_ported
-from ..scene.ir import (BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_NULL,
-                        F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_NULL,
-                        Scene)
+from ..scene.ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
+                        BSDF_DIFFUSE, BSDF_MASK, BSDF_NULL, BSDF_PLASTIC,
+                        BSDF_PPLASTIC, BSDF_ROUGHCONDUCTOR,
+                        BSDF_ROUGHDIELECTRIC, BSDF_ROUGHPLASTIC,
+                        BSDF_THINDIELECTRIC, F_DELTA_REFL, F_DELTA_TRANS,
+                        F_DIFFUSE_REFL, F_GLOSSY_REFL, F_GLOSSY_TRANS,
+                        F_NULL, Scene)
 from ..texture.eval import eval_texture
 
 
@@ -28,12 +39,31 @@ def _flip_z(v):
 
 
 def _sanitize_dir(v):
-    """Replace non-finite / degenerate direction rows with +z."""
+    """Replace non-finite / degenerate direction rows with +z: masked-off
+    lanes carry garbage interactions, whose NaNs would poison reverse mode
+    through the masked selects."""
     ok = torch.isfinite(v).all(-1) & (torch.sum(v * v, -1) > 0.25)
     return torch.where(ok[..., None],
                        torch.where(torch.isfinite(v), v, 0.0),
                        v.new_tensor([0.0, 0.0, 1.0]))
 
+
+def _full(like, val):
+    return torch.full(like.shape, val, dtype=torch.int64, device=like.device)
+
+
+def _alphas(p):
+    return torch.clamp(p[..., 6], min=1e-4), torch.clamp(p[..., 7], min=1e-4)
+
+
+def _reflect_h(wi, h):
+    return 2.0 * torch.sum(wi * h, -1)[..., None] * h - wi
+
+
+# ---------------------------------------------------------------------------
+# Per-family implementations: local wi in, lane-shaped results out; the
+# caller masks by family membership.
+# ---------------------------------------------------------------------------
 
 def _diffuse_sample(wi, u1, u2, p, t0, t1):
     wo = warp.square_to_cosine_hemisphere(u2)
@@ -41,9 +71,7 @@ def _diffuse_sample(wi, u1, u2, p, t0, t1):
     active = m.cos_theta(wi) > 0
     weight = torch.where(active[..., None], t0, 0.0)
     pdf = torch.where(active, pdf, 0.0)
-    n = pdf.shape
-    return wo, pdf, weight, wi.new_ones(n), \
-        torch.full(n, F_DIFFUSE_REFL, dtype=torch.int64, device=wi.device)
+    return wo, pdf, weight, wi.new_ones(pdf.shape), _full(pdf, F_DIFFUSE_REFL)
 
 
 def _diffuse_eval(wi, wo, p, t0, t1):
@@ -72,6 +100,311 @@ def _dielectric_sample(wi, u1, u2, p, t0, t1):
     return wo, pdf, weight, eta_s, st
 
 
+def _thindielectric_sample(wi, u1, u2, p, t0, t1):
+    eta = p[..., 0]
+    ci = m.cos_theta(wi)
+    F, _, _, _ = fr.fresnel_dielectric(torch.abs(ci), eta)
+    # internal bounces: R' = F + (1 - F)^2 F / (1 - F^2)
+    R = torch.where(F < 1.0, F + (1.0 - F) * (1.0 - F) * F
+                    / torch.clamp(1.0 - F * F, min=1e-6), 1.0)
+    refl = u1 <= R
+    wo = torch.where(refl[..., None], m.reflect(wi), -wi)
+    pdf = torch.where(refl, R, 1.0 - R)
+    weight = torch.where(refl[..., None], t0, t1)
+    st = torch.where(refl, F_DELTA_REFL, F_NULL)
+    return wo, pdf, weight, wi.new_ones(pdf.shape), st
+
+
+def _conductor_sample(wi, u1, u2, p, t0, t1):
+    ci = m.cos_theta(wi)
+    F = fr.fresnel_conductor(ci, p[..., 0:3], p[..., 3:6])
+    wo = m.reflect(wi)
+    act = ci > 0
+    pdf = torch.where(act, 1.0, 0.0)
+    weight = torch.where(act[..., None], t0 * F, 0.0)
+    return wo, pdf, weight, wi.new_ones(pdf.shape), _full(pdf, F_DELTA_REFL)
+
+
+def _roughconductor_sample(wi, u1, u2, p, t0, t1):
+    ax, ay = _alphas(p)
+    ci = m.cos_theta(wi)
+    h = mf.ggx_sample_vndf(wi, u2, ax, ay)
+    wo = _reflect_h(wi, h)
+    co = m.cos_theta(wo)
+    act = (ci > 0) & (co > 0)
+    pdf_h = mf.ggx_pdf_visible(wi, h, ax, ay)
+    pdf = pdf_h / torch.clamp(4.0 * torch.abs(torch.sum(wo * h, -1)),
+                              min=1e-8)
+    F = fr.fresnel_conductor(torch.sum(wi * h, -1), p[..., 0:3], p[..., 3:6])
+    g2 = mf.ggx_smith_g1(wi, h, ax, ay) * mf.ggx_smith_g1(wo, h, ax, ay)
+    g1 = mf.ggx_smith_g1(wi, h, ax, ay)
+    weight = t0 * F * (g2 / torch.clamp(g1, min=1e-8))[..., None]
+    pdf = torch.where(act, pdf, 0.0)
+    weight = torch.where(act[..., None], weight, 0.0)
+    return wo, pdf, weight, wi.new_ones(pdf.shape), _full(pdf, F_GLOSSY_REFL)
+
+
+def _roughconductor_eval(wi, wo, p, t0, t1):
+    ax, ay = _alphas(p)
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    act = (ci > 0) & (co > 0)
+    # inactive lanes get +z so the normalize cannot emit a reverse-mode NaN
+    # under the masked select
+    h = m.normalize(torch.where(act[..., None], wi + wo,
+                                wi.new_tensor([0.0, 0.0, 1.0])))
+    d = mf.ggx_d(h, ax, ay)
+    g = mf.ggx_smith_g1(wi, h, ax, ay) * mf.ggx_smith_g1(wo, h, ax, ay)
+    F = fr.fresnel_conductor(torch.sum(wi * h, -1), p[..., 0:3], p[..., 3:6])
+    f_cos = t0 * F * (d * g / torch.clamp(4.0 * ci, min=1e-8))[..., None]
+    pdf = mf.ggx_pdf_visible(wi, h, ax, ay) \
+        / torch.clamp(4.0 * torch.abs(torch.sum(wo * h, -1)), min=1e-8)
+    return torch.where(act[..., None], f_cos, 0.0), torch.where(act, pdf, 0.0)
+
+
+def _plastic_diffuse(p, t0):
+    """The internally scattered diffuse albedo, (N, 3)."""
+    nonlinear = p[..., 1] > 0.5
+    fdr_int = p[..., 2]
+    denom = torch.where(nonlinear[..., None], 1.0 - t0 * fdr_int[..., None],
+                        1.0 - fdr_int[..., None])
+    return t0 / torch.clamp(denom, min=1e-6)
+
+
+def _plastic_sample(wi, u1, u2, p, t0, t1):
+    """Smooth plastic (src/bsdfs/plastic.cpp): delta specular + internally
+    scattered diffuse."""
+    eta = p[..., 0]
+    spec_weight = p[..., 4]
+    ci = m.cos_theta(wi)
+    Fi, _, _, _ = fr.fresnel_dielectric(ci, eta)
+    prob_spec = Fi * spec_weight / torch.clamp(
+        Fi * spec_weight + (1.0 - Fi) * (1.0 - spec_weight), min=1e-8)
+    pick_spec = u1 < prob_spec
+    wo = torch.where(pick_spec[..., None], m.reflect(wi),
+                     warp.square_to_cosine_hemisphere(u2))
+    Fo, _, _, _ = fr.fresnel_dielectric(m.cos_theta(wo), eta)
+    inv_eta2 = 1.0 / torch.clamp(eta * eta, min=1e-8)
+    diff_val = _plastic_diffuse(p, t0) \
+        * ((1.0 - Fi) * (1.0 - Fo) * inv_eta2)[..., None]
+    w_spec = torch.where(pick_spec, Fi / torch.clamp(prob_spec, min=1e-8),
+                         0.0)
+    pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo) * (1.0 - prob_spec)
+    w_diff = diff_val / torch.clamp(1.0 - prob_spec, min=1e-8)[..., None]
+    act = ci > 0
+    weight = torch.where(pick_spec[..., None], w_spec[..., None], w_diff)
+    pdf = torch.where(pick_spec, prob_spec, pdf_diff)
+    weight = torch.where(act[..., None], weight, 0.0)
+    pdf = torch.where(act, pdf, 0.0)
+    st = torch.where(pick_spec, F_DELTA_REFL, F_DIFFUSE_REFL)
+    return wo, pdf, weight, wi.new_ones(pdf.shape), st
+
+
+def _plastic_eval(wi, wo, p, t0, t1):
+    eta = p[..., 0]
+    spec_weight = p[..., 4]
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    act = (ci > 0) & (co > 0)
+    Fi, _, _, _ = fr.fresnel_dielectric(ci, eta)
+    Fo, _, _, _ = fr.fresnel_dielectric(co, eta)
+    inv_eta2 = 1.0 / torch.clamp(eta * eta, min=1e-8)
+    val = _plastic_diffuse(p, t0) \
+        * ((1.0 - Fi) * (1.0 - Fo) * inv_eta2 * warp.INV_PI * co)[..., None]
+    prob_spec = Fi * spec_weight / torch.clamp(
+        Fi * spec_weight + (1.0 - Fi) * (1.0 - spec_weight), min=1e-8)
+    pdf = warp.square_to_cosine_hemisphere_pdf(wo) * (1.0 - prob_spec)
+    return torch.where(act[..., None], val, 0.0), torch.where(act, pdf, 0.0)
+
+
+def _microfacet_spec(wi, wo, h, eta, ax, ay):
+    """(F D G / (4 cos_i), the specular lobe's pdf of wo) on a dielectric
+    interface."""
+    d = mf.ggx_d(h, ax, ay)
+    g = mf.ggx_smith_g1(wi, h, ax, ay) * mf.ggx_smith_g1(wo, h, ax, ay)
+    F, _, _, _ = fr.fresnel_dielectric(torch.sum(wi * h, -1), eta)
+    spec = F * d * g / torch.clamp(4.0 * m.cos_theta(wi), min=1e-8)
+    pdf = mf.ggx_pdf_visible(wi, h, ax, ay) \
+        / torch.clamp(4.0 * torch.abs(torch.sum(wo * h, -1)), min=1e-8)
+    return spec, pdf
+
+
+def _roughplastic_eval(wi, wo, p, t0, t1):
+    """Rough plastic (src/bsdfs/roughplastic.cpp): GGX specular on the
+    dielectric interface + internally scattered diffuse, with the smooth
+    interface's transmittance in place of the reference's tables."""
+    eta = p[..., 0]
+    ssw = p[..., 4]
+    ax, ay = _alphas(p)
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    Fi, _, _, _ = fr.fresnel_dielectric(ci, eta)
+    t_i = 1.0 - Fi
+    prob_spec = (1.0 - t_i) * ssw
+    prob_diff = t_i * (1.0 - ssw)
+    prob_spec = prob_spec / torch.clamp(prob_spec + prob_diff, min=1e-8)
+    act = (ci > 0) & (co > 0)
+    h = m.normalize(wi + wo)
+    spec, pdf_spec = _microfacet_spec(wi, wo, h, eta, ax, ay)
+    Fo, _, _, _ = fr.fresnel_dielectric(co, eta)
+    t_o = 1.0 - Fo
+    inv_eta2 = 1.0 / torch.clamp(eta * eta, min=1e-8)
+    diff_v = _plastic_diffuse(p, t0) \
+        * (warp.INV_PI * inv_eta2 * co * t_i * t_o)[..., None]
+    val = torch.where(act[..., None], spec[..., None] + diff_v, 0.0)
+    pdf = prob_spec * pdf_spec \
+        + (1.0 - prob_spec) * warp.square_to_cosine_hemisphere_pdf(wo)
+    return val, torch.where(act, pdf, 0.0)
+
+
+def _pplastic_eval(wi, wo, p, t0, t1):
+    """Polarized plastic, unpolarized projection (src/bsdfs/pplastic.cpp):
+    GGX specular + Lambert diffuse attenuated by both Fresnel
+    transmittances; the lobe is picked by the static sampling weight."""
+    eta = p[..., 0]
+    ssw = p[..., 4]
+    ax, ay = _alphas(p)
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    act = (ci > 0) & (co > 0)
+    h = m.normalize(wi + wo)
+    spec, pdf_spec = _microfacet_spec(wi, wo, h, eta, ax, ay)
+    Fi, _, _, _ = fr.fresnel_dielectric(ci, eta)
+    Fo, _, _, _ = fr.fresnel_dielectric(co, eta)
+    diff = t0 * ((1.0 - Fi) * (1.0 - Fo) * warp.INV_PI * co)[..., None]
+    val = torch.where(act[..., None], spec[..., None] + diff, 0.0)
+    pdf = ssw * pdf_spec \
+        + (1.0 - ssw) * warp.square_to_cosine_hemisphere_pdf(wo)
+    return val, torch.where(act, pdf, 0.0)
+
+
+def _two_lobe_sample(evalf, prob_spec):
+    """Sampler of a GGX-specular + cosine-diffuse BSDF whose specular lobe
+    is picked with probability prob_spec(wi, p)."""
+    def sample(wi, u1, u2, p, t0, t1):
+        ax, ay = _alphas(p)
+        ci = m.cos_theta(wi)
+        take_spec = u1 < prob_spec(wi, p)
+        h = mf.ggx_sample_vndf(wi, u2, ax, ay)
+        wo = torch.where(take_spec[..., None], _reflect_h(wi, h),
+                         warp.square_to_cosine_hemisphere(u2))
+        val, pdf = evalf(wi, wo, p, t0, t1)
+        act = (ci > 0) & (m.cos_theta(wo) > 0) & (pdf > 0)
+        weight = torch.where(act[..., None],
+                             val / torch.clamp(pdf, min=1e-12)[..., None],
+                             0.0)
+        st = torch.where(take_spec, F_GLOSSY_REFL, F_DIFFUSE_REFL)
+        return wo, torch.where(act, pdf, 0.0), weight, \
+            wi.new_ones(pdf.shape), st
+    return sample
+
+
+def _roughplastic_prob_spec(wi, p):
+    Fi, _, _, _ = fr.fresnel_dielectric(m.cos_theta(wi), p[..., 0])
+    t_i = 1.0 - Fi
+    ps = (1.0 - t_i) * p[..., 4]
+    pd = t_i * (1.0 - p[..., 4])
+    return ps / torch.clamp(ps + pd, min=1e-8)
+
+
+_roughplastic_sample = _two_lobe_sample(_roughplastic_eval,
+                                        _roughplastic_prob_spec)
+_pplastic_sample = _two_lobe_sample(_pplastic_eval, lambda wi, p: p[..., 4])
+
+
+def _roughdielectric_eval(wi, wo, p, t0, t1):
+    """Rough dielectric (src/bsdfs/roughdielectric.cpp, Walter et al.
+    2007): reflection and transmission lobes both evaluate, so NEE and MIS
+    through rough glass stay unbiased."""
+    eta = p[..., 0]
+    ax, ay = _alphas(p)
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    refl = ci * co > 0
+    eta_rel = torch.where(ci > 0, eta, 1.0 / torch.clamp(eta, min=1e-8))
+    h_r = m.normalize(wi + wo)
+    h_t = m.normalize(wi + wo * eta_rel[..., None])
+    h = torch.where(refl[..., None], h_r, h_t)
+    h = h * torch.sign(m.cos_theta(h))[..., None]
+    cos_ih = torch.sum(wi * h, -1)
+    cos_oh = torch.sum(wo * h, -1)
+    F, _, eta_it, eta_ti = fr.fresnel_dielectric(cos_ih, eta)
+    # D and G in the upper-hemisphere frame of the incident side
+    flip = ci < 0
+    wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
+    wo_f = torch.where((co < 0)[..., None], _flip_z(wo), wo)
+    h_f = torch.where(flip[..., None], _flip_z(h), h)
+    d = mf.ggx_d(h_f, ax, ay)
+    g = mf.ggx_smith_g1(wi_f, h_f, ax, ay) * mf.ggx_smith_g1(wo_f, h_f,
+                                                             ax, ay)
+    pdf_h = mf.ggx_pdf_visible(wi_f, h_f, ax, ay)
+
+    # reflection: f cos = F D G / (4 |ci|)
+    val_r = t0 * (F * d * g / torch.clamp(4.0 * torch.abs(ci),
+                                          min=1e-8))[..., None]
+    pdf_r = pdf_h * F / torch.clamp(4.0 * torch.abs(cos_oh), min=1e-8)
+    ok_r = refl & (cos_ih * ci > 0) & (cos_oh * co > 0)
+
+    # transmission (Walter eq. 21) times |co| and the eta_ti^2 radiance
+    # compression of the smooth dielectric
+    denom = cos_ih + eta_rel * cos_oh
+    denom2 = torch.clamp(denom * denom, min=1e-12)
+    jac_t = (eta_rel * eta_rel) * torch.abs(cos_oh) / denom2
+    val_t_s = torch.abs(cos_ih * cos_oh) / torch.clamp(
+        torch.abs(ci * co), min=1e-8) \
+        * (eta_rel * eta_rel) * (1.0 - F) * d * g / denom2 \
+        * torch.abs(co) * (eta_ti * eta_ti)
+    val_t = t1 * val_t_s[..., None]
+    pdf_t = pdf_h * (1.0 - F) * jac_t
+    ok_t = (~refl) & (cos_ih * ci > 0) & (cos_oh * co > 0)
+
+    val = torch.where(ok_r[..., None], val_r,
+                      torch.where(ok_t[..., None], val_t, 0.0))
+    pdf = torch.where(ok_r, pdf_r, torch.where(ok_t, pdf_t, 0.0))
+    return val, pdf
+
+
+def _roughdielectric_sample(wi, u1, u2, p, t0, t1):
+    eta = p[..., 0]
+    ax, ay = _alphas(p)
+    ci = m.cos_theta(wi)
+    flip = ci < 0
+    wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
+    h = mf.ggx_sample_vndf(wi_f, u2, ax, ay)
+    h = torch.where(flip[..., None], _flip_z(h), h)
+    cos_ih = torch.sum(wi * h, -1)
+    F, ctt, eta_it, eta_ti = fr.fresnel_dielectric(cos_ih, eta)
+    refl = u1 <= F
+    wo_r = 2.0 * cos_ih[..., None] * h - wi
+    wo_t = m.normalize(
+        -eta_ti[..., None] * (wi - cos_ih[..., None] * h)
+        + ctt[..., None] * h * torch.sign(cos_ih)[..., None])
+    wo = torch.where(refl[..., None], wo_r, wo_t)
+    co = m.cos_theta(wo)
+    act = torch.where(refl, ci * co > 0, ci * co < 0)
+    h_f = torch.where(flip[..., None], _flip_z(h), h)
+    pdf_h = mf.ggx_pdf_visible(torch.where(flip[..., None], _flip_z(wi), wi),
+                               h_f, ax, ay)
+    cos_oh = torch.sum(wo * h, -1)
+    dwh_dwo_r = 1.0 / torch.clamp(4.0 * torch.abs(cos_oh), min=1e-8)
+    # transmission Jacobian (Walter et al. eq. 17) with eta_it
+    sqrt_denom = cos_ih + eta_it * cos_oh
+    dwh_dwo_t = (eta_it * eta_it) * torch.abs(cos_oh) \
+        / torch.clamp(sqrt_denom * sqrt_denom, min=1e-12)
+    pdf = pdf_h * torch.where(refl, F * dwh_dwo_r, (1.0 - F) * dwh_dwo_t)
+    g1 = mf.ggx_smith_g1(wi_f, h_f, ax, ay)
+    g2 = g1 * mf.ggx_smith_g1(
+        torch.where((co < 0)[..., None], _flip_z(wo), wo), h_f, ax, ay)
+    wgt = g2 / torch.clamp(g1, min=1e-8)
+    weight = torch.where(refl[..., None], t0 * wgt[..., None],
+                         t1 * (wgt * eta_ti * eta_ti)[..., None])
+    pdf = torch.where(act, pdf, 0.0)
+    weight = torch.where(act[..., None], weight, 0.0)
+    eta_s = torch.where(refl, 1.0, eta_it)
+    st = torch.where(refl, F_GLOSSY_REFL, F_GLOSSY_TRANS)
+    return wo, pdf, weight, eta_s, st
+
+
 def _null_sample(wi, u1, u2, p, t0, t1):
     n = wi.shape[:-1]
     return -wi, wi.new_ones(n), wi.new_ones(n + (3,)), wi.new_ones(n), \
@@ -81,41 +414,59 @@ def _null_sample(wi, u1, u2, p, t0, t1):
 _SAMPLERS = {
     BSDF_DIFFUSE: _diffuse_sample,
     BSDF_DIELECTRIC: _dielectric_sample,
+    BSDF_THINDIELECTRIC: _thindielectric_sample,
+    BSDF_CONDUCTOR: _conductor_sample,
+    BSDF_ROUGHCONDUCTOR: _roughconductor_sample,
+    BSDF_PLASTIC: _plastic_sample,
+    BSDF_ROUGHPLASTIC: _roughplastic_sample,
+    BSDF_PPLASTIC: _pplastic_sample,
+    BSDF_ROUGHDIELECTRIC: _roughdielectric_sample,
     BSDF_NULL: _null_sample,
 }
 
 # families with a non-delta lobe; the others evaluate to zero
 _EVALS = {
     BSDF_DIFFUSE: _diffuse_eval,
+    BSDF_ROUGHCONDUCTOR: _roughconductor_eval,
+    BSDF_PLASTIC: _plastic_eval,
+    BSDF_ROUGHPLASTIC: _roughplastic_eval,
+    BSDF_PPLASTIC: _pplastic_eval,
+    BSDF_ROUGHDIELECTRIC: _roughdielectric_eval,
 }
+
+# wrappers resolved here before the family dispatch
+_NESTED = (BSDF_BLEND, BSDF_MASK)
 
 
 def _check_types(b):
-    bad = [t for t in b.types_present if t not in _SAMPLERS]
+    bad = [t for t in b.types_present
+           if t not in _SAMPLERS and t not in _NESTED]
     if bad:
-        raise not_ported(f"BSDF type codes {bad}", "Queue 1 M5")
+        raise not_ported(f"BSDF type codes {bad} (principled, hair, "
+                         "measured, polarizers)", "Queue 1 M10")
 
 
-def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
-    """Sample the BSDF at each lane; returns a local-frame wo."""
+def _gather_ctx(scene: Scene, si, idx):
+    """Per-lane (btype, params, tex0 value, tex1 value) rows."""
     b = scene.bsdfs
-    _check_types(b)
-    idx = torch.clamp(bsdf_idx, min=0)
-    btype = b.btype[idx]
-    wi = _sanitize_dir(si.wi)
-    flip = b.twosided[idx] & (m.cos_theta(wi) < 0)
-    wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
-    p = m.table_lookup(b.params, idx)
-    t0 = eval_texture(scene.textures, b.tex0[idx], si.uv, b.tex0_types)
-    t1 = eval_texture(scene.textures, b.tex1[idx], si.uv, b.tex1_types)
+    t0 = eval_texture(scene.textures, m.table_lookup(b.tex0, idx), si.uv,
+                      b.tex0_types)
+    t1 = eval_texture(scene.textures, m.table_lookup(b.tex1, idx), si.uv,
+                      b.tex1_types)
+    return m.table_lookup(b.btype, idx), m.table_lookup(b.params, idx), t0, t1
 
-    n = wi.shape[:-1]
-    wo = torch.broadcast_to(wi.new_tensor([0.0, 0.0, 1.0]), wi.shape)
-    pdf = wi.new_zeros(n)
-    weight = wi.new_zeros(n + (3,))
-    eta = wi.new_ones(n)
-    st = torch.zeros(n, dtype=torch.int64, device=wi.device)
-    for ftype in b.types_present:
+
+def _family_sample(scene: Scene, wi_f, u1, u2, btype, p, t0, t1):
+    """Masked-select sampling over the scene's family set."""
+    n = wi_f.shape[:-1]
+    wo = torch.broadcast_to(wi_f.new_tensor([0.0, 0.0, 1.0]), wi_f.shape)
+    pdf = wi_f.new_zeros(n)
+    weight = wi_f.new_zeros(n + (3,))
+    eta = wi_f.new_ones(n)
+    st = torch.zeros(n, dtype=torch.int64, device=wi_f.device)
+    for ftype in scene.bsdfs.types_present:
+        if ftype not in _SAMPLERS:
+            continue
         fwo, fpdf, fw, feta, fst = _SAMPLERS[ftype](wi_f, u1, u2, p, t0, t1)
         sel = btype == ftype
         wo = torch.where(sel[..., None], fwo, wo)
@@ -123,30 +474,14 @@ def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
         weight = torch.where(sel[..., None], fw, weight)
         eta = torch.where(sel, feta, eta)
         st = torch.where(sel, fst, st)
-    wo = torch.where(flip[..., None], _flip_z(wo), wo)
-    return BSDFSample(wo=wo, pdf=pdf, eta=eta, sampled_type=st,
-                      weight=weight)
+    return wo, pdf, weight, eta, st
 
 
-def bsdf_eval_pdf(scene: Scene, si, bsdf_idx, wo):
-    """(f * |cos_theta_o|, pdf) of each lane's BSDF for a local-frame wo;
-    delta lobes evaluate to zero."""
-    b = scene.bsdfs
-    _check_types(b)
-    idx = torch.clamp(bsdf_idx, min=0)
-    btype = b.btype[idx]
-    wi = _sanitize_dir(si.wi)
-    wo = _sanitize_dir(wo)
-    flip = b.twosided[idx] & (m.cos_theta(wi) < 0)
-    wi_f = torch.where(flip[..., None], _flip_z(wi), wi)
-    wo_f = torch.where(flip[..., None], _flip_z(wo), wo)
-    p = m.table_lookup(b.params, idx)
-    t0 = eval_texture(scene.textures, b.tex0[idx], si.uv, b.tex0_types)
-    t1 = eval_texture(scene.textures, b.tex1[idx], si.uv, b.tex1_types)
-    n = wi.shape[:-1]
-    val = wi.new_zeros(n + (3,))
-    pdf = wi.new_zeros(n)
-    for ftype in b.types_present:
+def _family_eval(scene: Scene, wi_f, wo_f, btype, p, t0, t1):
+    n = wi_f.shape[:-1]
+    val = wi_f.new_zeros(n + (3,))
+    pdf = wi_f.new_zeros(n)
+    for ftype in scene.bsdfs.types_present:
         if ftype not in _EVALS:
             continue
         fv, fp = _EVALS[ftype](wi_f, wo_f, p, t0, t1)
@@ -156,12 +491,149 @@ def bsdf_eval_pdf(scene: Scene, si, bsdf_idx, wo):
     return val, pdf
 
 
+def _scalar_weight(scene: Scene, si, idx):
+    """Blend weight / mask opacity: the mean of the outer row's tex0."""
+    b = scene.bsdfs
+    t0 = eval_texture(scene.textures, m.table_lookup(b.tex0, idx), si.uv,
+                      b.tex0_types)
+    return torch.clamp(torch.mean(t0, -1), 1e-4, 1.0 - 1e-4)
+
+
+def _nested_masks(scene: Scene, btype):
+    tp = scene.bsdfs.types_present
+    zeros = torch.zeros(btype.shape, dtype=torch.bool, device=btype.device)
+    is_blend = (btype == BSDF_BLEND) if BSDF_BLEND in tp else zeros
+    is_mask = (btype == BSDF_MASK) if BSDF_MASK in tp else zeros
+    return is_blend, is_mask
+
+
+def _frame_in(scene: Scene, si, idx):
+    """(btype, flip, sanitized wi in the flipped frame) of each lane."""
+    b = scene.bsdfs
+    btype = m.table_lookup(b.btype, idx)
+    wi = _sanitize_dir(si.wi)
+    flip = m.table_lookup(b.twosided, idx) & (m.cos_theta(wi) < 0)
+    return btype, flip, torch.where(flip[..., None], _flip_z(wi), wi)
+
+
+def bsdf_sample(scene: Scene, si, bsdf_idx, u1, u2) -> BSDFSample:
+    """Sample the BSDF at each lane; returns a local-frame wo.
+
+    blendbsdf and mask are resolved one level deep before the family
+    dispatch (blendbsdf.cpp, mask.cpp): the lane picks a nested BSDF
+    stochastically, rescaling u1 as the reference does, samples it and,
+    for a blend, combines it with the other nested lobe's eval and pdf."""
+    b = scene.bsdfs
+    _check_types(b)
+    idx = torch.clamp(bsdf_idx, min=0)
+    btype, flip, wi_f = _frame_in(scene, si, idx)
+
+    tp = b.types_present
+    has_nest = (BSDF_BLEND in tp) or (BSDF_MASK in tp)
+    idx_eff, u1_eff = idx, u1
+    if has_nest:
+        is_blend, is_mask = _nested_masks(scene, btype)
+        wsel = _scalar_weight(scene, si, idx)
+        inner = torch.clamp(m.table_lookup(b.inner, idx), min=0)
+        inner2 = torch.clamp(m.table_lookup(b.inner2, idx), min=0)
+        # blend: u1 <= w -> nested[1]; mask: u1 < opacity -> nested, else
+        # null transmission
+        pick2 = is_blend & (u1 <= wsel)
+        pick1 = is_blend & ~pick2
+        mask_nested = is_mask & (u1 < wsel)
+        mask_trans = is_mask & ~mask_nested
+        u1_eff = torch.where(pick2 | mask_nested, u1 / wsel, u1)
+        u1_eff = torch.where(pick1, (u1 - wsel) / (1.0 - wsel), u1_eff)
+        idx_eff = torch.where(pick2, inner2,
+                              torch.where(pick1 | mask_nested, inner, idx))
+
+    bt_e, p_e, t0_e, t1_e = _gather_ctx(scene, si, idx_eff)
+    wo, pdf, weight, eta, st = _family_sample(scene, wi_f, u1_eff, u2,
+                                              bt_e, p_e, t0_e, t1_e)
+
+    if has_nest and BSDF_BLEND in tp:
+        # the other lobe's eval for the blended pdf and value
+        idx_oth = torch.where(pick2, inner, inner2)
+        bt_o, p_o, t0_o, t1_o = _gather_ctx(scene, si, idx_oth)
+        val_o, pdf_o = _family_eval(scene, wi_f, wo, bt_o, p_o, t0_o, t1_o)
+        q_ch = torch.where(pick2, wsel, 1.0 - wsel)
+        q_o = 1.0 - q_ch
+        pdf_b = q_ch * pdf + q_o * pdf_o
+        f_b = q_ch[..., None] * (weight * pdf[..., None]) \
+            + q_o[..., None] * val_o
+        res_b = torch.where((pdf_b > 0)[..., None],
+                            f_b / torch.clamp(pdf_b, min=1e-12)[..., None],
+                            0.0)
+        pdf = torch.where(is_blend, pdf_b, pdf)
+        weight = torch.where(is_blend[..., None], res_b, weight)
+
+    if has_nest and BSDF_MASK in tp:
+        det_w = wsel.detach()
+        pdf = torch.where(mask_nested, pdf * det_w, pdf)
+        weight = torch.where(mask_nested[..., None],
+                             weight * (wsel / det_w)[..., None], weight)
+        wo = torch.where(mask_trans[..., None], -wi_f, wo)
+        pdf = torch.where(mask_trans, 1.0 - det_w, pdf)
+        weight = torch.where(
+            mask_trans[..., None],
+            torch.broadcast_to(((1.0 - wsel) / (1.0 - det_w))[..., None],
+                               weight.shape), weight)
+        eta = torch.where(mask_trans, 1.0, eta)
+        st = torch.where(mask_trans, F_NULL, st)
+
+    wo = torch.where(flip[..., None], _flip_z(wo), wo)
+    return BSDFSample(wo=wo, pdf=pdf, eta=eta, sampled_type=st,
+                      weight=weight)
+
+
+def bsdf_eval_pdf(scene: Scene, si, bsdf_idx, wo):
+    """(f * |cos_theta_o|, pdf) of each lane's BSDF for a local-frame wo;
+    delta lobes evaluate to zero.  blend = (1 - w) nested0 + w nested1,
+    mask = opacity * nested."""
+    b = scene.bsdfs
+    _check_types(b)
+    idx = torch.clamp(bsdf_idx, min=0)
+    btype, flip, wi_f = _frame_in(scene, si, idx)
+    wo = _sanitize_dir(wo)
+    wo_f = torch.where(flip[..., None], _flip_z(wo), wo)
+
+    tp = b.types_present
+    has_nest = (BSDF_BLEND in tp) or (BSDF_MASK in tp)
+    idx_a = idx
+    if has_nest:
+        is_blend, is_mask = _nested_masks(scene, btype)
+        wsel = _scalar_weight(scene, si, idx)
+        inner = torch.clamp(m.table_lookup(b.inner, idx), min=0)
+        inner2 = torch.clamp(m.table_lookup(b.inner2, idx), min=0)
+        idx_a = torch.where(is_blend | is_mask, inner, idx)
+
+    bt_a, p_a, t0_a, t1_a = _gather_ctx(scene, si, idx_a)
+    val, pdf = _family_eval(scene, wi_f, wo_f, bt_a, p_a, t0_a, t1_a)
+
+    if has_nest and BSDF_BLEND in tp:
+        idx_b2 = torch.where(is_blend, inner2, idx_a)
+        bt_b, p_b, t0_b, t1_b = _gather_ctx(scene, si, idx_b2)
+        val2, pdf2 = _family_eval(scene, wi_f, wo_f, bt_b, p_b, t0_b, t1_b)
+        val = torch.where(is_blend[..., None],
+                          (1.0 - wsel)[..., None] * val
+                          + wsel[..., None] * val2, val)
+        pdf = torch.where(is_blend, (1.0 - wsel) * pdf + wsel * pdf2, pdf)
+    if has_nest and BSDF_MASK in tp:
+        val = torch.where(is_mask[..., None], val * wsel[..., None], val)
+        pdf = torch.where(is_mask, pdf * wsel.detach(), pdf)
+    return val, pdf
+
+
 def eval_null_transmission(scene: Scene, si, bsdf_idx):
     """Transmission of a straight shadow ray through the hit surface: 1 for
-    the null BSDF, 0 for the others."""
+    the null BSDF, 1 - opacity for a mask, 0 for the others."""
     _check_types(scene.bsdfs)
-    btype = scene.bsdfs.btype[torch.clamp(bsdf_idx, min=0)]
+    idx = torch.clamp(bsdf_idx, min=0)
+    btype = m.table_lookup(scene.bsdfs.btype, idx)
     out = si.uv.new_zeros(si.uv.shape[:-1] + (3,))
     if BSDF_NULL in scene.bsdfs.types_present:
         out = torch.where((btype == BSDF_NULL)[..., None], 1.0, out)
+    if BSDF_MASK in scene.bsdfs.types_present:
+        op = eval_texture(scene.textures, scene.bsdfs.tex0[idx], si.uv)
+        out = torch.where((btype == BSDF_MASK)[..., None], 1.0 - op, out)
     return out

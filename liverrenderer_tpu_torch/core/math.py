@@ -24,8 +24,39 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt(max(x, 0)) whose derivative is clamped to 0 at x <= 1e-12, as
+    the JAX package's custom JVP: the masked-select dispatch feeds exact
+    zeros here for lanes of another BSDF family (fresnel_conductor with
+    eta_im = 0), and the infinite derivative times a zero cotangent would
+    NaN every reverse pass through the family."""
+
+    @staticmethod
+    def forward(x):
+        return torch.sqrt(torch.clamp(x, min=0.0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.save_for_forward(inputs[0], output)
+
+    @staticmethod
+    def _dydx(x, y):
+        return torch.where(x > 1e-12, 0.5 / torch.clamp(y, min=1e-12), 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * _SafeSqrt._dydx(x, y)
+
+    @staticmethod
+    def jvp(ctx, dx):
+        x, y = ctx.saved_tensors
+        return _SafeSqrt._dydx(x, y) * dx
+
+
 def safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return _SafeSqrt.apply(x)
 
 
 def safe_acos(x):

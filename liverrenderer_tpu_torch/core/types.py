@@ -72,6 +72,14 @@ class SurfaceInteraction:
         o = offset_p(self.p, self.ng, d)
         return Ray(o=o, d=d, maxt=torch.full_like(self.t, INF))
 
+    def spawn_ray_to(self, p2: Tensor) -> Ray:
+        """A ray toward p2 that stops just short of it (shadow rays)."""
+        o = offset_p(self.p, self.ng, p2 - self.p)
+        d = p2 - o
+        dist = torch.sqrt(torch.sum(d * d, -1))
+        d = d / torch.clamp(dist, min=1e-20)[..., None]
+        return Ray(o=o, d=d, maxt=dist * (1.0 - 1e-3))
+
 
 def offset_p(p: Tensor, ng: Tensor, d: Tensor) -> Tensor:
     """Offset a spawn origin along the geometric normal to avoid self-hits."""

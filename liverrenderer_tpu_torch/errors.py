@@ -8,7 +8,7 @@ from __future__ import annotations
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    """`raise not_ported("the envmap emitter", "Queue 1 M5")`."""
+    """`raise not_ported("the hair BSDF", "Queue 1 M10")`."""
     return NotImplementedError(
         f"{what} is not ported to liverrenderer_tpu_torch yet "
         f"(ROADMAP.md {item})")

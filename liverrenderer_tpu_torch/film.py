@@ -1,38 +1,60 @@
 """Film accumulation: filtered sample splatting + develop (counterpart of
-liverrenderer_tpu/film.py) for the box and tent filters.  Splats are
-index_add_ scatter-adds into an (h*w, 4) RGB+weight accumulator."""
+liverrenderer_tpu/film.py) for the box, tent and gaussian filters.
+Splats are index_add_ scatter-adds into an (h*w, 4) RGB+weight
+accumulator, one per pixel of the filter's footprint."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .errors import not_ported
-from .scene.ir import FILTER_BOX, FILTER_TENT
+from .scene.ir import FILTER_BOX, FILTER_GAUSSIAN, FILTER_TENT
+
+# footprint radius in pixels: the splat visits (2 r)^2 pixel centres
+_RADIUS = {FILTER_BOX: 0, FILTER_TENT: 1, FILTER_GAUSSIAN: 2}
+
+
+def filter_radius(rfilter: int) -> int:
+    if rfilter not in _RADIUS:
+        raise not_ported(f"reconstruction filter {rfilter}", "Queue 1 M3")
+    return _RADIUS[rfilter]
+
+
+def _filter_weight(rfilter: int, dx, dy):
+    if rfilter == FILTER_GAUSSIAN:
+        # gaussian.cpp: std 0.5, truncated at 4 std = 2 px
+        std = 0.5
+        alpha = -1.0 / (2.0 * std * std)
+        cut = math.exp(alpha * 2.0 * 2.0)
+        wx = torch.clamp(torch.exp(alpha * dx * dx) - cut, min=0.0)
+        wy = torch.clamp(torch.exp(alpha * dy * dy) - cut, min=0.0)
+        return wx * wy
+    return torch.clamp(1.0 - torch.abs(dx), min=0.0) \
+        * torch.clamp(1.0 - torch.abs(dy), min=0.0)
 
 
 def splat(w: int, h: int, rfilter: int, pos, value):
     """pos (N,2) continuous film coords, value (N,3) -> (h, w, 4)."""
     img = torch.zeros((h * w, 4), device=value.device)
     ones = torch.ones(value.shape[:-1] + (1,), device=value.device)
-    if rfilter == FILTER_BOX:
+    r = filter_radius(rfilter)
+    if r == 0:
         px = torch.clamp(pos[..., 0].to(torch.int64), 0, w - 1)
         py = torch.clamp(pos[..., 1].to(torch.int64), 0, h - 1)
         img.index_add_(0, py * w + px, torch.cat([value, ones], -1))
         return img.view(h, w, 4)
-    if rfilter != FILTER_TENT:
-        raise not_ported(f"reconstruction filter {rfilter}", "Queue 1 M3")
-    # tent, radius 1: the 2x2 pixel centres around the sample
+    # the pixel centres around the sample
     cx = pos[..., 0] - 0.5
     cy = pos[..., 1] - 0.5
     bx = torch.floor(cx).to(torch.int64)
     by = torch.floor(cy).to(torch.int64)
-    for oy in (0, 1):
-        for ox in (0, 1):
+    for oy in range(-r + 1, r + 1):
+        for ox in range(-r + 1, r + 1):
             px = bx + ox
             py = by + oy
-            wgt = torch.clamp(1.0 - torch.abs(px.to(torch.float32) - cx),
-                              min=0.0) \
-                * torch.clamp(1.0 - torch.abs(py.to(torch.float32) - cy),
-                              min=0.0)
+            wgt = _filter_weight(rfilter, px.to(torch.float32) - cx,
+                                 py.to(torch.float32) - cy)
             inside = (px >= 0) & (px < w) & (py >= 0) & (py < h)
             wgt = torch.where(inside, wgt, 0.0)
             idx = torch.clamp(py, 0, h - 1) * w + torch.clamp(px, 0, w - 1)

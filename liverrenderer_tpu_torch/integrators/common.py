@@ -10,18 +10,21 @@ from ..core.rng import make_sampler
 from ..errors import not_ported
 from ..scene.ir import Scene
 from ..sensor.perspective import ray_weight, sample_ray
+from . import path as path_mod
 from . import volpath as volpath_mod
 
 MAX_WAVEFRONT = 1 << 22   # lanes per pass
 
 _VOLPATH_FAMILY = ("volpath", "biovolpath", "biovolpath06", "prbvolpath")
+_PATH_FAMILY = ("path", "direct", "prb", "prb_basic")
 
 
 def _integrator_sample(scene: Scene, sampler, ray, mode="primal"):
+    if scene.integrator in _PATH_FAMILY:
+        return path_mod.sample(scene, sampler, ray, mode=mode)
     if scene.integrator in _VOLPATH_FAMILY:
         return volpath_mod.sample(scene, sampler, ray, mode=mode)
-    raise not_ported(f"the {scene.integrator!r} integrator",
-                     "Queue 1 M8/M10")
+    raise not_ported(f"the {scene.integrator!r} integrator", "Queue 1 M10")
 
 
 def render_pass(scene: Scene, seed: int, spp_pass: int, sample_offset: int,

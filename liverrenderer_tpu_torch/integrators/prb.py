@@ -3,9 +3,9 @@ parameters (counterpart of liverrenderer_tpu/integrators/prb.py).
 
 `render_grad` runs the PRB replay adjoint (prb_replay.py) wherever it
 applies and the scan adjoint otherwise: each render pass walks exactly
-max_depth bounces (`volpath.sample(mode="ad")`, every bounce under an
-activation checkpoint) and reverse-mode autograd differentiates it, with
-the detached-sampling rules of the bounce.  Passes are independent Monte
+max_depth bounces (`path.sample` or `volpath.sample` with mode="ad",
+every bounce under an activation checkpoint) and reverse-mode autograd
+differentiates it, with the detached-sampling rules of the bounce.  Passes are independent Monte
 Carlo estimates, so the gradient of their sum is the sum of per-pass
 gradients; the counter RNG makes each pass walk the primal's paths.
 """
@@ -20,7 +20,7 @@ from ..util import _leaf, apply_params
 from .common import MAX_WAVEFRONT, _render_jit, render_pass
 from .prb_replay import (_detach, _leaves, _loss_from_acc,
                          render_grad_replay, replay_applicable)
-from .regen import render_regen
+from .regen import regen_applicable, render_regen
 
 Tensor = torch.Tensor
 
@@ -31,11 +31,15 @@ def _grad_jit(scene: Scene, params: Dict[str, Tensor], seed, spp: int,
     n_passes = (spp + spp_pass - 1) // spp_pass
     keys, values = _leaves(scene, params)
     sc_primal = _detach(apply_params(scene, dict(zip(keys, values))))
-    # the primal image for dL/dI on the regenerating wavefront (every
-    # scene the port loads is regen-able); dL/dI on an independent primal
-    # keeps the adjoint unbiased
+    # the primal image for dL/dI: on the regenerating wavefront where it
+    # applies, else the same fixed passes as the adjoint differentiates;
+    # dL/dI on an independent primal keeps the adjoint unbiased
     with torch.no_grad():
-        acc = render_regen(sc_primal, seed, spp)
+        if regen_applicable(sc_primal, "primal"):
+            acc = render_regen(sc_primal, seed, spp)
+        else:
+            acc = sum(render_pass(sc_primal, seed, spp_pass, i * spp_pass,
+                                  mode="ad") for i in range(n_passes))
     loss, image, g_rgb = _loss_from_acc(acc, loss_fn)
     # develop(total) divides by the total filter weight, which carries no
     # parameter dependence: each pass's rgb meets d loss / d rgb

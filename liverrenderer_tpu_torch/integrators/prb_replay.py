@@ -24,6 +24,11 @@ wavefront:
                  throughput_out <- delta * suffix
                  env_weight_out <- delta * E(ray_d)   (E detached)
 
+The surface family (path, direct) folds the environment into L inside its
+bounce, so its walk has no env_weight: the cotangents are those of L and
+the throughput only, and an environment parameter's gradient arrives
+through the L cotangent.
+
 Schedules: one stored forward + one walk (`_RenderAcc`, a
 torch.autograd.Function) when the film fits one regen tile and its sample
 budget fits the path pool; otherwise the tiled schedule, in which every
@@ -44,7 +49,6 @@ from ..emitter.dispatch import eval_environment
 from ..scene.ir import FILTER_TENT, Scene
 from ..util import _as_leaf, apply_params
 from . import regen as regen_mod
-from . import volpath as vp
 from .regen import (_make_lanes, _render_regen_tile, _select_state,
                     lane_pos, pool_channels, regen_applicable)
 
@@ -60,14 +64,15 @@ POOL_BYTES_CAP = 2 << 30
 # parameter keys whose leaves reach eval_environment: when one is
 # differentiated, the environment is evaluated inside the per-bounce
 # gradient so its own cotangent carries the deferred env term
-_ENV_KEYS = ("emitters.params", "textures.bitmaps")
+_ENV_KEYS = ("emitters.params", "textures.data", "textures.bitmaps")
 
 
 def replay_applicable(scene: Scene, params: Dict[str, Tensor], spp: int) \
         -> bool:
     """The replay adjoint covers every regen-able configuration (box or
     tent filter, any film size and spp).  (The JAX package also sends
-    sensor parameters to the scan adjoint; the port has no sensor keys.)"""
+    sensor parameters and SSS surface scenes to the scan adjoint; the port
+    has no sensor keys and loads no subsurface plugin.)"""
     return regen_applicable(scene, "primal")
 
 
@@ -147,7 +152,9 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
     budget = tile_pix * spp_chunk
     W = min(regen_mod.REGEN_WAVEFRONT, budget)
     C = pool_channels(scene)
-    diff_env = any(k in _ENV_KEYS for k in keys)
+    fam = regen_mod._family(scene)
+    has_envw = scene.integrator not in regen_mod._SURFACE
+    diff_env = has_envw and any(k in _ENV_KEYS for k in keys)
 
     st, _ = _make_lanes(sc_det, torch.arange(W, device=dev), seed,
                         spp_total, pix0, tile_pix, samp0)
@@ -167,23 +174,30 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
         leaves = [v.requires_grad_() for v in (x.detach() for x in values)]
         with torch.enable_grad():
             sc = apply_params(scene, dict(zip(keys, leaves)))
-            # the recorded bounce walks NEE shadow paths a fixed max_depth
-            # steps, as the JAX replay does (the stored forward walks them
-            # unbounded: a lane whose walk needs more steps does not
-            # rebuild its stored radiance exactly)
-            st2 = vp.bounce(sc, st, bounded_nee=True)
-            outs = [st2.L, st2.throughput, st2.env_weight]
+            # the recorded bounce: volpath walks NEE shadow paths a fixed
+            # max_depth steps, as the JAX replay does (the stored forward
+            # walks them unbounded: a lane whose walk needs more steps does
+            # not rebuild its stored radiance exactly); the surface bounce
+            # detaches its continuation ray
+            st2 = fam.bounce(sc, st, True)
+            outs = [st2.L, st2.throughput]
+            if has_envw:
+                outs.append(st2.env_weight)
             if diff_env:
                 # the env radiance along the post-bounce ray both closes
                 # the suffix identity and, through its own cotangent at
                 # lane death, carries the deferred env-parameter gradient
                 outs.append(eval_environment(sc, st2.ray_d))
-        if diff_env:
-            E_det = outs[3].detach()
+        L2d, tp2d = outs[0].detach(), outs[1].detach()
+        if not has_envw:
+            R2 = L2d
         else:
-            E_det = eval_environment(sc_det, st2.ray_d.detach())
-        L2d, tp2d, ew2d = (x.detach() for x in outs[:3])
-        R2 = L2d + ew2d * E_det
+            if diff_env:
+                E_det = outs[3].detach()
+            else:
+                E_det = eval_environment(sc_det, st2.ray_d.detach())
+            ew2d = outs[2].detach()
+            R2 = L2d + ew2d * E_det
         big = torch.abs(tp2d) > 1e-12
         suffix = torch.where(big, (Ltot - R2) / torch.where(big, tp2d, 1.0),
                              0.0)
@@ -198,8 +212,9 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
 
         msk = was_active[:, None]
         cts = [torch.where(msk, delta, 0.0),
-               torch.where(msk, delta * suffix, 0.0),
-               torch.where(msk, delta * E_det, 0.0)]
+               torch.where(msk, delta * suffix, 0.0)]
+        if has_envw:
+            cts.append(torch.where(msk, delta * E_det, 0.0))
         if diff_env:
             cts.append(torch.where(died[:, None], delta * ew2d, 0.0))
         used = [i for i, o in enumerate(outs) if o.requires_grad]

@@ -1,5 +1,6 @@
 """Wavefront path regeneration: keep the lanes full (counterpart of
-liverrenderer_tpu/integrators/regen.py) for the volpath family.
+liverrenderer_tpu/integrators/regen.py) for the volpath family and the
+surface family (`path`, `direct`).
 
 A wavefront of W lanes bounces until every sample of the pool has been
 walked: a lane whose path ends is splatted into the film inside the loop
@@ -33,6 +34,7 @@ from ..errors import not_ported
 from ..scene.ir import (FILTER_BOX, FILTER_TENT, SENSOR_IRRADIANCEMETER,
                         SENSOR_THINLENS, Scene)
 from ..sensor.perspective import sample_ray
+from . import path as path_mod
 from . import volpath as vp
 
 # lanes kept in flight
@@ -40,11 +42,22 @@ REGEN_WAVEFRONT = 1 << 16
 # pixels per regen tile: larger films render tile by tile
 TILE_PIX = 1 << 18
 
+# integrators walked by the surface family's bounce (path.py); the rest of
+# the regen-able set runs the volpath bounce
+_SURFACE = ("path", "direct")
+
+
+def _family(scene: Scene):
+    """The module whose init_state / bounce walk this scene's lanes."""
+    return path_mod if scene.integrator in _SURFACE else vp
+
 
 def _lane_cap(scene: Scene) -> int:
-    """Per-lane iteration budget: the fixed wavefront's loop cap, so both
-    renderers compute the same per-sample estimate."""
-    return scene.max_depth * 4
+    """Per-lane iteration budget: each family's fixed-wavefront loop cap,
+    so both renderers compute the same per-sample estimate (null
+    collisions do not advance a volpath lane's depth; a surface lane dies
+    by its depth gate)."""
+    return scene.max_depth * (1 if scene.integrator in _SURFACE else 4)
 
 
 def pool_channels(scene: Scene) -> int:
@@ -56,9 +69,12 @@ def pool_channels(scene: Scene) -> int:
 
 
 def _finalize_L2(scene: Scene, st):
-    """(film_rgb, pool_vec) at lane death: the deferred environment term
-    folded in.  Both are the RGB radiance (they differ only in the
+    """(film_rgb, pool_vec) at lane death: the volpath family's deferred
+    environment term folded in (the surface family folds it into L inside
+    its bounce).  Both are the RGB radiance (they differ only in the
     spectral variant, whose pool keeps the wavelength packet)."""
+    if not hasattr(st, "env_weight"):
+        return st.L, st.L
     L = st.L + st.env_weight * eval_environment(scene, st.ray_d)
     return L, L
 
@@ -89,7 +105,8 @@ def _make_lanes(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
     paths."""
     pos, sampler = _lane_sampler(scene, sample_ids, seed, pix0, tile_pix,
                                  samp0)
-    return vp.init_state(sample_ray(scene, pos), sampler, scene), pos
+    return _family(scene).init_state(sample_ray(scene, pos), sampler,
+                                     scene), pos
 
 
 def lane_pos(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
@@ -166,6 +183,7 @@ def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
     refills = (budget + W - 1) // W
     lane_cap = _lane_cap(scene)
     max_iters = lane_cap * (refills + 2)     # runaway backstop only
+    fam = _family(scene)
     age = torch.zeros((W,), dtype=torch.int64, device=dev)
     next_s = torch.tensor(W, dtype=torch.int64, device=dev)
 
@@ -173,8 +191,10 @@ def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
         if not bool(st.active.any()):        # the one host sync
             break
         was_active = st.active
-        # the primal and the stored forward walk NEE shadow paths unbounded
-        st = vp.bounce(scene, st, bounded_nee=False)
+        # the primal and the stored forward walk volpath's NEE shadow paths
+        # unbounded (the third argument: bounded_nee, or the surface
+        # bounce's ad)
+        st = fam.bounce(scene, st, False)
         age = age + 1
         st = dataclasses.replace(st, active=st.active & (age < lane_cap))
         died = was_active & ~st.active
@@ -227,6 +247,7 @@ def render_regen_host(scene: Scene, seed, spp: int, control=None):
 def regen_applicable(scene: Scene, mode: str) -> bool:
     return (mode == "primal"
             and scene.integrator in ("volpath", "biovolpath", "biovolpath06")
+            + _SURFACE
             and scene.rfilter in (FILTER_BOX, FILTER_TENT)
             and scene.sensor.stype not in (SENSOR_THINLENS,
                                            SENSOR_IRRADIANCEMETER))

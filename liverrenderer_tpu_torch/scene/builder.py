@@ -2,13 +2,18 @@
 liverrenderer_tpu/scene/builder.py), cut to the plugins of the slices
 ported so far:
 
-  integrators  biovolpath, biovolpath06, volpath, prbvolpath
-  sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box
-               or tent filter, the independent sampler
+  integrators  biovolpath, biovolpath06, volpath, prbvolpath, path,
+               direct, prb, prb_basic
+  sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box,
+               tent or gaussian (the default) filter, the independent
+               sampler
   shapes       mesh, rectangle, cube, sphere (analytic)
   bsdfs        diffuse (also the default of a shape without a BSDF),
-               dielectric, null, and the bumpmap / normalmap wrappers
-               (folded into the shape table, also through a ref)
+               dielectric, thindielectric, roughdielectric, conductor,
+               roughconductor, plastic, roughplastic, pplastic, null, the
+               one-level blendbsdf and mask, and the twosided, bumpmap and
+               normalmap wrappers (folded into the BSDF and shape tables,
+               also through a ref)
   textures     constant, checkerboard, bitmap (inline `data` only)
   media        liver, glissonCapsule / glisson, parenchyma, homogeneous
                (isotropic or HG phase)
@@ -31,10 +36,14 @@ from ..accel.cuda_intersect import pack_tris
 from ..core.distr import build_distribution_2d_np
 from ..errors import not_ported
 from . import geometry as geo
-from .ir import (BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_NULL, BSDF_P,
-                 EMITTER_AREA, EMITTER_CONSTANT, EMITTER_ENVMAP, EMITTER_P,
-                 EMITTER_POINT, F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL,
-                 F_NULL, F_SMOOTH, FILTER_BOX, FILTER_TENT, MEDIUM_GLISSON,
+from .ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
+                 BSDF_MASK, BSDF_NULL, BSDF_P, BSDF_PLASTIC, BSDF_PPLASTIC,
+                 BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
+                 BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, EMITTER_AREA,
+                 EMITTER_CONSTANT, EMITTER_ENVMAP, EMITTER_P, EMITTER_POINT,
+                 F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_GLOSSY_REFL,
+                 F_GLOSSY_TRANS, F_NULL, F_SMOOTH, FILTER_BOX,
+                 FILTER_GAUSSIAN, FILTER_TENT, MEDIUM_GLISSON,
                  MEDIUM_HOMOGENEOUS, MEDIUM_LIVER, MEDIUM_P,
                  MEDIUM_PARENCHYMA, PHASE_HG, PHASE_ISOTROPIC,
                  SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, TEX_BITMAP,
@@ -49,9 +58,24 @@ IOR_NAMES = {
     "bromine": 1.661, "amber": 1.55,
 }
 
-_INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "prbvolpath")
+# named conductors' complex IOR, RGB (the JAX builder's table)
+CONDUCTOR_IOR = {
+    "au": ([0.1431, 0.3749, 1.4424], [3.9831, 2.3857, 1.6032]),
+    "ag": ([0.1552, 0.1376, 0.1354], [4.8283, 3.1222, 2.1463]),
+    "al": ([1.6574, 0.8803, 0.5212], [9.2238, 6.2665, 4.8370]),
+    "cu": ([0.2004, 0.9240, 1.1022], [3.9129, 2.4528, 2.1421]),
+    "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
+}
+
+_INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "prbvolpath",
+                "path", "direct", "prb", "prb_basic")
 _SHAPE_TYPES = ("mesh", "rectangle", "cube", "sphere")
-_BSDF_TYPES = ("diffuse", "dielectric", "null", "bumpmap", "normalmap")
+_BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
+               "conductor", "roughconductor", "plastic", "roughplastic",
+               "pplastic", "null", "mask", "blendbsdf", "twosided",
+               "bumpmap", "normalmap")
+_FILTERS = {"box": FILTER_BOX, "tent": FILTER_TENT,
+            "gaussian": FILTER_GAUSSIAN}
 _MEDIUM_TYPES = ("liver", "glissonCapsule", "glisson", "parenchyma",
                  "homogeneous")
 _EMITTER_TYPES = ("point", "constant", "envmap")
@@ -59,8 +83,7 @@ _TEXTURE_TYPES = ("bitmap", "checkerboard")
 _CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
-    "path": "Queue 1 M8", "direct": "Queue 1 M8", "volpathmis": "Queue 1 M10",
-    "prb": "Queue 1 M8", "prb_basic": "Queue 1 M8",
+    "volpathmis": "Queue 1 M10",
     "aov": "Queue 1 M10", "depth": "Queue 1 M10", "moment": "Queue 1 M10",
     "ptracer": "Queue 1 M10", "stokes": "Queue 1 M10",
     "volprim_rf_basic": "Queue 1 M10",
@@ -81,11 +104,9 @@ _OTHER_TYPES = {
     "srgb": "Queue 1 M10", "blackbody": "Queue 1 M10",
     "regular": "Queue 1 M10", "irregular": "Queue 1 M10",
 }
-for _t in ("thindielectric", "conductor", "roughconductor", "plastic",
-           "roughplastic", "pplastic", "principled", "principledthin",
-           "mask", "blendbsdf", "twosided", "roughdielectric", "hair",
-           "polarizer", "retarder", "circular", "measured"):
-    _OTHER_TYPES[_t] = "Queue 1 M5/M10"
+for _t in ("principled", "principledthin", "hair", "polarizer", "retarder",
+           "circular", "measured"):
+    _OTHER_TYPES[_t] = "Queue 1 M10"
 for _t in ("directional", "spot", "directionalarea", "projector"):
     _OTHER_TYPES[_t] = "Queue 1 (directional, spot and projector emitters)"
 for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
@@ -123,6 +144,27 @@ def _ior(val, default) -> float:
     if isinstance(val, str):
         return IOR_NAMES[val.lower()]
     return float(val)
+
+
+def _fdr(eta: float) -> float:
+    """Average diffuse Fresnel reflectance (the JAX builder's polynomial
+    fits, in float64)."""
+    if eta < 1.0:
+        return float(-1.4399 * eta * eta + 0.7099 * eta + 0.6681
+                     + 0.0636 / eta)
+    ie = 1.0 / eta
+    ie2 = ie * ie
+    ie3 = ie2 * ie
+    ie4 = ie3 * ie
+    ie5 = ie4 * ie
+    return float(0.919317 - 3.4793 * ie + 6.75335 * ie2 - 7.80989 * ie3
+                 + 4.98554 * ie4 - 1.36881 * ie5)
+
+
+def _alpha(d, key, default):
+    """A roughness parameter; a textured one takes the default."""
+    v = d.get(key, default)
+    return default if isinstance(v, dict) else float(v)
 
 
 def _pack_glisson(p: np.ndarray, d: dict):
@@ -228,6 +270,8 @@ class _Builder:
         self.b_params: List[np.ndarray] = []
         self.b_tex0: List[int] = []
         self.b_tex1: List[int] = []
+        self.b_inner: List[int] = []
+        self.b_inner2: List[int] = []
         self.b_flags: List[int] = []
         self.b_twosided: List[bool] = []
         self.e_type: List[int] = []
@@ -263,7 +307,7 @@ class _Builder:
         self.fov_x = 45.0
         self.film_w = 256
         self.film_h = 256
-        self.rfilter = FILTER_BOX
+        self.rfilter = FILTER_GAUSSIAN
         self.spp = 16
         self.sampler_kind = "independent"
         self.integrator = "path"
@@ -314,32 +358,39 @@ class _Builder:
         raise _unsupported(t)
 
     # --- bsdfs ------------------------------------------------------------
-    def _push_bsdf(self, btype, params, tex0=-1, tex1=-1, flags=0,
-                   twosided=False) -> int:
+    def _push_bsdf(self, btype, params, tex0=-1, tex1=-1, inner=-1,
+                   inner2=-1, flags=0, twosided=False) -> int:
         self.b_type.append(btype)
         self.b_params.append(params)
         self.b_tex0.append(tex0)
         self.b_tex1.append(tex1)
+        self.b_inner.append(inner)
+        self.b_inner2.append(inner2)
         self.b_flags.append(flags)
         self.b_twosided.append(twosided)
         return len(self.b_type) - 1
 
-    def build_bsdf(self, d) -> tuple:
-        """(bsdf index, bump texture, bump scale): the bumpmap and normalmap
-        wrappers fold into the shape's slots (a normal map as a negative
-        scale), and survive a ref."""
+    def build_bsdf(self, d, twosided=False) -> tuple:
+        """(bsdf index, bump texture, bump scale): the twosided wrapper
+        sets its BSDF's flag, the bumpmap and normalmap wrappers fold into
+        the shape's slots (a normal map as a negative scale), and both
+        survive a ref."""
         if d is None:
             # default: plain diffuse 0.5 (the reference's shape default)
             return self._push_bsdf(
                 BSDF_DIFFUSE, np.zeros(BSDF_P, np.float32),
                 tex0=self.build_texture([.5, .5, .5]),
-                flags=F_DIFFUSE_REFL), -1, 0.0
+                flags=F_DIFFUSE_REFL, twosided=twosided), -1, 0.0
         if d.get("type") == "ref":
             ent = self.named[d["id"]]
             if ent[0] != "bsdf":
                 raise ValueError(f"{d['id']!r} is a {ent[0]}, not a bsdf")
             return ent[1], ent[2], ent[3]
         t = d["type"]
+        if t == "twosided":
+            inner = [v for k, v in d.items() if isinstance(v, dict)
+                     and v.get("type") is not None]
+            return self.build_bsdf(inner[0], twosided=True)
         if t in ("bumpmap", "normalmap"):
             bump_tex = self.build_texture(d.get("texture")
                                           or d.get("normalmap"))
@@ -348,28 +399,109 @@ class _Builder:
                      if isinstance(v, dict)
                      and k not in ("texture", "normalmap")
                      and "type" in v and v["type"] != "bitmap"]
-            idx, _, _ = self.build_bsdf(inner[0] if inner else None)
+            idx, _, _ = self.build_bsdf(inner[0] if inner else None,
+                                        twosided)
             if t == "normalmap":
                 scale = -abs(scale)
             return idx, bump_tex, scale
+        return self._build_plain_bsdf(d, t, twosided), -1, 0.0
+
+    def _build_plain_bsdf(self, d, t, twosided) -> int:
         p = np.zeros(BSDF_P, np.float32)
         if t == "diffuse":
             tex0 = self.build_texture(d.get("reflectance", 0.5), 0.5)
             return self._push_bsdf(BSDF_DIFFUSE, p, tex0=tex0,
-                                   flags=F_DIFFUSE_REFL), -1, 0.0
-        if t == "dielectric":
+                                   flags=F_DIFFUSE_REFL, twosided=twosided)
+        if t in ("dielectric", "thindielectric", "roughdielectric"):
             p[0] = _ior(d.get("int_ior"), 1.5046) \
                 / _ior(d.get("ext_ior"), 1.000277)
             tex0 = self.build_texture(d.get("specular_reflectance", 1.0), 1.0)
             tex1 = self.build_texture(d.get("specular_transmittance", 1.0),
                                       1.0)
-            return self._push_bsdf(BSDF_DIELECTRIC, p, tex0=tex0, tex1=tex1,
-                                   flags=F_DELTA_REFL | F_DELTA_TRANS), \
-                -1, 0.0
+            if t == "dielectric":
+                code, flags = BSDF_DIELECTRIC, F_DELTA_REFL | F_DELTA_TRANS
+            elif t == "thindielectric":
+                code, flags = BSDF_THINDIELECTRIC, F_DELTA_REFL | F_NULL
+            else:
+                alpha = float(d.get("alpha", 0.1))
+                p[6] = float(d.get("alpha_u", alpha))
+                p[7] = float(d.get("alpha_v", alpha))
+                code, flags = BSDF_ROUGHDIELECTRIC, \
+                    F_GLOSSY_REFL | F_GLOSSY_TRANS
+            return self._push_bsdf(code, p, tex0=tex0, tex1=tex1,
+                                   flags=flags, twosided=twosided)
+        if t in ("conductor", "roughconductor"):
+            if "eta" in d:
+                p[0:3] = _spectrum_to_rgb(d["eta"])
+                p[3:6] = _spectrum_to_rgb(d.get("k", 1.0))
+            else:
+                mat = str(d.get("material", "none")).lower()
+                p[0:3], p[3:6] = CONDUCTOR_IOR.get(mat, CONDUCTOR_IOR["none"])
+            tex0 = self.build_texture(d.get("specular_reflectance", 1.0), 1.0)
+            if t == "conductor":
+                return self._push_bsdf(BSDF_CONDUCTOR, p, tex0=tex0,
+                                       flags=F_DELTA_REFL, twosided=twosided)
+            alpha = float(d.get("alpha", 0.1))
+            p[6] = float(d.get("alpha_u", alpha))
+            p[7] = float(d.get("alpha_v", alpha))
+            return self._push_bsdf(BSDF_ROUGHCONDUCTOR, p, tex0=tex0,
+                                   flags=F_GLOSSY_REFL, twosided=twosided)
+        if t in ("plastic", "roughplastic", "pplastic"):
+            eta = _ior(d.get("int_ior"), 1.49) \
+                / _ior(d.get("ext_ior"), 1.000277)
+            p[0] = eta
+            p[1] = 1.0 if d.get("nonlinear", False) else 0.0
+            p[2] = _fdr(eta)
+            p[3] = _fdr(1.0 / eta)
+            tex0 = self.build_texture(d.get("diffuse_reflectance", 0.5), 0.5)
+            # specular sampling weight: the mean specular over the total
+            # (roughplastic.cpp, with the specular mean 1)
+            p[4] = 1.0 / (1.0 + np.mean(
+                _spectrum_to_rgb(d.get("diffuse_reflectance", 0.5), 0.5)))
+            if t == "plastic":
+                return self._push_bsdf(BSDF_PLASTIC, p, tex0=tex0,
+                                       flags=F_DELTA_REFL | F_DIFFUSE_REFL,
+                                       twosided=twosided)
+            alpha = _alpha(d, "alpha", 0.1)
+            p[6] = _alpha(d, "alpha_u", alpha)
+            p[7] = _alpha(d, "alpha_v", alpha)
+            code = BSDF_ROUGHPLASTIC if t == "roughplastic" \
+                else BSDF_PPLASTIC
+            return self._push_bsdf(code, p, tex0=tex0,
+                                   flags=F_GLOSSY_REFL | F_DIFFUSE_REFL,
+                                   twosided=twosided)
         if t == "null":
-            return self._push_bsdf(BSDF_NULL, p, flags=F_NULL,
-                                   twosided=True), -1, 0.0
+            return self._push_bsdf(BSDF_NULL, p, flags=F_NULL, twosided=True)
+        if t == "mask":
+            tex0 = self.build_texture(d.get("opacity", 0.5), 0.5)
+            inner = [v for k, v in d.items() if isinstance(v, dict)
+                     and k != "opacity" and v.get("type") not in ("rgb",)]
+            iidx, _, _ = self.build_bsdf(inner[0] if inner else None,
+                                         twosided)
+            self._one_level("mask", iidx)
+            return self._push_bsdf(BSDF_MASK, p, tex0=tex0, inner=iidx,
+                                   flags=self.b_flags[iidx] | F_NULL,
+                                   twosided=twosided)
+        if t == "blendbsdf":
+            tex0 = self.build_texture(d.get("weight", 0.5), 0.5)
+            inners = [v for k, v in d.items() if isinstance(v, dict)
+                      and k != "weight" and "type" in v]
+            i0, _, _ = self.build_bsdf(inners[0], twosided)
+            i1, _, _ = self.build_bsdf(inners[1] if len(inners) > 1
+                                       else None, twosided)
+            self._one_level("blendbsdf", i0, i1)
+            return self._push_bsdf(BSDF_BLEND, p, tex0=tex0, inner=i0,
+                                   inner2=i1,
+                                   flags=self.b_flags[i0] | self.b_flags[i1],
+                                   twosided=twosided)
         raise _unsupported(t)
+
+    def _one_level(self, what, *inner):
+        """The dispatch resolves a mask's or blend's nested BSDF one level
+        deep, stochastically."""
+        if any(self.b_type[i] in (BSDF_MASK, BSDF_BLEND) for i in inner):
+            raise ValueError(f"{what}: nested blend/mask BSDFs support one "
+                             "level of nesting")
 
     # --- media ------------------------------------------------------------
     def build_medium(self, d) -> int:
@@ -559,10 +691,10 @@ class _Builder:
         self.film_h = int(film.get("height", 256))
         rf = film.get("rfilter", {})
         rft = rf.get("type", "gaussian") if isinstance(rf, dict) else rf
-        if rft not in ("box", "tent"):
+        if rft not in _FILTERS:
             raise not_ported(f"the {rft!r} reconstruction filter",
                              "Queue 1 M3")
-        self.rfilter = FILTER_BOX if rft == "box" else FILTER_TENT
+        self.rfilter = _FILTERS[rft]
         sampler = d.get("sampler", {})
         self.spp = int(sampler.get("sample_count", 16))
         self.sampler_kind = sampler.get("type", "independent")
@@ -663,6 +795,8 @@ class _Builder:
                              else np.zeros((1, BSDF_P))).astype(np.float32),
             "bsdfs.tex0": np.asarray(self.b_tex0 or [-1], i32),
             "bsdfs.tex1": np.asarray(self.b_tex1 or [-1], i32),
+            "bsdfs.inner": np.asarray(self.b_inner or [-1], i32),
+            "bsdfs.inner2": np.asarray(self.b_inner2 or [-1], i32),
             "bsdfs.flags": np.asarray(self.b_flags or [0], np.uint32),
             "bsdfs.twosided": np.asarray(self.b_twosided or [False]),
             "emitters.etype": np.asarray(self.e_type or [0], i32),

@@ -1,7 +1,9 @@
 """Builtin Cornell-box scene dict (counterpart of
 liverrenderer_tpu/scene/cornell.py): the reference's mi.cornell_box() (same
-camera, BSDF albedos, light radiance and geometry), and the fog Cornell
-box of the BASELINE configuration `cornell_box_1080x1080_fog_st_albedo`.
+camera, BSDF albedos, light radiance and geometry; BASELINE's first
+evaluation config at 256x256, 64 spp, `path` depth 8, gaussian filter),
+the fog Cornell box of the BASELINE configuration
+`cornell_box_1080x1080_fog_st_albedo`, and the gradient tests' plane.
 """
 from __future__ import annotations
 
@@ -101,13 +103,16 @@ def fog_cornell_box(res: int = 1080, sigma: float = 0.2,
 
 
 def plane_light_dict(res: int = 12, integrator: str = "volpath",
-                     max_depth: int = 6, light=None, fog_cube: bool = False):
-    """A diffuse plane seen head-on under a light (the reference's
-    gradient-test ConfigBase scene): by default a rectangular area light
-    facing the plane; `light` replaces it (a point or constant emitter
-    dict).  fog_cube adds a null-BSDF cube around the plane holding a
-    homogeneous medium, whose shadow rays take the ratio-tracked walk and
-    whose scattering events do medium NEE under volpath.  Transforms are
+                     max_depth: int = 6, light=None, fog_cube: bool = False,
+                     bsdf=None):
+    """A plane seen head-on under a light (the reference's gradient-test
+    ConfigBase scene, as tests/test_ad_configs.py builds it with
+    integrator="path", max_depth=3): by default a diffuse plane under a
+    rectangular area light facing it; `light` replaces the light (a point
+    or constant emitter dict) and `bsdf` the plane's BSDF.  fog_cube adds
+    a null-BSDF cube around the plane holding a homogeneous medium, whose
+    shadow rays take the ratio-tracked walk and whose scattering events do
+    medium NEE under volpath.  Transforms are
     4x4 arrays, so both packages load the dict."""
     d = {
         "type": "scene",
@@ -121,9 +126,10 @@ def plane_light_dict(res: int = 12, integrator: str = "volpath",
                      "rfilter": {"type": "box"}},
         },
         "plane": {"type": "rectangle",
-                  "bsdf": {"type": "diffuse",
-                           "reflectance": {"type": "rgb",
-                                           "value": [0.6, 0.5, 0.4]}}},
+                  "bsdf": bsdf or {"type": "diffuse",
+                                   "reflectance": {"type": "rgb",
+                                                   "value": [0.6, 0.5,
+                                                             0.4]}}},
         "light": light or {
             "type": "rectangle",
             "to_world": Transform().translate([0, 0, 2.0])

@@ -143,10 +143,25 @@ class Textures(_Table):
 
 @dataclass
 class BSDFs(_Table):
+    """Param rows by type (the JAX builder's layout):
+      DIFFUSE          tex0 = reflectance
+      DIELECTRIC       p0 = eta (int/ext); tex0 = specular_reflectance,
+      THINDIELECTRIC   tex1 = specular_transmittance
+      ROUGHDIELECTRIC  + p6, p7 = alpha_u, alpha_v (GGX)
+      CONDUCTOR        p0:3 = eta, p3:6 = k; tex0 = specular_reflectance
+      ROUGHCONDUCTOR   + p6, p7 = alpha_u, alpha_v
+      PLASTIC          p0 = eta, p1 = nonlinear, p2 = fdr_int, p3 =
+      (ROUGH/P)PLASTIC fdr_ext, p4 = specular sampling weight, p6, p7 =
+                       alpha_u, alpha_v; tex0 = diffuse_reflectance
+      MASK             tex0 = opacity, inner = the nested BSDF
+      BLEND            tex0 = weight, inner / inner2 = the nested BSDFs
+    """
     btype: Tensor      # (B,)
-    params: Tensor     # (B, BSDF_P)  DIELECTRIC: p0 = eta (int/ext)
+    params: Tensor     # (B, BSDF_P)
     tex0: Tensor       # (B,) texture index (-1 => white)
     tex1: Tensor       # (B,)
+    inner: Tensor      # (B,) nested BSDF of a mask / blend, -1 otherwise
+    inner2: Tensor     # (B,) second nested BSDF of a blend
     flags: Tensor      # (B,) BSDF flag bits
     twosided: Tensor   # (B,) bool
     types_present: Tuple[int, ...] = (BSDF_DIFFUSE,)

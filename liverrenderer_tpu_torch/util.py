@@ -10,9 +10,11 @@ render.  `SceneParameters` gives the reference's dict-of-parameters UX
 
 Keys the port carries: media.params, bsdfs.params, emitters.params (the
 constant environment's radiance, the envmap's scale, an area light's
-radiance, a point light's position and intensity) and textures.bitmaps
-(the bitmap stack; its bilinear taps read it only when the scene packs no
-quads, so with quads its gradient is zero, as in the JAX package).  The
+radiance, a point light's position and intensity), textures.data (the
+texture rows: a constant's rgb, a checkerboard's colours, uv transforms)
+and textures.bitmaps (the bitmap stack; its bilinear taps read it only
+when the scene packs no quads, so with quads its gradient is zero, as in
+the JAX package).  The
 JAX package's other keys raise `not_ported` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -33,6 +35,9 @@ _LEAVES: Dict[str, tuple] = {
                             emitters=s.emitters.replace(params=v))),
     "media.params": (lambda s: s.media.params,
                      lambda s, v: s.replace(media=s.media.replace(params=v))),
+    "textures.data": (lambda s: s.textures.data,
+                      lambda s, v: s.replace(
+                          textures=s.textures.replace(data=v))),
     "textures.bitmaps": (lambda s: s.textures.bitmaps,
                          lambda s, v: s.replace(
                              textures=s.textures.replace(bitmaps=v))),
@@ -40,7 +45,6 @@ _LEAVES: Dict[str, tuple] = {
 
 # the JAX package's keys whose modules the port does not carry yet
 _NOT_PORTED = {
-    "textures.data": ("gradients of textures", "Queue 1 M8"),
     "vertices": ("vertex gradients (projective boundary terms)",
                  "Queue 1 M10"),
     "media.grids": ("gradients of heterogeneous media grids", "Queue 1 M10"),

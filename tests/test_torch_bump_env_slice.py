@@ -35,6 +35,7 @@ from liverrenderer_tpu_torch.scene import cornell as tcornell
 from liverrenderer_tpu_torch.scene.liver_proxy import (height_map,
                                                        liver_proxy_dict,
                                                        sky_map)
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 PIX_RTOL, PIX_ATOL, PIX_FRAC, MEAN_RTOL = 1e-3, 1e-4, 0.99, 1e-3
 G_ATOL_REL = 3e-6

@@ -31,6 +31,7 @@ from liverrenderer_tpu_torch.phase import dispatch as tphase
 from liverrenderer_tpu_torch.scene.liver_proxy import (liver_medium,
                                                        liver_proxy_dict)
 from liverrenderer_tpu_torch.sensor import perspective as tsensor
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -268,3 +268,54 @@ def test_env_nee_plane_on_the_card_matches_cpu():
     before = tci.SHADOW_LAUNCHES
     _card_vs_cpu(d, 8)
     assert tci.SHADOW_LAUNCHES > before
+
+
+def _cornell(res, rfilter):
+    from liverrenderer_tpu_torch.scene.cornell import cornell_box
+    d = cornell_box()
+    d["sensor"]["film"].update(width=res, height=res,
+                               rfilter={"type": rfilter})
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rfilter", ["gaussian", "box"])
+def test_cornell_box_on_the_card_matches_cpu(rfilter):
+    """BASELINE's Cornell box (path, depth 8) on the card against the CPU
+    render: its gaussian filter on the fixed wavefront, a box filter on the
+    regenerating one; bounce and shadow queries both launch the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    before = (tci.LAUNCHES, tci.SHADOW_LAUNCHES)
+    _card_vs_cpu(_cornell(24, rfilter), 4)
+    assert tci.LAUNCHES - tci.SHADOW_LAUNCHES > before[0] - before[1]
+    assert tci.SHADOW_LAUNCHES > before[1]
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_a_wide_wavefront():
+    """The Cornell box's camera wavefront at 256x256, 64 spp: 4,194,304
+    rays in one launch (16,384 blocks, one split over its one chunk)
+    against the plain version run in blocks of 262,144 rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.sensor.perspective import sample_ray
+    scene = lrt.load_dict(_cornell(256, "gaussian"))
+    n = 256 * 256 * 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pos = torch.rand((n, 2), generator=g, device="cuda") * 256.0
+    ray = sample_ray(scene, pos)
+    o = ray.o - scene.tri_center
+    rays = torch.cat([o.T, ray.d.T, torch.full((2, n), float("inf"),
+                                               device="cuda")]).contiguous()
+    rays[7] = 0.0
+    assert tci.split_plan(n, scene.tri_boxes.shape[0], rays.device)[0] == 1
+    tk, pk = tci.intersect_closest(rays, scene.tri_buf, scene.tri_boxes)
+    blk = 1 << 18
+    parts = [tci.intersect_closest_reference(rays[:, i:i + blk].contiguous(),
+                                             scene.tri_buf, scene.tri_boxes)
+             for i in range(0, n, blk)]
+    tr = torch.cat([p[0] for p in parts])
+    pr = torch.cat([p[1] for p in parts])
+    assert tk.shape == (n,)
+    _assert_agree(tk, pk, tr, pr, min_hits=n // 2)

@@ -35,6 +35,7 @@ from liverrenderer_tpu_torch.integrators import volpath as tvp
 from liverrenderer_tpu_torch.media import dispatch as tmed
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
 from liverrenderer_tpu_torch.util import SceneParameters
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 VJP_RTOL, VJP_ATOL = 1e-4, 1e-6
@@ -72,7 +73,8 @@ def test_traverse_and_apply_params_keys(scenes):
     _, ts = scenes
     sp = lrt.traverse(ts)
     assert set(sp.keys()) == {"media.params", "bsdfs.params",
-                              "emitters.params", "textures.bitmaps"}
+                              "emitters.params", "textures.data",
+                              "textures.bitmaps"}
     new = torch.full_like(ts.media.params, 0.5).requires_grad_()
     sc = lrt.apply_params(ts, {"media.params": new})
     # replaced without a copy, everything else shared
@@ -81,8 +83,8 @@ def test_traverse_and_apply_params_keys(scenes):
     sp2 = SceneParameters(ts, ["bsdfs.params"])
     sp2["bsdfs.params"] = np.full(tuple(ts.bsdfs.params.shape), 2.0)
     assert float(sp2.update().bsdfs.params[0, 0]) == 2.0
-    for key in ("textures.data", "vertices", "media.grids",
-                "volprims.opacity", "volprims.sh"):
+    for key in ("vertices", "media.grids", "volprims.opacity",
+                "volprims.sh"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lrt.traverse(ts, [key])
         with pytest.raises(NotImplementedError, match="ROADMAP"):

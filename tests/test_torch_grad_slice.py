@@ -30,6 +30,7 @@ from liverrenderer_tpu_torch.integrators import prb_replay as treplay
 from liverrenderer_tpu_torch.integrators import regen as tregen
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
 from liverrenderer_tpu_torch.scene.transform import Transform
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 G_RTOL, G_ATOL_REL = 2e-3, 1e-4
 PIX_RTOL, PIX_ATOL, PIX_FRAC, MEAN_RTOL = 1e-3, 1e-4, 0.99, 1e-3

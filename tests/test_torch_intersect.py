@@ -25,6 +25,7 @@ from liverrenderer_tpu_torch.accel import intersect as tint
 from liverrenderer_tpu_torch.bridge import numpy_tree, scene_from_numpy
 from liverrenderer_tpu_torch.core.types import Ray as TRay
 from torch_tie_inputs import pack_rays, tie_inputs
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _cornell(scene_fn=None):

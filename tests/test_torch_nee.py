@@ -34,6 +34,7 @@ from liverrenderer_tpu_torch.core.types import SurfaceInteraction as TSI
 from liverrenderer_tpu_torch.emitter import dispatch as tem
 from liverrenderer_tpu_torch.integrators import volpath as tvp
 from liverrenderer_tpu_torch.scene import cornell as tcornell
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096
@@ -354,13 +355,20 @@ def test_nee_scene_buffers_equal_bit_for_bit(monkeypatch, kind):
 
 
 def test_unported_gradient_keys_name_their_item():
-    """Constant-texture data raises naming the ROADMAP item that brings it
-    (the path family, M8).  The bitmap stack is a key: on a scene whose
-    taps read quads its gradient is zero, as in the JAX package."""
+    """Vertex and grid keys raise naming the ROADMAP item that brings them
+    (M10); the texture rows are a key (a brighter albedo brightens the
+    image).  The bitmap stack is a key: on a scene whose taps read quads
+    its gradient is zero, as in the JAX package."""
     ts = lrt.load_dict(tcornell.plane_light_dict(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        lrt.render_grad(ts, {"textures.data": ts.textures.data},
-                        lambda im: im.mean(), spp=1)
+    # the scene has no grid medium: any tensor stands for the grid data
+    for key, value in (("vertices", ts.vertices),
+                       ("media.grids", ts.media.params)):
+        with pytest.raises(NotImplementedError, match="M10"):
+            lrt.render_grad(ts, {key: value}, lambda im: im.mean(), spp=1)
+    _, g, _ = lrt.render_grad(ts, {"textures.data": ts.textures.data},
+                              lambda im: im.mean(), spp=1)
+    assert torch.isfinite(g["textures.data"]).all() \
+        and g["textures.data"][:, 0:3].sum() > 0
     _, g, _ = lrt.render_grad(ts, {"textures.bitmaps": ts.textures.bitmaps},
                               lambda im: im.mean(), spp=1)
     assert g["textures.bitmaps"].shape == ts.textures.bitmaps.shape

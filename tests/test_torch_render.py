@@ -26,6 +26,7 @@ from liverrenderer_tpu_torch.integrators import common as tcommon
 from liverrenderer_tpu_torch.integrators import regen as tregen
 from liverrenderer_tpu_torch.integrators import volpath as tvp
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 PIX_RTOL, PIX_ATOL, PIX_FRAC, MEAN_RTOL = 1e-3, 1e-4, 0.99, 1e-3
 

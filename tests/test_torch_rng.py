@@ -11,6 +11,7 @@ import torch
 
 from liverrenderer_tpu.core import rng as jrng
 from liverrenderer_tpu_torch.core import rng as trng
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 # (pixel, sample, seed) grid, including ids and seeds near 2^32 where the
 # uint32 products wrap

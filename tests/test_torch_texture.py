@@ -39,6 +39,7 @@ from liverrenderer_tpu_torch.scene.liver_proxy import (height_map,
                                                        sky_map)
 from liverrenderer_tpu_torch.scene.transform import Transform
 from liverrenderer_tpu_torch.texture import eval as ttex
+from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 N = 4096
