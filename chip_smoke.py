@@ -117,22 +117,52 @@ result line):
                    differentiated one), each against a 16 spp primal in
                    the same call, launches, peak memory, and the two
                    routes' gradients held to each other
+  xml_files        bench.py's workload path (the bumped, sky-lit proxy at
+                   428x240, 64 spp) written as scene.xml, a binary PLY
+                   mesh, a 1,024^2 8-bit PNG height map and a 1,024 x 512
+                   half EXR sky (tests/torch_xml_files.py): the files'
+                   bytes, the seconds to read each, and load_file's
+                   seconds against load_dict's of the arrays read back
+  xml_small        that scene at 16x12, 4 spp, loaded from its files on
+                   the card against on the CPU: image and media.params
+                   gradient
+  xml_render       the full-size scene loaded and rendered from the files
+                   and from the dict of the arrays read back, in turns
+                   (file, dict, dict, file): seconds, paths/s, xml_over_dict
+                   (render seconds, file over dict), the images
+                   bit-identical, sweep and merge launches, peak memory;
+                   a 16 spp render_grad of the loaded scene (one run after
+                   a 4 spp warm-up) against a 16 spp primal
+  emitters_small   the gradient tests' plane (path, depth 3) at 12x12, 8 spp
+                   under a directional, a spot and a projector light (its
+                   slide a PNG file), card against CPU
+  samplers_small   the plane under each pattern sampler (stratified,
+                   multijitter, orthogonal, ldsampler) at 4 and 8 spp and
+                   each new filter (mitchell, catmullrom, lanczos), card
+                   against CPU; a rough conductor's bsdfs.params gradient
+                   through the scan adjoint under a mitchell filter; the
+                   Cornell box's 64 spp fixed pass with a lanczos filter
+                   against its gaussian, in turns
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
                    replaces, its launches (render + render_grad + fog
                    render + fog render_grad + bumped render + bumped
-                   render_grad + the Cornell renders and gradients),
-                   agreement, times and bound
+                   render_grad + the Cornell renders and gradients + the
+                   XML-loaded render and its gradient), agreement, times
+                   and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
 KERNEL_SPP = 8                 # render_kernel phase
@@ -160,6 +190,10 @@ CORNELL_GRAD_SPP = 16
 CORNELL_TRACE_SPP = 8          # the regen variant's profile
 CORNELL_SMALL = (32, 4)        # cornell_small: film, spp
 BSDF_SMALL = (12, 8)           # bsdf_small: film, spp
+# emitters_small, samplers_small: film, spp; the pattern samplers at a
+# square and a non-square sample count
+EMITTER_SMALL = (12, 8)
+SAMPLER_SPP = (4, 8)
 # wide_kernel: the plain version runs in blocks of this many rays
 WIDE_BLOCK = 1 << 18
 # bsdf_small: one plane per stock BSDF (and wrapper) the port carries
@@ -435,20 +469,20 @@ def k2_inputs(np, torch, ci):
             torch.from_numpy(boxes).cuda(), T)
 
 
-def _tie_module():
-    """tests/torch_tie_inputs.py, loaded by path (a package named `tests`
-    elsewhere on sys.path must not shadow it)."""
+def _tests_module(name="torch_tie_inputs"):
+    """tests/<name>.py, loaded by path (a package named `tests` elsewhere
+    on sys.path must not shadow it)."""
     import importlib.util
     from pathlib import Path
-    path = Path(__file__).resolve().parent / "tests" / "torch_tie_inputs.py"
-    spec = importlib.util.spec_from_file_location("torch_tie_inputs", path)
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
 def tie_regime_inputs(torch, ci):
-    mod = _tie_module()
+    mod = _tests_module()
     pack_rays, tie_inputs = mod.pack_rays, mod.tie_inputs
     v0, v1, v2, o, d, maxt, expected = tie_inputs(TIE_T, TIE_R, SEED)
     buf, boxes, _, center = ci.pack_tris(v0, v1, v2)
@@ -593,13 +627,23 @@ def primal_trace(prof, secs, iterations):
                 device_idle_share=1.0 - busy / 1e3 / secs)
 
 
+def load_scene(lrt, d, device="cuda"):
+    """A scene dict through load_dict, or an XML file's path through
+    load_file."""
+    if isinstance(d, str):
+        return lrt.load_file(d, device=device)
+    return lrt.load_dict(d, device=device)
+
+
 def image_vs_cpu(np, lrt, d, spp):
     """The same render on the card and on the CPU (plain version) ->
     (pixel fraction within tolerance, relative difference of the means,
-    card image mean, pixel fraction exactly equal)."""
-    img_cpu = lrt.render(lrt.load_dict(d, device="cpu"), spp=spp,
+    card image mean, pixel fraction exactly equal).  d: a scene dict or
+    an XML file's path."""
+    img_cpu = lrt.render(load_scene(lrt, d, "cpu"), spp=spp,
                          seed=SEED).numpy()
-    img_gpu = lrt.render(lrt.load_dict(d), spp=spp, seed=SEED).cpu().numpy()
+    img_gpu = lrt.render(load_scene(lrt, d), spp=spp,
+                         seed=SEED).cpu().numpy()
     close = np.abs(img_gpu - img_cpu) <= PIX_ATOL + PIX_RTOL \
         * np.abs(img_cpu)
     return (float(close.all(-1).mean()),
@@ -611,7 +655,8 @@ def image_vs_cpu(np, lrt, d, spp):
 def grad_vs_cpu(lrt, d, spp, keys=("media.params",)):
     """Gradient of the mean image with respect to `keys` (flattened and
     joined) on the card and on the CPU -> (cosine, relative difference of
-    the norms, CPU gradient norm, card gradient finite)."""
+    the norms, CPU gradient norm, card gradient finite).  d: a scene dict
+    or an XML file's path."""
     import torch
 
     def grad(sc):
@@ -620,8 +665,8 @@ def grad_vs_cpu(lrt, d, spp, keys=("media.params",)):
                                   lambda im: im.mean(), spp=spp, seed=SEED)
         return torch.cat([g[k].cpu().double().reshape(-1) for k in keys])
 
-    b = grad(lrt.load_dict(d, device="cpu"))
-    a = grad(lrt.load_dict(d))
+    b = grad(load_scene(lrt, d, "cpu"))
+    a = grad(load_scene(lrt, d))
     cos = float((a * b).sum() / (a.norm() * b.norm()))
     return (cos, abs(float(a.norm() / b.norm()) - 1.0), float(b.norm()),
             bool(a.isfinite().all()))
@@ -1294,6 +1339,234 @@ def cornell_phases(torch, np, lrt, ci, treplay, smi):
                 wide=wide)
 
 
+def timed_load(torch, fn):
+    """(seconds, scene) of a scene build on the card, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, scene
+
+
+def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
+    """Phases xml_files, xml_small and xml_render: bench.py's workload path
+    written to scene.xml, liver.ply, height.png and sky.exr in `workdir`
+    and loaded by load_file -> the xml render's launch counts and its
+    gradient's."""
+    from liverrenderer_tpu_torch.bridge import numpy_tree
+    from liverrenderer_tpu_torch.io.exr import read_exr_any
+    from liverrenderer_tpu_torch.io.png import read_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict)
+    from liverrenderer_tpu_torch.scene.meshio import load_mesh
+    from liverrenderer_tpu_torch.scene.xml import parse_xml
+    xf = _tests_module("torch_xml_files")
+    # ---- 9a. the files at full size, and what reading them costs
+    t0 = time.perf_counter()
+    path, sizes = xf.write_proxy_files(
+        os.path.join(workdir, "full"), WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], sky=SKY)
+    write_s = time.perf_counter() - t0
+    base = os.path.dirname(path)
+    read_s = {}
+    for name, fn in (("scene.xml", lambda p: parse_xml(p)),
+                     ("liver.ply", load_mesh), ("height.png", read_png),
+                     ("sky.exr", read_exr_any)):
+        t0 = time.perf_counter()
+        fn(os.path.join(base, name))
+        read_s[name] = time.perf_counter() - t0
+    # the dict of the arrays read back: the same scene, no file read
+    d_back = xf.inline_files(parse_xml(path), base, lrt.read_image,
+                             load_mesh)
+    gen_s, _ = timed_load(torch, lambda: liver_proxy_dict(
+        WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP, sky=SKY))
+    file_s, scene_f = timed_load(torch, lambda: lrt.load_file(path))
+    dict_s, _ = timed_load(torch, lambda: lrt.load_dict(d_back))
+    emit("xml_files", film=[WIDTH, HEIGHT], spp=SPP, bump=list(BUMP),
+         sky=list(SKY), bytes=sizes, write_seconds=write_s,
+         read_seconds=read_s, load_file_seconds=file_s,
+         load_dict_seconds=dict_s, load_file_over_load_dict=file_s / dict_s,
+         proxy_dict_seconds=gen_s)
+    check(scene_f.device.type == "cuda" and scene_f.n_tris == 5120
+          and scene_f.has_heightmap and scene_f.emitters.env_index >= 0,
+          "xml_files: load_file did not build the bumped, sky-lit proxy "
+          "on the card")
+
+    # ---- 9b. at test size, loaded from files, card against CPU
+    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
+                                    4, 2, SEED, bump_res=BUMP_SMALL[0],
+                                    sky=SKY_SMALL)
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, small, 4)
+    emit("xml_small", film=[16, 12], spp=4, pixel_frac=frac,
+         pixel_exact=exact, mean_rel=mean_rel, mean=mean,
+         grad_keys=["media.params"], grad_cosine=cos,
+         grad_norm_rel=norm_rel, grad_norm=gnorm)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "xml_small: the card's render disagrees with the CPU's")
+    check(gfin and gnorm > 0, "xml_small: gradient not finite or zero")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "xml_small: the card's gradient disagrees with the CPU's")
+
+    # ---- 9c. at full size: load and render, file and dict in turns
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"file": [], "dict": []}
+    counts, imgs, scenes = {}, {"file": [], "dict": []}, {}
+    for which in ("file", "dict", "dict", "file"):
+        load_s, scenes[which] = timed_load(
+            torch, lambda: lrt.load_file(path) if which == "file"
+            else lrt.load_dict(d_back))
+        reset_counts(ci)
+        secs, img = timed_render(torch, lrt, scenes[which], SPP)
+        counts.setdefault(which, launch_counts(ci))
+        imgs[which].append(img)
+        runs[which].append(dict(load_seconds=load_s, render_seconds=secs))
+    peak = torch.cuda.max_memory_allocated()
+    img = imgs["file"][0]
+    finite = bool(torch.isfinite(img).all())
+    # the same buffers: every tensor of the two scenes equal
+    fa, fs = numpy_tree(scenes["file"])
+    da, ds = numpy_tree(scenes["dict"])
+    buffers_equal = fs == ds and fa.keys() == da.keys() and all(
+        fa[k].dtype == da[k].dtype and np.array_equal(fa[k], da[k])
+        for k in fa)
+    # the film splat's index_add_ sums with atomics on the card, so two
+    # renders of one scene differ in the last bits; in deterministic mode
+    # they do not, and the file-loaded and dict-loaded images are equal
+    # bit for bit
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det = {w: lrt.render(scenes[w], spp=SPP, seed=SEED)
+                   for w in ("file", "dict")}
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    identical = bool(torch.equal(det["file"], det["dict"]))
+    t_f = sum(r["render_seconds"] for r in runs["file"]) / 2
+    t_d = sum(r["render_seconds"] for r in runs["dict"]) / 2
+    paths = WIDTH * HEIGHT * SPP
+    # ---- 9d. its gradient (one run after a warm-up) against a primal
+    grad_run(torch, lrt, ci, treplay, scene_f, TRACE_SPP)        # warm-up
+    g_s, g, _, grad_counts = grad_run(torch, lrt, ci, treplay, scene_f,
+                                      GRAD_SPP)
+    p_s, _ = timed_render(torch, lrt, scene_f, GRAD_SPP)
+    emit("xml_render", film=[WIDTH, HEIGHT], spp=SPP, card=smi,
+         tris=scene_f.n_tris, seconds=runs["file"][0]["render_seconds"],
+         paths_per_s=paths / runs["file"][0]["render_seconds"],
+         file_runs=runs["file"], dict_runs=runs["dict"],
+         xml_over_dict=t_f / t_d, buffers_equal=buffers_equal,
+         bit_identical_deterministic=identical,
+         run_to_run_max_abs=float((imgs["file"][0] - imgs["file"][1])
+                                  .abs().max()),
+         file_vs_dict_max_abs=float((imgs["file"][0] - imgs["dict"][0])
+                                    .abs().max()),
+         deterministic_vs_default_max_abs=float((det["file"] - img)
+                                                .abs().max()),
+         finite=finite,
+         mean=float(img.mean()), launches=counts["file"][0],
+         merge_launches=counts["file"][1],
+         dict_launches=counts["dict"][0],
+         dict_merge_launches=counts["dict"][1],
+         max_memory_allocated=peak, grad_spp=GRAD_SPP, grad_seconds=g_s,
+         grad_primal_seconds=p_s, fwd_bwd_over_primal=g_s / p_s,
+         grad_finite=bool(torch.isfinite(g).all()),
+         grad_abs_max=float(g.abs().max()), **grad_counts)
+    check(buffers_equal, "xml_render: load_file and load_dict built "
+          "different buffers")
+    check(identical, "xml_render: the file-loaded image differs from the "
+          "dict-loaded one in deterministic mode")
+    check(finite and 0.05 < float(img.mean()) < 5.0,
+          "xml_render: image not finite or its mean out of range")
+    check(counts["file"] == counts["dict"] and counts["file"][0] > 0
+          and counts["file"][1] > 0, "xml_render: the file-loaded and "
+          "dict-loaded renders launched the kernels differently or not "
+          "at all")
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+          "xml_render: gradient not finite or zero")
+    return dict(counts=counts["file"], grad_counts=grad_counts)
+
+
+def emitter_sampler_phases(torch, np, lrt, smi, workdir):
+    """Phases emitters_small and samplers_small: the directional, spot and
+    projector lights (its slide a PNG file), the pattern samplers and the
+    mitchell, catmullrom and lanczos filters on the gradient tests' plane,
+    card against CPU; the lanczos against the gaussian on the Cornell
+    box's fixed pass, timed in turns."""
+    from liverrenderer_tpu_torch.scene.cornell import (cornell_box,
+                                                       plane_light_dict)
+    from liverrenderer_tpu_torch.scene.transform import Transform
+    res, spp = EMITTER_SMALL
+    down = Transform().translate([0.0, 0.0, 1.5]).rotate([1, 0, 0], 180) \
+        .matrix.copy()
+    slide = os.path.join(workdir, "slide.png")
+    lrt.write_image(slide, np.random.default_rng(SEED).uniform(
+        0.0, 1.0, (16, 16, 3)).astype(np.float32))
+    lights = {
+        "directional": {"type": "directional",
+                        "direction": [0.2, -0.3, -1.0],
+                        "irradiance": {"type": "rgb",
+                                       "value": [3.0, 2.5, 2.0]}},
+        "spot": {"type": "spot", "to_world": down, "cutoff_angle": 30.0,
+                 "intensity": {"type": "rgb", "value": [8.0, 7.0, 6.0]}},
+        "projector": {"type": "projector", "to_world": down, "fov": 60.0,
+                      "scale": 5.0, "irradiance": {"type": "bitmap",
+                                                   "filename": slide}}}
+
+    def plane(**kw):
+        return plane_light_dict(res, integrator="path", max_depth=3, **kw)
+
+    def compare(d, n_spp, what):
+        frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, d, n_spp)
+        check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL and mean > 0,
+              f"{what}: the card's render disagrees with the CPU's")
+        return dict(pixel_frac=frac, pixel_exact=exact, mean_rel=mean_rel,
+                    mean=mean)
+
+    out = {k: compare(plane(light=v), spp, f"emitters_small ({k})")
+           for k, v in lights.items()}
+    emit("emitters_small", film=[res, res], spp=spp, **out)
+
+    samplers = {}
+    for kind in ("stratified", "multijitter", "orthogonal", "ldsampler"):
+        for n_spp in SAMPLER_SPP:
+            d = plane()
+            d["sensor"]["sampler"] = {"type": kind, "sample_count": n_spp}
+            samplers[f"{kind}_{n_spp}"] = compare(
+                d, n_spp, f"samplers_small ({kind}, {n_spp} spp)")
+    filters = {}
+    for rf in ("mitchell", "catmullrom", "lanczos"):
+        d = plane()
+        d["sensor"]["film"]["rfilter"] = {"type": rf}
+        filters[rf] = compare(d, spp, f"samplers_small ({rf})")
+    d = plane(bsdf={"type": "roughconductor", "alpha": 0.3,
+                    "material": "Al"})
+    d["sensor"]["film"]["rfilter"] = {"type": "mitchell"}
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, d, spp, ("bsdfs.params",))
+    check(gfin and gnorm > 0 and cos >= GRAD_COS_MIN
+          and norm_rel <= GRAD_NORM_RTOL, "samplers_small: the mitchell "
+          "scan-adjoint gradient disagrees with the CPU's")
+    # the lanczos splat (36 scatter-adds per sample) against the
+    # gaussian's (16) on the Cornell box's fixed pass: gaussian, lanczos,
+    # lanczos, gaussian
+    cb = {rf: lrt.load_dict(_cornell_dict(cornell_box, CORNELL_RES, rf))
+          for rf in ("gaussian", "lanczos")}
+    lrt.render(cb["lanczos"], spp=CORNELL_SPP, seed=SEED)        # warm-up
+    secs = {"gaussian": [], "lanczos": []}
+    for rf in ("gaussian", "lanczos", "lanczos", "gaussian"):
+        secs[rf].append(timed_render(torch, lrt, cb[rf], CORNELL_SPP)[0])
+    emit("samplers_small", film=[res, res], spp=spp,
+         sampler_spp=list(SAMPLER_SPP), samplers=samplers, filters=filters,
+         mitchell_grad=dict(key="bsdfs.params", cosine=cos,
+                            norm_rel=norm_rel, norm=gnorm),
+         cornell_fixed_pass=dict(film=[CORNELL_RES, CORNELL_RES],
+                                 spp=CORNELL_SPP, card=smi,
+                                 seconds_reps=secs,
+                                 lanczos_over_gaussian=sum(secs["lanczos"])
+                                 / sum(secs["gaussian"])))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1306,7 +1579,8 @@ def main() -> int:
         from liverrenderer_tpu_torch.integrators import prb_replay as treplay
         from liverrenderer_tpu_torch.scene.liver_proxy import \
             liver_proxy_dict
-        _tie_module()
+        _tests_module()
+        _tests_module("torch_xml_files")
     except (ImportError, FileNotFoundError) as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -1577,9 +1851,16 @@ def main() -> int:
     cb_merge = cb["fixed"][1] + cb["regen"][1] + sum(
         g["fwd_merge_launches"] + g["replay_merge_launches"]
         for g in cb_grads.values())
+
+    # ---- 9. the scene loader: bench.py's workload path from files;
+    # ---- 10. the other lights, the pattern samplers and the filters
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        xml = xml_phases(torch, np, lrt, ci, treplay, smi, workdir)
+        emitter_sampler_phases(torch, np, lrt, smi, workdir)
+    xml_counts, xml_grad = xml["counts"], xml["grad_counts"]
     emit("total", seconds=time.perf_counter() - _T0)
 
-    # ---- 9. kernels
+    # ---- 11. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
     print(json.dumps({"kernels": [
         # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
@@ -1595,7 +1876,8 @@ def main() -> int:
              + fog_grad_counts["fwd_launches"]
              + fog_grad_counts["replay_launches"] + bump_counts[0]
              + bump_grad["fwd_launches"] + bump_grad["replay_launches"]
-             + cb_launches,
+             + cb_launches + xml_counts[0] + xml_grad["fwd_launches"]
+             + xml_grad["replay_launches"],
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -1607,6 +1889,8 @@ def main() -> int:
              cornell_render_grad_launches={
                  k: {c: v[c] for c in v if c.endswith("launches")}
                  for k, v in cb_grads.items()},
+             xml_render_launches=xml_counts[0],
+             xml_render_grad_launches=xml_grad,
              wide_ms=cb["wide"]["camera"]["ms"],
              wide_plain_ms=cb["wide"]["camera"]["plain_ms"],
              wide_bound_ms=cb["wide"]["camera"]["bound_ms"],
@@ -1642,9 +1926,12 @@ def main() -> int:
              + fog_grad_counts["fwd_merge_launches"]
              + fog_grad_counts["replay_merge_launches"] + bump_counts[1]
              + bump_grad["fwd_merge_launches"]
-             + bump_grad["replay_merge_launches"] + cb_merge,
+             + bump_grad["replay_merge_launches"] + cb_merge
+             + xml_counts[1] + xml_grad["fwd_merge_launches"]
+             + xml_grad["replay_merge_launches"],
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
+             xml_render_launches=xml_counts[1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -3,10 +3,11 @@
 The port follows ROADMAP.md slice by slice; liverrenderer_tpu (JAX) stays
 the reference.  Plain tensor code is PyTorch; the closest-hit intersection,
 the JAX package's only Pallas kernels, is a hand-written CUDA kernel for
-Hopper (csrc/intersect.cu).  The port renders the biovolpath liver path
-(bump and normal maps, bitmap textures, the envmap, next-event estimation)
-on the regenerating wavefront and differentiates it through the PRB replay
-adjoint.
+Hopper (csrc/intersect.cu).  The port loads Mitsuba XML scenes with their
+mesh (OBJ, PLY, serialized) and image (PNG, EXR, PFM) files, renders the
+biovolpath liver path (bump and normal maps, bitmap textures, the envmap,
+next-event estimation) and the surface path family on the regenerating
+wavefront, and differentiates them through the PRB replay adjoint.
 
     import liverrenderer_tpu_torch as lrt
     from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
@@ -20,6 +21,8 @@ adjoint.
     from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, SKY
     bumped = lrt.load_dict(liver_proxy_dict(428, 240, 64, bump=BUMP,
                                             sky=SKY))
+    # a Mitsuba XML scene with its mesh, bitmap and envmap files
+    scene = lrt.load_file("scene.xml", spp=16)      # <default> overrides
 """
 
 import torch as _torch
@@ -30,10 +33,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .scene.builder import load_dict  # noqa: E402
+from .scene.xml import load_file  # noqa: E402
 from .scene.transform import Transform  # noqa: E402
+from .io.image import read_image, write_image  # noqa: E402
 from .integrators.common import render  # noqa: E402
 from .integrators.prb import render_fwd_grad, render_grad  # noqa: E402
 from .util import SceneParameters, apply_params, traverse  # noqa: E402
 
-__all__ = ["load_dict", "render", "render_grad", "render_fwd_grad",
+__all__ = ["load_dict", "load_file", "read_image", "write_image", "render", "render_grad", "render_fwd_grad",
            "traverse", "apply_params", "SceneParameters", "Transform"]

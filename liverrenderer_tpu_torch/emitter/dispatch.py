@@ -1,13 +1,15 @@
 """Emitter sampling and evaluation over the wavefront (counterpart of
-liverrenderer_tpu/emitter/dispatch.py) for the area, point, constant and
-envmap emitters: next-event estimation picks an emitter from the scene's
-discrete distribution and samples a direction toward it (the envmap by its
-2-D importance map); BSDF-sampled rays that hit an area emitter evaluate
-it; escaped rays see the environment (constant or lat-long envmap).
+liverrenderer_tpu/emitter/dispatch.py) for the area, point, constant,
+envmap, directional, spot and projector emitters: next-event estimation
+picks an emitter from the scene's discrete distribution and samples a
+direction toward it (the envmap by its 2-D importance map); BSDF-sampled
+rays that hit an area emitter evaluate it; escaped rays see the
+environment (constant or lat-long envmap).  The point, directional, spot
+and projector emitters are delta lights: only NEE reaches them, so their
+direction pdf for MIS is 0 and no ray hits them.
 
 Every emitter type present in the scene is evaluated on all lanes and
-combined with masked selects, as in the JAX package.  The other types
-raise, naming the ROADMAP item that brings them.
+combined with masked selects, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,31 +20,12 @@ import torch
 from ..core import math as m
 from ..core import warp
 from ..core.types import DirectionSample
-from ..errors import not_ported
 from ..scene.ir import (EMITTER_AREA, EMITTER_CONSTANT, EMITTER_DIRECTIONAL,
                         EMITTER_ENVMAP, EMITTER_POINT, EMITTER_PROJECTOR,
                         EMITTER_SPOT, SHAPE_SPHERE, Scene)
 from ..texture.eval import eval_texture
 
-WORLD_RADIUS = 1e4  # distance placed on environment samples
-
-_NOT_PORTED = {
-    EMITTER_DIRECTIONAL: ("the directional emitter",
-                          "Queue 1 (directional, spot and projector "
-                          "emitters)"),
-    EMITTER_SPOT: ("the spot emitter",
-                   "Queue 1 (directional, spot and projector emitters)"),
-    EMITTER_PROJECTOR: ("the projector emitter",
-                        "Queue 1 (directional, spot and projector "
-                        "emitters)"),
-}
-
-
-def _check_types(scene: Scene):
-    for t in scene.emitters.types_present:
-        if t in _NOT_PORTED:
-            raise not_ported(*_NOT_PORTED[t])
-
+WORLD_RADIUS = 1e4  # distance placed on environment and directional samples
 
 def _sample_shape_position(scene: Scene, shape_idx, u2, u_reuse):
     """Uniform-area sample on an area emitter's shape (mesh triangles or an
@@ -99,7 +82,6 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
             delta=torch.zeros(n, dtype=torch.bool, device=ref_p.device),
             emitter=torch.full((n,), -1, dtype=torch.int64,
                                device=ref_p.device)), z3
-    _check_types(scene)
     eidx, u_sel, sel_pdf = em.distr.sample_reuse(u1)
     etype = m.table_lookup(em.etype, eidx)
     prm = m.table_lookup(em.params, eidx)
@@ -178,6 +160,59 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
         value = torch.where(sel[:, None], _env_radiance(scene, eidx, dd),
                             value)
 
+    if EMITTER_DIRECTIONAL in tp:
+        dd = -prm[..., 0:3]
+        sel = etype == EMITTER_DIRECTIONAL
+        d = torch.where(sel[:, None], dd, d)
+        p = torch.where(sel[:, None], ref_p + dd * WORLD_RADIUS, p)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+        value = torch.where(sel[:, None], prm[..., 3:6], value)
+
+    if EMITTER_SPOT in tp or EMITTER_PROJECTOR in tp:
+        # both sit at prm[0:3] and fall off with the squared distance
+        pos = prm[..., 0:3]
+        dvec = pos - ref_p
+        dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
+        dist_p = torch.sqrt(dist2)
+        dd = dvec / dist_p[:, None]
+        sel = (etype == EMITTER_SPOT) | (etype == EMITTER_PROJECTOR)
+        p = torch.where(sel[:, None], pos, p)
+        d = torch.where(sel[:, None], dd, d)
+        dist = torch.where(sel, dist_p, dist)
+        pdf = torch.where(sel, 1.0, pdf)
+        delta = delta | sel
+
+    if EMITTER_SPOT in tp:
+        # smooth falloff from the beam width (cos prm[7]) to the cutoff
+        # (cos prm[6]) around the axis prm[8:11]
+        cos_cut, cos_beam = prm[..., 6], prm[..., 7]
+        cos_a = -torch.sum(dd * prm[..., 8:11], -1)
+        fall = torch.clamp((cos_a - cos_cut)
+                           / torch.clamp(cos_beam - cos_cut, min=1e-6),
+                           0.0, 1.0)
+        value = torch.where((etype == EMITTER_SPOT)[:, None],
+                            prm[..., 3:6] * fall[:, None] / dist2[:, None],
+                            value)
+
+    if EMITTER_PROJECTOR in tp:
+        # the direction projector -> point in the projector's frame, its
+        # texture looked up inside the frustum of half-angle tan prm[11]
+        tan_half = torch.clamp(prm[..., 11], min=1e-4)
+        tw = m.table_lookup(em.to_world, eidx)
+        lv = torch.einsum("nji,nj->ni", tw[:, :3, :3], -dd)
+        lz = torch.clamp(lv[..., 2], min=1e-6)
+        u = 0.5 * (1.0 + lv[..., 0] / (lz * tan_half))
+        v = 0.5 * (1.0 + lv[..., 1] / (lz * tan_half))
+        inside = (lv[..., 2] > 0) & (u >= 0) & (u <= 1) & (v >= 0) \
+            & (v <= 1)
+        tex = eval_texture(scene.textures, m.table_lookup(em.tex0, eidx),
+                           torch.stack([u, v], -1))
+        val_proj = torch.where(inside[:, None],
+                               prm[..., 3:6] * tex / dist2[:, None], 0.0)
+        value = torch.where((etype == EMITTER_PROJECTOR)[:, None], val_proj,
+                            value)
+
     pdf_total = pdf * sel_pdf
     # detached sampling: the density is not differentiated, the radiance is
     pdf_det = torch.clamp(pdf_total, min=1e-30).detach()
@@ -193,7 +228,6 @@ def pdf_emitter_direction(scene: Scene, ref_p, si_emitter, si_p, si_n, d):
     em = scene.emitters
     if em.count == 0:
         return ref_p.new_zeros(ref_p.shape[:-1])
-    _check_types(scene)
     eidx = torch.clamp(si_emitter, min=0)
     etype = m.table_lookup(em.etype, eidx)
     sel_pdf = em.distr.eval_pdf(eidx)

@@ -1,27 +1,55 @@
 """Film accumulation: filtered sample splatting + develop (counterpart of
-liverrenderer_tpu/film.py) for the box, tent and gaussian filters.
-Splats are index_add_ scatter-adds into an (h*w, 4) RGB+weight
-accumulator, one per pixel of the filter's footprint."""
+liverrenderer_tpu/film.py) for the box, tent, gaussian, mitchell,
+catmullrom and lanczos filters.  Splats are index_add_ scatter-adds into
+an (h*w, 4) RGB+weight accumulator, one per pixel of the filter's
+footprint: 1, 4, 16, 16, 16 and 36 per sample."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from .errors import not_ported
-from .scene.ir import FILTER_BOX, FILTER_GAUSSIAN, FILTER_TENT
+from .scene.ir import (FILTER_BOX, FILTER_CATMULLROM, FILTER_GAUSSIAN,
+                       FILTER_LANCZOS, FILTER_MITCHELL, FILTER_TENT)
 
 # footprint radius in pixels: the splat visits (2 r)^2 pixel centres
-_RADIUS = {FILTER_BOX: 0, FILTER_TENT: 1, FILTER_GAUSSIAN: 2}
+_RADIUS = {FILTER_BOX: 0, FILTER_TENT: 1, FILTER_GAUSSIAN: 2,
+           FILTER_MITCHELL: 2, FILTER_CATMULLROM: 2, FILTER_LANCZOS: 3}
 
 
 def filter_radius(rfilter: int) -> int:
-    if rfilter not in _RADIUS:
-        raise not_ported(f"reconstruction filter {rfilter}", "Queue 1 M3")
     return _RADIUS[rfilter]
 
 
+def _mitchell_1d(x, B, C):
+    """Mitchell-Netravali kernel (mitchell.cpp; catmullrom.cpp is B = 0,
+    C = 0.5)."""
+    x = torch.abs(x)
+    x2, x3 = x * x, x * x * x
+    near = ((12.0 - 9.0 * B - 6.0 * C) * x3
+            + (-18.0 + 12.0 * B + 6.0 * C) * x2 + (6.0 - 2.0 * B)) / 6.0
+    far = ((-B - 6.0 * C) * x3 + (6.0 * B + 30.0 * C) * x2
+           + (-12.0 * B - 48.0 * C) * x + (8.0 * B + 24.0 * C)) / 6.0
+    return torch.where(x < 1.0, near, torch.where(x < 2.0, far, 0.0))
+
+
+def _lanczos_1d(x, tau=3.0):
+    """Lanczos-windowed sinc (lanczos.cpp, tau = 3)."""
+    x = torch.abs(x)
+    pix = math.pi * torch.clamp(x, min=1e-6)
+    sinc = torch.sin(pix) / pix
+    wind = torch.sin(pix / tau) / (pix / tau)
+    w = torch.where(x < 1e-6, 1.0, sinc * wind)
+    return torch.where(x < tau, w, 0.0)
+
+
 def _filter_weight(rfilter: int, dx, dy):
+    if rfilter == FILTER_MITCHELL:
+        return _mitchell_1d(dx, 1 / 3, 1 / 3) * _mitchell_1d(dy, 1 / 3, 1 / 3)
+    if rfilter == FILTER_CATMULLROM:
+        return _mitchell_1d(dx, 0.0, 0.5) * _mitchell_1d(dy, 0.0, 0.5)
+    if rfilter == FILTER_LANCZOS:
+        return _lanczos_1d(dx) * _lanczos_1d(dy)
     if rfilter == FILTER_GAUSSIAN:
         # gaussian.cpp: std 0.5, truncated at 4 std = 2 px
         std = 0.5

@@ -35,7 +35,10 @@ def render_pass(scene: Scene, seed: int, spp_pass: int, sample_offset: int,
     lane = torch.arange(n, device=scene.device)
     pix = lane // spp_pass
     samp = lane % spp_pass + sample_offset
-    sampler = make_sampler(pix, samp, seed, kind=scene.sampler_kind)
+    # the pattern samplers stratify the scene's sample count, as in the
+    # JAX package's fixed passes
+    sampler = make_sampler(pix, samp, seed, kind=scene.sampler_kind,
+                           spp=scene.spp)
     px = (pix % w).to(torch.float32)
     py = (pix // w).to(torch.float32)
     uf, sampler = sampler.next_2d()

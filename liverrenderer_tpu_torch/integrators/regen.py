@@ -83,14 +83,16 @@ def _finalize_L(scene: Scene, st):
     return _finalize_L2(scene, st)[0]
 
 
-def _lane_sampler(scene: Scene, sample_ids, seed, pix0: int,
+def _lane_sampler(scene: Scene, sample_ids, seed, spp: int, pix0: int,
                   tile_pix: int | None, samp0: int):
-    """(film position, sampler after the camera jitter) of sample ids."""
+    """(film position, sampler after the camera jitter) of sample ids; the
+    pattern samplers stratify the render's `spp` samples of a pixel."""
     w = scene.film_w
     n_pix = tile_pix if tile_pix is not None else w * scene.film_h
     pix = sample_ids % n_pix + pix0
     samp = sample_ids // n_pix + samp0
-    sampler = make_sampler(pix, samp, seed, kind=scene.sampler_kind)
+    sampler = make_sampler(pix, samp, seed, kind=scene.sampler_kind,
+                           spp=spp)
     px = (pix % w).to(torch.float32)
     py = (pix // w).to(torch.float32)
     uf, sampler = sampler.next_2d()
@@ -103,8 +105,8 @@ def _make_lanes(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
     iterations cover the whole film).  The counter RNG keys on the global
     (pixel, sample) pair, so any partition of the budget walks the same
     paths."""
-    pos, sampler = _lane_sampler(scene, sample_ids, seed, pix0, tile_pix,
-                                 samp0)
+    pos, sampler = _lane_sampler(scene, sample_ids, seed, spp, pix0,
+                                 tile_pix, samp0)
     return _family(scene).init_state(sample_ray(scene, pos), sampler,
                                      scene), pos
 
@@ -114,7 +116,8 @@ def lane_pos(scene: Scene, sample_ids, seed, spp: int, pix0: int = 0,
     """Film position of each sample id without building its path state:
     the same draw as _make_lanes, so the replay adjoint can compute each
     sample's filter cotangent before its walk."""
-    return _lane_sampler(scene, sample_ids, seed, pix0, tile_pix, samp0)[0]
+    return _lane_sampler(scene, sample_ids, seed, spp, pix0, tile_pix,
+                         samp0)[0]
 
 
 def _select_state(mask, new, old):

@@ -5,28 +5,35 @@ ported so far:
   integrators  biovolpath, biovolpath06, volpath, prbvolpath, path,
                direct, prb, prb_basic
   sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box,
-               tent or gaussian (the default) filter, the independent
-               sampler
-  shapes       mesh, rectangle, cube, sphere (analytic)
+               tent, gaussian (the default), mitchell, catmullrom or
+               lanczos filter; the independent, stratified, multijitter,
+               orthogonal and ldsampler samplers
+  shapes       mesh, blender, obj, ply, serialized, rectangle, cube, disk,
+               cylinder, sphere (analytic), and merge's children
   bsdfs        diffuse (also the default of a shape without a BSDF),
                dielectric, thindielectric, roughdielectric, conductor,
                roughconductor, plastic, roughplastic, pplastic, null, the
                one-level blendbsdf and mask, and the twosided, bumpmap and
                normalmap wrappers (folded into the BSDF and shape tables,
                also through a ref)
-  textures     constant, checkerboard, bitmap (inline `data` only)
+  textures     constant, checkerboard, bitmap (inline `data` or a file)
+  spectra      rgb, uniform, d65, rawconstant, srgb, blackbody, regular
+               and irregular, as linear RGB
   media        liver, glissonCapsule / glisson, parenchyma, homogeneous
                (isotropic or HG phase)
   emitters     area (attached to a shape), point, constant, envmap (inline
-               `data` only)
+               `data` or a file), directional / directionalarea, spot,
+               projector
 
 Entities are packed host-side into the same numpy tables, in the same
 order, as the JAX builder packs them; `bridge.scene_from_numpy` uploads
-them.  Any other plugin raises NotImplementedError naming the ROADMAP item
-that brings it.  No XML: that is the port's own loader (ROADMAP M9).
+them.  File names resolve against `base_dir` (the XML file's directory
+under scene/xml.load_file).  Any other plugin raises NotImplementedError
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List
 
 import numpy as np
@@ -34,16 +41,20 @@ import numpy as np
 from ..accel.bvh import build_bvh
 from ..accel.cuda_intersect import pack_tris
 from ..core.distr import build_distribution_2d_np
+from ..core.rng import KINDS as _SAMPLERS
+from ..core.spectrum import blackbody_rgb, spd_to_rgb, srgb_to_linear
 from ..errors import not_ported
 from . import geometry as geo
 from .ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
                  BSDF_MASK, BSDF_NULL, BSDF_P, BSDF_PLASTIC, BSDF_PPLASTIC,
                  BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
                  BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, EMITTER_AREA,
-                 EMITTER_CONSTANT, EMITTER_ENVMAP, EMITTER_P, EMITTER_POINT,
+                 EMITTER_CONSTANT, EMITTER_DIRECTIONAL, EMITTER_ENVMAP,
+                 EMITTER_P, EMITTER_POINT, EMITTER_PROJECTOR, EMITTER_SPOT,
                  F_DELTA_REFL, F_DELTA_TRANS, F_DIFFUSE_REFL, F_GLOSSY_REFL,
                  F_GLOSSY_TRANS, F_NULL, F_SMOOTH, FILTER_BOX,
-                 FILTER_GAUSSIAN, FILTER_TENT, MEDIUM_GLISSON,
+                 FILTER_CATMULLROM, FILTER_GAUSSIAN, FILTER_LANCZOS,
+                 FILTER_MITCHELL, FILTER_TENT, MEDIUM_GLISSON,
                  MEDIUM_HOMOGENEOUS, MEDIUM_LIVER, MEDIUM_P,
                  MEDIUM_PARENCHYMA, PHASE_HG, PHASE_ISOTROPIC,
                  SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, TEX_BITMAP,
@@ -69,18 +80,22 @@ CONDUCTOR_IOR = {
 
 _INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "prbvolpath",
                 "path", "direct", "prb", "prb_basic")
-_SHAPE_TYPES = ("mesh", "rectangle", "cube", "sphere")
+_SHAPE_TYPES = ("mesh", "blender", "obj", "ply", "serialized", "rectangle",
+                "cube", "disk", "cylinder", "sphere")
 _BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
                "conductor", "roughconductor", "plastic", "roughplastic",
                "pplastic", "null", "mask", "blendbsdf", "twosided",
                "bumpmap", "normalmap")
+# a filter name the table lacks takes the gaussian, as in the JAX builder
 _FILTERS = {"box": FILTER_BOX, "tent": FILTER_TENT,
-            "gaussian": FILTER_GAUSSIAN}
+            "gaussian": FILTER_GAUSSIAN, "mitchell": FILTER_MITCHELL,
+            "catmullrom": FILTER_CATMULLROM, "lanczos": FILTER_LANCZOS}
 _MEDIUM_TYPES = ("liver", "glissonCapsule", "glisson", "parenchyma",
                  "homogeneous")
-_EMITTER_TYPES = ("point", "constant", "envmap")
+_EMITTER_TYPES = ("point", "constant", "envmap", "directional",
+                  "directionalarea", "spot", "projector")
 _TEXTURE_TYPES = ("bitmap", "checkerboard")
-_CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "rawconstant")
+_CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "srgb", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
     "volpathmis": "Queue 1 M10",
@@ -90,25 +105,17 @@ _OTHER_TYPES = {
     "thinlens": "Queue 1 M10", "orthographic": "Queue 1 M10",
     "distant": "Queue 1 M10", "radiancemeter": "Queue 1 M10",
     "irradiancemeter": "Queue 1 M10", "batch": "Queue 1 M10",
-    "disk": "Queue 1 M9", "cylinder": "Queue 1 M9",
-    "obj": "Queue 1 M9", "ply": "Queue 1 M9", "serialized": "Queue 1 M9",
     "linearcurve": "Queue 1 M10", "bsplinecurve": "Queue 1 M10",
-    "sdfgrid": "Queue 1 M10", "blender": "Queue 1 M9",
+    "sdfgrid": "Queue 1 M10",
     "ellipsoids": "Queue 1 M10", "ellipsoidsmesh": "Queue 1 M10",
-    "merge": "Queue 1 M9", "instance": "Queue 1 M10",
-    "shapegroup": "Queue 1 M10",
+    "instance": "Queue 1 M10", "shapegroup": "Queue 1 M10",
     "heterogeneous": "Queue 1 M10", "mesh_attribute": "Queue 1 M10",
     "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
     "vaescatter": "Queue 1 M10", "dipole": "Queue 1 M10",
-    # spectra other than rgb / uniform / d65 / rawconstant
-    "srgb": "Queue 1 M10", "blackbody": "Queue 1 M10",
-    "regular": "Queue 1 M10", "irregular": "Queue 1 M10",
 }
 for _t in ("principled", "principledthin", "hair", "polarizer", "retarder",
            "circular", "measured"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
-for _t in ("directional", "spot", "directionalarea", "projector"):
-    _OTHER_TYPES[_t] = "Queue 1 (directional, spot and projector emitters)"
 for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
 
@@ -120,7 +127,9 @@ def _unsupported(t):
 
 
 def _spectrum_to_rgb(val, default=1.0) -> np.ndarray:
-    """A dict 'spectrum-ish' value as linear RGB (rgb / scalar / list)."""
+    """A dict 'spectrum-ish' value as linear RGB: rgb, a scalar or list,
+    uniform / d65 / rawconstant, blackbody (relative radiance), regular
+    and irregular SPDs (integrated against the CIE curves) and srgb."""
     if val is None:
         return np.full(3, default, np.float32)
     if isinstance(val, (int, float)):
@@ -134,7 +143,30 @@ def _spectrum_to_rgb(val, default=1.0) -> np.ndarray:
             return np.asarray(val["value"], np.float32).reshape(3)
         if t in ("uniform", "d65", "rawconstant"):
             return np.full(3, float(val.get("value", default)), np.float32)
-        raise not_ported(f"the {t!r} spectrum", "Queue 1 M10")
+        if t == "blackbody":
+            rgb = blackbody_rgb(val.get("temperature", 6504.0),
+                                float(val.get("scale", 1.0)))
+            return rgb / max(rgb.max(), 1e-9)
+        if t == "regular":
+            vals = np.asarray(val["values"] if "values" in val
+                              else val["value"], np.float32).reshape(-1)
+            lam = np.linspace(float(val.get("lambda_min", 360.0)),
+                              float(val.get("lambda_max", 830.0)), len(vals))
+            return spd_to_rgb(lam, vals)
+        if t == "irregular":
+            if "wavelengths" in val:
+                lam = np.asarray(val["wavelengths"], np.float32)
+                vals = np.asarray(val["values"], np.float32)
+            else:                       # the "lam1:v1, lam2:v2" string
+                pairs = [p.split(":") for p in
+                         str(val["value"]).replace(" ", "").split(",") if p]
+                lam = np.asarray([float(a) for a, _ in pairs])
+                vals = np.asarray([float(b) for _, b in pairs])
+            return spd_to_rgb(lam, vals)
+        if t == "srgb":
+            v = np.asarray(val["value"], np.float32).reshape(-1)
+            v = v if v.size == 3 else np.full(3, v[0], np.float32)
+            return np.asarray(srgb_to_linear(v), np.float32)
     raise ValueError(f"cannot interpret spectrum {val!r}")
 
 
@@ -261,7 +293,8 @@ def _pack_bitmaps(bitmaps):
 
 
 class _Builder:
-    def __init__(self):
+    def __init__(self, base_dir: str = "."):
+        self.base_dir = base_dir
         self.tex_type: List[int] = []
         self.tex_data: List[np.ndarray] = []
         self.tex_bitmap: List[int] = []
@@ -327,6 +360,15 @@ class _Builder:
         self.bitmaps.append(np.asarray(img, np.float32))
         return len(self.bitmaps) - 1
 
+    def _path(self, filename: str) -> str:
+        return filename if os.path.isabs(filename) \
+            else os.path.join(self.base_dir, filename)
+
+    def load_bitmap_file(self, filename: str, raw=False) -> int:
+        from ..io.image import read_image
+        return self.add_bitmap(read_image(self._path(filename),
+                                          srgb_to_linear=not raw))
+
     def build_texture(self, d, default=1.0) -> int:
         """Texture slot of a dict / rgb / scalar -> texture index (-1 for
         none)."""
@@ -350,9 +392,9 @@ class _Builder:
             _uv_transform(data, d)
             return self._push_texture(TEX_CHECKERBOARD, data)
         if t == "bitmap":
-            if "data" not in d:
-                raise not_ported("bitmap files", "Queue 1 M9")
-            bid = self.add_bitmap(d["data"])
+            bid = self.add_bitmap(d["data"]) if "data" in d else \
+                self.load_bitmap_file(d["filename"],
+                                      raw=bool(d.get("raw", False)))
             _uv_transform(data, d)
             return self._push_texture(TEX_BITMAP, data, bid)
         raise _unsupported(t)
@@ -584,12 +626,43 @@ class _Builder:
             p[0:3] = _spectrum_to_rgb(d.get("radiance", 1.0), 1.0)
             self.env_index = self._push_emitter(EMITTER_CONSTANT, p)
             return self.env_index
+        if t in ("directional", "directionalarea"):
+            dirv = np.asarray(d.get("direction", [0, 0, 1]), np.float32)
+            if d.get("to_world") is not None:
+                dirv = from_any(d["to_world"]).apply_vectors(dirv[None])[0]
+            p[0:3] = dirv / np.linalg.norm(dirv)
+            p[3:6] = _spectrum_to_rgb(d.get("irradiance", 1.0), 1.0)
+            return self._push_emitter(EMITTER_DIRECTIONAL, p)
+        if t in ("spot", "projector"):
+            to_w = from_any(d["to_world"]) if "to_world" in d \
+                else Transform()
+            dirv = to_w.apply_vectors(np.array([[0, 0, 1.0]]))[0]
+            p[0:3] = to_w.apply_points(np.zeros((1, 3)))[0]
+            p[8:11] = dirv / np.linalg.norm(dirv)
+            if t == "spot":
+                cutoff = d.get("cutoff_angle", 20.0)
+                p[3:6] = _spectrum_to_rgb(d.get("intensity", 1.0), 1.0)
+                p[6] = np.cos(np.deg2rad(float(cutoff)))
+                p[7] = np.cos(np.deg2rad(float(d.get("beam_width",
+                                                     cutoff * 0.75))))
+                return self._push_emitter(EMITTER_SPOT, p)
+            # a textured spot (projector.cpp): a perspective frustum of
+            # `fov`, the irradiance texture over it
+            fov = float(d.get("fov", 45.0))
+            p[3:6] = _spectrum_to_rgb(d.get("scale", d.get("intensity", 1.0)),
+                                      1.0)
+            p[6] = np.cos(np.deg2rad(fov / 2.0 * 1.4142))  # corner cutoff
+            p[7] = np.cos(np.deg2rad(fov / 2.0))
+            p[11] = np.tan(np.deg2rad(fov / 2.0))
+            tex0 = self.build_texture(d.get("irradiance", 1.0), 1.0)
+            return self._push_emitter(EMITTER_PROJECTOR, p, tex0=tex0,
+                                      to_world=to_w.matrix)
         if t != "envmap":
             raise _unsupported(t)
         p[6] = float(d.get("scale", 1.0))
-        if "data" not in d:
-            raise not_ported("envmap files", "Queue 1 M9")
-        bid = self.add_bitmap(d["data"])
+        # an envmap file is always read raw (linear)
+        bid = self.add_bitmap(d["data"]) if "data" in d \
+            else self.load_bitmap_file(d["filename"], raw=True)
         data = np.zeros(TEX_P, np.float32)
         data[6:8] = 1.0
         tex0 = self._push_texture(TEX_BITMAP, data, bid)
@@ -639,13 +712,7 @@ class _Builder:
             prim_off = len(self.sph_radius) - 1
             area = 4.0 * np.pi * radius * radius
         else:
-            if t == "rectangle":
-                mesh = geo.rectangle()
-            elif t == "cube":
-                mesh = geo.cube()
-            else:
-                mesh = geo.MeshData(d["vertices"], d["faces"],
-                                    d.get("normals"), d.get("uvs"))
+            mesh = self._mesh(d, t)
             mesh = mesh.transformed(to_w)
             if mesh.normals is None:
                 mesh.normals = geo.compute_vertex_normals(mesh.vertices,
@@ -677,6 +744,30 @@ class _Builder:
         self.s_prim_cnt.append(prim_cnt)
         self.s_area.append(area)
 
+    def _mesh(self, d, t) -> geo.MeshData:
+        """The untransformed triangle mesh of a mesh-like shape."""
+        if t == "rectangle":
+            return geo.rectangle()
+        if t == "cube":
+            return geo.cube()
+        if t == "disk":
+            return geo.disk()
+        if t == "cylinder":
+            def z(key, default):
+                v = d.get(key)
+                return float(v[2]) if isinstance(v, (list, tuple)) \
+                    else default
+            return geo.cylinder(p0_z=z("p0", 0.0), p1_z=z("p1", 1.0),
+                                radius=float(d.get("radius", 1.0)))
+        if t in ("obj", "ply", "serialized"):
+            from .meshio import load_mesh
+            return load_mesh(self._path(d["filename"]),
+                             face_normals=bool(d.get("face_normals", False)),
+                             shape_index=int(d.get("shape_index", 0)))
+        # mesh, and blender (a mesh handed over by the host application)
+        return geo.MeshData(d["vertices"], d["faces"], d.get("normals"),
+                            d.get("uvs"))
+
     # --- sensor / film ------------------------------------------------------
     def build_sensor(self, d):
         if d.get("type", "perspective") != "perspective":
@@ -691,16 +782,12 @@ class _Builder:
         self.film_h = int(film.get("height", 256))
         rf = film.get("rfilter", {})
         rft = rf.get("type", "gaussian") if isinstance(rf, dict) else rf
-        if rft not in _FILTERS:
-            raise not_ported(f"the {rft!r} reconstruction filter",
-                             "Queue 1 M3")
-        self.rfilter = _FILTERS[rft]
+        self.rfilter = _FILTERS.get(rft, FILTER_GAUSSIAN)
         sampler = d.get("sampler", {})
         self.spp = int(sampler.get("sample_count", 16))
         self.sampler_kind = sampler.get("type", "independent")
-        if self.sampler_kind != "independent":
-            raise not_ported(f"the {self.sampler_kind!r} sampler",
-                             "Queue 1 M2")
+        if self.sampler_kind not in _SAMPLERS:
+            raise _unsupported(self.sampler_kind)
         aspect = self.film_w / self.film_h
         if axis == "smaller":
             axis = "x" if aspect <= 1 else "y"
@@ -867,13 +954,15 @@ class _Builder:
         return arrays, statics
 
 
-def build_numpy(d: Dict[str, Any]):
+def build_numpy(d: Dict[str, Any], base_dir: str = ".",
+                variant: str | None = None):
     """The scene dict packed into (arrays, statics) numpy tables."""
     if d.get("type") != "scene":
         raise ValueError("top-level dict must be a scene")
-    if d.get("variant") and "spectral" in str(d["variant"]):
+    variant = variant or d.get("variant")
+    if variant and "spectral" in str(variant):
         raise not_ported("the spectral variant", "Queue 1 M10")
-    b = _Builder()
+    b = _Builder(base_dir)
     # pass 1: named non-shape resources (so refs resolve)
     for key, val in d.items():
         if not isinstance(val, dict):
@@ -911,19 +1000,28 @@ def build_numpy(d: Dict[str, Any]):
         t = val.get("type")
         if t in _SHAPE_TYPES:
             b.add_shape(val)
+        elif t == "merge":
+            # merge.cpp joins its child meshes; the SoA scene holds all
+            # geometry in one buffer, so its children are added as shapes
+            for sval in val.values():
+                if isinstance(sval, dict) and sval.get("type") \
+                        in _SHAPE_TYPES:
+                    b.add_shape(sval)
         elif t in _EMITTER_TYPES:
             b.build_emitter(val)
     return b.finalize()
 
 
-def load_dict(d: Dict[str, Any], device="cuda"):
+def load_dict(d: Dict[str, Any], device="cuda", base_dir: str = ".",
+              variant: str | None = None):
     """Build the port's Scene on `device` from a Mitsuba-style dict: the
     card unless the caller passes device="cpu".  Raises RuntimeError when
-    asked for the card and there is none."""
+    asked for the card and there is none.  Relative file names resolve
+    against base_dir; variant "spectral" is not ported (ROADMAP M10)."""
     import torch
     from ..bridge import scene_from_numpy
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_dict: no CUDA device; pass device='cpu' "
                            "to build the scene on the CPU")
-    arrays, statics = build_numpy(d)
+    arrays, statics = build_numpy(d, base_dir, variant)
     return scene_from_numpy(arrays, statics, device)

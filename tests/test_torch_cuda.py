@@ -319,3 +319,39 @@ def test_kernel_matches_plain_version_on_a_wide_wavefront():
     pr = torch.cat([p[1] for p in parts])
     assert tk.shape == (n,)
     _assert_agree(tk, pk, tr, pr, min_hits=n // 2)
+
+
+@pytest.mark.cuda
+def test_load_file_on_the_card_matches_cpu(tmp_path):
+    """bench.py's workload path loaded from files (scene.xml, a binary
+    PLY, a PNG height map, an EXR sky) at 16x12, 4 spp: the card's render
+    against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_xml_files import write_proxy_files
+    path, _ = write_proxy_files(str(tmp_path), 16, 12, 4, subdiv=2,
+                                bump_res=32, sky=(64, 32))
+    ref = lrt.render(lrt.load_file(path, device="cpu"), spp=4).numpy()
+    scene = lrt.load_file(path)
+    assert scene.device.type == "cuda" and scene.has_heightmap
+    before = tci.LAUNCHES
+    img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stratified", "multijitter", "orthogonal",
+                                  "ldsampler"])
+def test_pattern_sampler_on_the_card_matches_cpu(kind):
+    """The plane under its area light (path, depth 3) with each pattern
+    sampler at 8 spp: the uint32-in-int64 streams on the card equal the
+    CPU's, so the images agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.cornell import plane_light_dict
+    d = plane_light_dict(12, integrator="path", max_depth=3)
+    d["sensor"]["sampler"] = {"type": kind, "sample_count": 8}
+    _card_vs_cpu(d, 8)

@@ -117,8 +117,8 @@ def test_tent_filter_matches_jax():
 def test_nee_scenes_raise():
     """Next-event estimation is ported: the liver under stock volpath in a
     fog (medium NEE through the ratio-tracked shadow walk) renders.  An
-    NEE scene whose emitter the port does not carry yet still raises,
-    naming its ROADMAP item."""
+    NEE scene whose emitter the port does not carry yet (the sunsky)
+    still raises, naming its ROADMAP item."""
     d = liver_proxy_dict(4, 4, 1, 0)
     d["integrator"]["type"] = "volpath"
     d["fog"] = {"type": "homogeneous", "sigma_t": 0.5}
@@ -126,6 +126,10 @@ def test_nee_scenes_raise():
     ts = lrt.load_dict(d, device="cpu")
     assert ts.needs_medium_nee
     assert torch.isfinite(lrt.render(ts, spp=1)).all()
+    # a directional sun (ported since) is sampled by NEE as well
     d["sun"] = {"type": "directional", "direction": [0, -1, 0]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert torch.isfinite(lrt.render(lrt.load_dict(d, device="cpu"),
+                                     spp=1)).all()
+    d["sky"] = {"type": "sunsky"}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*M10"):
         lrt.load_dict(d, device="cpu")

@@ -70,5 +70,10 @@ def test_pcg4d_and_hash_bit_exact(np_rng):
 
 
 def test_other_sampler_kinds_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trng.make_sampler(torch.arange(4), 0, 0, kind="stratified")
+    """The five sampler plugins of the JAX package are ported; a name it
+    does not know raises instead of drawing one stream for every sample
+    of a pixel."""
+    for kind in trng.KINDS:
+        trng.make_sampler(torch.arange(4), 0, 0, kind=kind, spp=4)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        trng.make_sampler(torch.arange(4), 0, 0, kind="halton")

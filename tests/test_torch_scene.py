@@ -25,7 +25,6 @@ import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch import util as tutil
 from liverrenderer_tpu_torch.accel import cuda_intersect as tci
 from liverrenderer_tpu_torch.bridge import numpy_tree, scene_from_numpy
-from liverrenderer_tpu_torch.emitter import dispatch as tem
 from liverrenderer_tpu_torch.scene import builder as tbuilder
 from liverrenderer_tpu_torch.scene import cornell as tcornell
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
@@ -126,14 +125,15 @@ def test_unported_plugins_raise():
         d["liver"]["bsdf"] = {"type": bsdf}
         with pytest.raises(NotImplementedError, match="M10"):
             lrt.load_dict(d, device="cpu")
-    for rf in ("mitchell", "catmullrom", "lanczos"):
-        d = liver_proxy_dict(4, 4, 1, 0)
-        d["sensor"]["film"]["rfilter"] = {"type": rf}
-        with pytest.raises(NotImplementedError, match="M3"):
-            lrt.load_dict(d, device="cpu")
     d = liver_proxy_dict(4, 4, 1, 0)
-    d["env"] = {"type": "directional", "direction": [0.0, -1.0, 0.0]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="M10"):
+        lrt.load_dict(d, device="cpu", variant="spectral")
+    d["env"] = {"type": "sunsky"}
+    with pytest.raises(NotImplementedError, match="M10"):
+        lrt.load_dict(d, device="cpu")
+    d = liver_proxy_dict(4, 4, 1, 0)
+    d["sensor"]["sampler"]["type"] = "halton"
+    with pytest.raises(ValueError, match="unknown plugin"):
         lrt.load_dict(d, device="cpu")
 
 
@@ -248,25 +248,28 @@ def test_every_raise_names_an_open_roadmap_item():
     not_ported call) is an open item that ROADMAP.md declares, and none is
     one this slice closed."""
     items = (set(tbuilder._OTHER_TYPES.values())
-             | {v[1] for v in tem._NOT_PORTED.values()}
              | {v[1] for v in tutil._NOT_PORTED.values()}
              | _source_items())
     labels = _roadmap_labels()
-    assert "M10" in labels and not {"M5", "M8"} & labels
+    assert "M9" in labels and "M10" in labels \
+        and not {"M2", "M3", "M5", "M8"} & labels
     for item in items:
         m = re.fullmatch(r"Queue (\d) (.+)", item)
         assert m, item
         for part in m.group(2).split("/") if m.group(2).startswith("M") \
                 else [m.group(2)]:
             assert part in labels, (item, sorted(labels))
-        assert not re.search(r"bumpmap|M[578]\b", item), item
+        assert not re.search(r"bumpmap|directional|M[23578]\b", item), item
     # the plugins the slices ported load; names they did not still raise
     for t in ("bumpmap", "normalmap", "bitmap", "checkerboard", "envmap",
               "biovolpath06", "prbvolpath", "glissonCapsule", "glisson",
               "parenchyma", "path", "direct", "prb", "prb_basic",
               "thindielectric", "conductor", "roughconductor", "plastic",
               "roughplastic", "pplastic", "roughdielectric", "twosided",
-              "blendbsdf", "mask"):
+              "blendbsdf", "mask", "directional", "directionalarea", "spot",
+              "projector", "obj", "ply", "serialized", "disk", "cylinder",
+              "blender", "merge", "srgb", "blackbody", "regular",
+              "irregular"):
         assert t not in tbuilder._OTHER_TYPES, t
     with pytest.raises(ValueError, match="unknown plugin"):
         lrt.load_dict({"type": "scene",
