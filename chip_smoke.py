@@ -45,7 +45,7 @@ result line):
                    primal timed in the same call, the sweep and merge
                    launches of the stored forward and of the replay walk,
                    peak device memory
-  render_grad_trace  torch.profiler over a 4 spp render_grad: device busy
+  render_grad_trace  torch.profiler over a 2 spp render_grad: device busy
                    and idle share, kernel launches per regen iteration,
                    the top device ops
   fog_small        the fog Cornell box (next-event estimation, the
@@ -85,7 +85,7 @@ result line):
                    proxy (the ratio compares them within this call); host
                    launches per iteration of both from torch.profiler
   bump_env_render_grad  render_grad of its mean image at 16 spp, d/d
-                   media.params: median seconds of 3 after a warm-up
+                   media.params: seconds of one run after a warm-up
                    against a 16 spp primal in the same call, launches of
                    the stored forward and the replay walk, peak memory
   cornell_small    BASELINE's Cornell box (path, depth 8) at 32x32, 4 spp
@@ -127,12 +127,12 @@ result line):
                    the card against on the CPU: image and media.params
                    gradient
   xml_render       the full-size scene loaded and rendered from the files
-                   and from the dict of the arrays read back, in turns
-                   (file, dict, dict, file): seconds, paths/s, xml_over_dict
-                   (render seconds, file over dict), the images
-                   bit-identical, sweep and merge launches, peak memory;
-                   a 16 spp render_grad of the loaded scene (one run after
-                   a 4 spp warm-up) against a 16 spp primal
+                   and from the dict of the arrays read back (file, then
+                   dict): seconds, paths/s, xml_over_dict (render seconds,
+                   file over dict), the images bit-identical in
+                   deterministic mode, sweep and merge launches, peak
+                   memory; a 16 spp render_grad of the loaded scene (one
+                   run after a 2 spp warm-up) against a 16 spp primal
   emitters_small   the gradient tests' plane (path, depth 3) at 12x12, 8 spp
                    under a directional, a spot and a projector light (its
                    slide a PNG file), card against CPU
@@ -143,14 +143,47 @@ result line):
                    through the scan adjoint under a mitchell filter; the
                    Cornell box's 64 spp fixed pass with a lanczos filter
                    against its gaussian, in turns
+  media_small      the stock media at 16x16, 4 spp on the card against the
+                   CPU: a grid cube (16^3 smoothed noise) under a point
+                   light with its media.grids gradient (the voxels at the
+                   grid's maximum, whose gradient blows up in both
+                   packages, must be the same; the rest by cosine and
+                   norm), the same cube with each extended phase
+                   (rayleigh, blendphase, tabphase, sggx), the grid
+                   Cornell box, and volpathmis on the chromatic fog (with
+                   its media.params gradient, scan adjoint) and on the
+                   liver proxy (bio media)
+  grid_render      the fog Cornell box's layout with a null-BSDF cube of a
+                   256^3 smoothed-noise grid medium (scale 4, albedo 0.8,
+                   HG g 0.5) in place of its fog, depth 16, cut to 256x256
+                   at 1 spp (one full regen wavefront; GRID_RES says why):
+                   seconds, Mpaths/s, iterations, bounce and shadow
+                   sweeps, peak memory; profiles of it and of the same
+                   cube of homogeneous fog at the grid's mean density
+                   (launches per iteration, device idle share, iterations
+                   against the homogeneous fog); its 1 spp media.grids
+                   render_grad: seconds, peak memory, gradient norm and
+                   share of non-zero voxels
+  volpathmis_render  test_volpathmis.py's chromatic fog on the Cornell box
+                   at 1080x1080, depth 16, 2 spp: volpathmis on one fixed
+                   pass in turns with volpath (regen): seconds, the ratio,
+                   peak memory, image means per channel, sweeps; the
+                   per-pixel variance over 4 seeds at 32x32, 4 spp of each
+  bvh_query        the liver proxy mesh at subdiv 9 (5,242,880 triangles,
+                   past 2^21): scene and C++ BVH build seconds, one
+                   65,536-ray query through the lockstep BVH traversal,
+                   a 16x12 1 spp render; at subdiv 8 (1,310,720) the same
+                   rays through intersector="bvh" and the sweep kernel in
+                   turns: seconds, hit and prim agreement, t
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
                    replaces, its launches (render + render_grad + fog
                    render + fog render_grad + bumped render + bumped
                    render_grad + the Cornell renders and gradients + the
-                   XML-loaded render and its gradient), agreement, times
-                   and bound
+                   XML-loaded render and its gradient + the grid render
+                   and gradient + the volpathmis and volpath renders of
+                   the chromatic fog), agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -167,7 +200,7 @@ import warnings
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
 KERNEL_SPP = 8                 # render_kernel phase
 GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
-TRACE_SPP = 4                  # render_grad_trace phase
+TRACE_SPP = 2                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
 # the fog Cornell box: BASELINE's 1080x1080 film and depth 16, 2 spp for
 # the primal and 1 for the gradient, timed once after a warm-up (its
@@ -181,7 +214,7 @@ WALK_SMALL = (12, 16)          # nee_walk_small: film, spp
 # bump_env_small: the proxy at subdiv 2 with a 32^2 height map at the
 # full-size scale and a 64 x 32 sky; env_nee_small: film, spp
 BUMP_SMALL, SKY_SMALL, ENV_NEE_SMALL = (32, 0.05), (64, 32), (12, 8)
-BUMP_TRACE_SPP = 4             # bump_env_render's profiles
+BUMP_TRACE_SPP = 2             # bump_env_render's profiles
 # BASELINE's Cornell box: 256x256, 64 spp, path depth 8, its gaussian
 # filter (one fixed pass of 4,194,304 lanes), against bench.py's box-filter
 # variant on the regen wavefront; the gradients at 16 spp
@@ -196,6 +229,38 @@ EMITTER_SMALL = (12, 8)
 SAMPLER_SPP = (4, 8)
 # wide_kernel: the plain version runs in blocks of this many rays
 WIDE_BLOCK = 1 << 18
+# the stock media: the fog Cornell box's layout with a grid cube of a
+# 256^3 smoothed-noise density (scale 4, albedo 0.8, HG g 0.5) in place of
+# its fog.  Cut from the fog's 1080^2 film to 256^2 at 1 spp, one full
+# regen wavefront of 65,536 lanes: every lane runs to the 64-iteration cap
+# and each iteration walks ~31 NEE steps (~18,800 host launches), so a
+# path costs ~0.3 ms (3,240 paths/s on the card) and 1080^2 at 2 spp
+# would take ~12 min alone.  The primal, its profile, the same cube of
+# homogeneous fog and the media.grids gradient all at that size.
+GRID_RES, GRID_SPP, GRID_GRAD_SPP, GRID_N = 256, 1, 1, 256
+# volpathmis on test_volpathmis.py's chromatic fog, in turns with volpath;
+# the per-pixel variance over VAR_SEEDS seeds at VAR_RES^2, VAR_SPP spp
+CHROMA = (0.9, 0.3, 0.05)
+MIS_RES, MIS_SPP, MIS_DEPTH = 1080, 2, 16
+VAR_RES, VAR_SPP, VAR_SEEDS = 32, 4, 4
+# bvh_query: the liver proxy past 2^21 triangles (subdiv 9: 5,242,880) and
+# at subdiv 8 (1,310,720), where the sweep kernel serves it too
+BVH_SUBDIV, BVH_CMP_SUBDIV, BVH_RAYS = 9, 8, 65536
+# media_small: film, spp; the point light of its grid cubes
+MEDIA_SMALL = (16, 2)
+MEDIA_POINT = {"type": "point", "position": [0.5, 2.2, 1.6],
+               "intensity": {"type": "rgb", "value": [8.0] * 3}}
+MEDIA_PHASES = {
+    "rayleigh": {"type": "rayleigh"},
+    "blendphase": {"type": "blendphase", "weight": 0.4,
+                   "a": {"type": "hg", "g": 0.5}, "b": {"type": "isotropic"}},
+    "tabphase": {"type": "tabphase", "values": [0.2, 0.5, 1.0, 2.0, 1.0, 0.5]},
+    "sggx": {"type": "sggx", "S": [1.0, 0.3, 0.6, 0.0, 0.0, 0.0]},
+}
+# a grid gradient entry above this is the ratio-tracking null weight at a
+# voxel of the grid's maximum (sigma_n = 0 there: ~1e21-1e25 in both
+# packages); the others are compared and summarised apart
+GRID_GRAD_BLOWUP = 1e3
 # bsdf_small: one plane per stock BSDF (and wrapper) the port carries
 BSDF_PLANES = {
     "thindielectric": {"type": "thindielectric"},
@@ -611,15 +676,30 @@ def _busy_us(spans):
 LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 
 
+def raw_events(prof):
+    """(name, on the device, start us, end us, user annotation) of every
+    event of a torch.profiler run, read from its kineto results: building
+    the profiler's FunctionEvent tree (prof.events()) took ~8 minutes for
+    the grid render's ~1.2M launches."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        start = e.start_ns() / 1e3
+        ann = getattr(e, "is_user_annotation", None)
+        out.append((e.name(), e.device_type() == DeviceType.CUDA, start,
+                    start + e.duration_ns() / 1e3, bool(ann and ann())))
+    return out
+
+
 def primal_trace(prof, secs, iterations):
     """Host kernel launches per regen iteration and the device's busy time
-    and idle share of a profiled primal render."""
-    from torch.autograd import DeviceType
-    events = prof.events()
-    dev = [e.time_range for e in events if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    launches = sum(1 for e in events if e.name in LAUNCH_NAMES)
-    busy = _busy_us((r.start, r.end) for r in dev) / 1e3
+    and idle share of a primal render profiled for CUDA activity alone
+    (the CUDA runtime's launch calls are part of it; leaving out the CPU
+    ops halves the events to read)."""
+    events = raw_events(prof)
+    dev = [(a, b) for _, cuda, a, b, ann in events if cuda and not ann]
+    launches = sum(1 for e in events if e[0] in LAUNCH_NAMES)
+    busy = _busy_us(dev) / 1e3
     return dict(trace_seconds=secs, trace_iterations=iterations,
                 trace_host_launches=launches,
                 launches_per_iteration=launches / max(iterations, 1),
@@ -740,31 +820,27 @@ def trace_summary(prof, secs, iterations, top=10):
     host kernel launches per regen iteration, for the whole render_grad
     and for its two walks (split at the replay walk's span), and the top
     device ops of a torch.profiler run.  iterations: (forward, replay)."""
-    from torch.autograd import DeviceType
-    events = prof.events()
+    events = raw_events(prof)
     # the host side of each span (CUDA traces also hold a device-side
     # annotation of the same name)
-    spans = {name: [e.time_range for e in events if e.name == name
-                    and e.device_type == DeviceType.CPU]
+    spans = {name: [(a, b) for n, cuda, a, b, _ in events
+                    if n == name and not cuda]
              for name in (GRAD_SPAN, REPLAY_SPAN)}
     check(len(spans[GRAD_SPAN]) == 1 and len(spans[REPLAY_SPAN]) == 1,
           "trace: render_grad or replay walk span missing")
-    t0, w0, w1 = (spans[GRAD_SPAN][0].start, spans[REPLAY_SPAN][0].start,
-                  spans[REPLAY_SPAN][0].end)
+    t0, (w0, w1) = spans[GRAD_SPAN][0][0], spans[REPLAY_SPAN][0]
     # device work: kernels, copies and sets (not the spans' annotations)
-    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and e.name not in spans]
-    dev = [e.time_range for e in dev_ev]
-    launch = [e.time_range.start for e in events if e.name in LAUNCH_NAMES]
+    dev_ev = [e for e in events if e[1] and not e[4] and e[0] not in spans]
+    dev = [(a, b) for _, _, a, b, _ in dev_ev]
+    launch = [e[2] for e in events if e[0] in LAUNCH_NAMES]
     out = dict(seconds=secs, device_events=len(dev),
                host_launches=len(launch),
-               device_busy_ms=_busy_us((r.start, r.end) for r in dev) / 1e3)
+               device_busy_ms=_busy_us(dev) / 1e3)
     out["device_idle_share"] = 1.0 - out["device_busy_ms"] / 1e3 / secs
     for name, (a, b), its in (("fwd", (t0, w0), iterations[0]),
                               ("replay", (w0, w1), iterations[1])):
         n = sum(1 for x in launch if a <= x < b)
-        busy = _busy_us((r.start, r.end) for r in dev if a <= r.start < b)
+        busy = _busy_us((r0, r1) for r0, r1 in dev if a <= r0 < b)
         out[f"{name}_iterations"] = its
         out[f"{name}_host_launches"] = n
         out[f"{name}_launches_per_iteration"] = n / max(its, 1)
@@ -773,9 +849,9 @@ def trace_summary(prof, secs, iterations, top=10):
         out[f"{name}_device_idle_share"] = 1.0 - busy / max(b - a, 1e-9)
 
     by_name = {}
-    for e in dev_ev:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.end - e.time_range.start
+    for name, _, a, b, _ in dev_ev:
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += b - a
         acc[1] += 1
     ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     out["top_device_ops"] = [dict(name=k[:80], device_ms=us / 1e3, calls=n)
@@ -831,8 +907,7 @@ def nee_phases(torch, np, lrt, ci, treplay, smi, scene, gen):
     fog_tr = lrt.load_dict(fog_cornell_box(FOG_TRACE_RES,
                                            max_depth=FOG_DEPTH))
     lrt.render(fog_tr, spp=FOG_TRACE_SPP, seed=SEED)           # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         reset_counts(ci)
         t0 = time.perf_counter()
         lrt.render(fog_tr, spp=FOG_TRACE_SPP, seed=SEED)
@@ -982,8 +1057,7 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
     traces = {}
     for name, sc in (("bumped", bumped), ("plain", plain)):
         lrt.render(sc, spp=BUMP_TRACE_SPP, seed=SEED)            # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             reset_counts(ci)
             secs_tr, _ = timed_render(torch, lrt, sc, BUMP_TRACE_SPP)
         traces[name] = primal_trace(prof, secs_tr, ci.LAUNCHES)
@@ -1012,18 +1086,18 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
     check(counts[2] == 0, "the bumped liver render made shadow queries")
 
     # ---- 7c. its gradient (single walk)
-    grad_run(torch, lrt, ci, treplay, bumped, GRAD_SPP)        # warm-up
+    # one timed run after the warm-up, against one primal (the script's
+    # time allows no more)
+    runs = [grad_run(torch, lrt, ci, treplay, bumped, GRAD_SPP)]  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    runs = [grad_run(torch, lrt, ci, treplay, bumped, GRAD_SPP)
-            for _ in range(3)]
+    runs.append(grad_run(torch, lrt, ci, treplay, bumped, GRAD_SPP))
     gpeak = torch.cuda.max_memory_allocated()
-    grad_counts = runs[0][3]
+    grad_counts = runs[1][3]
     check(all(r[3] == grad_counts for r in runs),
           "bumped render_grad: launch counts differ between reps")
-    g = runs[0][1]
-    primal = [timed_render(torch, lrt, bumped, GRAD_SPP)[0]
-              for _ in range(3)]
-    t_grad, t_primal = sorted(r[0] for r in runs)[1], sorted(primal)[1]
+    g = runs[1][1]
+    primal = [timed_render(torch, lrt, bumped, GRAD_SPP)[0]]
+    t_grad, t_primal = runs[1][0], primal[0]
     gpaths = WIDTH * HEIGHT * GRAD_SPP
     finite_g = bool(torch.isfinite(g).all())
     emit("bump_env_render_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
@@ -1034,7 +1108,7 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
          fwd_bwd_over_primal=t_grad / t_primal, grad_finite=finite_g,
          grad_abs_max=float(g.abs().max()),
          grad_sigma_t=[float(x) for x in g[0, 0:3]],
-         image_mean=float(runs[0][2].mean()), max_memory_allocated=gpeak,
+         image_mean=float(runs[1][2].mean()), max_memory_allocated=gpeak,
          **grad_counts)
     check(finite_g and float(g.abs().max()) > 0,
           "bumped render_grad: gradient not finite or zero")
@@ -1222,8 +1296,7 @@ def cornell_phases(torch, np, lrt, ci, treplay, smi):
     traces = {}
     for name, sc, spp in (("fixed", scene_g, CORNELL_SPP),
                           ("regen", scene_b, CORNELL_TRACE_SPP)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             reset_counts(ci)
             secs_tr, _ = timed_render(torch, lrt, sc, spp)
         traces[name] = dict(spp=spp, **primal_trace(
@@ -1412,7 +1485,7 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
     torch.cuda.reset_peak_memory_stats()
     runs = {"file": [], "dict": []}
     counts, imgs, scenes = {}, {"file": [], "dict": []}, {}
-    for which in ("file", "dict", "dict", "file"):
+    for which in ("file", "dict"):
         load_s, scenes[which] = timed_load(
             torch, lambda: lrt.load_file(path) if which == "file"
             else lrt.load_dict(d_back))
@@ -1444,8 +1517,8 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
         finally:
             torch.use_deterministic_algorithms(False)
     identical = bool(torch.equal(det["file"], det["dict"]))
-    t_f = sum(r["render_seconds"] for r in runs["file"]) / 2
-    t_d = sum(r["render_seconds"] for r in runs["dict"]) / 2
+    t_f = runs["file"][0]["render_seconds"]
+    t_d = runs["dict"][0]["render_seconds"]
     paths = WIDTH * HEIGHT * SPP
     # ---- 9d. its gradient (one run after a warm-up) against a primal
     grad_run(torch, lrt, ci, treplay, scene_f, TRACE_SPP)        # warm-up
@@ -1458,8 +1531,6 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
          file_runs=runs["file"], dict_runs=runs["dict"],
          xml_over_dict=t_f / t_d, buffers_equal=buffers_equal,
          bit_identical_deterministic=identical,
-         run_to_run_max_abs=float((imgs["file"][0] - imgs["file"][1])
-                                  .abs().max()),
          file_vs_dict_max_abs=float((imgs["file"][0] - imgs["dict"][0])
                                     .abs().max()),
          deterministic_vs_default_max_abs=float((det["file"] - img)
@@ -1565,6 +1636,317 @@ def emitter_sampler_phases(torch, np, lrt, smi, workdir):
                                  seconds_reps=secs,
                                  lanczos_over_gaussian=sum(secs["lanczos"])
                                  / sum(secs["gaussian"])))
+
+
+def _chroma_dict(cornell_box, res, integrator, depth, sigma=CHROMA):
+    """tests/test_volpathmis.py's chroma_fog: the Cornell box in a
+    chromatic homogeneous sensor fog (albedo 0.8, isotropic)."""
+    d = cornell_box()
+    d["integrator"] = {"type": integrator, "max_depth": depth}
+    d["sensor"]["film"] = {"type": "hdrfilm", "width": res, "height": res,
+                           "rfilter": {"type": "box"}}
+    d["sensor"]["medium"] = {
+        "type": "homogeneous",
+        "sigma_t": {"type": "rgb", "value": list(sigma)},
+        "albedo": {"type": "rgb", "value": [0.8] * 3},
+        "phase": {"type": "isotropic"}}
+    return d
+
+
+def grid_grad_vs_cpu(lrt, d, spp):
+    """The media.grids gradient of the mean image on the card and on the
+    CPU: the voxels past GRID_GRAD_BLOWUP must be the same in both, the
+    others are compared by cosine and norm."""
+    import torch
+
+    def grad(sc):
+        _, g, _ = lrt.render_grad(sc, {"media.grids": sc.media.grids},
+                                  lambda im: im.mean(), spp=spp, seed=SEED)
+        return g["media.grids"].cpu().double().reshape(-1)
+
+    b = grad(lrt.load_dict(d, device="cpu"))
+    a = grad(lrt.load_dict(d))
+    big_a, big_b = a.abs() > GRID_GRAD_BLOWUP, b.abs() > GRID_GRAD_BLOWUP
+    a0, b0 = a[~big_b], b[~big_b]
+    return dict(grad_cosine=float((a0 * b0).sum() / (a0.norm() * b0.norm())),
+                grad_norm_rel=abs(float(a0.norm() / b0.norm()) - 1.0),
+                grad_norm=float(b0.norm()), blowup_voxels=int(big_b.sum()),
+                blowup_same=bool(torch.equal(big_a, big_b)),
+                grad_finite=bool(a.isfinite().all()))
+
+
+def media_phases(torch, np, lrt, ci, treplay, smi):
+    """Phases media_small, grid_render, volpathmis_render and bvh_query ->
+    the launch counts the kernels line reports."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.accel import bvh as tbvh
+    from liverrenderer_tpu_torch.accel.intersect import (_tri_strategy,
+                                                         _bvh_tris,
+                                                         ray_intersect)
+    from liverrenderer_tpu_torch.core.types import Ray
+    from liverrenderer_tpu_torch.scene.cornell import (cornell_box,
+                                                       grid_cornell_box,
+                                                       grid_cube_dict,
+                                                       smooth_noise_grid)
+    from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
+
+    # ---- 11a. the stock media at test size, card against CPU
+    res_s, spp_s = MEDIA_SMALL
+    grid_s = smooth_noise_grid(16, SEED)
+    cases = {"grid_cube": grid_cube_dict(res_s, grid=grid_s, scale=2.0,
+                                         light=MEDIA_POINT),
+             "grid_cornell": grid_cornell_box(res_s, grid_res=32, seed=SEED),
+             "volpathmis_chroma_fog": _chroma_dict(cornell_box, res_s,
+                                                   "volpathmis", 6)}
+    for name, phase in MEDIA_PHASES.items():
+        cases[f"phase_{name}"] = grid_cube_dict(
+            res_s, grid=grid_s, scale=2.0, light=MEDIA_POINT, phase=phase)
+    bio = liver_proxy_dict(16, 12, spp_s, 2, SEED)
+    bio["integrator"]["type"] = "volpathmis"
+    cases["volpathmis_bio"] = bio
+    small = {}
+    for name, d in cases.items():
+        frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, d, spp_s)
+        small[name] = dict(pixel_frac=frac, pixel_exact=exact,
+                           mean_rel=mean_rel, mean=mean)
+        check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL and mean > 0,
+              f"media_small {name}: the card's render disagrees with the "
+              f"CPU's: {small[name]}")
+    gg = grid_grad_vs_cpu(lrt, cases["grid_cube"], spp_s)
+    small["grid_cube"].update(gg)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(
+        lrt, cases["volpathmis_chroma_fog"], spp_s)
+    small["volpathmis_chroma_fog"].update(
+        grad_cosine=cos, grad_norm_rel=norm_rel, grad_norm=gnorm)
+    emit("media_small", film=[res_s, res_s], spp=spp_s, **small)
+    check(gg["grad_finite"] and gg["blowup_same"] and gg["grad_norm"] > 0
+          and gg["grad_cosine"] >= GRAD_COS_MIN
+          and gg["grad_norm_rel"] <= GRAD_NORM_RTOL,
+          f"media_small: the card's media.grids gradient disagrees: {gg}")
+    check(gfin and gnorm > 0 and cos >= GRAD_COS_MIN
+          and norm_rel <= GRAD_NORM_RTOL,
+          "media_small: the card's volpathmis gradient disagrees")
+
+    # ---- 11b. the grid medium at full size
+    t0 = time.perf_counter()
+    grid = smooth_noise_grid(GRID_N, SEED)
+    gscene = lrt.load_dict(grid_cornell_box(GRID_RES, grid=grid))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(gscene.device.type == "cuda" and gscene.needs_medium_nee,
+          "grid scene not on the card or without medium NEE")
+    # profiles of the same cube of homogeneous fog at the grid's mean
+    # density (after its warm-up; it counts the iterations the null
+    # collisions add) and of the grid render, which warms the timed run up
+    homog = grid_cornell_box(GRID_RES, grid=grid)
+    homog["grid_box"]["interior"] = {
+        "type": "homogeneous", "scale": 4.0,
+        "sigma_t": {"type": "rgb", "value": [float(grid.mean())] * 3},
+        "albedo": {"type": "rgb", "value": [0.8] * 3},
+        "phase": {"type": "hg", "g": 0.5}}
+    hscene = lrt.load_dict(homog)
+    lrt.render(hscene, spp=GRID_SPP, seed=SEED + 1)           # warm-up
+    iters = {}
+    for name, sc in (("homogeneous", hscene), ("grid", gscene)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            reset_counts(ci)
+            t1 = time.perf_counter()
+            lrt.render(sc, spp=GRID_SPP, seed=SEED)
+            torch.cuda.synchronize()
+            secs_tr = time.perf_counter() - t1
+        c = split_counts(launch_counts(ci))
+        iters[name] = dict(seconds=secs_tr, **c, **primal_trace(
+            prof, secs_tr, c["bounce_launches"]))
+    del hscene
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    t1 = time.perf_counter()
+    img = lrt.render(gscene, spp=GRID_SPP, seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    grid_counts = launch_counts(ci)
+    gsplit = split_counts(grid_counts)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(img).all())
+    paths = GRID_RES * GRID_RES * GRID_SPP
+    n_walks = -(-GRID_RES * GRID_RES // treplay.regen_mod.TILE_PIX)
+    torch.cuda.reset_peak_memory_stats()
+    g_secs, gg_full, g_img, grid_grad = grad_run(
+        torch, lrt, ci, treplay, gscene, GRID_GRAD_SPP, walks=n_walks,
+        key="media.grids")
+    g_peak = torch.cuda.max_memory_allocated()
+    big = gg_full.abs() > GRID_GRAD_BLOWUP
+    g_rest = gg_full[~big]
+    emit("grid_render", film=[GRID_RES, GRID_RES], spp=GRID_SPP,
+         grid=[GRID_N] * 3, max_depth=gscene.max_depth, card=smi,
+         build_seconds=build_s, seconds=round(secs, 3),
+         paths_per_s=paths / secs, mpaths_per_s=paths / secs / 1e6,
+         finite=finite, mean=float(img.mean()),
+         iterations=gsplit["bounce_launches"], **gsplit,
+         max_memory_allocated=peak,
+         trace=iters, iterations_over_homogeneous=(
+             iters["grid"]["bounce_launches"]
+             / max(iters["homogeneous"]["bounce_launches"], 1)),
+         grad_spp=GRID_GRAD_SPP, grad_walks=n_walks, grad_seconds=g_secs,
+         grad_fwd_bwd_paths_per_s=GRID_RES * GRID_RES * GRID_GRAD_SPP
+         / g_secs, grad_max_memory_allocated=g_peak,
+         grad_finite=bool(torch.isfinite(gg_full).all()),
+         grad_norm=float(gg_full.norm()),
+         grad_norm_below_blowup=float(g_rest.norm()),
+         grad_blowup_voxels=int(big.sum()),
+         grad_nonzero_share=float((gg_full[..., 0] != 0).float().mean()),
+         grad_image_mean=float(g_img.mean()), **grid_grad)
+    check(tuple(img.shape) == (GRID_RES, GRID_RES, 3) and finite
+          and 0.0 < float(img.mean()) < 1.0, "grid image")
+    check(gsplit["bounce_launches"] > 0 and gsplit["shadow_launches"] > 0,
+          "the grid render did not launch the sweep for both queries")
+    check(bool(torch.isfinite(gg_full).all())
+          and float(g_rest.abs().max()) > 0, "grid gradient")
+    for k in ("fwd_launches", "replay_launches", "fwd_shadow_launches",
+              "replay_shadow_launches"):
+        check(grid_grad.get(k, 0) > 0, f"grid render_grad: {k} is 0")
+    del gscene, img, gg_full, g_img
+
+    # ---- 11c. volpathmis against volpath on the chromatic fog, in turns
+    mis = lrt.load_dict(_chroma_dict(cornell_box, MIS_RES, "volpathmis",
+                                     MIS_DEPTH))
+    vp = lrt.load_dict(_chroma_dict(cornell_box, MIS_RES, "volpath",
+                                    MIS_DEPTH))
+    runs = {"volpathmis": [], "volpath": []}
+    for name, sc in (("volpathmis", mis), ("volpath", vp), ("volpath", vp),
+                     ("volpathmis", mis)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ci)
+        secs, img = timed_render(torch, lrt, sc, MIS_SPP)
+        runs[name].append(dict(
+            seconds=secs, counts=launch_counts(ci),
+            peak=torch.cuda.max_memory_allocated(),
+            means=[float(x) for x in img.mean((0, 1))],
+            finite=bool(torch.isfinite(img).all())))
+    var = {}
+    for name in runs:
+        sc = lrt.load_dict(_chroma_dict(cornell_box, VAR_RES, name,
+                                        MIS_DEPTH))
+        imgs = torch.stack([lrt.render(sc, spp=VAR_SPP, seed=200 + k)
+                            for k in range(VAR_SEEDS)])
+        var[name] = float(imgs.var(0).mean())
+    out = {}
+    for name, rs in runs.items():
+        out[name] = dict(seconds=[r["seconds"] for r in rs],
+                         max_memory_allocated=[r["peak"] for r in rs],
+                         image_mean_rgb=rs[0]["means"],
+                         **split_counts(rs[0]["counts"]),
+                         pixel_variance=var[name])
+        check(all(r["finite"] for r in rs), f"{name}: non-finite image")
+        check(all(r["counts"] == rs[0]["counts"] for r in rs),
+              f"{name}: launch counts differ between runs")
+        check(rs[0]["counts"][0] > 0 and rs[0]["counts"][2] > 0,
+              f"{name}: no bounce or shadow sweep")
+    fastest = {k: min(v["seconds"]) for k, v in out.items()}
+    emit("volpathmis_render", film=[MIS_RES, MIS_RES], spp=MIS_SPP,
+         max_depth=MIS_DEPTH, sigma_t=list(CHROMA), card=smi,
+         lanes_per_fixed_pass=MIS_RES * MIS_RES * MIS_SPP,
+         mis_over_volpath=[a["seconds"] / b["seconds"] for a, b in
+                           zip(runs["volpathmis"], runs["volpath"])],
+         variance_film=[VAR_RES, VAR_RES], variance_spp=VAR_SPP,
+         variance_seeds=VAR_SEEDS,
+         variance_ratio=var["volpathmis"] / var["volpath"],
+         min_seconds=fastest, **out)
+    del mis, vp
+
+    # ---- 11d. the lockstep BVH: a mesh past 2^21 triangles, and the
+    # sweep kernel against it at subdiv 8
+    def bvh_scene(subdiv):
+        t1 = time.perf_counter()
+        sc = lrt.load_dict(liver_proxy_dict(16, 12, 1, subdiv, SEED))
+        torch.cuda.synchronize()
+        return sc, time.perf_counter() - t1, dict(tbvh.BUILD_INFO)
+
+    def query(sc, ray):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        si = ray_intersect(sc, ray)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, si
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    big, big_s, info = bvh_scene(BVH_SUBDIV)
+    check(big.n_tris == 20 * 4 ** BVH_SUBDIV
+          and big.n_tris > ci.MAX_STREAM_TRIS
+          and _tri_strategy(big) is _bvh_tris,
+          f"the {big.n_tris}-triangle mesh does not take the BVH")
+    check(info.get("build_tris") == big.n_tris,
+          "the large mesh's BVH was not built by the C++ build")
+    r = proxy_rays(torch, big, BVH_RAYS // 2, BVH_RAYS // 2, gen)
+    ray = Ray(o=r[0:3].T + big.tri_center, d=r[3:6].T.contiguous(),
+              maxt=r[6].contiguous())
+    query(big, Ray(o=ray.o[:1024], d=ray.d[:1024], maxt=ray.maxt[:1024]))
+    q_secs, si_big = query(big, ray)
+    t1 = time.perf_counter()
+    img = lrt.render(big, spp=1, seed=SEED)
+    torch.cuda.synchronize()
+    r_secs = time.perf_counter() - t1
+    res_big = dict(tris=big.n_tris, scene_seconds=big_s,
+                   native_compile_seconds=info.get("seconds"),
+                   native_build_seconds=info.get("build_seconds"),
+                   bvh_depth=big.bvh.depth, query_rays=BVH_RAYS,
+                   query_seconds=q_secs, hits=int(si_big.valid.sum()),
+                   render_film=[16, 12], render_spp=1,
+                   render_seconds=r_secs,
+                   render_finite=bool(torch.isfinite(img).all()),
+                   render_mean=float(img.mean()))
+    check(res_big["render_finite"] and res_big["hits"] > BVH_RAYS // 4,
+          f"bvh_query: {res_big}")
+    del big, si_big, img
+    mid, mid_s, info = bvh_scene(BVH_CMP_SUBDIV)
+    r = proxy_rays(torch, mid, BVH_RAYS // 2, BVH_RAYS // 2, gen)
+    ray = Ray(o=r[0:3].T + mid.tri_center, d=r[3:6].T.contiguous(),
+              maxt=r[6].contiguous())
+    mid_bvh = mid.replace(intersector="bvh")
+    query(mid, ray)
+    query(mid_bvh, ray)                                         # warm-ups
+    times = {"kernel": [], "bvh": []}
+    reset_counts(ci)
+    for name in ("kernel", "bvh", "bvh", "kernel"):
+        s_, si = query(mid if name == "kernel" else mid_bvh, ray)
+        times[name].append(s_)
+        if name == "kernel":
+            si_k = si
+        else:
+            si_b = si
+    cmp_counts = launch_counts(ci)
+    same = (si_k.prim == si_b.prim) & si_k.valid
+    both = si_k.valid & si_b.valid
+    # compute_si re-derives t from the winner's row, so an equal prim gives
+    # an equal t unless the kernel's hit lies on an edge Moeller-Trumbore
+    # rejects (then the kernel's own t stays)
+    dt = ((si_k.t - si_b.t).abs() / si_b.t.abs().clamp(min=1e-30))[same]
+    res_mid = dict(
+        tris=mid.n_tris, scene_seconds=mid_s,
+        native_build_seconds=info.get("build_seconds"), rays=BVH_RAYS,
+        kernel_seconds=times["kernel"], bvh_seconds=times["bvh"],
+        bvh_over_kernel=sorted(times["bvh"])[0] / sorted(times["kernel"])[0],
+        kernel_sweep_launches=cmp_counts[0] // 2,
+        kernel_merge_launches=cmp_counts[1] // 2,
+        hits=int(si_k.valid.sum()),
+        hit_agree=float((si_k.valid == si_b.valid).float().mean()),
+        prim_agree=float(same.sum()) / max(int(both.sum()), 1),
+        t_equal_share=float((si_k.t[same] == si_b.t[same]).float()
+                            .mean()),
+        max_rel_dt=float(dt.max()) if dt.numel() else 0.0,
+        ties_dt_max=float((si_k.t - si_b.t)[both & ~same].abs().max())
+        if bool((both & ~same).any()) else 0.0)
+    emit("bvh_query", card=smi, mesh=f"liver_proxy.liver_mesh(subdiv, "
+         f"{SEED})", past_stream_limit=res_big, against_kernel=res_mid)
+    check(res_mid["hit_agree"] >= HIT_AGREE_MIN
+          and res_mid["prim_agree"] >= PRIM_AGREE_MIN
+          and res_mid["t_equal_share"] >= HIT_AGREE_MIN
+          and res_mid["max_rel_dt"] <= T_RTOL,
+          f"bvh_query: the BVH and the sweep kernel disagree: {res_mid}")
+    return dict(grid_counts=grid_counts, grid_grad=grid_grad,
+                mis_counts=runs["volpathmis"][0]["counts"],
+                vp_counts=runs["volpath"][0]["counts"])
 
 
 def main() -> int:
@@ -1858,9 +2240,13 @@ def main() -> int:
         xml = xml_phases(torch, np, lrt, ci, treplay, smi, workdir)
         emitter_sampler_phases(torch, np, lrt, smi, workdir)
     xml_counts, xml_grad = xml["counts"], xml["grad_counts"]
+
+    # ---- 11. the stock media: grids, extended phases, volpathmis, and the
+    # lockstep BVH past 2^21 triangles
+    med = media_phases(torch, np, lrt, ci, treplay, smi)
     emit("total", seconds=time.perf_counter() - _T0)
 
-    # ---- 11. kernels
+    # ---- 12. kernels
     src = "liverrenderer_tpu_torch/csrc/intersect.cu"
     print(json.dumps({"kernels": [
         # ms: the sweep kernel alone (K1 shape); sweep_merge_ms: the whole
@@ -1877,7 +2263,10 @@ def main() -> int:
              + fog_grad_counts["replay_launches"] + bump_counts[0]
              + bump_grad["fwd_launches"] + bump_grad["replay_launches"]
              + cb_launches + xml_counts[0] + xml_grad["fwd_launches"]
-             + xml_grad["replay_launches"],
+             + xml_grad["replay_launches"] + med["grid_counts"][0]
+             + med["grid_grad"]["fwd_launches"]
+             + med["grid_grad"]["replay_launches"] + med["mis_counts"][0]
+             + med["vp_counts"][0],
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -1891,6 +2280,10 @@ def main() -> int:
                  for k, v in cb_grads.items()},
              xml_render_launches=xml_counts[0],
              xml_render_grad_launches=xml_grad,
+             grid_render_launches=split_counts(med["grid_counts"]),
+             grid_render_grad_launches=med["grid_grad"],
+             volpathmis_render_launches=split_counts(med["mis_counts"]),
+             volpath_chroma_render_launches=split_counts(med["vp_counts"]),
              wide_ms=cb["wide"]["camera"]["ms"],
              wide_plain_ms=cb["wide"]["camera"]["plain_ms"],
              wide_bound_ms=cb["wide"]["camera"]["bound_ms"],
@@ -1928,7 +2321,10 @@ def main() -> int:
              + bump_grad["fwd_merge_launches"]
              + bump_grad["replay_merge_launches"] + cb_merge
              + xml_counts[1] + xml_grad["fwd_merge_launches"]
-             + xml_grad["replay_merge_launches"],
+             + xml_grad["replay_merge_launches"] + med["grid_counts"][1]
+             + med["grid_grad"]["fwd_merge_launches"]
+             + med["grid_grad"]["replay_merge_launches"]
+             + med["mis_counts"][1] + med["vp_counts"][1],
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],

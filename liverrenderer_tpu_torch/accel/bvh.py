@@ -1,23 +1,36 @@
-"""Host-side BVH construction (numpy, binned SAH).
+"""Host-side BVH construction (binned SAH; counterpart of
+liverrenderer_tpu/accel/bvh.py).
 
 Replaces the reference's acceleration backends (Embree scene_embree.inl /
 native SAH kd-tree kdtree.h:2537 / OptiX scene_optix.inl) with a flattened
-2-wide BVH whose traversal is a fixed-depth masked loop on device
-(accel/intersect.py).  Built once at scene construction, host-side — the
-build is latency-insensitive; only traversal is on the TPU hot path.
+2-wide BVH: its leaf order is the packed triangle buffer's order for the
+closest-hit sweep, and accel/intersect._bvh_tris traverses it.
 
 Layout: depth-first order; internal node i has left child i+1 and right
 child right[i]; leaves have right[i] == -1 and prims [first, first+count)
 in `perm` order.
 
-The JAX package also has a C++ builder with the identical layout
-(native/); the port builds with this numpy version only, so its leaf order
-can differ from a natively built JAX scene's.
+Two builders with that layout: `build_bvh_numpy`, which every scene up to
+NATIVE_MIN_TRIS triangles uses (so their leaf order, and every image
+rendered from them, stays what it was), and the C++ build of
+csrc/bvh_build.cpp (the port's copy of the JAX package's native builder)
+for larger meshes, where the recursive numpy build takes minutes.  The C++
+build is compiled at first use with the host C++ compiler into
+build/torch_kernels and loaded with ctypes; a failed build raises.  Both
+give the same nodes; the order of triangles inside a leaf can differ.
 """
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
 import sys
+import tempfile
+import time
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -25,6 +38,15 @@ N_BINS = 16
 MAX_LEAF = 4
 TRAVERSAL_COST = 1.0
 INTERSECT_COST = 1.0
+# meshes above this many triangles take the C++ build
+NATIVE_MIN_TRIS = 1 << 16
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "bvh_build.cpp"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_LIB = None
+# the compile's seconds, output and path, and the last build's seconds and
+# triangles (chip_smoke.py reads them)
+BUILD_INFO: dict = {}
 
 
 @dataclass
@@ -39,7 +61,99 @@ class BVHArrays:
 
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> BVHArrays:
-    """Binned-SAH BVH over triangles given by their vertices (T,3) each."""
+    """Binned-SAH BVH over triangles given by their vertices (T,3) each:
+    the C++ build past NATIVE_MIN_TRIS triangles, numpy below."""
+    if len(v0) > NATIVE_MIN_TRIS:
+        return build_bvh_native(v0, v1, v2)
+    return build_bvh_numpy(v0, v1, v2)
+
+
+def _compiler() -> list:
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx:
+        return [cxx]
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("BVH build: no C++ compiler (c++, g++ or nvcc)")
+    return [str(Path(CUDA_HOME) / "bin" / "nvcc"), "-x", "c++"]
+
+
+def build_native():
+    """Build (once per source hash) and load csrc/bvh_build.cpp; raises if
+    the compiler fails."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _BUILD_DIR / f"bvh_build_{tag}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not so.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cxx = _compiler()
+        pic = ["-Xcompiler", "-fPIC"] if cxx[0].endswith("nvcc") \
+            else ["-fPIC"]
+        res = subprocess.run(cxx + ["-O2", "-std=c++17", "-shared", *pic,
+                                    "-o", tmp, str(_SRC)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError("BVH build: compiling bvh_build.cpp failed\n"
+                               + res.stdout + res.stderr)
+        log = res.stdout + res.stderr
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    p = ctypes.c_void_p
+    lib.lrt_bvh_build.argtypes = [p, p, p, ctypes.c_int64, p, p, p, p, p, p,
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_int32),
+                                  ctypes.c_int64]
+    lib.lrt_bvh_build.restype = ctypes.c_int
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
+                      path=str(so))
+    _LIB = lib
+    return lib
+
+
+def build_bvh_native(v0: np.ndarray, v1: np.ndarray,
+                     v2: np.ndarray) -> BVHArrays:
+    """The C++ binned-SAH build (csrc/bvh_build.cpp); its seconds go to
+    BUILD_INFO["build_seconds"]."""
+    lib = build_native()
+    t0 = time.perf_counter()
+    T = len(v0)
+    cap = max(2 * T, 1)
+    vs = [np.ascontiguousarray(v, np.float32).reshape(T, 3)
+          for v in (v0, v1, v2)]
+    node_min = np.empty((cap, 3), np.float32)
+    node_max = np.empty((cap, 3), np.float32)
+    right = np.empty(cap, np.int32)
+    first = np.empty(cap, np.int32)
+    count = np.empty(cap, np.int32)
+    perm = np.empty(max(T, 1), np.int32)
+    n_nodes = ctypes.c_int64()
+    depth = ctypes.c_int32()
+    ptr = [a.ctypes.data for a in vs + [node_min, node_max, right, first,
+                                        count, perm]]
+    rc = lib.lrt_bvh_build(*ptr[:3], T, *ptr[3:], ctypes.byref(n_nodes),
+                           ctypes.byref(depth), cap)
+    if rc != 0:
+        raise RuntimeError("BVH build: the node buffer overflowed")
+    n = n_nodes.value
+    out = BVHArrays(node_min[:n].copy(), node_max[:n].copy(),
+                    right[:n].copy(), first[:n].copy(), count[:n].copy(),
+                    perm[:T].copy(), depth.value)
+    BUILD_INFO["build_seconds"] = time.perf_counter() - t0
+    BUILD_INFO["build_tris"] = T
+    return out
+
+
+def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray,
+                    v2: np.ndarray) -> BVHArrays:
+    """The recursive numpy build: the plain version the C++ build is held
+    against, and the builder of every mesh up to NATIVE_MIN_TRIS."""
     T = len(v0)
     if T == 0:
         return BVHArrays(

@@ -4,7 +4,9 @@ liverrenderer_tpu/accel/intersect.py).
 Strategies for the triangle stream:
 * the closest-hit sweep over the packed Baldwin-Weber buffer
   (accel/cuda_intersect.py): the hand-written CUDA kernel on a CUDA
-  device, its plain PyTorch version on the CPU;
+  device, its plain PyTorch version on the CPU, for 0 < T <= 2^21;
+* ``bvh``: the lockstep stack traversal of the flattened 2-wide BVH
+  (`_bvh_tris`), for meshes past 2^21 triangles and intersector="bvh";
 * ``brute``: a chunked Moeller-Trumbore sweep over faces/vertices, the
   JAX package's CPU default for small scenes.
 Analytic spheres are tested brute force after the triangles.
@@ -21,8 +23,14 @@ from ..core.types import INF, Ray, SurfaceInteraction
 from ..errors import not_ported
 from ..scene.ir import Scene
 from . import cuda_intersect
+from .bvh import MAX_LEAF
 
 TRI_CHUNK = 128
+# the fat-leaf bound of the BVH build: a leaf holds at most 8 * MAX_LEAF
+# triangles
+MAX_LEAF_PRIMS = 8 * MAX_LEAF
+# leaf lanes tested at once by _bvh_tris (bounds its (lanes, 32, 3) temps)
+LEAF_BLOCK = 1 << 17
 
 
 def _moeller_trumbore(o, d, p0, e1, e2):
@@ -70,6 +78,98 @@ def _brute_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
     return t_best, prim, uu, vv
 
 
+def _ray_aabb(o, inv_d, maxt, bmin, bmax):
+    """Slab test -> (entry t clamped at 0, hit)."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    near = torch.amax(torch.minimum(t0, t1), -1)
+    far = torch.amin(torch.maximum(t0, t1), -1)
+    hit = (near <= far) & (far > 0.0) & (near < maxt)
+    return torch.clamp(near, min=0.0), hit
+
+
+def _stack_push(stack, sp, val, mask):
+    """stack[lane, sp] = val where mask (the slot clamped to the depth)."""
+    slot = torch.clamp(sp, max=stack.shape[1] - 1)[:, None]
+    cur = torch.gather(stack, 1, slot)[:, 0]
+    stack.scatter_(1, slot, torch.where(mask, val, cur)[:, None])
+
+
+def _leaf_hits(scene: Scene, ray: Ray, lanes, first, cnt, t_best):
+    """Closest hit among each leaf lane's <= MAX_LEAF_PRIMS triangles ->
+    (t, tri, u, v), t = inf where none beats t_best.  All of a leaf's
+    triangles are tested at once; argmin takes the first of equal t, as
+    the JAX package's in-order loop with its strict t < t_best does."""
+    k = torch.arange(MAX_LEAF_PRIMS, device=lanes.device)
+    li = torch.clamp(first[:, None] + k, 0, scene.bvh.perm.shape[0] - 1)
+    tri = scene.bvh.perm[li]                          # (L, K)
+    row = scene.tri_si[:, :9][tri]                    # p0, e1, e2
+    o = ray.o[lanes][:, None, :]
+    d = ray.d[lanes][:, None, :]
+    t, u, v, h = _moeller_trumbore(o, d, row[..., 0:3], row[..., 3:6],
+                                   row[..., 6:9])
+    h = h & (k < cnt[:, None]) & (t < t_best[:, None]) \
+        & (t < ray.maxt[lanes][:, None])
+    t = torch.where(h, t, INF)
+    j = torch.argmin(t, dim=1, keepdim=True)
+    return tuple(torch.gather(x, 1, j)[:, 0] for x in (t, tri, u, v))
+
+
+def _bvh_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
+              shadow: bool = False):
+    """Lockstep stack traversal of the flattened 2-wide BVH (accel/bvh.py
+    layout), every lane in one loop (counterpart of the JAX package's
+    `_bvh_tris`): each step pops one node per lane, tests its box against
+    the closest hit so far, tests a leaf's triangles or pushes an inner
+    node's children (right, then left, so the left pops first; no
+    near-first ordering).  Each step costs two host syncs: the loop test
+    (the JAX while_loop's any(sp > 0)) and the list of lanes at a leaf,
+    whose triangles are tested only for those lanes."""
+    bvh = scene.bvh
+    ray = Ray(o=ray.o.detach(), d=ray.d.detach(), maxt=ray.maxt.detach())
+    t_best = t_best.detach().clone()          # updated in place below
+    N = ray.o.shape[0]
+    dev = ray.o.device
+    d_safe = torch.where(torch.abs(ray.d) < 1e-12,
+                         torch.where(ray.d >= 0, 1e-12, -1e-12), ray.d)
+    inv_d = 1.0 / d_safe
+    stack = torch.zeros((N, bvh.depth + 2), dtype=torch.int64, device=dev)
+    sp = torch.ones((N,), dtype=torch.int64, device=dev)   # root at slot 0
+    prim = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    uu = torch.zeros_like(t_best)
+    vv = torch.zeros_like(t_best)
+    while True:
+        active = sp > 0
+        if not bool(active.any()):
+            break
+        top = torch.clamp(sp - 1, min=0)
+        node = torch.where(active, torch.gather(stack, 1, top[:, None])[:, 0],
+                           0)
+        sp = torch.where(active, sp - 1, sp)
+        _, hit_box = _ray_aabb(ray.o, inv_d, torch.minimum(ray.maxt, t_best),
+                               bvh.node_min[node], bvh.node_max[node])
+        hit_box = hit_box & active
+        right = bvh.right[node]
+        is_leaf = right < 0
+        leaf = torch.nonzero(hit_box & is_leaf)[:, 0]
+        for b in range(0, leaf.shape[0], LEAF_BLOCK):
+            lanes = leaf[b:b + LEAF_BLOCK]
+            nd = node[lanes]
+            t, tri, u, v = _leaf_hits(scene, ray, lanes, bvh.first[nd],
+                                      bvh.count[nd], t_best[lanes])
+            better = t < t_best[lanes]
+            t_best[lanes] = torch.where(better, t, t_best[lanes])
+            prim[lanes] = torch.where(better, tri, prim[lanes])
+            uu[lanes] = torch.where(better, u, uu[lanes])
+            vv[lanes] = torch.where(better, v, vv[lanes])
+        push = hit_box & ~is_leaf
+        _stack_push(stack, sp, right, push)
+        sp = torch.where(push, sp + 1, sp)
+        _stack_push(stack, sp, node + 1, push)
+        sp = torch.where(push, sp + 1, sp)
+    return t_best, prim, uu, vv
+
+
 def _kernel_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
                  shadow: bool = False):
     t, prim, uu, vv = cuda_intersect.intersect_tris(
@@ -84,16 +184,15 @@ def _kernel_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
 def _tri_strategy(scene: Scene):
     """The closest-hit sweep serves every 0 < T <= 2^21 query: the CUDA
     kernel for CUDA tensors (cuda_intersect.intersect_closest launches it
-    or raises), its plain version for CPU tensors."""
+    or raises), its plain version for CPU tensors.  Larger meshes and
+    intersector="bvh" take the BVH traversal."""
     if scene.n_instances or scene.n_sdfs:
         raise not_ported("instanced and SDF geometry", "Queue 1 M10")
-    if scene.intersector == "bvh":
-        raise not_ported("the lockstep BVH traversal", "Queue 2 (_bvh_tris)")
     if scene.intersector == "brute" or scene.n_tris == 0:
         return _brute_tris
-    if scene.n_tris > cuda_intersect.MAX_STREAM_TRIS:
-        raise not_ported(f"a mesh of {scene.n_tris} > 2^21 triangles (BVH "
-                         "traversal)", "Queue 2 (_bvh_tris)")
+    if scene.intersector == "bvh" \
+            or scene.n_tris > cuda_intersect.MAX_STREAM_TRIS:
+        return _bvh_tris
     return _kernel_tris
 
 

@@ -12,6 +12,7 @@ from ..scene.ir import Scene
 from ..sensor.perspective import ray_weight, sample_ray
 from . import path as path_mod
 from . import volpath as volpath_mod
+from . import volpathmis as volpathmis_mod
 
 MAX_WAVEFRONT = 1 << 22   # lanes per pass
 
@@ -24,6 +25,12 @@ def _integrator_sample(scene: Scene, sampler, ray, mode="primal"):
         return path_mod.sample(scene, sampler, ray, mode=mode)
     if scene.integrator in _VOLPATH_FAMILY:
         return volpath_mod.sample(scene, sampler, ray, mode=mode)
+    if scene.integrator == "volpathmis":
+        # the JAX package sends volpathmis to volpath only with bio
+        # transport on, which needs a biovolpath integrator
+        # (volpath._has_bio): bio media reach volpathmis through the base
+        # majorant sampling, so every volpathmis scene runs its module
+        return volpathmis_mod.sample(scene, sampler, ray, mode=mode)
     raise not_ported(f"the {scene.integrator!r} integrator", "Queue 1 M10")
 
 

@@ -1,6 +1,12 @@
 """Participating-media sampling over the wavefront (counterpart of
-liverrenderer_tpu/media/dispatch.py), for the homogeneous medium and the
-fork's bio media (glissonCapsule, parenchyma, liver).
+liverrenderer_tpu/media/dispatch.py), for the homogeneous medium, the
+heterogeneous (grid) medium and the fork's bio media (glissonCapsule,
+parenchyma, liver).
+
+The heterogeneous medium samples its free flight against a global
+majorant (the grid's maximum times its scale) and reads the trilinear
+density at the candidate point; the integrator splits the collision into
+real and null by sigma_t / majorant (null-collision tracking).
 
 The sampled collision distance is detached (differentiable delta
 tracking): parameter gradients flow through the coefficients, the
@@ -16,7 +22,6 @@ import torch
 
 from ..core import math as m
 from ..core.types import INF, MediumInteraction
-from ..errors import not_ported
 from ..scene.ir import (MEDIUM_GLISSON, MEDIUM_HETEROGENEOUS, MEDIUM_LIVER,
                         MEDIUM_PARENCHYMA, Scene)
 
@@ -46,9 +51,62 @@ def _select_rows(idx, *rows):
     return out
 
 
-def _check_media(scene: Scene):
-    if MEDIUM_HETEROGENEOUS in scene.media.types_present:
-        raise not_ported("the heterogeneous (grid) medium", "Queue 1 M10")
+class _GridGather(torch.autograd.Function):
+    """flat[idx] whose backward index_adds into ONE grid-shaped buffer.
+
+    A lookup reads 8 taps per lane; as eight separate gathers autograd
+    would give each tap's backward its own grid-sized zero buffer (268 MB
+    each for a 256^3 x 4 grid) and sum them.  One gather of the (N, 8)
+    taps keeps it to one buffer per lookup."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.numel = flat.numel()
+        return flat[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = g.new_zeros(ctx.numel)
+        out.index_add_(0, idx.reshape(-1), g.reshape(-1))
+        return out, None
+
+
+def _eval_grid(scene: Scene, gid, p):
+    """Trilinear density lookup: world points p (N,3) in grids gid (N,)
+    -> (N,).  Channel 0 of the grid, clamped at its edges (reference
+    src/volumes/grid.cpp interpolation)."""
+    med = scene.media
+    g2l = med.grid_to_local[gid]
+    pl = (g2l[:, :3, :3] @ p[:, :, None])[:, :, 0] + g2l[:, :3, 3]
+    whd = med.grid_whd[gid]                       # (N, 3) = (D, H, W)
+    dims = whd.to(torch.float32) - 1.0
+    x = torch.clamp(pl[:, 0], 0.0, 1.0) * dims[:, 2]
+    y = torch.clamp(pl[:, 1], 0.0, 1.0) * dims[:, 1]
+    z = torch.clamp(pl[:, 2], 0.0, 1.0) * dims[:, 0]
+    x0, y0, z0 = torch.floor(x), torch.floor(y), torch.floor(z)
+    fx, fy, fz = x - x0, y - y0, z - z0
+    x0, y0, z0 = x0.to(torch.int64), y0.to(torch.int64), z0.to(torch.int64)
+    _, D, H, W, C = med.grids.shape
+    idx, wts = [], []
+    for dz in (0, 1):
+        wz = fz if dz else 1 - fz
+        zi = torch.minimum(z0 + dz, whd[:, 0] - 1)
+        for dy in (0, 1):
+            wy = fy if dy else 1 - fy
+            yi = torch.minimum(y0 + dy, whd[:, 1] - 1)
+            for dx in (0, 1):
+                wx = fx if dx else 1 - fx
+                xi = torch.minimum(x0 + dx, whd[:, 2] - 1)
+                idx.append((((gid * D + zi) * H + yi) * W + xi) * C)
+                wts.append(wz * wy * wx)
+    taps = _GridGather.apply(med.grids.reshape(-1), torch.stack(idx, -1))
+    # taps summed in the JAX package's order
+    c = wts[0] * taps[:, 0]
+    for k in range(1, 8):
+        c = c + wts[k] * taps[:, k]
+    return c
 
 
 def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
@@ -135,7 +193,6 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     the coefficients at the candidate point.  The distance law never
     depends on the surface distance, so the integrator samples the medium
     first and bounds its surface query by the candidate."""
-    _check_media(scene)
     n = ray_o.shape[0]
     midx = torch.clamp(medium_idx, min=0)
     med = scene.media
@@ -150,6 +207,9 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
 
     tp = med.types_present
     majorant = sigma_t_base
+    if MEDIUM_HETEROGENEOUS in tp:
+        het = (mtype == MEDIUM_HETEROGENEOUS)[:, None]
+        majorant = torch.where(het, (prm[:, 10] * scale)[:, None], majorant)
     maj_c = _index_spectrum(majorant, channel)
     dist = -torch.log(1.0 - u) / torch.clamp(maj_c, min=1e-20)
     bio_type = torch.full((n,), BIO_ATTENUATOR, dtype=torch.int64,
@@ -171,6 +231,12 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     p = ray_o + ray_d * torch.where(torch.isfinite(dist), dist, 0.0)[:, None]
 
     sigma_t = sigma_t_base
+    if MEDIUM_HETEROGENEOUS in tp:
+        # a heterogeneous medium without a grid reads grid 0, as in the
+        # JAX package (ROADMAP Queue 3)
+        gid = torch.clamp(med.grid_id[midx], min=0)
+        dens = _eval_grid(scene, gid, p) * scale
+        sigma_t = torch.where(het, dens[:, None], sigma_t)
     sigma_s = sigma_t * albedo
     if MEDIUM_PARENCHYMA in tp and not bio_mode(scene):
         par = (mtype == MEDIUM_PARENCHYMA)[:, None]
@@ -178,7 +244,9 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
                               sigma_t)
         sigma_s = torch.where(par, ray_o.new_tensor(_PARENCHYMA_SIGMA_S),
                               sigma_s)
-    sigma_n = torch.clamp(majorant - sigma_t, min=0.0)
+    # maximum, not clamp: at sigma_t = majorant (a heterogeneous medium at
+    # its grid's maximum) its derivative is split evenly, as jnp.maximum's
+    sigma_n = torch.maximum(majorant - sigma_t, torch.zeros_like(sigma_t))
     return dict(dist=dist, p=p, sigma_t=sigma_t, sigma_s=sigma_s,
                 sigma_n=sigma_n, majorant=majorant, bio_type=bio_type,
                 is_bio=is_bio, rate_total=rate_total,

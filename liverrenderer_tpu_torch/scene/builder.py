@@ -2,8 +2,8 @@
 liverrenderer_tpu/scene/builder.py), cut to the plugins of the slices
 ported so far:
 
-  integrators  biovolpath, biovolpath06, volpath, prbvolpath, path,
-               direct, prb, prb_basic
+  integrators  biovolpath, biovolpath06, volpath, volpathmis, prbvolpath,
+               path, direct, prb, prb_basic
   sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box,
                tent, gaussian (the default), mitchell, catmullrom or
                lanczos filter; the independent, stratified, multijitter,
@@ -19,8 +19,10 @@ ported so far:
   textures     constant, checkerboard, bitmap (inline `data` or a file)
   spectra      rgb, uniform, d65, rawconstant, srgb, blackbody, regular
                and irregular, as linear RGB
-  media        liver, glissonCapsule / glisson, parenchyma, homogeneous
-               (isotropic or HG phase)
+  media        liver, glissonCapsule / glisson, parenchyma, homogeneous,
+               heterogeneous (a gridvolume sigma_t, inline `data` or a
+               Mitsuba .vol file); the isotropic, hg, rayleigh,
+               blendphase, tabphase and sggx phases
   emitters     area (attached to a shape), point, constant, envmap (inline
                `data` or a file), directional / directionalarea, spot,
                projector
@@ -55,10 +57,11 @@ from .ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
                  F_GLOSSY_TRANS, F_NULL, F_SMOOTH, FILTER_BOX,
                  FILTER_CATMULLROM, FILTER_GAUSSIAN, FILTER_LANCZOS,
                  FILTER_MITCHELL, FILTER_TENT, MEDIUM_GLISSON,
-                 MEDIUM_HOMOGENEOUS, MEDIUM_LIVER, MEDIUM_P,
-                 MEDIUM_PARENCHYMA, PHASE_HG, PHASE_ISOTROPIC,
-                 SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, TEX_BITMAP,
-                 TEX_CHECKERBOARD, TEX_CONST, TEX_P)
+                 MEDIUM_HETEROGENEOUS, MEDIUM_HOMOGENEOUS, MEDIUM_LIVER,
+                 MEDIUM_P, MEDIUM_PARENCHYMA, PHASE_BLEND, PHASE_HG,
+                 PHASE_ISOTROPIC, PHASE_RAYLEIGH, PHASE_SGGX, PHASE_TAB,
+                 SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, TAB_BINS,
+                 TEX_BITMAP, TEX_CHECKERBOARD, TEX_CONST, TEX_P)
 from .transform import Transform, from_any
 
 IOR_NAMES = {
@@ -78,8 +81,8 @@ CONDUCTOR_IOR = {
     "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
 }
 
-_INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "prbvolpath",
-                "path", "direct", "prb", "prb_basic")
+_INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "volpathmis",
+                "prbvolpath", "path", "direct", "prb", "prb_basic")
 _SHAPE_TYPES = ("mesh", "blender", "obj", "ply", "serialized", "rectangle",
                 "cube", "disk", "cylinder", "sphere")
 _BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
@@ -91,14 +94,13 @@ _FILTERS = {"box": FILTER_BOX, "tent": FILTER_TENT,
             "gaussian": FILTER_GAUSSIAN, "mitchell": FILTER_MITCHELL,
             "catmullrom": FILTER_CATMULLROM, "lanczos": FILTER_LANCZOS}
 _MEDIUM_TYPES = ("liver", "glissonCapsule", "glisson", "parenchyma",
-                 "homogeneous")
+                 "homogeneous", "heterogeneous")
 _EMITTER_TYPES = ("point", "constant", "envmap", "directional",
                   "directionalarea", "spot", "projector")
 _TEXTURE_TYPES = ("bitmap", "checkerboard")
 _CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "srgb", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
-    "volpathmis": "Queue 1 M10",
     "aov": "Queue 1 M10", "depth": "Queue 1 M10", "moment": "Queue 1 M10",
     "ptracer": "Queue 1 M10", "stokes": "Queue 1 M10",
     "volprim_rf_basic": "Queue 1 M10",
@@ -109,7 +111,7 @@ _OTHER_TYPES = {
     "sdfgrid": "Queue 1 M10",
     "ellipsoids": "Queue 1 M10", "ellipsoidsmesh": "Queue 1 M10",
     "instance": "Queue 1 M10", "shapegroup": "Queue 1 M10",
-    "heterogeneous": "Queue 1 M10", "mesh_attribute": "Queue 1 M10",
+    "mesh_attribute": "Queue 1 M10",
     "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
     "vaescatter": "Queue 1 M10", "dipole": "Queue 1 M10",
 }
@@ -292,6 +294,72 @@ def _pack_bitmaps(bitmaps):
     return stack, hw, quads, has_quads
 
 
+def _pack_phase(p: np.ndarray, phase: dict):
+    """A medium's nested phase into its parameter row (the JAX builder's
+    slots: g [7], type [8], blendphase [11:16], tabphase and sggx
+    [16:...])."""
+    pt = phase["type"]
+    if pt == "hg":
+        p[8] = PHASE_HG
+        p[7] = float(phase.get("g", 0.8))
+    elif pt == "rayleigh":
+        p[8] = PHASE_RAYLEIGH
+    elif pt == "isotropic":
+        p[8] = PHASE_ISOTROPIC
+    elif pt == "blendphase":
+        # a weighted pair of nested iso/hg phases (blendphase.cpp)
+        p[8] = PHASE_BLEND
+        p[11] = float(phase.get("weight", 0.5))
+        kids = [v for v in phase.values() if isinstance(v, dict)
+                and v.get("type") in ("isotropic", "hg")]
+        if len(kids) != 2:
+            raise ValueError("blendphase needs two isotropic/hg children")
+        codes = {"isotropic": PHASE_ISOTROPIC, "hg": PHASE_HG}
+        p[12] = codes[kids[0]["type"]]
+        p[13] = float(kids[0].get("g", 0.0))
+        p[14] = codes[kids[1]["type"]]
+        p[15] = float(kids[1].get("g", 0.0))
+    elif pt == "tabphase":
+        # the tabulated density over cos_theta, resampled to TAB_BINS
+        # constant bins (tabphase.cpp interpolates linearly)
+        p[8] = PHASE_TAB
+        vals = phase["values"]
+        if isinstance(vals, str):
+            vals = [float(x) for x in vals.split(",")]
+        vals = np.asarray(vals, np.float64)
+        xs = np.linspace(0.0, 1.0, len(vals))
+        xq = (np.arange(TAB_BINS) + 0.5) / TAB_BINS
+        p[16:16 + TAB_BINS] = np.maximum(np.interp(xq, xs, vals), 0.0)
+    elif pt == "sggx":
+        # specular microflakes with a constant S matrix (sggx.cpp)
+        p[8] = PHASE_SGGX
+        if "S" in phase:
+            p[16:22] = np.asarray(phase["S"], np.float32)
+        else:
+            for i, k in enumerate(("S_xx", "S_yy", "S_zz", "S_xy", "S_xz",
+                                   "S_yz")):
+                p[16 + i] = float(phase.get(k, 1.0 if i < 3 else 0.0))
+    else:
+        raise ValueError(f"unknown phase {pt!r}")
+
+
+def _pack_grids(grids, to_local):
+    """(G, D, H, W, 4) stack padded to the largest grid, (G, 3) true
+    sizes and (G, 4, 4) transforms; a 1-voxel zero grid without any."""
+    if not grids:
+        return (np.zeros((1, 1, 1, 1, 4), np.float32),
+                np.ones((1, 3), np.int32), np.eye(4, dtype=np.float32)[None])
+    gd = max(g.shape[0] for g in grids)
+    gh = max(g.shape[1] for g in grids)
+    gw = max(g.shape[2] for g in grids)
+    stack = np.zeros((len(grids), gd, gh, gw, 4), np.float32)
+    whd = np.zeros((len(grids), 3), np.int32)
+    for i, g in enumerate(grids):
+        stack[i, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+        whd[i] = g.shape[:3]
+    return stack, whd, np.stack(to_local).astype(np.float32)
+
+
 class _Builder:
     def __init__(self, base_dir: str = "."):
         self.base_dir = base_dir
@@ -316,6 +384,9 @@ class _Builder:
         self.env_bitmap = -1
         self.m_type: List[int] = []
         self.m_params: List[np.ndarray] = []
+        self.m_grid: List[int] = []
+        self.grids: List[np.ndarray] = []
+        self.grid_to_local: List[np.ndarray] = []
         self.vertices: List[np.ndarray] = []
         self.faces: List[np.ndarray] = []
         self.normals: List[np.ndarray] = []
@@ -559,23 +630,29 @@ class _Builder:
             raise _unsupported(t)
         p = np.zeros(MEDIUM_P, np.float32)
         st_v = d.get("sigma_t", 1.0)
-        if isinstance(st_v, dict) and st_v.get("type") == "gridvolume":
-            raise _unsupported("heterogeneous")
-        p[0:3] = _spectrum_to_rgb(st_v, 1.0)
+        is_grid = isinstance(st_v, dict) and st_v.get("type") == "gridvolume"
+        # a grid's density scales sigma_t = 1
+        p[0:3] = 1.0 if is_grid else _spectrum_to_rgb(st_v, 1.0)
         p[3:6] = _spectrum_to_rgb(d.get("albedo", 0.75), 0.75)
         p[6] = float(d.get("scale", 1.0))
         p[8] = PHASE_ISOTROPIC
         phase = d.get("phase")
         if isinstance(phase, dict):
-            pt = phase["type"]
-            if pt == "hg":
-                p[8] = PHASE_HG
-                p[7] = float(phase.get("g", 0.8))
-            elif pt != "isotropic":
-                raise not_ported(f"the {pt!r} phase function", "Queue 1 M10")
+            _pack_phase(p, phase)
         p[9] = 1.0 if d.get("has_spectral_extinction", True) else 0.0
+        grid_id = -1
         if t == "homogeneous":
             mtype = MEDIUM_HOMOGENEOUS
+        elif t == "heterogeneous":
+            mtype = MEDIUM_HETEROGENEOUS
+            if is_grid:
+                grid_id = self.add_grid(st_v)
+                p[10] = float(self.grids[grid_id][..., :3].max())
+            else:
+                # the majorant of a constant sigma_t (the JAX builder's
+                # choice: its sampling still reads the density of grid 0,
+                # ROADMAP Queue 3)
+                p[10] = float(p[0:3].max())
         elif t in ("glissonCapsule", "glisson"):
             mtype = MEDIUM_GLISSON
             _pack_glisson(p, d)
@@ -586,9 +663,31 @@ class _Builder:
             mtype = MEDIUM_LIVER
             _pack_glisson(p, d)
             _pack_parenchyma(p, d, base=40)
+        self.m_grid.append(grid_id)
         self.m_type.append(mtype)
         self.m_params.append(p)
         return len(self.m_type) - 1
+
+    def add_grid(self, st: dict) -> int:
+        """A gridvolume's density grid (inline `data` or a .vol file),
+        widened to 4 channels, and its world -> grid-local transform."""
+        from ..io.vol import read_vol
+        g = np.asarray(st["data"] if "data" in st
+                       else read_vol(self._path(st["filename"])), np.float32)
+        if g.ndim == 3:
+            g = g[..., None]
+        if g.shape[-1] == 1:
+            g = np.repeat(g, 4, -1)
+        elif g.shape[-1] == 3:
+            g = np.concatenate([g, np.ones_like(g[..., :1])], -1)
+        if g.ndim != 4 or g.shape[-1] != 4:
+            raise ValueError(f"gridvolume: a grid of 1, 3 or 4 channels, "
+                             f"got shape {g.shape}")
+        self.grids.append(g)
+        tw = st.get("to_world")
+        m = from_any(tw).matrix if tw is not None else np.eye(4)
+        self.grid_to_local.append(np.linalg.inv(m).astype(np.float32))
+        return len(self.grids) - 1
 
     # --- emitters ---------------------------------------------------------
     def _push_emitter(self, etype, params, shape=-1, tex0=-1,
@@ -848,6 +947,7 @@ class _Builder:
         else:
             env = build_distribution_2d_np(np.ones((1, 1), np.float32))
         stack, hw, quads, has_quads = _pack_bitmaps(self.bitmaps)
+        gstack, gwhd, g2l = _pack_grids(self.grids, self.grid_to_local)
 
         n_s = len(self.s_bsdf)
         i32 = np.int32
@@ -901,6 +1001,9 @@ class _Builder:
             "media.mtype": np.asarray(self.m_type or [0], i32),
             "media.params": (np.stack(self.m_params) if self.m_params
                              else np.zeros((1, MEDIUM_P))).astype(np.float32),
+            "media.grid_id": np.asarray(self.m_grid or [-1], i32),
+            "media.grids": gstack, "media.grid_whd": gwhd,
+            "media.grid_to_local": g2l,
             "bvh.node_min": bvh.node_min, "bvh.node_max": bvh.node_max,
             "bvh.right": bvh.right, "bvh.first": bvh.first,
             "bvh.count": bvh.count, "bvh.perm": bvh.perm,

@@ -3,9 +3,13 @@ liverrenderer_tpu/scene/cornell.py): the reference's mi.cornell_box() (same
 camera, BSDF albedos, light radiance and geometry; BASELINE's first
 evaluation config at 256x256, 64 spp, `path` depth 8, gaussian filter),
 the fog Cornell box of the BASELINE configuration
-`cornell_box_1080x1080_fog_st_albedo`, and the gradient tests' plane.
+`cornell_box_1080x1080_fog_st_albedo`, the gradient tests' plane, and two
+heterogeneous-medium scenes: tests/test_heterogeneous.py's grid cube and
+the fog Cornell box with a grid cube in place of its fog.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from .transform import Transform
 
@@ -144,4 +148,94 @@ def plane_light_dict(res: int = 12, integrator: str = "volpath",
             "interior": {"type": "homogeneous",
                          "sigma_t": {"type": "rgb", "value": [0.6] * 3},
                          "albedo": {"type": "rgb", "value": [0.5] * 3}}}
+    return d
+
+
+def smooth_noise_grid(res: int, seed: int, cells: int = 8) -> np.ndarray:
+    """A (res, res, res) float32 density grid of smoothed noise in [0, 1]:
+    uniform noise on a (cells + 1)^3 lattice, interpolated linearly along
+    each axis and rescaled to span [0, 1]."""
+    rng = np.random.default_rng(seed)
+    g = rng.uniform(0.0, 1.0, (cells + 1,) * 3).astype(np.float32)
+    x = np.linspace(0.0, cells, res, dtype=np.float32)
+    i0 = np.minimum(np.floor(x).astype(np.int64), cells - 1)
+    f = x - i0
+    for axis in range(3):
+        w = f.reshape([-1 if a == axis else 1 for a in range(3)])
+        g = np.take(g, i0, axis) * (1.0 - w) + np.take(g, i0 + 1, axis) * w
+    return ((g - g.min()) / (g.max() - g.min())).astype(np.float32)
+
+
+def _grid_medium(grid, scale, albedo, phase=None, to_world=None):
+    sigma_t = {"type": "gridvolume", "data": grid}
+    if to_world is not None:
+        sigma_t["to_world"] = to_world
+    med = {"type": "heterogeneous", "sigma_t": sigma_t, "scale": scale,
+           "albedo": {"type": "rgb", "value": [albedo] * 3}}
+    if phase is not None:
+        med["phase"] = phase
+    return med
+
+
+def grid_cube_dict(res: int = 8, grid=None, scale: float = 1.0,
+                   integrator: str = "volpath", max_depth: int = 4,
+                   light=None, phase=None):
+    """tests/test_heterogeneous.py's `_grid_scene`: a null-BSDF unit cube
+    [0, 1]^3 holding a heterogeneous medium (by default an 8^3 density
+    ramp from 0.2 to 1.0 along x, albedo 0.3), seen from +z under a
+    constant environment.  `light` replaces the environment (e.g. a point
+    light) and `phase` sets the medium's phase.
+
+    The cube's +-y faces wind inward in both packages' cube (ROADMAP
+    Queue 3), so a lane leaving through them keeps the cube's medium; under
+    the environment's unbounded shadow distance such a lane's NEE walk
+    runs to the 4,096-step cap."""
+    if grid is None:
+        ramp = np.linspace(0.2, 1.0, 8, dtype=np.float32)
+        grid = np.broadcast_to(ramp[None, None, :], (8, 8, 8)).copy()
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": max_depth},
+        "sensor": {
+            "type": "perspective", "fov": 35.0,
+            "to_world": Transform().look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5],
+                                            [0, 1, 0]).matrix.copy(),
+            "film": {"type": "hdrfilm", "width": res, "height": res,
+                     "rfilter": {"type": "box"}},
+        },
+        "box": {"type": "cube",
+                "to_world": Transform().translate([0.5, 0.5, 0.5])
+                .scale(0.5).matrix.copy(),
+                "bsdf": {"type": "null"},
+                "interior": _grid_medium(grid, scale, 0.3, phase)},
+        "env": light or {"type": "constant",
+                         "radiance": {"type": "rgb", "value": [1.0] * 3}},
+    }
+
+
+def grid_cornell_box(res: int = 1080, grid=None, seed: int = 0,
+                     grid_res: int = 256, scale: float = 4.0,
+                     albedo: float = 0.8, g: float = 0.5,
+                     max_depth: int = 16, cornell=cornell_box):
+    """The fog Cornell box's layout (volpath depth 16, box filter, the
+    Cornell box's light) with the sensor fog replaced by a null-BSDF cube
+    [-0.6, 0.6]^3 (raised by 0.05) holding a heterogeneous medium: a
+    `grid_res`^3 single-channel density grid of smoothed noise in [0, 1]
+    made from `seed` (or `grid`), scale 4, albedo 0.8 and an HG phase with
+    g = 0.5, the medium kind of BASELINE.json's config 4."""
+    if grid is None:
+        grid = smooth_noise_grid(grid_res, seed)
+    d = cornell()
+    d["integrator"] = {"type": "volpath", "max_depth": max_depth}
+    d["sensor"]["film"] = {"type": "hdrfilm", "width": res, "height": res,
+                           "rfilter": {"type": "box"}}
+    tw = Transform().translate([0.0, 0.05, 0.0]).scale(0.6)
+    # the grid's local [0, 1]^3 spans the cube's [-1, 1]^3
+    g2w = (tw @ Transform().translate([-1.0, -1.0, -1.0]).scale(2.0))
+    d["grid_box"] = {
+        "type": "cube", "to_world": tw.matrix.copy(),
+        "bsdf": {"type": "null"},
+        "interior": _grid_medium(grid, scale, albedo,
+                                 {"type": "hg", "g": g},
+                                 to_world=g2w.matrix.copy())}
     return d

@@ -121,24 +121,25 @@ def sphere_mesh(subdiv: int = 3) -> MeshData:
         [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
         [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]], np.int64)
     for _ in range(subdiv):
-        edge_mid = {}
-        verts = list(v)
-
-        def midpoint(a, b):
-            key = (min(a, b), max(a, b))
-            if key not in edge_mid:
-                p = (verts[a] + verts[b]) / 2
-                p = p / np.linalg.norm(p)
-                edge_mid[key] = len(verts)
-                verts.append(p)
-            return edge_mid[key]
-
-        nf = []
-        for (a, b, c) in f:
-            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
-            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
-        v = np.array(verts)
-        f = np.array(nf, np.int64)
+        # every face's edges ab, bc, ca in face order; each edge's midpoint
+        # gets the next vertex index at its first occurrence (the JAX
+        # package's loop numbers them so, one edge at a time)
+        a, b, c = f[:, 0], f[:, 1], f[:, 2]
+        key = np.sort(np.stack([np.stack([a, b], -1), np.stack([b, c], -1),
+                                np.stack([c, a], -1)], 1).reshape(-1, 2), 1)
+        _, first, inv = np.unique(key[:, 0] * (len(v) + 1) + key[:, 1],
+                                  return_index=True, return_inverse=True)
+        order = np.argsort(first, kind="stable")
+        rank = np.empty_like(order)
+        rank[order] = np.arange(len(order))
+        ends = key[first[order]]
+        p = (v[ends[:, 0]] + v[ends[:, 1]]) / 2
+        m = (len(v) + rank[inv.reshape(-1)]).reshape(-1, 3)
+        v = np.concatenate([v, p / np.linalg.norm(p, axis=1, keepdims=True)])
+        ab, bc, ca = m[:, 0], m[:, 1], m[:, 2]
+        f = np.stack([np.stack([a, ab, ca], -1), np.stack([b, bc, ab], -1),
+                      np.stack([c, ca, bc], -1), np.stack([ab, bc, ca], -1)],
+                     1).reshape(-1, 3)
     n = v.copy()
     theta = np.arccos(np.clip(v[:, 2], -1, 1))
     phi = np.arctan2(v[:, 1], v[:, 0])

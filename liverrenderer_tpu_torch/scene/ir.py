@@ -105,6 +105,9 @@ BSDF_P = 12
 EMITTER_P = 16
 TEX_P = 10
 MEDIUM_P = 52
+# tabphase's density: this many constant bins over cos_theta, in the
+# medium row from slot 16
+TAB_BINS = 32
 
 
 class _Table:
@@ -190,11 +193,18 @@ class Emitters(_Table):
 @dataclass
 class Media(_Table):
     """params row layout (MEDIUM_P floats): [0:3] sigma_t, [3:6] albedo,
-    [6] scale, [7] phase g, [8] phase type, glisson layers [12:40],
-    LIVER parenchyma block blood [40:43], bile [43:46], hepatocity [46],
-    lipid_water [48:51] (see scene/builder.py)."""
+    [6] scale, [7] phase g, [8] phase type, [10] HETEROGENEOUS majorant
+    (the grid's maximum), glisson layers [12:40], LIVER parenchyma block
+    blood [40:43], bile [43:46], hepatocity [46], lipid_water [48:51];
+    the extended phases' parameters: blendphase weight [11], child types
+    and g's [12:16]; tabphase's 32 bins [16:48]; sggx's S entries [16:22]
+    (see scene/builder.py)."""
     mtype: Tensor      # (M,)
     params: Tensor     # (M, MEDIUM_P)
+    grid_id: Tensor    # (M,) density grid of a heterogeneous medium, -1 none
+    grids: Tensor      # (G, D, H, W, 4) density grids, padded to the largest
+    grid_whd: Tensor   # (G, 3) each grid's true (D, H, W)
+    grid_to_local: Tensor  # (G, 4, 4) world -> grid-local [0,1]^3
     types_present: Tuple[int, ...] = ()
     phase_types: Tuple[int, ...] = (0,)
     count: int = 0

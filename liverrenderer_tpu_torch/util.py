@@ -14,8 +14,9 @@ radiance, a point light's position and intensity), textures.data (the
 texture rows: a constant's rgb, a checkerboard's colours, uv transforms)
 and textures.bitmaps (the bitmap stack; its bilinear taps read it only
 when the scene packs no quads, so with quads its gradient is zero, as in
-the JAX package).  The
-JAX package's other keys raise `not_ported` naming their ROADMAP item.
+the JAX package) and media.grids (the heterogeneous media's density
+grids).  The JAX package's other keys raise `not_ported` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -41,13 +42,14 @@ _LEAVES: Dict[str, tuple] = {
     "textures.bitmaps": (lambda s: s.textures.bitmaps,
                          lambda s, v: s.replace(
                              textures=s.textures.replace(bitmaps=v))),
+    "media.grids": (lambda s: s.media.grids,
+                    lambda s, v: s.replace(media=s.media.replace(grids=v))),
 }
 
 # the JAX package's keys whose modules the port does not carry yet
 _NOT_PORTED = {
     "vertices": ("vertex gradients (projective boundary terms)",
                  "Queue 1 M10"),
-    "media.grids": ("gradients of heterogeneous media grids", "Queue 1 M10"),
     "volprims.opacity": ("volumetric primitives", "Queue 1 M10"),
     "volprims.sh": ("volumetric primitives", "Queue 1 M10"),
 }
