@@ -175,6 +175,35 @@ result line):
                    a 16x12 1 spp render; at subdiv 8 (1,310,720) the same
                    rays through intersector="bvh" and the sweep kernel in
                    turns: seconds, hit and prim agreement, t
+  sss_small        subsurface scattering at test size, card against CPU
+                   (the VAE a seeded synthetic model at the published
+                   widths, written to a temporary directory and read by
+                   ssub/vae.load_model): a vaescatter and a dipole sphere
+                   and the vaescatter liver proxy at subdiv 2 (images); the
+                   vaescatter sphere's emitters.params gradient through the
+                   scan adjoint; one subsurface_event on 4,096 fixed lanes
+                   (its masks and sampler dimensions)
+  sss_kernel       the sweep and merge kernels against their plain version
+                   on the SSS event's own queries, captured from the first
+                   event of the full-size render's warm-up: the
+                   zero-scatter rays, the four projection queries (two
+                   bounded by 2 kernel eps, two unbounded), the exit
+                   shadow rays; agreement, ms, bound and share per query
+  sss_render       the vaescatter liver proxy (scene/liver_proxy.
+                   sss_liver_dict: path depth 12, tent, ldsampler, a point
+                   light and the sky) at 428x240, 16 spp on regen: build
+                   and render seconds, paths/s, iterations, sweep launches
+                   split into bounce, SSS event, exit shadow and NEE
+                   shadow, peak memory, the plain twin (its dielectric
+                   alone) timed after it (sss_over_plain), launches per
+                   iteration and device idle of a 2 spp CUDA-only profile,
+                   and what the events of a 1 spp render did (pass-through,
+                   VAE exit, absorbed, died)
+  dipole_render    the dipole proxy at the same size: build seconds (point
+                   cloud and irradiance), render seconds, launches
+  sss_render_grad  emitters.params of the vaescatter proxy at 428x240,
+                   4 spp through the scan adjoint: seconds against a 4 spp
+                   primal, peak memory, launches
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -183,7 +212,9 @@ result line):
                    render_grad + the Cornell renders and gradients + the
                    XML-loaded render and its gradient + the grid render
                    and gradient + the volpathmis and volpath renders of
-                   the chromatic fog), agreement, times and bound
+                   the chromatic fog + the vaescatter proxy, its plain
+                   twin, the dipole proxy and the vaescatter gradient),
+                   agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -246,6 +277,14 @@ VAR_RES, VAR_SPP, VAR_SEEDS = 32, 4, 4
 # bvh_query: the liver proxy past 2^21 triangles (subdiv 9: 5,242,880) and
 # at subdiv 8 (1,310,720), where the sweep kernel serves it too
 BVH_SUBDIV, BVH_CMP_SUBDIV, BVH_RAYS = 9, 8, 65536
+# subsurface scattering: the vaescatter liver proxy (scene/liver_proxy.
+# sss_liver_dict, subdiv 4, path depth 12, tent, ldsampler, point light and
+# sky) at 428x240: the primal, its plain twin and the dipole at SSS_SPP,
+# the scan-adjoint gradient at SSS_GRAD_SPP, a profile at SSS_TRACE_SPP;
+# sss_small: film, spp; SSS_EVENT_LANES lanes of one event card vs CPU
+SSS_SPP, SSS_GRAD_SPP, SSS_TRACE_SPP = 16, 4, 2
+SSS_SMALL = (16, 4)
+SSS_EVENT_LANES = 4096
 # media_small: film, spp; the point light of its grid cubes
 MEDIA_SMALL = (16, 2)
 MEDIA_POINT = {"type": "point", "position": [0.5, 2.2, 1.6],
@@ -1949,6 +1988,303 @@ def media_phases(torch, np, lrt, ci, treplay, smi):
                 vp_counts=runs["volpath"][0]["counts"])
 
 
+def _event_lanes(torch, inputs, scene, n):
+    """Lanes for one subsurface_event on `scene`'s device: the rays of
+    torch_sss_inputs.event_rays, their hits, directions bent into the
+    surface, a sampler per lane."""
+    from liverrenderer_tpu_torch.accel.intersect import ray_intersect
+    from liverrenderer_tpu_torch.core.rng import make_sampler
+    from liverrenderer_tpu_torch.core.types import Ray
+    dev = scene.device
+    o, d = (torch.from_numpy(x).to(dev) for x in
+            inputs.event_rays(n, SEED + 4))
+    si = ray_intersect(scene, Ray(o=o, d=d, maxt=torch.full(
+        (n,), float("inf"), device=dev)))
+    refr = d - 0.3 * si.ng
+    refr = refr / refr.norm(dim=-1, keepdim=True)
+    return si, refr, make_sampler(torch.arange(n, device=dev), 0, SEED + 9)
+
+
+class EventTally:
+    """Wraps the subsurface event (module attributes of path and event,
+    restored on exit): counts its calls and the kernel launches made
+    inside it, captures copies of the first call's queries (capture=True),
+    and tallies what the event did to the lanes it ran for (tally=True:
+    host syncs, so not in a timed run)."""
+
+    def __init__(self, torch, ci, capture=False, tally=False):
+        from liverrenderer_tpu_torch.integrators import path as tpath
+        from liverrenderer_tpu_torch.ssub import event as tevent
+        self.torch, self.ci, self.mods = torch, ci, (tpath, tevent)
+        self.capture, self.tally = capture, tally
+        self.calls, self.queries = 0, []
+        self.launches = [0, 0, 0, 0]
+        self.lanes = dict(lane_bounces=0, events=0, passthrough=0,
+                          vae_exit=0, absorbed=0, died=0)
+
+    def __enter__(self):
+        tpath, tevent = self.mods
+        self.orig_ev = tevent.subsurface_event
+        self.orig_q = self.ci.intersect_closest
+        first = []
+
+        def query(rays, tris, boxes, shadow=False):
+            if first:
+                self.queries.append((rays.clone(), tris, boxes, shadow))
+            return self.orig_q(rays, tris, boxes, shadow=shadow)
+
+        def event(scene, si, refr_d, sampler, active):
+            c0 = launch_counts(self.ci)
+            if self.capture and self.calls == 0:
+                first.append(1)
+            try:
+                ev, smp = self.orig_ev(scene, si, refr_d, sampler, active)
+            finally:
+                first.clear()
+            self.launches = [a + c - b for a, b, c in zip(
+                self.launches, c0, launch_counts(self.ci))]
+            self.calls += 1
+            if self.tally:
+                t = self.lanes
+                t["lane_bounces"] += active.numel()
+                t["events"] += int(active.sum())
+                t["passthrough"] += int(ev.passthrough.sum())
+                t["vae_exit"] += int((ev.alive & ~ev.passthrough).sum())
+                t["absorbed"] += int(ev.absorbed.sum())
+                t["died"] += int((active & ~ev.alive & ~ev.absorbed).sum())
+            return ev, smp
+
+        self.ci.intersect_closest = query
+        tpath.subsurface_event = tevent.subsurface_event = event
+        return self
+
+    def __exit__(self, *exc):
+        tpath, tevent = self.mods
+        tpath.subsurface_event = tevent.subsurface_event = self.orig_ev
+        self.ci.intersect_closest = self.orig_q
+
+    def shares(self):
+        """Outcomes as shares of the events, and the events' share of
+        the lane-bounces that ran the event."""
+        n = max(self.lanes["events"], 1)
+        out = {k: v / n for k, v in self.lanes.items()
+               if k not in ("events", "lane_bounces")}
+        out["events_per_lane_bounce"] = n / max(self.lanes["lane_bounces"],
+                                                1)
+        return out
+
+
+def sss_phases(torch, np, lrt, ci, treplay, smi, workdir):
+    """Phases sss_small, sss_kernel, sss_render, dipole_render and
+    sss_render_grad -> the launch counts the kernels line reports.  The
+    VAE is a seeded synthetic model at the published widths, written under
+    workdir and substituted for the reference's absent files."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.scene.liver_proxy import sss_liver_dict
+    from liverrenderer_tpu_torch.ssub import event as tevent
+    from liverrenderer_tpu_torch.ssub import vae as tvae
+    inputs = _tests_module("torch_sss_inputs")
+    model = inputs.write_model(workdir, seed=SEED + 3)
+    out = {}
+    with inputs.substituted(*model, tvae):
+        # ---- 12a. at test size, card against CPU
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: the VAE would differ from the CPU")
+        res_s, spp_s = SSS_SMALL
+        cases = {"vae_sphere": inputs.sphere_dict("vaescatter", res_s,
+                                                  rfilter="tent"),
+                 "dipole_sphere": inputs.sphere_dict("dipole", res_s,
+                                                     rfilter="tent"),
+                 "vae_proxy": sss_liver_dict(res_s, 12, spp_s, subdiv=2,
+                                             sky=SKY_SMALL)}
+        images = {}
+        for name, d in cases.items():
+            frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, d, spp_s)
+            images[name] = dict(pixel_frac=frac, pixel_exact=exact,
+                                mean_rel=mean_rel, mean=mean)
+            check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+                  f"sss_small: {name}: the card's render disagrees with "
+                  f"the CPU's: {images[name]}")
+            check(mean > 1e-3, f"sss_small: {name}: black image")
+        gd = inputs.sphere_dict("vaescatter", 8, depth=4, rfilter="tent")
+        check(not treplay.replay_applicable(
+            load_scene(lrt, gd), {"emitters.params": None}, spp_s),
+            "sss_small: a subsurface scene took the replay adjoint")
+        cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, gd, spp_s,
+                                                 ("emitters.params",))
+        check(gfin and gnorm > 0, "sss_small: gradient not finite or zero")
+        check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+              "sss_small: the card's gradient disagrees with the CPU's")
+        ed = inputs.sphere_dict("vaescatter", 8, extra=inputs.SHEET,
+                                sigma_t=(3.0, 4.0, 6.0))
+        evs = {}
+        for dev in ("cpu", "cuda"):
+            sc = load_scene(lrt, ed, dev)
+            si, refr, smp = _event_lanes(torch, inputs, sc,
+                                         SSS_EVENT_LANES)
+            ev, smp = tevent.subsurface_event(sc, si, refr, smp, si.valid)
+            evs[dev] = {k: getattr(ev, k).cpu() for k in
+                        ("alive", "passthrough", "absorbed")}
+            evs[dev]["dim"] = smp.dim.cpu()
+        masks = {k: float((evs["cpu"][k] == evs["cuda"][k]).float().mean())
+                 for k in ("alive", "passthrough", "absorbed")}
+        emit("sss_small", film=[res_s, res_s], spp=spp_s, images=images,
+             grad_key="emitters.params", grad_route="scan adjoint",
+             grad_cosine=cos, grad_norm_rel=norm_rel, grad_norm=gnorm,
+             event_lanes=SSS_EVENT_LANES, event_masks_equal=masks,
+             event_alive=int(evs["cuda"]["alive"].sum()),
+             event_passthrough=int(evs["cuda"]["passthrough"].sum()),
+             event_absorbed=int(evs["cuda"]["absorbed"].sum()))
+        check(min(masks.values()) >= 0.99,
+              f"sss_small: event masks differ card vs CPU: {masks}")
+        check(bool(torch.equal(evs["cpu"]["dim"], evs["cuda"]["dim"])),
+              "sss_small: the event's sampler dimensions differ")
+
+        # ---- 12b. the main path at full size, and the event's queries
+        t0 = time.perf_counter()
+        scene = lrt.load_dict(sss_liver_dict(WIDTH, HEIGHT, SSS_SPP,
+                                             subdiv=SUBDIV, seed=SEED))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(scene.device.type == "cuda" and scene.ssub.has_vae
+              and scene.n_tris == 5120 and scene.integrator == "path",
+              "sss proxy: not on the card, or without its VAE")
+        with EventTally(torch, ci, capture=True, tally=True) as warm:
+            lrt.render(scene, spp=1, seed=SEED + 1)           # warm-up
+            torch.cuda.synchronize()
+        groups = {"zero_scatter": warm.queries[0:1],
+                  "projection": warm.queries[1:5],
+                  "exit_shadow": warm.queries[5:6]}
+        check(len(warm.queries) == 6 and warm.queries[5][3]
+              and not any(q[3] for q in warm.queries[:5]),
+              "sss_kernel: the event did not make its six queries")
+        kern = {}
+        for gname, qs in groups.items():
+            rs = [kernel_vs_plain(torch, ci, r, t, bx, scene.n_tris,
+                                  reps_plain=3)[0] for r, t, bx, _ in qs]
+            kern[gname] = dict(
+                queries=len(rs), n_rays=sum(r["n_rays"] for r in rs),
+                hits=sum(r["hits"] for r in rs),
+                hit_agree=min(r["hit_agree"] for r in rs),
+                prim_agree=min(r["prim_agree"] for r in rs),
+                max_abs_dt=max(r["max_abs_dt"] for r in rs),
+                max_rel_dt=max(r["max_rel_dt"] for r in rs),
+                short_maxt_rays=[int((r_[6] < 0.1).sum())
+                                 for r_, _, _, _ in qs],
+                ms=[r["ms"] for r in rs], sweep_ms=[r["sweep_ms"]
+                                                    for r in rs],
+                plain_ms=[r["plain_ms"] for r in rs],
+                bound_ms=[r["bound_ms"] for r in rs],
+                bound_by=[r["bound_by"] for r in rs],
+                needed_tests=[r["needed_tests"] for r in rs],
+                share=[r["share"] for r in rs],
+                splits=[r["splits"] for r in rs])
+            check_agreement(kern[gname], f"sss_kernel {gname}")
+        emit("sss_kernel", film=[WIDTH, HEIGHT], tris=scene.n_tris,
+             card=smi, **kern)
+        out["kernel"] = kern
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ci)
+        with EventTally(torch, ci) as tally:
+            secs, img = timed_render(torch, lrt, scene, SSS_SPP)
+        counts = launch_counts(ci)
+        peak = torch.cuda.max_memory_allocated()
+        plain = lrt.load_dict(sss_liver_dict(WIDTH, HEIGHT, SSS_SPP,
+                                             kind=None, subdiv=SUBDIV,
+                                             seed=SEED))
+        lrt.render(plain, spp=1, seed=SEED + 1)               # warm-up
+        # in turns: sss (above), plain, plain, sss
+        reset_counts(ci)
+        plain_s, plain_img = timed_render(torch, lrt, plain, SSS_SPP)
+        plain_counts = launch_counts(ci)
+        plain_reps = [plain_s, timed_render(torch, lrt, plain, SSS_SPP)[0]]
+        sss_reps = [secs, timed_render(torch, lrt, scene, SSS_SPP)[0]]
+        lrt.render(scene, spp=SSS_TRACE_SPP, seed=SEED)       # warm-up
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with EventTally(torch, ci) as tr:
+                secs_tr, _ = timed_render(torch, lrt, scene, SSS_TRACE_SPP)
+        trace = primal_trace(prof, secs_tr, tr.calls)
+        ev_l = tally.launches
+        shadow_nee = counts[2] - ev_l[2]
+        finite = bool(torch.isfinite(img).all())
+        paths = WIDTH * HEIGHT * SSS_SPP
+        emit("sss_render", film=[WIDTH, HEIGHT], spp=SSS_SPP,
+             max_depth=scene.max_depth, tris=scene.n_tris, card=smi,
+             kind="vaescatter (synthetic VAE weights, published widths)",
+             build_seconds=build_s, seconds=secs, paths_per_s=paths / secs,
+             iterations=tally.calls, finite=finite, shape=list(img.shape),
+             mean=float(img.mean()), max_memory_allocated=peak,
+             launches=dict(bounce=counts[0] - ev_l[0] - shadow_nee,
+                           sss_event=ev_l[0] - ev_l[2],
+                           sss_exit_shadow=ev_l[2], nee_shadow=shadow_nee,
+                           merge=counts[1], sss_event_merge=ev_l[1]),
+             seconds_reps=sss_reps, plain_seconds_reps=plain_reps,
+             plain_mean=float(plain_img.mean()),
+             plain_launches=split_counts(plain_counts),
+             sss_over_plain=sum(sss_reps) / sum(plain_reps),
+             trace_spp=SSS_TRACE_SPP,
+             trace=trace, event_shares_1spp=warm.shares(),
+             event_lanes_1spp=warm.lanes["events"])
+        check(tuple(img.shape) == (HEIGHT, WIDTH, 3) and finite,
+              "sss_render: image shape or non-finite values")
+        check(0.01 < float(img.mean()) < 10.0, "sss_render: image mean")
+        check(counts[0] > 0 and counts[1] > 0 and ev_l[0] > 0,
+              "sss_render: the sweep / merge kernels or the event's "
+              "queries were not launched")
+        out["counts"], out["plain_counts"] = counts, plain_counts
+
+        # ---- 12c. the dipole at the same size
+        t0 = time.perf_counter()
+        dip = lrt.load_dict(sss_liver_dict(WIDTH, HEIGHT, SSS_SPP,
+                                           kind="dipole", subdiv=SUBDIV,
+                                           seed=SEED))
+        torch.cuda.synchronize()
+        dip_build = time.perf_counter() - t0
+        check(dip.ssub.has_dipole and float(
+            dip.ssub.dip_irradiance.max()) > 0,
+            "dipole proxy: no irradiance point cloud")
+        lrt.render(dip, spp=1, seed=SEED + 1)                 # warm-up
+        reset_counts(ci)
+        dip_s, dip_img = timed_render(torch, lrt, dip, SSS_SPP)
+        dip_counts = launch_counts(ci)
+        emit("dipole_render", film=[WIDTH, HEIGHT], spp=SSS_SPP, card=smi,
+             build_seconds=dip_build,
+             points=int((dip.ssub.dip_area > 0).sum()),
+             seconds=dip_s, paths_per_s=paths / dip_s,
+             mean=float(dip_img.mean()),
+             finite=bool(torch.isfinite(dip_img).all()),
+             launches=split_counts(dip_counts))
+        check(bool(torch.isfinite(dip_img).all())
+              and float(dip_img.mean()) > 0.01,
+              "dipole_render: image not finite or black")
+        check(dip_counts[0] > 0, "dipole_render: no sweep launches")
+        out["dipole_counts"] = dip_counts
+
+        # ---- 12d. the gradient through the scan adjoint
+        torch.cuda.reset_peak_memory_stats()
+        g_s, g, g_img, g_counts = grad_run(torch, lrt, ci, treplay, scene,
+                                           SSS_GRAD_SPP, walks=0,
+                                           key="emitters.params")
+        gpeak = torch.cuda.max_memory_allocated()
+        p_s, _ = timed_render(torch, lrt, scene, SSS_GRAD_SPP)
+        finite_g = bool(torch.isfinite(g).all())
+        emit("sss_render_grad", film=[WIDTH, HEIGHT], spp=SSS_GRAD_SPP,
+             card=smi, key="emitters.params", route="scan adjoint",
+             seconds=g_s, primal_seconds=p_s, fwd_bwd_over_primal=g_s / p_s,
+             fwd_bwd_paths_per_s=WIDTH * HEIGHT * SSS_GRAD_SPP / g_s,
+             grad_finite=finite_g, grad_abs_max=float(g.abs().max()),
+             grad_nonzero=int((g != 0).sum()),
+             image_mean=float(g_img.mean()), max_memory_allocated=gpeak,
+             **g_counts)
+        check(finite_g and float(g.abs().max()) > 0,
+              "sss_render_grad: gradient not finite or zero")
+        check(g_counts["fwd_launches"] > 0,
+              "sss_render_grad: no sweep launches")
+        out["grad_counts"] = g_counts
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1963,6 +2299,7 @@ def main() -> int:
             liver_proxy_dict
         _tests_module()
         _tests_module("torch_xml_files")
+        _tests_module("torch_sss_inputs")
     except (ImportError, FileNotFoundError) as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -2244,6 +2581,11 @@ def main() -> int:
     # ---- 11. the stock media: grids, extended phases, volpathmis, and the
     # lockstep BVH past 2^21 triangles
     med = media_phases(torch, np, lrt, ci, treplay, smi)
+
+    # ---- 12. subsurface scattering: the vaescatter liver proxy, the
+    # dipole, their gradient and the event's queries
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sss_") as workdir:
+        sss = sss_phases(torch, np, lrt, ci, treplay, smi, workdir)
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -2266,7 +2608,9 @@ def main() -> int:
              + xml_grad["replay_launches"] + med["grid_counts"][0]
              + med["grid_grad"]["fwd_launches"]
              + med["grid_grad"]["replay_launches"] + med["mis_counts"][0]
-             + med["vp_counts"][0],
+             + med["vp_counts"][0] + sss["counts"][0]
+             + sss["plain_counts"][0] + sss["dipole_counts"][0]
+             + sss["grad_counts"]["fwd_launches"],
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -2284,6 +2628,15 @@ def main() -> int:
              grid_render_grad_launches=med["grid_grad"],
              volpathmis_render_launches=split_counts(med["mis_counts"]),
              volpath_chroma_render_launches=split_counts(med["vp_counts"]),
+             sss_render_launches=split_counts(sss["counts"]),
+             sss_plain_render_launches=split_counts(sss["plain_counts"]),
+             dipole_render_launches=split_counts(sss["dipole_counts"]),
+             sss_render_grad_launches=sss["grad_counts"],
+             sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
+             sss_event_bound_ms={g: v["bound_ms"]
+                                 for g, v in sss["kernel"].items()},
+             sss_event_hit_agree={g: v["hit_agree"]
+                                  for g, v in sss["kernel"].items()},
              wide_ms=cb["wide"]["camera"]["ms"],
              wide_plain_ms=cb["wide"]["camera"]["plain_ms"],
              wide_bound_ms=cb["wide"]["camera"]["bound_ms"],
@@ -2324,10 +2677,14 @@ def main() -> int:
              + xml_grad["replay_merge_launches"] + med["grid_counts"][1]
              + med["grid_grad"]["fwd_merge_launches"]
              + med["grid_grad"]["replay_merge_launches"]
-             + med["mis_counts"][1] + med["vp_counts"][1],
+             + med["mis_counts"][1] + med["vp_counts"][1]
+             + sss["counts"][1] + sss["plain_counts"][1]
+             + sss["dipole_counts"][1]
+             + sss["grad_counts"]["fwd_merge_launches"],
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
+             sss_render_launches=sss["counts"][1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

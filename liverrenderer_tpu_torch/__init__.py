@@ -6,8 +6,10 @@ the JAX package's only Pallas kernels, is a hand-written CUDA kernel for
 Hopper (csrc/intersect.cu).  The port loads Mitsuba XML scenes with their
 mesh (OBJ, PLY, serialized) and image (PNG, EXR, PFM) files, renders the
 biovolpath liver path (bump and normal maps, bitmap textures, the envmap,
-next-event estimation) and the surface path family on the regenerating
-wavefront, and differentiates them through the PRB replay adjoint.
+next-event estimation) and the surface path family, with subsurface
+scattering (the learned vaescatter BSSRDF and the classical dipole), on
+the regenerating wavefront, and differentiates them through the PRB
+replay adjoint or the scan adjoint.
 
     import liverrenderer_tpu_torch as lrt
     from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict

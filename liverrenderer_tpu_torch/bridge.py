@@ -8,7 +8,9 @@ Scene (flax struct dataclasses of JAX arrays) as well as the port's own.
 The port never sees a JAX object: a caller that holds one calls
 `numpy_tree` on it, which reads each leaf through `np.asarray`.
 `params_from_numpy` does the same for a dict of differentiable parameters
-(`render_grad`'s `params`).
+(`render_grad`'s `params`).  The subsurface table's VAE crosses as its
+VAEWeights fields under `ssub.weights.*` (matrices (in, out)), from which
+`scene_from_numpy` builds the port's `ssub.vae.VAE` module.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .scene.ir import TABLES, Scene
+from .ssub.vae import numpy_from_vae, vae_from_numpy
 
 
 def numpy_tree(obj, prefix: str = ""):
@@ -30,7 +33,10 @@ def numpy_tree(obj, prefix: str = ""):
         key = prefix + f.name
         if v is None:
             continue
-        if dataclasses.is_dataclass(v):
+        if isinstance(v, torch.nn.Module):     # the port's VAE
+            arrays.update({f"{key}.{k}": a
+                           for k, a in numpy_from_vae(v).items()})
+        elif dataclasses.is_dataclass(v):
             a, s = numpy_tree(v, key + ".")
             arrays.update(a)
             statics.update(s)
@@ -69,6 +75,11 @@ def _build(cls, prefix, arrays, statics, device):
         elif f.type in TABLES:
             kw[f.name] = _build(TABLES[f.type], key + ".", arrays, statics,
                                 device)
+        elif f.type == "Optional[VAE]":
+            # the VAEWeights fields under key, absent when there is none
+            sub = {k[len(key) + 1:]: v for k, v in arrays.items()
+                   if k.startswith(key + ".")}
+            kw[f.name] = vae_from_numpy(sub, device) if sub else None
         elif key in statics:
             v = statics[key]
             kw[f.name] = tuple(int(x) for x in v) if isinstance(v, tuple) \

@@ -15,6 +15,7 @@ from . import volpath as volpath_mod
 from . import volpathmis as volpathmis_mod
 
 MAX_WAVEFRONT = 1 << 22   # lanes per pass
+SSS_WAVEFRONT = 1 << 17   # lanes per pass of a subsurface scene
 
 _VOLPATH_FAMILY = ("volpath", "biovolpath", "biovolpath06", "prbvolpath")
 _PATH_FAMILY = ("path", "direct", "prb", "prb_basic")
@@ -81,7 +82,11 @@ def render(scene: Scene, spp: int | None = None, seed: int = 0,
         raise not_ported("RenderControl on the fixed wavefront",
                          "Queue 1 M12")
     n_pix = scene.film_w * scene.film_h
-    spp_pass = max(1, min(spp, MAX_WAVEFRONT // max(n_pix, 1)))
+    # the JAX package caps an SSS scene's passes at 2^17 lanes (its TPU's
+    # tiled layouts pad the event's per-lane state); the same cap gives
+    # the same pass split, so the images match it
+    max_wf = SSS_WAVEFRONT if scene.ssub.enabled else MAX_WAVEFRONT
+    spp_pass = max(1, min(spp, max_wf // max(n_pix, 1)))
     while spp % spp_pass != 0:
         spp_pass -= 1
     return _render_jit(scene, seed, spp, spp_pass, mode)

@@ -11,11 +11,16 @@ Every bounce processes all lanes branchlessly:
     with the BSDF pdf zeroed for delta emitters;
   * BSDF sampling, then Russian roulette from rr_depth on the
     eta^2-compressed throughput (survival capped at 0.95, detached).
+  * the BSSRDF hook between BSDF sampling and roulette, on lanes that hit
+    a subsurface shape from outside: a dipole shape adds its diffusion
+    term to L; a vaescatter shape's transmitted lanes run the SSS event
+    (ssub/event.py), which rewrites the ray, throughput, pdf and
+    liveness to the VAE-sampled exit (every lane draws the event's
+    dimensions whenever the scene has a VAE).
 Unlike the volpath family, the environment is folded into L inside the
 bounce (the state has no env_weight).  Every sampler draw of the JAX
 bounce happens here in the same order, so both packages walk the same
-paths.  The spectral variant raises; the SSS hook has no counterpart, as
-the port's builder loads no subsurface plugin.
+paths.  The spectral variant raises.
 """
 from __future__ import annotations
 
@@ -34,7 +39,9 @@ from ..emitter.dispatch import (eval_emitter_hit, eval_environment,
                                 pdf_emitter_direction,
                                 sample_emitter_direction)
 from ..errors import not_ported
-from ..scene.ir import F_DELTA, F_SMOOTH, Scene
+from ..scene.ir import F_DELTA, F_SMOOTH, SSUB_DIPOLE, SSUB_VAE, Scene
+from ..ssub.dipole import dipole_lo
+from ..ssub.event import subsurface_event
 from .shading import shading_frame_with_bump
 
 Tensor = torch.Tensor
@@ -149,7 +156,36 @@ def bounce(scene: Scene, st: PathState, ad: bool = False) -> PathState:
         weight = torch.where(smooth_lobe[:, None], w_re, bs.weight.detach())
     throughput = st.throughput * weight
     eta = st.eta * bs.eta
-    alive = active_next & (bs.pdf > 0) & torch.any(throughput != 0.0, -1)
+    pdf = bs.pdf
+    alive = active_next & (pdf > 0) & torch.any(throughput != 0.0, -1)
+    sampled_smooth = smooth_lobe
+
+    # ---- the BSSRDF hook
+    ss = scene.ssub
+    if ss.enabled:
+        ss_idx = m.table_lookup(scene.shape_subsurface,
+                                torch.clamp(si.shape, min=0))
+        ss_t = ss.ss_type[torch.clamp(ss_idx, min=0)]
+        ss_any = active_next & si.valid & (ss_idx >= 0) & (si.wi[:, 2] > 0)
+    if ss.enabled and ss.has_dipole:
+        dip = ss_any & (ss_t == SSUB_DIPOLE)
+        L = L + torch.where(dip[:, None], st.throughput
+                            * dipole_lo(scene, si.p, si.wi[:, 2], dip), 0.0)
+    if ss.enabled and ss.has_vae:
+        ss_mask = ss_any & (ss_t == SSUB_VAE) \
+            & (bs.wo[:, 2] * si.wi[:, 2] < 0) & (pdf > 0)
+        ev, sampler = subsurface_event(scene, si, wo_world, sampler, ss_mask)
+        sm = ss_mask[:, None]
+        L = L + torch.where(sm, throughput * ev.L_nee, 0.0)
+        epsq = (1.0 + torch.amax(torch.abs(ev.out_p), -1)) * 1e-4
+        new_ray = Ray(
+            o=torch.where(sm, ev.out_p + ev.out_d * epsq[:, None], new_ray.o),
+            d=torch.where(sm, ev.out_d, new_ray.d), maxt=new_ray.maxt)
+        throughput = torch.where(sm, throughput * ev.weight, throughput)
+        alive = torch.where(ss_mask, ev.alive, alive)
+        pdf = torch.where(ss_mask, ev.pdf, pdf)
+        sampled_smooth = torch.where(ss_mask, ~ev.passthrough,
+                                     sampled_smooth)
 
     # ---- Russian roulette
     urr, sampler = sampler.next_1d()
@@ -169,8 +205,8 @@ def bounce(scene: Scene, st: PathState, ad: bool = False) -> PathState:
         L=L, throughput=torch.where(a3, throughput, st.throughput),
         eta=torch.where(alive, eta, st.eta),
         prev_p=torch.where(a3, si.p, st.prev_p),
-        prev_pdf=torch.where(alive, bs.pdf, st.prev_pdf),
-        prev_smooth=torch.where(alive, smooth_lobe, st.prev_smooth),
+        prev_pdf=torch.where(alive, pdf, st.prev_pdf),
+        prev_smooth=torch.where(alive, sampled_smooth, st.prev_smooth),
         sampler=sampler, valid=valid)
 
 

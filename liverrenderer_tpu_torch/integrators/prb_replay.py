@@ -70,10 +70,14 @@ _ENV_KEYS = ("emitters.params", "textures.data", "textures.bitmaps")
 def replay_applicable(scene: Scene, params: Dict[str, Tensor], spp: int) \
         -> bool:
     """The replay adjoint covers every regen-able configuration (box or
-    tent filter, any film size and spp).  (The JAX package also sends
-    sensor parameters and SSS surface scenes to the scan adjoint; the port
-    has no sensor keys and loads no subsurface plugin.)"""
-    return regen_applicable(scene, "primal")
+    tent filter, any film size and spp) but a surface-family scene with a
+    subsurface shape, which keeps the scan adjoint, as in the JAX package
+    (the VAE event's sampling geometry is not validated under the
+    per-bounce VJP).  (The JAX package also sends sensor parameters to the
+    scan adjoint; the port has no sensor keys.)"""
+    return (regen_applicable(scene, "primal")
+            and not (scene.ssub.enabled
+                     and scene.integrator in regen_mod._SURFACE))
 
 
 def _detach(obj):

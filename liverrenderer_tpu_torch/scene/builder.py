@@ -26,6 +26,9 @@ ported so far:
   emitters     area (attached to a shape), point, constant, envmap (inline
                `data` or a file), directional / directionalarea, spot,
                projector
+  subsurface   vaescatter (the learned BSSRDF: per-vertex polynomial fits,
+               the VAE from ssub/vae.load_model) and dipole (its irradiance
+               point cloud), nested in a shape or named and referenced
 
 Entities are packed host-side into the same numpy tables, in the same
 order, as the JAX builder packs them; `bridge.scene_from_numpy` uploads
@@ -36,6 +39,7 @@ naming the ROADMAP item that brings it.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Any, Dict, List
 
 import numpy as np
@@ -60,8 +64,9 @@ from .ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
                  MEDIUM_HETEROGENEOUS, MEDIUM_HOMOGENEOUS, MEDIUM_LIVER,
                  MEDIUM_P, MEDIUM_PARENCHYMA, PHASE_BLEND, PHASE_HG,
                  PHASE_ISOTROPIC, PHASE_RAYLEIGH, PHASE_SGGX, PHASE_TAB,
-                 SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, TAB_BINS,
-                 TEX_BITMAP, TEX_CHECKERBOARD, TEX_CONST, TEX_P)
+                 SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, SSUB_DIPOLE,
+                 SSUB_VAE, TAB_BINS, TEX_BITMAP, TEX_CHECKERBOARD, TEX_CONST,
+                 TEX_P)
 from .transform import Transform, from_any
 
 IOR_NAMES = {
@@ -98,6 +103,7 @@ _MEDIUM_TYPES = ("liver", "glissonCapsule", "glisson", "parenchyma",
 _EMITTER_TYPES = ("point", "constant", "envmap", "directional",
                   "directionalarea", "spot", "projector")
 _TEXTURE_TYPES = ("bitmap", "checkerboard")
+_SUBSURFACE_TYPES = ("vaescatter", "dipole")
 _CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "srgb", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
@@ -113,13 +119,17 @@ _OTHER_TYPES = {
     "instance": "Queue 1 M10", "shapegroup": "Queue 1 M10",
     "mesh_attribute": "Queue 1 M10",
     "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
-    "vaescatter": "Queue 1 M10", "dipole": "Queue 1 M10",
 }
 for _t in ("principled", "principledthin", "hair", "polarizer", "retarder",
            "circular", "measured"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
 for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
+
+
+# build_numpy's extra array: the normals of the dipole's points, which
+# load_dict reads to estimate their irradiance on the built scene
+DIPOLE_NORMALS = "ssub.dip_normals"
 
 
 def _unsupported(t):
@@ -406,6 +416,10 @@ class _Builder:
         self.s_prim_off: List[int] = []
         self.s_prim_cnt: List[int] = []
         self.s_area: List[float] = []
+        self.s_ssub: List[int] = []
+        self.ssub_params: List[np.ndarray] = []
+        self.ssub_types: List[int] = []
+        self.ssub_scale = 1.0
         self.named: Dict[str, tuple] = {}
         self.sensor_to_world = np.eye(4, dtype=np.float32)
         self.fov_x = 45.0
@@ -772,12 +786,42 @@ class _Builder:
         self.env_bitmap = bid
         return self.env_index
 
+    # --- subsurface ---------------------------------------------------------
+    def build_subsurface(self, d) -> int:
+        """A vaescatter or dipole row -> its index: sigmaT / albedo (default
+        0.5 each) or the dipole's sigmaS / sigmaA (0.5, 0.1); forceG or g
+        (0); eta (1.3, the dipole's 1.33).  kernelEpsScale is one value for
+        the scene (the last subsurface's), as in the JAX builder."""
+        if d.get("type") == "ref":
+            kind, idx = self.named[d["id"]][:2]
+            if kind != "subsurface":
+                raise ValueError(f"{d['id']!r} is not a subsurface")
+            return idx
+        p = np.zeros(8, np.float32)
+        if "sigmaS" in d or "sigmaA" in d:
+            ss = _spectrum_to_rgb(d.get("sigmaS", 0.5), 0.5)
+            sa = _spectrum_to_rgb(d.get("sigmaA", 0.1), 0.1)
+            p[0:3] = ss + sa
+            p[3:6] = ss / np.maximum(ss + sa, 1e-9)
+        else:
+            p[0:3] = _spectrum_to_rgb(d.get("sigmaT", d.get("sigma_t", 0.5)),
+                                      0.5)
+            p[3:6] = _spectrum_to_rgb(d.get("albedo", 0.5), 0.5)
+        p[6] = float(d.get("forceG", d.get("g", 0.0)))
+        p[7] = float(d.get("eta", 1.33 if d.get("type") == "dipole"
+                           else 1.3))
+        self.ssub_scale = float(d.get("kernelEpsScale", 1.0))
+        self.ssub_params.append(p)
+        self.ssub_types.append(SSUB_DIPOLE if d.get("type") == "dipole"
+                               else SSUB_VAE)
+        return len(self.ssub_params) - 1
+
     # --- shapes -------------------------------------------------------------
     def add_shape(self, d):
         t = d["type"]
         to_w = from_any(d["to_world"]) if "to_world" in d else Transform()
         bsdf_d = emitter_d = None
-        int_med = ext_med = -1
+        int_med = ext_med = ssub_idx = -1
         for k, v in d.items():
             if not isinstance(v, dict):
                 continue
@@ -789,12 +833,22 @@ class _Builder:
             elif k == "exterior":
                 ext_med = self.build_medium(v)
             elif vt == "ref":
-                if self.named.get(v["id"], ("bsdf",))[0] == "bsdf":
+                kind = self.named.get(v["id"], ("bsdf",))[0]
+                if kind == "bsdf":
                     bsdf_d = v
+                elif kind == "subsurface":
+                    ssub_idx = self.build_subsurface(v)
+            elif k == "subsurface" or vt in _SUBSURFACE_TYPES:
+                ssub_idx = self.build_subsurface(v)
             elif k == "bsdf" or vt in _BSDF_TYPES:
                 bsdf_d = v
-            elif vt in _OTHER_TYPES or k in ("subsurface", "sensor"):
+            elif vt in _OTHER_TYPES or k == "sensor":
                 raise _unsupported(vt)
+        if ssub_idx >= 0 and bsdf_d is None:
+            # a subsurface shape without a BSDF gets the reference's
+            # internal dielectric, int_ior = eta
+            bsdf_d = {"type": "dielectric", "ext_ior": 1.0,
+                      "int_ior": float(self.ssub_params[ssub_idx][7])}
         bsdf_idx, bump_tex, bump_scale = self.build_bsdf(bsdf_d)
         shape_idx = len(self.s_bsdf)
 
@@ -842,6 +896,7 @@ class _Builder:
         self.s_prim_off.append(prim_off)
         self.s_prim_cnt.append(prim_cnt)
         self.s_area.append(area)
+        self.s_ssub.append(ssub_idx)
 
     def _mesh(self, d, t) -> geo.MeshData:
         """The untransformed triangle mesh of a mesh-like shape."""
@@ -964,6 +1019,7 @@ class _Builder:
             "shape_bump_tex": np.asarray(self.s_bump_tex or [-1], i32),
             "shape_bump_scale": np.asarray(self.s_bump_scale or [0.0],
                                            np.float32),
+            "shape_subsurface": np.asarray(self.s_ssub or [-1], i32),
             "shape_type": np.asarray(self.s_type or [0], i32),
             "shape_prim_offset": np.asarray(self.s_prim_off or [0], i32),
             "shape_prim_count": np.asarray(self.s_prim_cnt or [0], i32),
@@ -1010,6 +1066,8 @@ class _Builder:
             "sensor.to_world": self.sensor_to_world.astype(np.float32),
             "sensor.fov_x": np.asarray(self.fov_x, np.float32),
         }
+        ssub_arrays, ssub_statics = self._subsurface(V, F)
+        arrays.update(ssub_arrays)
         # static NEE reachability (as the JAX builder): surface NEE needs a
         # shape-referenced smooth BSDF, medium NEE a non-bio medium of a
         # shape (a sensor medium does not count) under a stock volpath
@@ -1053,8 +1111,99 @@ class _Builder:
             "needs_medium_nee": bool(self.e_type)
             and self.integrator in ("volpath", "volpathmis", "prbvolpath")
             and any(self.m_type[m] < MEDIUM_GLISSON for m in used_media),
+            **ssub_statics,
         }
         return arrays, statics
+
+    def _subsurface(self, V, F):
+        """The subsurface table's arrays and statics, as the JAX builder
+        packs them.  With a vaescatter shape the VAE comes from
+        ssub.vae.load_model() (its VAEWeights fields, as numpy, under
+        ssub.weights.*) and each vaescatter mesh's vertices get their
+        polynomial fits; without the model the VAE is off and the shape
+        renders as its internal dielectric.  The dipole's point cloud
+        (1,024 area-uniform points per dipole mesh, padded to a CHUNK
+        multiple) is packed here; its irradiance needs the built scene
+        (load_dict), which reads the points' normals from the extra key
+        DIPOLE_NORMALS."""
+        from ..ssub import vae as vae_mod
+        from ..ssub.dipole import CHUNK, dipole_constants
+        from ..ssub.preprocess import fit_shape_polys, sample_surface
+        out = {"ssub.dip_points": np.zeros((256, 3), np.float32),
+               "ssub.dip_irradiance": np.zeros((256, 3), np.float32),
+               "ssub.dip_area": np.zeros((256,), np.float32),
+               "ssub.dip_consts": np.ones((10,), np.float32)}
+        used = sorted({i for i in self.s_ssub if i >= 0})
+        if not used:
+            out.update({"ssub.params": np.zeros((1, 8), np.float32),
+                        "ssub.poly": np.zeros((1, 3, 20), np.float32),
+                        "ssub.ss_type": np.zeros((1,), np.int32)})
+            return out, {"ssub.enabled": False}
+        has_vae = any(self.ssub_types[i] == SSUB_VAE for i in used)
+        has_dipole = any(self.ssub_types[i] == SSUB_DIPOLE for i in used)
+        if has_vae:
+            has_vae = vae_mod.model_available()
+            if has_vae:
+                out.update({f"ssub.weights.{k}": v
+                            for k, v in vae_mod.load_model().items()})
+            else:
+                warnings.warn(
+                    "vaescatter: no VAE model in "
+                    f"{vae_mod.DEFAULT_MODEL_DIR}; the shape renders as its "
+                    "internal dielectric", stacklevel=3)
+        poly = np.zeros((max(len(V), 1), 3, 20), np.float32)
+        pts, nrm = [], []
+        first_dipole = None
+        for sh, ssid in enumerate(self.s_ssub):
+            if ssid < 0:
+                continue
+            kind = self.ssub_types[ssid]
+            if kind == SSUB_DIPOLE and first_dipole is None:
+                first_dipole = ssid
+            if self.s_type[sh] != SHAPE_MESH:
+                continue
+            off, cnt = self.s_prim_off[sh], self.s_prim_cnt[sh]
+            f_glob = F[off:off + cnt]
+            if kind == SSUB_VAE and has_vae:
+                vids = np.unique(f_glob)
+                remap = -np.ones(len(V), np.int64)
+                remap[vids] = np.arange(len(vids))
+                prm = self.ssub_params[ssid]
+                poly[vids] = fit_shape_polys(
+                    V[vids].astype(np.float32),
+                    remap[f_glob].astype(np.int32), prm[0:3], prm[3:6],
+                    float(prm[6]), self.ssub_scale)
+            elif kind == SSUB_DIPOLE:
+                p, n = sample_surface(V, f_glob, 1024, seed=21)
+                pts.append(p)
+                nrm.append(n)
+        if pts:
+            pts, nrm = np.concatenate(pts), np.concatenate(nrm)
+            total = sum(self.s_area[sh] for sh, ssid in enumerate(self.s_ssub)
+                        if ssid >= 0 and self.ssub_types[ssid] == SSUB_DIPOLE)
+            area = np.full(len(pts), total / len(pts), np.float32)
+            # zero-area padding to a CHUNK multiple
+            pad = (-len(pts)) % CHUNK
+            pts = np.concatenate([pts, np.zeros((pad, 3), np.float32)])
+            nrm = np.concatenate([nrm, np.tile(np.float32([[0, 0, 1]]),
+                                               (pad, 1))])
+            area = np.concatenate([area, np.zeros(pad, np.float32)])
+            prm = self.ssub_params[first_dipole]
+            sigma_s = prm[3:6] * prm[0:3]
+            zr, zv, sigma_tr, _ = dipole_constants(
+                sigma_s, prm[0:3] - sigma_s, float(prm[6]), float(prm[7]))
+            out.update({
+                "ssub.dip_points": pts, "ssub.dip_area": area,
+                "ssub.dip_irradiance": np.zeros_like(pts),
+                "ssub.dip_consts": np.concatenate(
+                    [zr, zv, sigma_tr, [prm[7]]]).astype(np.float32),
+                DIPOLE_NORMALS: nrm})
+        out.update({"ssub.params": np.stack(self.ssub_params),
+                    "ssub.poly": poly,
+                    "ssub.ss_type": np.asarray(self.ssub_types, np.int32)})
+        return out, {"ssub.kernel_eps_scale": self.ssub_scale,
+                     "ssub.enabled": has_vae or has_dipole,
+                     "ssub.has_vae": has_vae, "ssub.has_dipole": has_dipole}
 
 
 def build_numpy(d: Dict[str, Any], base_dir: str = ".",
@@ -1080,6 +1229,9 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
         elif t in _TEXTURE_TYPES:
             idx = b.build_texture(val)
             b.named[vid] = b.named[key] = ("texture", idx)
+        elif t in _SUBSURFACE_TYPES:
+            idx = b.build_subsurface(val)
+            b.named[vid] = b.named[key] = ("subsurface", idx)
         elif t in _OTHER_TYPES:
             raise _unsupported(t)
     # pass 2: integrator + sensor
@@ -1127,4 +1279,11 @@ def load_dict(d: Dict[str, Any], device="cuda", base_dir: str = ".",
         raise RuntimeError("load_dict: no CUDA device; pass device='cpu' "
                            "to build the scene on the CPU")
     arrays, statics = build_numpy(d, base_dir, variant)
-    return scene_from_numpy(arrays, statics, device)
+    scene = scene_from_numpy(arrays, statics, device)
+    if scene.ssub.has_dipole and DIPOLE_NORMALS in arrays:
+        from ..ssub.dipole import compute_irradiance
+        with torch.no_grad():
+            E = compute_irradiance(scene, scene.ssub.dip_points,
+                                   arrays[DIPOLE_NORMALS])
+        scene = scene.replace(ssub=scene.ssub.replace(dip_irradiance=E))
+    return scene

@@ -11,11 +11,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.distr import DiscreteDistribution, Distribution2D
+from ..ssub.vae import VAE
 
 Tensor = torch.Tensor
 
@@ -90,6 +91,9 @@ SENSOR_RADIANCEMETER = 4
 SENSOR_IRRADIANCEMETER = 5
 SENSOR_BATCH = 6
 
+SSUB_VAE = 0
+SSUB_DIPOLE = 1
+
 # BSDF flag bits
 F_NULL = 1 << 0
 F_DIFFUSE_REFL = 1 << 1
@@ -119,7 +123,7 @@ class _Table:
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, (Tensor, _Table, DiscreteDistribution,
-                              Distribution2D)):
+                              Distribution2D, torch.nn.Module)):
                 kw[f.name] = v.to(device)
         return dataclasses.replace(self, **kw)
 
@@ -231,6 +235,31 @@ class Sensor(_Table):
 
 
 @dataclass
+class SubsurfaceTable(_Table):
+    """BSSRDF table (vaescatter and dipole).
+
+    params rows: sigma_t [0:3], albedo [3:6], g [6], eta [7]; ss_type: the
+    SSUB_ code of each row.  poly: per-vertex, per-RGB-channel degree-3
+    world-space polynomial coefficients (V, 3, 20), fitted at build time
+    (ssub/preprocess.py); weights: the VAE (None when no vaescatter shape
+    renders with it).  dip_*: the dipole's irradiance point cloud, padded
+    with zero-area points to a multiple of dipole.CHUNK; dip_consts packs
+    (zr[3], zv[3], sigma_tr[3], eta)."""
+    params: Tensor          # (Ns, 8)
+    poly: Tensor            # (V, 3, 20)
+    ss_type: Tensor         # (Ns,)
+    dip_points: Tensor      # (P, 3)
+    dip_irradiance: Tensor  # (P, 3)
+    dip_area: Tensor        # (P,)
+    dip_consts: Tensor      # (10,)
+    weights: Optional[VAE] = None
+    kernel_eps_scale: float = 1.0
+    enabled: bool = False
+    has_vae: bool = False
+    has_dipole: bool = False
+
+
+@dataclass
 class Scene(_Table):
     # geometry (world space)
     vertices: Tensor         # (V,3)
@@ -245,6 +274,7 @@ class Scene(_Table):
     shape_ext_medium: Tensor
     shape_bump_tex: Tensor    # (S,) bump / normal-map texture, -1 none
     shape_bump_scale: Tensor  # (S,) > 0 height map, < 0 normal map
+    shape_subsurface: Tensor  # (S,) subsurface row, -1 none
     shape_type: Tensor        # (S,) SHAPE_MESH / SHAPE_SPHERE
     shape_prim_offset: Tensor  # (S,) first triangle or sphere index
     shape_prim_count: Tensor  # (S,)
@@ -266,6 +296,7 @@ class Scene(_Table):
     media: Media
     bvh: BVH
     sensor: Sensor
+    ssub: SubsurfaceTable
     # static config
     n_shapes: int = 0
     n_tris: int = 0
@@ -301,5 +332,5 @@ class Scene(_Table):
 
 # sub-table classes by the annotation their Scene field carries
 TABLES = {cls.__name__: cls for cls in
-          (Textures, BSDFs, Emitters, Media, BVH, Sensor,
+          (Textures, BSDFs, Emitters, Media, BVH, Sensor, SubsurfaceTable,
            DiscreteDistribution, Distribution2D)}

@@ -10,7 +10,11 @@ dielectric in a bumpmap whose height map is a seeded field on the mesh's
 uvs, and `sky` replaces the constant environment with a lat-long envmap of
 a synthetic sky.  Both images are inline numpy data, so no file is read.
 
-Plain numpy: the dict loads into both liverrenderer_tpu.load_dict and
+`sss_liver_dict` puts the same mesh under the surface path family with a
+subsurface BSSRDF instead of the medium: the learned `vaescatter` or the
+classical `dipole`, lit by a point light and the synthetic sky.
+
+Plain numpy: the dicts load into both liverrenderer_tpu.load_dict and
 liverrenderer_tpu_torch.load_dict, with `to_world` as a 4x4 array.
 """
 from __future__ import annotations
@@ -139,4 +143,55 @@ def liver_proxy_dict(width: int, height: int, spp: int, subdiv: int = 4,
                   "bsdf": bsdf,
                   "interior": {"type": "ref", "id": "liver_med"}},
         "env": env,
+    }
+
+
+# the subsurface proxy's medium: mean free paths 1 / sigma_t of 0.125,
+# 0.1 and 0.071, 3.1 %, 2.5 % and 1.8 % of the mesh's ~4.0 bounding-box
+# diagonal (3.2 x 1.8 x 1.6), so light diffuses a few triangles wide
+# (edges ~0.1 at subdiv 4) and the polynomial fits' kernel (sqrt(eps) ~
+# 0.15) spans local curvature; a reddish tissue-like albedo
+SSS_SIGMA_T = (8.0, 10.0, 14.0)
+SSS_ALBEDO = (0.99, 0.97, 0.93)
+SSS_ETA = 1.38
+SSS_POINT = {"type": "point", "position": [1.5, 3.0, 3.0],
+             "intensity": {"type": "rgb", "value": [15.0, 15.0, 15.0]}}
+
+
+def sss_liver_dict(width: int, height: int, spp: int, kind="vae",
+                   subdiv: int = 4, seed: int = 0, sky=SKY,
+                   max_depth: int = 12) -> dict:
+    """The liver mesh with a subsurface BSSRDF under `path`, in the style
+    of the fork's learned-SSS golden scene (tent filter, ldsampler) lit by
+    a point light and an envmap of the synthetic sky.  kind: "vae" (a
+    vaescatter), "dipole", or None (its internal dielectric alone,
+    int_ior = eta: the same scene without the subsurface)."""
+    v, f, n, uv = liver_mesh(subdiv, seed)
+    cam = Transform().look_at([0.0, 0.8, 5.0], [0.0, 0.0, 0.0],
+                              [0.0, 1.0, 0.0])
+    liver = {"type": "mesh", "vertices": v, "faces": f, "normals": n,
+             "uvs": uv}
+    if kind is None:
+        liver["bsdf"] = {"type": "dielectric", "int_ior": SSS_ETA,
+                         "ext_ior": 1.0}
+    else:
+        liver["subsurface"] = {
+            "type": {"vae": "vaescatter", "dipole": "dipole"}[kind],
+            "sigmaT": {"type": "rgb", "value": list(SSS_SIGMA_T)},
+            "albedo": {"type": "rgb", "value": list(SSS_ALBEDO)},
+            "eta": SSS_ETA}
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "sensor": {
+            "type": "perspective", "fov": 45.0,
+            "to_world": cam.matrix.copy(),
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "tent"}},
+            "sampler": {"type": "ldsampler", "sample_count": spp},
+        },
+        "liver": liver,
+        "sun": dict(SSS_POINT),
+        "env": {"type": "envmap", "data": sky_map(int(sky[0]),
+                                                  int(sky[1]))},
     }

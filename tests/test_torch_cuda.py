@@ -410,3 +410,77 @@ def test_bvh_traversal_on_the_card_matches_the_sweep():
     same = (sk.prim == sb.prim) & sk.valid
     assert same.sum() >= PRIM_AGREE_MIN * sk.valid.sum()
     torch.testing.assert_close(sb.t[same], sk.t[same], rtol=T_RTOL, atol=0)
+
+
+def _sss_model(tmp_path):
+    """The port's vae module pointed at a seeded synthetic model written
+    under tmp_path (tests/torch_sss_inputs.py)."""
+    from liverrenderer_tpu_torch.ssub import vae as tvae
+    from torch_sss_inputs import substituted, write_model
+    return substituted(*write_model(str(tmp_path), seed=3), tvae)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["vaescatter", "dipole"])
+def test_sss_sphere_on_the_card_matches_cpu(kind, tmp_path):
+    """A vaescatter and a dipole sphere on the card against the CPU render
+    (plain version), through the sweep kernel (TF32 stays off, so the
+    VAE's products are float32 on both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_sss_inputs import sphere_dict
+    assert not torch.backends.cuda.matmul.allow_tf32
+    d = sphere_dict(kind, res=16, rfilter="tent")
+    before = tci.LAUNCHES
+    with _sss_model(tmp_path):
+        ref = lrt.render(lrt.load_dict(d, device="cpu"), spp=4).numpy()
+        scene = lrt.load_dict(d)
+        assert scene.ssub.enabled and scene.device.type == "cuda"
+        img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_on_sss_event_rays(tmp_path,
+                                                        monkeypatch):
+    """The SSS event's own queries (zero-scatter rays from inside the
+    mesh, the short bounded projection rays and the unbounded ones, the
+    exit shadow rays), captured from a render on the card, through the
+    kernel and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.liver_proxy import sss_liver_dict
+    from liverrenderer_tpu_torch.ssub import event as tevent
+    calls, in_event = [], []
+    orig_q, orig_ev = tci.intersect_closest, tevent.subsurface_event
+
+    def query(rays, tris, boxes, shadow=False):
+        if in_event:
+            calls.append((rays.clone(), tris, boxes))
+        return orig_q(rays, tris, boxes, shadow=shadow)
+
+    def event(*a, **kw):
+        in_event.append(1)
+        try:
+            return orig_ev(*a, **kw)
+        finally:
+            in_event.pop()
+
+    with _sss_model(tmp_path):
+        scene = lrt.load_dict(sss_liver_dict(32, 24, 1, subdiv=3,
+                                             sky=(64, 32)))
+    monkeypatch.setattr(tci, "intersect_closest", query)
+    monkeypatch.setattr(tevent, "subsurface_event", event)
+    from liverrenderer_tpu_torch.integrators import path as tpath
+    monkeypatch.setattr(tpath, "subsurface_event", event)
+    lrt.render(scene, spp=1)
+    torch.cuda.synchronize()
+    assert len(calls) >= 6 and len(calls) % 6 == 0
+    for rays, tris, boxes in calls[:6]:
+        tk, pk = orig_q(rays, tris, boxes)
+        tr, pr = tci.intersect_closest_reference(rays, tris, boxes)
+        torch.cuda.synchronize()
+        _assert_agree(tk, pk, tr, pr, min_hits=1)
