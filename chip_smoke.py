@@ -204,6 +204,35 @@ result line):
   sss_render_grad  emitters.params of the vaescatter proxy at 428x240,
                    4 spp through the scan adjoint: seconds against a 4 spp
                    primal, peak memory, launches
+  codecs           the committed PIZ sky (tests/data/torch_sky_piz.exr,
+                   written by OpenEXR) decoded on the card's host with the
+                   C++ Huffman loop, with its plain Python loop, and its
+                   ZIP twin: seconds, bytes, each bit-identical to
+                   sky_map(1024, 512) in half
+  cli_render       the slice's main path: bench.py's workload path written
+                   to files with the PIZ sky, rendered by `python3 -m
+                   liverrenderer_tpu_torch.cli scene.xml -o out.exr --spp
+                   64` in a subprocess: its outputs (EXR, PNG, time.txt),
+                   time.txt's and its closing line's seconds and paths/s,
+                   its EXR against the in-process render of
+                   load_file(scene.xml) (whose launches are counted),
+                   load_file of the PIZ- and the ZIP-skied scene in turns
+                   (piz_over_zip), and --aovs depth,position,sh_normal,
+                   albedo at full width
+  render_control   the bumped, sky-lit proxy at 428x240, 64 spp with an
+                   uncancelled RenderControl in turns with the plain render
+                   (control_over_plain, the images agreeing), and a control
+                   that cancels at half the progress on a film split into
+                   tiles of 32,768 pixels: it stops, its frame is finite,
+                   the tiles it did not reach are black
+  sensors_small    each sensor type (radiancemeter, distant with and
+                   without a target, irradiancemeter, batch, thinlens,
+                   orthographic, perspective) at 16x12 or less, card
+                   against CPU
+  thinlens_render  the bumped, sky-lit proxy through a thinlens at 428x240,
+                   64 spp: two fixed-wavefront passes of 3,287,040 lanes;
+                   seconds, peak memory, launches, and the ratio to the
+                   perspective regen render of render_control
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -213,7 +242,9 @@ result line):
                    XML-loaded render and its gradient + the grid render
                    and gradient + the volpathmis and volpath renders of
                    the chromatic fog + the vaescatter proxy, its plain
-                   twin, the dipole proxy and the vaescatter gradient),
+                   twin, the dipole proxy and the vaescatter gradient +
+                   the CLI scene's in-process render, the render_control
+                   renders and the thinlens render),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
@@ -222,6 +253,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -285,6 +317,20 @@ BVH_SUBDIV, BVH_CMP_SUBDIV, BVH_RAYS = 9, 8, 65536
 SSS_SPP, SSS_GRAD_SPP, SSS_TRACE_SPP = 16, 4, 2
 SSS_SMALL = (16, 4)
 SSS_EVENT_LANES = 4096
+# the command-line renderer (cli_phases): decode reps of the PIZ sky, the
+# CLI subprocess's time limit, the AOVs it writes at full width, and the
+# share of its pixels that must agree with the in-process render (the
+# splat's atomics differ in the last bit); RenderControl's cancel run
+# splits the film into tiles of CONTROL_TILE_PIX pixels; the thinlens
+# of thinlens_render, focused near the liver
+CODEC_REPS = 3
+CLI_TIMEOUT = 600
+CLI_AOVS = ("depth", "position", "sh_normal", "albedo")
+CLI_PIX_FRAC = 0.99
+CONTROL_TILE_PIX = 1 << 15
+THINLENS = {"aperture_radius": 0.05, "focus_distance": 5.0}
+# sensors_small's Cornell box film: every sensor scene at 16x12 or less
+SENSOR_CORNELL_FILM = (16, 12)
 # media_small: film, spp; the point light of its grid cubes
 MEDIA_SMALL = (16, 2)
 MEDIA_POINT = {"type": "point", "position": [0.5, 2.2, 1.6],
@@ -2285,6 +2331,234 @@ def sss_phases(torch, np, lrt, ci, treplay, smi, workdir):
     return out
 
 
+def cli_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases codecs, cli_render, render_control, sensors_small and
+    thinlens_render: the command-line renderer on bench.py's workload
+    path from files with the committed PIZ sky, and what it brings with
+    it -> launch counts of the in-process render of the CLI's scene, the
+    render_control renders and the thinlens render."""
+    from liverrenderer_tpu_torch.integrators import regen as tregen
+    from liverrenderer_tpu_torch.io import exr as texr
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict,
+                                                           sky_map)
+    xf = _tests_module("torch_xml_files")
+    ss = _tests_module("torch_sensor_scenes")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sky = os.path.join(root, "tests", "data", "torch_sky_piz.exr")
+
+    # ---- 13a. the PIZ decoder on the committed sky, on the card's host
+    t0 = time.perf_counter()
+    texr.huf_library()
+    huf_build_s = time.perf_counter() - t0
+    ref = sky_map(*SKY).astype(np.float16).astype(np.float32)
+    zip_sky = os.path.join(workdir, "sky_zip.exr")
+    texr.write_exr(zip_sky, sky_map(*SKY))
+    dec = {"piz": [], "piz_plain": [], "zip": []}
+    imgs = {}
+    plain_loop = texr._huf_decode_plain
+    for _ in range(CODEC_REPS):
+        for kind, path in (("piz", sky), ("piz_plain", sky),
+                           ("zip", zip_sky)):
+            native = texr._huf_decode_native
+            if kind == "piz_plain":     # the plain loop in the C++ one's place
+                texr._huf_decode_native = plain_loop
+            try:
+                t0 = time.perf_counter()
+                imgs[kind] = texr.read_exr_any(path)
+                dec[kind].append(time.perf_counter() - t0)
+            finally:
+                texr._huf_decode_native = native
+    exact = {k: bool(np.array_equal(v, ref)) for k, v in imgs.items()}
+    emit("codecs", file="tests/data/torch_sky_piz.exr",
+         bytes=os.path.getsize(sky), zip_bytes=os.path.getsize(zip_sky),
+         shape=list(imgs["piz"].shape), huf_build_seconds=huf_build_s,
+         decode_seconds=statistics.median(dec["piz"]),
+         plain_loop_decode_seconds=statistics.median(dec["piz_plain"]),
+         zip_decode_seconds=statistics.median(dec["zip"]),
+         decode_seconds_reps=dec, bit_identical=exact)
+    check(all(exact.values()), "codecs: a decode of the sky differs from "
+          f"sky_map(1024, 512) in half: {exact}")
+
+    # ---- 13b. the command-line renderer on the main path from files
+    piz_xml, sizes = xf.write_proxy_files(
+        os.path.join(workdir, "cli"), WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], sky_file=sky)
+    zip_xml, _ = xf.write_proxy_files(
+        os.path.join(workdir, "cli_zip"), WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], sky=SKY)
+    base = os.path.dirname(piz_xml)
+    out = os.path.join(base, "out.exr")
+    cmd = [sys.executable, "-m", "liverrenderer_tpu_torch.cli", piz_xml,
+           "-o", out, "--spp", str(SPP), "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                       timeout=CLI_TIMEOUT)
+    cli_s = time.perf_counter() - t0
+    check(r.returncode == 0, "cli_render: the CLI failed: "
+          + r.stderr[-2000:])
+    files = {n: os.path.exists(os.path.join(base, n))
+             for n in ("out.exr", "out.png", "time.txt")}
+    check(all(files.values()), f"cli_render: missing outputs {files}")
+    times = dict(ln.split(": ", 1) for ln in open(os.path.join(
+        base, "time.txt")).read().splitlines())
+    last = r.stdout.strip().splitlines()[-1]
+    closing = json.loads(last[last.index("{"):])
+    # the same path in this process: load_file (the PIZ decoder) and
+    # render (the kernels), its launches counted
+    reset_counts(ci)
+    scene = lrt.load_file(piz_xml)
+    secs, img = timed_render(torch, lrt, scene, SPP)
+    counts = launch_counts(ci)
+    got = lrt.read_image(out)
+    frac, mean_rel = ss.images_agree(got, img.cpu().numpy())
+    # load_file of the PIZ-skied scene and its ZIP-skied twin, in turns
+    loads = {"piz": [], "zip": []}
+    for kind in ("piz", "zip", "zip", "piz"):
+        loads[kind].append(timed_load(torch, lambda: lrt.load_file(
+            piz_xml if kind == "piz" else zip_xml))[0])
+    piz_over_zip = sum(loads["piz"]) / sum(loads["zip"])
+    aov_out = os.path.join(base, "aov.exr")
+    ra = subprocess.run(cmd[:4] + ["-o", aov_out, "--aovs",
+                                   ",".join(CLI_AOVS)],
+                        capture_output=True, text=True, cwd=root,
+                        timeout=CLI_TIMEOUT)
+    check(ra.returncode == 0, "cli_render: the CLI's --aovs failed: "
+          + ra.stderr[-2000:])
+    aovs = {}
+    for name in CLI_AOVS:
+        a = lrt.read_image(os.path.join(base, f"aov_{name}.exr"))
+        aovs[name] = dict(shape=list(a.shape), finite=bool(
+            np.isfinite(a).all()), mean=float(a.mean()))
+    emit("cli_render", card=smi, command=" ".join(["python3"] + cmd[1:]),
+         film=[WIDTH, HEIGHT], spp=SPP, bytes=sizes, outputs=files,
+         subprocess_seconds=cli_s, time_txt=times,
+         cli_load_seconds=closing["load_s"],
+         cli_render_seconds=closing["render_s"],
+         cli_paths_per_s=closing["paths_per_s"],
+         in_process_render_seconds=secs,
+         in_process_paths_per_s=WIDTH * HEIGHT * SPP / secs,
+         cli_vs_in_process_pixel_frac=frac,
+         cli_vs_in_process_mean_rel=mean_rel, launches=counts[0],
+         merge_launches=counts[1], shadow_launches=counts[2],
+         load_file_seconds=loads, piz_over_zip=piz_over_zip, aovs=aovs)
+    check(tuple(got.shape) == (HEIGHT, WIDTH, 3)
+          and bool(np.isfinite(got).all()), "cli_render: the CLI's EXR")
+    check(frac >= CLI_PIX_FRAC and mean_rel <= MEAN_RTOL,
+          "cli_render: the CLI's EXR differs from the in-process render")
+    check(counts[0] > 0 and counts[1] > 0,
+          "cli_render: the render did not launch the kernels")
+    check(all(a["finite"] and a["shape"] == [HEIGHT, WIDTH, 3]
+              for a in aovs.values()), f"cli_render: AOVs {aovs}")
+
+    # ---- 13c. RenderControl on the bumped, sky-lit proxy
+    bumped = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+                                            bump=BUMP, sky=SKY))
+    runs = {"plain": [], "control": []}
+    ctl_img = plain_img = None
+    ctl_counts = plain_counts = None
+    for kind in ("plain", "control", "control", "plain"):
+        reset_counts(ci)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        im = lrt.render(bumped, spp=SPP, seed=SEED,
+                        control=lrt.RenderControl() if kind == "control"
+                        else None)
+        torch.cuda.synchronize()
+        runs[kind].append(time.perf_counter() - t0)
+        if kind == "control":
+            ctl_img, ctl_counts = im, launch_counts(ci)
+        else:
+            plain_img, plain_counts = im, launch_counts(ci)
+    frac_c, mean_rel_c = ss.images_agree(ctl_img.cpu().numpy(),
+                                         plain_img.cpu().numpy())
+    # the film split into tiles, so that a stop leaves pixels unrendered
+    tile = tregen.TILE_PIX
+    tregen.TILE_PIX = CONTROL_TILE_PIX
+    try:
+        ctl = lrt.RenderControl()
+        prog = []
+
+        def on_progress(f):
+            prog.append(f)
+            if f >= 0.5:
+                ctl.cancel()
+        ctl.on_progress = on_progress
+        part = lrt.render(bumped, spp=SPP, seed=SEED, control=ctl)
+        torch.cuda.synchronize()
+    finally:
+        tregen.TILE_PIX = tile
+    frame = ctl.frame()
+    # the tiles the render reached come first and are lit; the rest are
+    # black
+    flat = part.reshape(-1, 3)
+    tiles = [flat[i:i + CONTROL_TILE_PIX]
+             for i in range(0, WIDTH * HEIGHT, CONTROL_TILE_PIX)]
+    reached = [bool(t.sum() > 0) for t in tiles]
+    black = [bool((t == 0).all()) for t in tiles]
+    n_reached = sum(reached)
+    partial_ok = 0 < n_reached < len(tiles) \
+        and all(reached[:n_reached]) and all(black[n_reached:])
+    emit("render_control", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+         plain_seconds=runs["plain"], control_seconds=runs["control"],
+         control_over_plain=sum(runs["control"]) / sum(runs["plain"]),
+         uncancelled_pixel_frac=frac_c, uncancelled_mean_rel=mean_rel_c,
+         control_launches=ctl_counts[0],
+         control_merge_launches=ctl_counts[1],
+         plain_launches=plain_counts[0], cancel_tile_pix=CONTROL_TILE_PIX,
+         cancel_progress=prog, stopped=ctl.stopped,
+         frame_finite=bool(torch.isfinite(frame).all()),
+         tiles_reached=n_reached, tiles=len(tiles),
+         unrendered_black=partial_ok)
+    check(frac_c >= PIX_FRAC_MIN and mean_rel_c <= MEAN_RTOL,
+          "render_control: an uncancelled control changed the image")
+    check(ctl_counts[0] > 0 and ctl_counts[1] > 0,
+          "render_control: the controlled render did not launch the "
+          "kernels")
+    check(ctl.stopped and bool(torch.isfinite(frame).all()) and partial_ok,
+          "render_control: the cancelled render did not stop with its "
+          "first tiles rendered and the rest black")
+
+    # ---- 13d. every sensor type, card against CPU
+    small = {}
+    for name, (d, spp) in ss.sensor_scenes(SENSOR_CORNELL_FILM).items():
+        frac_s, mean_rel_s, mean, exact_s = image_vs_cpu(np, lrt, d, spp)
+        small[name] = dict(pixel_frac=frac_s, mean_rel=mean_rel_s,
+                           mean=mean, pixel_exact=exact_s, spp=spp)
+    emit("sensors_small", card=smi, sensors=small)
+    bad = [k for k, v in small.items()
+           if v["pixel_frac"] < PIX_FRAC_MIN or v["mean_rel"] > MEAN_RTOL]
+    check(not bad, f"sensors_small: the card disagrees with the CPU: {bad}")
+
+    # ---- 13e. the bumped proxy through a thinlens: the fixed wavefront
+    d = liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP,
+                         sky=SKY)
+    d["sensor"].update(type="thinlens", **THINLENS)
+    thin = lrt.load_dict(d)
+    check(not tregen.regen_applicable(thin, "primal"),
+          "thinlens_render: a thinlens took the regen wavefront")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    t_thin, img_t = timed_render(torch, lrt, thin, SPP)
+    thin_counts = launch_counts(ci)
+    peak = torch.cuda.max_memory_allocated()
+    finite_t = bool(torch.isfinite(img_t).all())
+    n_pix = WIDTH * HEIGHT
+    emit("thinlens_render", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+         thinlens=THINLENS, seconds=t_thin,
+         paths_per_s=n_pix * SPP / t_thin,
+         max_memory_allocated=peak, launches=thin_counts[0],
+         merge_launches=thin_counts[1], finite=finite_t,
+         mean=float(img_t.mean()),
+         perspective_regen_seconds=runs["plain"],
+         thinlens_over_perspective=t_thin / (sum(runs["plain"]) / 2))
+    check(finite_t and 0.05 < float(img_t.mean()) < 5.0,
+          "thinlens_render: image not finite or its mean out of range")
+    check(thin_counts[0] > 0, "thinlens_render: no sweep launched")
+    return dict(counts=counts, control=ctl_counts, plain=plain_counts,
+                thinlens=thin_counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2300,6 +2574,7 @@ def main() -> int:
         _tests_module()
         _tests_module("torch_xml_files")
         _tests_module("torch_sss_inputs")
+        _tests_module("torch_sensor_scenes")
     except (ImportError, FileNotFoundError) as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -2586,6 +2861,11 @@ def main() -> int:
     # dipole, their gradient and the event's queries
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sss_") as workdir:
         sss = sss_phases(torch, np, lrt, ci, treplay, smi, workdir)
+
+    # ---- 13. the command-line renderer with the PIZ sky, RenderControl,
+    # the other sensors
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
+        cli = cli_phases(torch, np, lrt, ci, smi, workdir)
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -2610,7 +2890,8 @@ def main() -> int:
              + med["grid_grad"]["replay_launches"] + med["mis_counts"][0]
              + med["vp_counts"][0] + sss["counts"][0]
              + sss["plain_counts"][0] + sss["dipole_counts"][0]
-             + sss["grad_counts"]["fwd_launches"],
+             + sss["grad_counts"]["fwd_launches"] + cli["counts"][0]
+             + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0],
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -2632,6 +2913,10 @@ def main() -> int:
              sss_plain_render_launches=split_counts(sss["plain_counts"]),
              dipole_render_launches=split_counts(sss["dipole_counts"]),
              sss_render_grad_launches=sss["grad_counts"],
+             cli_render_launches=split_counts(cli["counts"]),
+             render_control_launches=split_counts(cli["control"]),
+             render_control_plain_launches=split_counts(cli["plain"]),
+             thinlens_render_launches=split_counts(cli["thinlens"]),
              sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
              sss_event_bound_ms={g: v["bound_ms"]
                                  for g, v in sss["kernel"].items()},
@@ -2680,11 +2965,15 @@ def main() -> int:
              + med["mis_counts"][1] + med["vp_counts"][1]
              + sss["counts"][1] + sss["plain_counts"][1]
              + sss["dipole_counts"][1]
-             + sss["grad_counts"]["fwd_merge_launches"],
+             + sss["grad_counts"]["fwd_merge_launches"]
+             + cli["counts"][1] + cli["control"][1] + cli["plain"][1]
+             + cli["thinlens"][1],
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
              sss_render_launches=sss["counts"][1],
+             cli_render_launches=cli["counts"][1],
+             thinlens_render_launches=cli["thinlens"][1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -25,6 +25,13 @@ replay adjoint or the scan adjoint.
                                             sky=SKY))
     # a Mitsuba XML scene with its mesh, bitmap and envmap files
     scene = lrt.load_file("scene.xml", spp=16)      # <default> overrides
+    # a render that can be cancelled, timed out and followed
+    ctl = lrt.RenderControl(timeout=60.0, on_progress=print)
+    img = lrt.render(scene, control=ctl)            # ctl.frame(): partial
+    aovs = lrt.render_aovs(scene, ("depth", "albedo"))
+
+The command-line renderer: `python -m liverrenderer_tpu_torch.cli
+scene.xml -o out.exr` (on the card; `--cpu` renders on the CPU).
 """
 
 import torch as _torch
@@ -35,12 +42,19 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .scene.builder import load_dict  # noqa: E402
+from .scene.cornell import cornell_box  # noqa: E402
 from .scene.xml import load_file  # noqa: E402
 from .scene.transform import Transform  # noqa: E402
 from .io.image import read_image, write_image  # noqa: E402
 from .integrators.common import render  # noqa: E402
+from .integrators.regen import RenderControl  # noqa: E402
 from .integrators.prb import render_fwd_grad, render_grad  # noqa: E402
+from .integrators.aux import (render_aovs, render_depth,  # noqa: E402
+                              render_direct, render_moments)
 from .util import SceneParameters, apply_params, traverse  # noqa: E402
 
-__all__ = ["load_dict", "load_file", "read_image", "write_image", "render", "render_grad", "render_fwd_grad",
-           "traverse", "apply_params", "SceneParameters", "Transform"]
+__all__ = ["load_dict", "load_file", "cornell_box", "read_image",
+           "write_image", "render", "RenderControl", "render_grad",
+           "render_fwd_grad", "render_aovs", "render_depth", "render_direct",
+           "render_moments", "traverse", "apply_params", "SceneParameters",
+           "Transform"]

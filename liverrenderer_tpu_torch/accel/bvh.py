@@ -22,17 +22,14 @@ give the same nodes; the order of triangles inside a leaf can differ.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from ..host_build import BUILD_DIR, compile_shared
 
 N_BINS = 16
 MAX_LEAF = 4
@@ -42,7 +39,7 @@ INTERSECT_COST = 1.0
 NATIVE_MIN_TRIS = 1 << 16
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "bvh_build.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_BUILD_DIR = BUILD_DIR
 _LIB = None
 # the compile's seconds, output and path, and the last build's seconds and
 # triangles (chip_smoke.py reads them)
@@ -68,51 +65,21 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> BVHArrays:
     return build_bvh_numpy(v0, v1, v2)
 
 
-def _compiler() -> list:
-    cxx = shutil.which("c++") or shutil.which("g++")
-    if cxx:
-        return [cxx]
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("BVH build: no C++ compiler (c++, g++ or nvcc)")
-    return [str(Path(CUDA_HOME) / "bin" / "nvcc"), "-x", "c++"]
-
-
 def build_native():
     """Build (once per source hash) and load csrc/bvh_build.cpp; raises if
     the compiler fails."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"bvh_build_{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cxx = _compiler()
-        pic = ["-Xcompiler", "-fPIC"] if cxx[0].endswith("nvcc") \
-            else ["-fPIC"]
-        res = subprocess.run(cxx + ["-O2", "-std=c++17", "-shared", *pic,
-                                    "-o", tmp, str(_SRC)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("BVH build: compiling bvh_build.cpp failed\n"
-                               + res.stdout + res.stderr)
-        log = res.stdout + res.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    info = compile_shared(_SRC, _BUILD_DIR, "BVH build")
+    lib = ctypes.CDLL(info["path"])
     p = ctypes.c_void_p
     lib.lrt_bvh_build.argtypes = [p, p, p, ctypes.c_int64, p, p, p, p, p, p,
                                   ctypes.POINTER(ctypes.c_int64),
                                   ctypes.POINTER(ctypes.c_int32),
                                   ctypes.c_int64]
     lib.lrt_bvh_build.restype = ctypes.c_int
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
-                      path=str(so))
+    BUILD_INFO.update(info)
     _LIB = lib
     return lib
 

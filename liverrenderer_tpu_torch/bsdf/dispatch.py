@@ -456,6 +456,12 @@ def _gather_ctx(scene: Scene, si, idx):
     return m.table_lookup(b.btype, idx), m.table_lookup(b.params, idx), t0, t1
 
 
+def bsdf_albedo(scene: Scene, si, bsdf_idx):
+    """Approximate surface albedo, the BSDF's primary reflectance texture
+    (the AOV integrator's `albedo`)."""
+    return _gather_ctx(scene, si, torch.clamp(bsdf_idx, min=0))[2]
+
+
 def _family_sample(scene: Scene, wi_f, u1, u2, btype, p, t0, t1):
     """Masked-select sampling over the scene's family set."""
     n = wi_f.shape[:-1]

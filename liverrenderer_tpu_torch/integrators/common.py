@@ -9,7 +9,7 @@ from .. import film as film_mod
 from ..core.rng import make_sampler
 from ..errors import not_ported
 from ..scene.ir import Scene
-from ..sensor.perspective import ray_weight, sample_ray
+from ..sensor.perspective import APERTURE_SENSORS, ray_weight, sample_ray
 from . import path as path_mod
 from . import volpath as volpath_mod
 from . import volpathmis as volpathmis_mod
@@ -32,6 +32,12 @@ def _integrator_sample(scene: Scene, sampler, ray, mode="primal"):
         # (volpath._has_bio): bio media reach volpathmis through the base
         # majorant sampling, so every volpathmis scene runs its module
         return volpathmis_mod.sample(scene, sampler, ray, mode=mode)
+    if scene.integrator in ("aov", "depth", "moment"):
+        # the JAX package's render refuses them too: integrators/aux.py
+        # renders them
+        raise ValueError(f"unknown integrator {scene.integrator} (render "
+                         "it with render_aovs, render_depth or "
+                         "render_moments)")
     raise not_ported(f"the {scene.integrator!r} integrator", "Queue 1 M10")
 
 
@@ -51,7 +57,12 @@ def render_pass(scene: Scene, seed: int, spp_pass: int, sample_offset: int,
     py = (pix // w).to(torch.float32)
     uf, sampler = sampler.next_2d()
     pos = torch.stack([px, py], -1) + uf
-    ray = sample_ray(scene, pos)
+    # a lens or direction sample after the film sample, as the JAX
+    # package draws it
+    ua = None
+    if scene.sensor.stype in APERTURE_SENSORS:
+        ua, sampler = sampler.next_2d()
+    ray = sample_ray(scene, pos, ua)
     L, _, _ = _integrator_sample(scene, sampler, ray, mode=mode)
     L = torch.where(torch.isfinite(L), L, 0.0)
     rw = ray_weight(scene)
@@ -72,15 +83,16 @@ def _render_jit(scene: Scene, seed, spp: int, spp_pass: int,
 @torch.no_grad()
 def render(scene: Scene, spp: int | None = None, seed: int = 0,
            mode: str = "primal", control=None):
-    """Render the scene to an (h, w, 3) linear-RGB image on scene.device."""
+    """Render the scene to an (h, w, 3) linear-RGB image on scene.device.
+
+    control: a regen.RenderControl (cancel, timeout, progress), honoured
+    between the regenerating wavefront's (pixel tile, spp chunk) runs.
+    The fixed wavefront ignores it, as the JAX package's does."""
     spp = spp or scene.spp
     from .regen import regen_applicable, render_regen_host
     if regen_applicable(scene, mode):
         return film_mod.develop(render_regen_host(scene, seed, spp,
                                                   control=control))
-    if control is not None:
-        raise not_ported("RenderControl on the fixed wavefront",
-                         "Queue 1 M12")
     n_pix = scene.film_w * scene.film_h
     # the JAX package caps an SSS scene's passes at 2^17 lanes (its TPU's
     # tiled layouts pad the event's per-lane state); the same cap gives

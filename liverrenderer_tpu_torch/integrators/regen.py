@@ -16,24 +16,27 @@ with one spare row, which takes the writes of the lanes that did not die.
 The JAX package's fused and packed pool layouts tune XLA scatters on a
 TPU; one layout serves here.
 
-Dropped on purpose: the JAX package's host schedule (probe-timed,
-power-of-two spp chunks per device execution, `render_regen_host`) exists
-only to keep single executions under the TPU runtime watchdog.  Here the
-host loop drives every iteration; its one host synchronisation per
-iteration is the `any(active)` test.  CUDA graphs come later.
+Dropped on purpose: the JAX package's probe-timed schedule of
+power-of-two spp chunks per device execution (`render_regen_host` without
+a control, its `_RATE_CACHE`) exists only to keep single executions under
+the TPU runtime watchdog.  Here the host loop drives every iteration; its
+one host synchronisation per iteration is the `any(active)` test.  A
+RenderControl still partitions the render, so that it can stop between
+the parts.  CUDA graphs come later.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
+from .. import film as film_mod
 from ..core.rng import make_sampler
 from ..emitter.dispatch import eval_environment
 from ..errors import not_ported
-from ..scene.ir import (FILTER_BOX, FILTER_TENT, SENSOR_IRRADIANCEMETER,
-                        SENSOR_THINLENS, Scene)
-from ..sensor.perspective import sample_ray
+from ..scene.ir import FILTER_BOX, FILTER_TENT, Scene
+from ..sensor.perspective import APERTURE_SENSORS, sample_ray
 from . import path as path_mod
 from . import volpath as vp
 
@@ -159,9 +162,14 @@ def _splat_died(scene: Scene, film, pos, L, died, in_range, pix0: int):
         return
     px = torch.clamp(pos[:, 0].to(torch.int64), 0, w - 1)
     py = torch.clamp(pos[:, 1].to(torch.int64), 0, h - 1)
+    idx = py * w + px - pix0
+    # a jittered position can round up into the next pixel, which may lie
+    # in the next tile: that sample is dropped, as the JAX package's
+    # scatter drops an out-of-bounds update
+    ok = died & in_range & (idx >= 0) & (idx < tile_pix)
     data = torch.cat([L, ones], -1)
-    film.index_add_(0, py * w + px - pix0,
-                    torch.where((died & in_range)[:, None], data, 0.0))
+    film.index_add_(0, torch.where(ok, idx, 0),
+                    torch.where(ok[:, None], data, 0.0))
 
 
 def _render_regen_tile(scene: Scene, seed, spp: int, pix0: int,
@@ -238,13 +246,88 @@ def render_regen(scene: Scene, seed, spp: int):
     return torch.cat(tiles)[:n_pix].view(h, w, 4)
 
 
-def render_regen_host(scene: Scene, seed, spp: int, control=None):
-    """The JAX package's host-scheduled entry point; on a GPU the whole
-    render is one host-driven loop, so this is render_regen."""
-    if control is not None:
-        raise not_ported("RenderControl (cancel / timeout / progress)",
-                         "Queue 1 M12")
-    return render_regen(scene, seed, spp)
+class RenderControl:
+    """Cooperative cancel, wall-clock timeout and progress of a regen
+    render (the JAX package's RenderControl; the reference's
+    Integrator::cancel / should_stop / m_timeout), checked between the
+    (pixel tile, spp chunk) parts of the render, so one part is the
+    response time.  On a stop the partial film develops as it is: filter
+    weights stay consistent, and the pixels not rendered yet have zero
+    weight (black).
+
+    timeout: seconds of wall clock (0: none), counted from the start of
+    each render.  on_progress: an optional callable(fraction done).
+    stopped: set when a render stopped early.  frame(): the developed
+    partial image (h, w, 3) at any moment, None before the first part."""
+
+    def __init__(self, timeout: float = 0.0, on_progress=None):
+        self.timeout = timeout
+        self.on_progress = on_progress
+        self.stopped = False
+        self._cancel = False
+        self._t0 = time.monotonic()
+        self._film = None         # the (tiles * tile_pix, 4) accumulator
+        self._shape = None
+
+    def cancel(self) -> None:
+        self._cancel = True
+
+    def _arm(self) -> None:
+        """At the start of a render: restart the timeout clock and clear
+        a previous render's stop, so that one control drives several
+        renders in turn.  A cancel() sticks: cancelling between renders
+        cancels the next one too."""
+        self._t0 = time.monotonic()
+        self.stopped = False
+
+    def should_stop(self) -> bool:
+        return self._cancel or (
+            self.timeout > 0 and time.monotonic() - self._t0 > self.timeout)
+
+    def frame(self):
+        if self._film is None:
+            return None
+        h, w = self._shape
+        return film_mod.develop(self._film[:h * w].view(h, w, 4))
+
+    def _update(self, film, shape, frac) -> None:
+        self._film, self._shape = film, shape
+        if self.on_progress is not None:
+            self.on_progress(frac)
+
+
+def render_regen_host(scene: Scene, seed, spp: int,
+                      control: RenderControl | None = None):
+    """render_regen, or with a control the same (pixel, sample) set in
+    parts: pixel tiles of TILE_PIX, each in power-of-two spp chunks of at
+    most a quarter of the spp (the JAX package's cap with a control),
+    with control.should_stop() checked before each part.  The JAX
+    package sizes its chunks by a timed probe to keep each device
+    execution under the TPU's watchdog; the card has no such limit, so
+    the chunk is fixed."""
+    if control is None:
+        return render_regen(scene, seed, spp)
+    control._arm()
+    w, h = scene.film_w, scene.film_h
+    n_pix = w * h
+    tile_pix = min(TILE_PIX, n_pix)
+    n_tiles = (n_pix + tile_pix - 1) // tile_pix
+    chunk = max(1, spp // 4)
+    chunk = 1 << (chunk.bit_length() - 1)
+    film = torch.zeros((n_tiles * tile_pix, 4), device=scene.device)
+    for t in range(n_tiles):
+        s0 = 0
+        while s0 < spp:
+            if control.should_stop():
+                control.stopped = True
+                return film[:n_pix].view(h, w, 4)
+            c = min(chunk, 1 << ((spp - s0).bit_length() - 1))
+            film[t * tile_pix:(t + 1) * tile_pix] += _render_regen_tile(
+                scene, seed, spp, t * tile_pix, tile_pix, samp0=s0,
+                spp_chunk=c)
+            s0 += c
+            control._update(film, (h, w), (t * spp + s0) / (n_tiles * spp))
+    return film[:n_pix].view(h, w, 4)
 
 
 def regen_applicable(scene: Scene, mode: str) -> bool:
@@ -252,5 +335,6 @@ def regen_applicable(scene: Scene, mode: str) -> bool:
             and scene.integrator in ("volpath", "biovolpath", "biovolpath06")
             + _SURFACE
             and scene.rfilter in (FILTER_BOX, FILTER_TENT)
-            and scene.sensor.stype not in (SENSOR_THINLENS,
-                                           SENSOR_IRRADIANCEMETER))
+            # the thinlens's and irradiancemeter's second 2-D sample is
+            # not drawn by the lane set-up
+            and scene.sensor.stype not in APERTURE_SENSORS)

@@ -1,11 +1,14 @@
 """A small PNG codec on zlib and numpy, for machines without PIL.
 
-Reads non-interlaced 8-bit grey, grey+alpha, RGB, RGBA and palette images
-with every row filter (None, Sub, Up, Average, Paeth), and returns them
-as PIL's `Image.open(p).convert("RGB")` does: (H, W, 3) uint8, grey
-repeated, alpha dropped, palettes looked up.  Writes 8-bit grey, RGB and
-RGBA images, every row Paeth-filtered.  16-bit, low-bit-depth and
-interlaced files raise (ROADMAP M9).
+Reads grey, grey+alpha, RGB, RGBA and palette images at every bit depth
+(1, 2, 4, 8 and 16), plain or Adam7-interlaced, with every row filter
+(None, Sub, Up, Average, Paeth), and returns them as the JAX package's
+reader, PIL's `Image.open(p).convert("RGB")`, does: (H, W, 3) uint8, grey
+repeated, alpha dropped, palettes looked up, low-bit grey scaled to
+0..255.  PIL keeps the high byte of a 16-bit sample, but a 16-bit grey
+image opens as "I;16", whose conversion to RGB clips every value above
+255 to 255 (ROADMAP Queue 3); the port does the same.  Writes 8-bit grey,
+RGB and RGBA images, every row Paeth-filtered.
 
 Sub and Up decode a whole row in numpy.  Average and Paeth carry a
 dependence along the row (each byte predicts from the decoded byte to its
@@ -19,11 +22,12 @@ import zlib
 
 import numpy as np
 
-from ..errors import not_ported
-
 _SIG = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(buf: bytes):
@@ -92,6 +96,25 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(data: bytes, w: int, h: int, nch: int, depth: int):
+    """One (sub)image's filtered scanlines -> ((h, w, nch) samples, bytes
+    used): 1-, 2- and 4-bit samples unpacked from the most significant
+    bits, 16-bit ones big-endian."""
+    stride = (w * nch * depth + 7) // 8
+    bpp = max(1, nch * depth // 8)
+    rows = _unfilter(data, h, stride, bpp)
+    if depth == 16:
+        px = rows.view(">u2")[:, :w * nch]
+    elif depth == 8:
+        px = rows[:, :w * nch]
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, :w * nch * depth]
+        px = np.zeros((h, w * nch), np.uint8)
+        for k in range(depth):
+            px = (px << 1) | bits[:, k::depth]
+    return px.reshape(h, w, nch), h * (stride + 1)
+
+
 def read_png(path: str) -> np.ndarray:
     """(H, W, 3) uint8, as PIL's convert("RGB")."""
     with open(path, "rb") as f:
@@ -109,13 +132,24 @@ def read_png(path: str) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = hdr
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG colour type {ctype}")
-    if depth != 8:
-        raise not_ported(f"{depth}-bit PNG files", "Queue 1 M9")
-    if interlace:
-        raise not_ported("interlaced PNG files", "Queue 1 M9")
-    bpp = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp) \
-        .reshape(h, w, bpp)
+    if depth not in (1, 2, 4, 8, 16) or (depth < 8 and ctype not in (0, 3)) \
+            or (depth == 16 and ctype == 3):
+        raise ValueError(f"PNG bit depth {depth} of colour type {ctype}")
+    nch = _CHANNELS[ctype]
+    data = zlib.decompress(b"".join(idat))
+    if not interlace:
+        px, _ = _samples(data, w, h, nch, depth)
+    else:
+        # each pass a small image of its own, filtered from a zero row
+        px = np.zeros((h, w, nch), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, (w - x0 + dx - 1) // dx), \
+                max(0, (h - y0 + dy - 1) // dy)
+            if pw and ph:
+                sub, used = _samples(data[off:], pw, ph, nch, depth)
+                px[y0::dy, x0::dx] = sub
+                off += used
     if ctype == 3:
         if palette is None:
             raise ValueError(f"palette PNG without PLTE: {path}")
@@ -123,6 +157,13 @@ def read_png(path: str) -> np.ndarray:
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[px[..., 0]]
+    if depth == 16:
+        # PIL: "I;16" grey clips to 255; the other modes keep the high
+        # byte
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+    elif depth < 8:
+        px = px * (255 // ((1 << depth) - 1))
+    px = px.astype(np.uint8)
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, -1)
     return np.ascontiguousarray(px[..., :3])

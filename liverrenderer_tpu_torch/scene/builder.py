@@ -3,11 +3,16 @@ liverrenderer_tpu/scene/builder.py), cut to the plugins of the slices
 ported so far:
 
   integrators  biovolpath, biovolpath06, volpath, volpathmis, prbvolpath,
-               path, direct, prb, prb_basic
-  sensor       perspective (to_world, fov, fov_axis), hdrfilm with a box,
-               tent, gaussian (the default), mitchell, catmullrom or
-               lanczos filter; the independent, stratified, multijitter,
-               orthogonal and ldsampler samplers
+               path, direct, prb, prb_basic; aov, depth and moment, which
+               render refuses as the JAX package's does
+               (integrators/aux.py renders them)
+  sensor       perspective (to_world, fov, fov_axis), thinlens,
+               orthographic, distant (direction, target), radiancemeter,
+               irradiancemeter (nested in its shape) and batch (its child
+               cameras); hdrfilm with a box, tent, gaussian (the
+               default), mitchell, catmullrom or lanczos filter; the
+               independent, stratified, multijitter, orthogonal and
+               ldsampler samplers
   shapes       mesh, blender, obj, ply, serialized, rectangle, cube, disk,
                cylinder, sphere (analytic), and merge's children
   bsdfs        diffuse (also the default of a shape without a BSDF),
@@ -64,9 +69,11 @@ from .ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
                  MEDIUM_HETEROGENEOUS, MEDIUM_HOMOGENEOUS, MEDIUM_LIVER,
                  MEDIUM_P, MEDIUM_PARENCHYMA, PHASE_BLEND, PHASE_HG,
                  PHASE_ISOTROPIC, PHASE_RAYLEIGH, PHASE_SGGX, PHASE_TAB,
-                 SENSOR_PERSPECTIVE, SHAPE_MESH, SHAPE_SPHERE, SSUB_DIPOLE,
-                 SSUB_VAE, TAB_BINS, TEX_BITMAP, TEX_CHECKERBOARD, TEX_CONST,
-                 TEX_P)
+                 SENSOR_BATCH, SENSOR_DISTANT, SENSOR_IRRADIANCEMETER,
+                 SENSOR_ORTHOGRAPHIC, SENSOR_PERSPECTIVE,
+                 SENSOR_RADIANCEMETER, SENSOR_THINLENS, SHAPE_MESH,
+                 SHAPE_SPHERE, SSUB_DIPOLE, SSUB_VAE, TAB_BINS, TEX_BITMAP,
+                 TEX_CHECKERBOARD, TEX_CONST, TEX_P)
 from .transform import Transform, from_any
 
 IOR_NAMES = {
@@ -87,7 +94,15 @@ CONDUCTOR_IOR = {
 }
 
 _INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "volpathmis",
-                "prbvolpath", "path", "direct", "prb", "prb_basic")
+                "prbvolpath", "path", "direct", "prb", "prb_basic", "aov",
+                "depth", "moment")
+_SENSOR_TYPES = {"perspective": SENSOR_PERSPECTIVE,
+                 "thinlens": SENSOR_THINLENS,
+                 "orthographic": SENSOR_ORTHOGRAPHIC,
+                 "distant": SENSOR_DISTANT,
+                 "radiancemeter": SENSOR_RADIANCEMETER,
+                 "irradiancemeter": SENSOR_IRRADIANCEMETER,
+                 "batch": SENSOR_BATCH}
 _SHAPE_TYPES = ("mesh", "blender", "obj", "ply", "serialized", "rectangle",
                 "cube", "disk", "cylinder", "sphere")
 _BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
@@ -107,12 +122,8 @@ _SUBSURFACE_TYPES = ("vaescatter", "dipole")
 _CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "srgb", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
-    "aov": "Queue 1 M10", "depth": "Queue 1 M10", "moment": "Queue 1 M10",
     "ptracer": "Queue 1 M10", "stokes": "Queue 1 M10",
     "volprim_rf_basic": "Queue 1 M10",
-    "thinlens": "Queue 1 M10", "orthographic": "Queue 1 M10",
-    "distant": "Queue 1 M10", "radiancemeter": "Queue 1 M10",
-    "irradiancemeter": "Queue 1 M10", "batch": "Queue 1 M10",
     "linearcurve": "Queue 1 M10", "bsplinecurve": "Queue 1 M10",
     "sdfgrid": "Queue 1 M10",
     "ellipsoids": "Queue 1 M10", "ellipsoidsmesh": "Queue 1 M10",
@@ -422,6 +433,13 @@ class _Builder:
         self.ssub_scale = 1.0
         self.named: Dict[str, tuple] = {}
         self.sensor_to_world = np.eye(4, dtype=np.float32)
+        self.sensor_type = SENSOR_PERSPECTIVE
+        self.sensor_target = None
+        self.sensor_shape = -1
+        self.batch_to_world = np.eye(4, dtype=np.float32)[None]
+        self.batch_fov_x = np.full(1, 45.0, np.float32)
+        self.aperture_radius, self.focus_distance = 0.0, 1.0
+        self.near, self.far = 1e-2, 1e4
         self.fov_x = 45.0
         self.film_w = 256
         self.film_h = 256
@@ -840,9 +858,13 @@ class _Builder:
                     ssub_idx = self.build_subsurface(v)
             elif k == "subsurface" or vt in _SUBSURFACE_TYPES:
                 ssub_idx = self.build_subsurface(v)
+            elif vt == "irradiancemeter" or k == "sensor":
+                # a sensor nested in its parent shape (the irradiancemeter)
+                self.build_sensor(v)
+                self.sensor_shape = len(self.s_bsdf)
             elif k == "bsdf" or vt in _BSDF_TYPES:
                 bsdf_d = v
-            elif vt in _OTHER_TYPES or k == "sensor":
+            elif vt in _OTHER_TYPES:
                 raise _unsupported(vt)
         if ssub_idx >= 0 and bsdf_d is None:
             # a subsurface shape without a BSDF gets the reference's
@@ -924,11 +946,41 @@ class _Builder:
 
     # --- sensor / film ------------------------------------------------------
     def build_sensor(self, d):
-        if d.get("type", "perspective") != "perspective":
-            raise _unsupported(d.get("type"))
         to_w = d.get("to_world")
         if to_w is not None:
             self.sensor_to_world = from_any(to_w).matrix.astype(np.float32)
+        self.sensor_type = _SENSOR_TYPES.get(d.get("type", "perspective"),
+                                             SENSOR_PERSPECTIVE)
+        if "direction" in d and self.sensor_type == SENSOR_DISTANT:
+            # a distant sensor's direction overrides to_world
+            dvec = np.asarray(d["direction"], np.float64)
+            dvec = dvec / np.linalg.norm(dvec)
+            sv = np.cross([0.0, 1.0, 0.0] if abs(dvec[1]) < 0.99
+                          else [1.0, 0.0, 0.0], dvec)
+            sv /= np.linalg.norm(sv)
+            mtx = np.eye(4, dtype=np.float32)
+            mtx[:3, 0], mtx[:3, 1], mtx[:3, 2] = sv, np.cross(dvec, sv), dvec
+            self.sensor_to_world = mtx
+        if "target" in d:
+            self.sensor_target = np.asarray(d["target"], np.float32)
+        if self.sensor_type == SENSOR_BATCH:
+            # the child cameras, side by side along the film's width
+            mats, fovs = [], []
+            for v in d.values():
+                if isinstance(v, dict) and v.get("type") in (
+                        "perspective", "thinlens", "orthographic"):
+                    sub = _Builder.__new__(_Builder)
+                    sub.sensor_to_world = np.eye(4, dtype=np.float32)
+                    sub.build_sensor(v)
+                    mats.append(sub.sensor_to_world)
+                    fovs.append(sub.fov_x)
+            if mats:
+                self.batch_to_world = np.stack(mats)
+                self.batch_fov_x = np.asarray(fovs, np.float32)
+        self.aperture_radius = float(d.get("aperture_radius", 0.0))
+        self.focus_distance = float(d.get("focus_distance", 1.0))
+        self.near = float(d.get("near_clip", 1e-2))
+        self.far = float(d.get("far_clip", 1e4))
         fov = float(d.get("fov", 45.0))
         axis = d.get("fov_axis", "x")
         film = d.get("film", {})
@@ -1063,8 +1115,7 @@ class _Builder:
             "bvh.node_min": bvh.node_min, "bvh.node_max": bvh.node_max,
             "bvh.right": bvh.right, "bvh.first": bvh.first,
             "bvh.count": bvh.count, "bvh.perm": bvh.perm,
-            "sensor.to_world": self.sensor_to_world.astype(np.float32),
-            "sensor.fov_x": np.asarray(self.fov_x, np.float32),
+            **self._sensor_arrays(V),
         }
         ssub_arrays, ssub_statics = self._subsurface(V, F)
         arrays.update(ssub_arrays)
@@ -1093,7 +1144,10 @@ class _Builder:
             if self.m_params else (0,),
             "media.count": len(self.m_type),
             "bvh.depth": int(bvh.depth),
-            "sensor.stype": SENSOR_PERSPECTIVE,
+            "sensor.stype": self.sensor_type,
+            "sensor.has_target": self.sensor_target is not None,
+            "sensor.target_shape": self.sensor_shape,
+            "sensor.batch_count": len(self.batch_to_world),
             "n_shapes": n_s, "n_tris": T, "n_spheres": len(self.sph_radius),
             "film_w": self.film_w, "film_h": self.film_h,
             "rfilter": self.rfilter, "spp": self.spp,
@@ -1114,6 +1168,32 @@ class _Builder:
             **ssub_statics,
         }
         return arrays, statics
+
+    def _sensor_arrays(self, V):
+        """The sensor table, with the scene's bounding sphere (over the
+        vertices and the analytic spheres) for a distant sensor."""
+        pts = [V]
+        if self.sph_center:
+            cs = np.asarray(self.sph_center, np.float32)
+            rs = np.asarray(self.sph_radius, np.float32)[:, None]
+            pts += [cs - rs, cs + rs]
+        allp = np.concatenate(pts)
+        bc = 0.5 * (allp.min(0) + allp.max(0))
+        br = float(np.linalg.norm(allp - bc, axis=1).max())
+        f32 = np.float32
+        return {
+            "sensor.to_world": self.sensor_to_world.astype(f32),
+            "sensor.fov_x": np.asarray(self.fov_x, f32),
+            "sensor.near_clip": np.asarray(self.near, f32),
+            "sensor.far_clip": np.asarray(self.far, f32),
+            "sensor.aperture_radius": np.asarray(self.aperture_radius, f32),
+            "sensor.focus_distance": np.asarray(self.focus_distance, f32),
+            "sensor.bsphere": np.asarray([*bc, max(br, 1e-6)], f32),
+            "sensor.target": np.zeros(3, f32) if self.sensor_target is None
+            else self.sensor_target.astype(f32),
+            "sensor.batch_to_world": self.batch_to_world.astype(f32),
+            "sensor.batch_fov_x": self.batch_fov_x.astype(f32),
+        }
 
     def _subsurface(self, V, F):
         """The subsurface table's arrays and statics, as the JAX builder
@@ -1246,7 +1326,7 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
                 b.max_depth = 64
             b.rr_depth = int(val.get("rr_depth", 5))
             b.hide_emitters = bool(val.get("hide_emitters", False))
-        elif t == "perspective":
+        elif t in _SENSOR_TYPES:
             b.build_sensor(val)
     # pass 3: shapes + standalone emitters
     for val in d.values():

@@ -229,9 +229,25 @@ class BVH(_Table):
 
 @dataclass
 class Sensor(_Table):
-    to_world: Tensor   # (4,4) camera-to-world
-    fov_x: Tensor      # () x field of view, degrees
+    """Camera or measurement sensor (the JAX Sensor's fields).  bsphere:
+    the scene's bounding sphere (cx, cy, cz, r), over which a distant
+    sensor spreads its origins, or above `target` when has_target;
+    batch_*: the batch sensor's stacked child cameras; target_shape: the
+    irradiancemeter's parent shape."""
+    to_world: Tensor         # (4,4) camera-to-world
+    fov_x: Tensor            # () x field of view, degrees
+    near_clip: Tensor        # ()
+    far_clip: Tensor         # ()
+    aperture_radius: Tensor  # () thinlens
+    focus_distance: Tensor   # () thinlens
+    bsphere: Tensor          # (4,)
+    target: Tensor           # (3,)
+    batch_to_world: Tensor   # (S, 4, 4)
+    batch_fov_x: Tensor      # (S,)
     stype: int = SENSOR_PERSPECTIVE
+    has_target: bool = False
+    target_shape: int = -1
+    batch_count: int = 1
 
 
 @dataclass

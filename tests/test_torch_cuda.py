@@ -484,3 +484,85 @@ def test_kernel_matches_plain_version_on_sss_event_rays(tmp_path,
         tr, pr = tci.intersect_closest_reference(rays, tris, boxes)
         torch.cuda.synchronize()
         _assert_agree(tk, pk, tr, pr, min_hits=1)
+
+
+@pytest.mark.cuda
+def test_piz_sky_decodes_on_the_cards_host(monkeypatch):
+    """The committed PIZ sky through the C++ Huffman loop (built on this
+    machine) and through its plain Python version: both equal
+    sky_map(1024, 512) in half, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathlib import Path
+    from liverrenderer_tpu_torch.io import exr as texr
+    from liverrenderer_tpu_torch.scene.liver_proxy import sky_map
+    sky = str(Path(__file__).resolve().parent / "data" / "torch_sky_piz.exr")
+    ref = sky_map(1024, 512).astype(np.float16).astype(np.float32)
+    np.testing.assert_array_equal(texr.read_exr_any(sky), ref)
+    monkeypatch.setattr(texr, "_huf_decode_native", texr._huf_decode_plain)
+    np.testing.assert_array_equal(texr.read_exr_any(sky), ref)
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card_matches_cli_on_the_cpu(tmp_path):
+    """`python -m liverrenderer_tpu_torch.cli` without --cpu renders on
+    the card (the kernels) and with it on the CPU; the two EXRs agree as
+    the card and CPU renders do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import subprocess
+    import sys
+    from pathlib import Path
+    from torch_sensor_scenes import CLI_XML, images_agree
+    root = Path(__file__).resolve().parents[1]
+    xml = tmp_path / "scene.xml"
+    xml.write_text(CLI_XML)
+    for name, extra in (("card", []), ("cpu", ["--cpu"])):
+        r = subprocess.run([sys.executable, "-m",
+                            "liverrenderer_tpu_torch.cli", str(xml), "-o",
+                            str(tmp_path / f"{name}.exr"), *extra],
+                           capture_output=True, text=True, cwd=str(root),
+                           timeout=600)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert f"device={name if name == 'cpu' else 'cuda'}" in r.stdout
+    card = lrt.read_image(str(tmp_path / "card.exr"))
+    cpu = lrt.read_image(str(tmp_path / "cpu.exr"))
+    frac, mean_rel = images_agree(card, cpu)
+    assert frac >= 0.99 and mean_rel <= 1e-3
+
+
+@pytest.mark.cuda
+def test_render_control_stops_on_the_card(monkeypatch):
+    """A control that cancels at half the progress stops, its partial
+    frame is finite and the tiles not rendered are black; an uncancelled
+    control renders the plain image (the splat's atomics aside)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.integrators import regen
+    from torch_sensor_scenes import images_agree
+    scene = lrt.load_dict(liver_proxy_dict(32, 24, 8, 2, 0))
+    ref = lrt.render(scene, spp=8).cpu().numpy()
+    monkeypatch.setattr(regen, "TILE_PIX", 256)      # 3 tiles
+    got = lrt.render(scene, spp=8, control=lrt.RenderControl())
+    frac, mean_rel = images_agree(got.cpu().numpy(), ref)
+    assert frac >= 0.99 and mean_rel <= 1e-3
+    ctl = lrt.RenderControl()
+    ctl.on_progress = lambda f: ctl.cancel() if f >= 0.5 else None
+    img = lrt.render(scene, spp=8, control=ctl).cpu().numpy()
+    assert ctl.stopped
+    assert torch.isfinite(ctl.frame()).all()
+    assert img.reshape(-1, 3)[:256].sum() > 0
+    assert img.reshape(-1, 3)[512:].sum() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["radiancemeter", "distant",
+                                  "distant_target", "irradiancemeter",
+                                  "batch", "thinlens", "orthographic"])
+def test_sensor_on_the_card_matches_cpu(name):
+    """Each sensor type at test size on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_sensor_scenes import sensor_scenes
+    d, spp = sensor_scenes((16, 12))[name]
+    _card_vs_cpu(d, spp)

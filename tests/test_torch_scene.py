@@ -271,7 +271,9 @@ def test_every_raise_names_an_open_roadmap_item():
               "projector", "obj", "ply", "serialized", "disk", "cylinder",
               "blender", "merge", "srgb", "blackbody", "regular",
               "irregular", "heterogeneous", "volpathmis", "vaescatter",
-              "dipole"):
+              "dipole", "thinlens", "orthographic", "distant",
+              "radiancemeter", "irradiancemeter", "batch", "aov", "depth",
+              "moment"):
         assert t not in tbuilder._OTHER_TYPES, t
     # the phase plugins load; a gridvolume is a medium's sigma_t, and as a
     # 3-D texture it still raises (M10)

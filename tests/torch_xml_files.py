@@ -9,6 +9,7 @@ The package has no XML or PLY writer (nor has the JAX package); these
 writers exist for the tests and the smoke run only.
 """
 import os
+import shutil
 
 import numpy as np
 
@@ -131,16 +132,22 @@ def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
 
 
 def write_proxy_files(dirpath, width, height, spp, subdiv=4, seed=0,
-                      bump_res=1024, sky=(1024, 512), max_depth=12):
+                      bump_res=1024, sky=(1024, 512), max_depth=12,
+                      sky_file=None):
     """scene.xml, liver.ply, height.png and sky.exr in dirpath -> (path of
-    scene.xml, {file name: bytes})."""
+    scene.xml, {file name: bytes}).  sky.exr is sky_map(*sky) as a ZIP
+    half EXR, or a copy of `sky_file` (tests/data/torch_sky_piz.exr: the
+    same sky written by OpenEXR with PIZ compression)."""
     os.makedirs(dirpath, exist_ok=True)
     v, f, n, uv = liver_mesh(subdiv, seed)
     write_ply(os.path.join(dirpath, "liver.ply"), v, f, n, uv)
     h = height_map(bump_res, seed)
     write_png(os.path.join(dirpath, "height.png"),
               np.round(h * 255.0).astype(np.uint8))
-    write_exr(os.path.join(dirpath, "sky.exr"), sky_map(*sky))
+    if sky_file is None:
+        write_exr(os.path.join(dirpath, "sky.exr"), sky_map(*sky))
+    else:
+        shutil.copyfile(sky_file, os.path.join(dirpath, "sky.exr"))
     xml = os.path.join(dirpath, "scene.xml")
     with open(xml, "w") as fh:
         fh.write(proxy_xml(width, height, spp, max_depth))
