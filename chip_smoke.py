@@ -54,8 +54,9 @@ result line):
   nee_walk_small   the fog-cube plane scene (the ratio-tracked shadow walk
                    and medium NEE) on the card against the CPU: the image
                    and the media.params gradient
-  fog_render       the fog Cornell box at 1080x1080, 2 spp, depth 16
-                   (BASELINE's cornell_box_1080x1080_fog_st_albedo):
+  fog_render       the fog Cornell box at 540x540 (cut from 1080x1080),
+                   2 spp, depth 16 (BASELINE's
+                   cornell_box_1080x1080_fog_st_albedo):
                    seconds, paths/s, image checks, sweep and merge launches
                    split into bounce and shadow queries; torch.profiler
                    over a 256x256 1 spp render of it (one full wavefront):
@@ -67,7 +68,7 @@ result line):
                    kernel_vs_plain), and shadow rays to a point light on
                    the liver proxy, whose split chunk range runs the merge
   fog_render_grad  render_grad of the fog Cornell box's mean image at
-                   1080x1080, 1 spp, d/d media.params (the tiled replay
+                   540x540, 1 spp, d/d media.params (the tiled replay
                    schedule): seconds of one run after a warm-up, fwd+bwd
                    paths/s and its cost per path against a 1 spp primal in
                    the same call, launches, peak device memory
@@ -165,7 +166,7 @@ result line):
                    render_grad: seconds, peak memory, gradient norm and
                    share of non-zero voxels
   volpathmis_render  test_volpathmis.py's chromatic fog on the Cornell box
-                   at 1080x1080, depth 16, 2 spp: volpathmis on one fixed
+                   at 540x540, depth 16, 2 spp: volpathmis on one fixed
                    pass in turns with volpath (regen): seconds, the ratio,
                    peak memory, image means per channel, sweeps; the
                    per-pixel variance over 4 seeds at 32x32, 4 spp of each
@@ -233,6 +234,40 @@ result line):
                    64 spp: two fixed-wavefront passes of 3,287,040 lanes;
                    seconds, peak memory, launches, and the ratio to the
                    perspective regen render of render_control
+  pipeline_render  the fork's liver pipeline at bench.py's workload size:
+                   pipeline.driver.main(settings, --scenes-dir, --out-dir)
+                   on a RendererSettings.yml of 428x240, 64 spp, "Max
+                   Depth " 12 and the reference's tissue defaults, with
+                   seeded synthetic spectra tables
+                   (tests/torch_pipeline_inputs.py) and the bumped,
+                   sky-lit proxy written as Liver-SingleMesh's scene
+                   files: the coefficients' seconds, time.txt's load and
+                   render seconds, paths/s, launches; its EXR against the
+                   render of load_file with the coefficients written into
+                   the liver row by hand, and against the unsubstituted
+                   render (it must differ)
+  pipeline_small   the driver at 16x12, 4 spp on the card against --cpu
+  evaluate_render  pipeline.evaluate.main at its defaults (downsample 4:
+                   428x240, 64 spp, the 16 spp denoise probe) on the
+                   Liver-SingleMesh row against a golden PNG rendered by
+                   the port at 1712x960, 16 spp, seed 9 and tonemapped:
+                   rmse, ssim, seconds, paths/s, the noisy and denoised
+                   metrics (the denoised rmse must be lower); the
+                   learned-SSS row (the soap substitute, the silhouette
+                   query, a synthetic VAE) at 64x48, 16 spp against an
+                   EXR golden
+  denoise_small    atrous_denoise and denoise_render card against CPU at
+                   16x12
+  inverse_render   Adam on the liver row's substituted columns (started at
+                   twice their value) toward a 64 spp target, 4 steps of
+                   a 16 spp render_grad at 428x240, a checkpoint after
+                   each (keep 3); a fresh optimizer resumes from step 2:
+                   seconds and fwd+bwd paths/s per step, losses, peak
+                   memory, the steps on disk, the resumed parameters'
+                   largest difference
+  largesteps       LargeSteps.from_differential and its gradient on the
+                   liver mesh at subdiv 4 and 8 (655,362 vertices), card
+                   against CPU: CG iterations, ms
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -244,7 +279,8 @@ result line):
                    the chromatic fog + the vaescatter proxy, its plain
                    twin, the dipole proxy and the vaescatter gradient +
                    the CLI scene's in-process render, the render_control
-                   renders and the thinlens render),
+                   renders and the thinlens render + the driver's render,
+                   the evaluation's rows and the inverse-rendering loop),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
@@ -265,11 +301,13 @@ KERNEL_SPP = 8                 # render_kernel phase
 GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
 TRACE_SPP = 2                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
-# the fog Cornell box: BASELINE's 1080x1080 film and depth 16, 2 spp for
-# the primal and 1 for the gradient, timed once after a warm-up (its
-# host-bound walk runs at ~0.2 Mpaths/s, ~6.6 bounces per path, and the
-# whole run should take at most half of its 1,200 s limit)
-FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 1080, 2, 1, 16
+# the fog Cornell box: BASELINE's depth 16, 2 spp for the primal and 1
+# for the gradient, timed once after a warm-up; its film cut from
+# BASELINE's 1080x1080 to 540x540 (its host-bound walk runs at ~0.2
+# Mpaths/s, ~6.6 bounces per path: the 1080^2 primal, gradient and their
+# warm-ups took ~50-60 s of the script's 1,200 s limit, which the
+# pipeline's phases need; 540^2 still tiles the gradient, in 2 walks)
+FOG_RES, FOG_SPP, FOG_GRAD_SPP, FOG_DEPTH = 540, 2, 1, 16
 FOG_TRACE_SPP = 1              # fog_render's profile, shadow_kernel
 FOG_TRACE_RES = 256            # fog_render's profile: one full wavefront
 FOG_SMALL = (32, 4, 6)         # fog_small: film, spp, depth
@@ -301,10 +339,12 @@ WIDE_BLOCK = 1 << 18
 # would take ~12 min alone.  The primal, its profile, the same cube of
 # homogeneous fog and the media.grids gradient all at that size.
 GRID_RES, GRID_SPP, GRID_GRAD_SPP, GRID_N = 256, 1, 1, 256
-# volpathmis on test_volpathmis.py's chromatic fog, in turns with volpath;
-# the per-pixel variance over VAR_SEEDS seeds at VAR_RES^2, VAR_SPP spp
+# volpathmis on test_volpathmis.py's chromatic fog, in turns with volpath,
+# at 540^2 (cut from 1080^2: volpath's two host-bound regen renders took
+# 24-42 s); the per-pixel variance over VAR_SEEDS seeds at VAR_RES^2,
+# VAR_SPP spp
 CHROMA = (0.9, 0.3, 0.05)
-MIS_RES, MIS_SPP, MIS_DEPTH = 1080, 2, 16
+MIS_RES, MIS_SPP, MIS_DEPTH = 540, 2, 16
 VAR_RES, VAR_SPP, VAR_SEEDS = 32, 4, 4
 # bvh_query: the liver proxy past 2^21 triangles (subdiv 9: 5,242,880) and
 # at subdiv 8 (1,310,720), where the sweep kernel serves it too
@@ -329,6 +369,23 @@ CLI_AOVS = ("depth", "position", "sh_normal", "albedo")
 CLI_PIX_FRAC = 0.99
 CONTROL_TILE_PIX = 1 << 15
 THINLENS = {"aperture_radius": 0.05, "focus_distance": 5.0}
+# the fork's liver pipeline (pipeline_phases): the driver's settings at
+# bench.py's workload size (RendererSettings.yml's own 1920x1080 at 256
+# spp is ~80x the paths, ~10 min on the card: cut for the time limit); the
+# evaluation's golden at 4x that film, 16 spp, tonemapped to a PNG; its SSS
+# row at a small film and spp; the inverse-rendering loop's target spp,
+# Adam steps, learning rate, checkpoints kept and the step it resumes
+# from; the LargeSteps meshes (liver_mesh subdivisions)
+PIPE_DEPTH = 12
+PIPE_SMALL = (16, 12, 4)
+GOLDEN_SCALE, GOLDEN_SPP, GOLDEN_SEED = 4, 16, 9
+EVAL_SSS = (64, 48, 16)
+INV_TARGET_SPP, INV_STEPS, INV_LR, INV_KEEP, INV_RESUME = 64, 4, 1e-2, 3, 2
+INV_SEED = 100
+INV_RESUME_RTOL = 1e-5
+LARGESTEPS_SUBDIVS = (4, 8)
+LARGESTEPS_RTOL = 1e-5
+DENOISE_RTOL, DENOISE_ATOL = 1e-5, 1e-6
 # sensors_small's Cornell box film: every sensor scene at 16x12 or less
 SENSOR_CORNELL_FILM = (16, 12)
 # media_small: film, spp; the point light of its grid cubes
@@ -2559,6 +2616,386 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
                 thinlens=thin_counts)
 
 
+def _liver_columns():
+    """The liver medium's columns that pipeline.driver writes: lipid-water
+    (3:6), the four collagen and elastin layers (12:36), blood, bile and
+    the hepatocyte term (40:47)."""
+    return [3, 4, 5] + list(range(12, 36)) + list(range(40, 47))
+
+
+def _by_hand(torch, scene, coeffs):
+    """The scene with `coeffs` written into its liver row column by column
+    (independent of driver.apply_medium_coefficients)."""
+    from liverrenderer_tpu_torch.scene.ir import MEDIUM_LIVER
+    prm = scene.media.params.clone()
+    rows = (scene.media.mtype == MEDIUM_LIVER).nonzero().flatten().tolist()
+    for i in rows:
+        for layer in range(4):
+            for c, ch in enumerate("RGB"):
+                prm[i, 12 + 3 * layer + c] = coeffs[
+                    f"sigma_collagen{layer + 1}_{ch}"]
+                prm[i, 24 + 3 * layer + c] = coeffs[
+                    f"sigma_elastin{layer + 1}_{ch}"]
+        for col, key in ((40, "sigma_blood"), (43, "sigma_bile"),
+                         (3, "sigma_lipid_water")):
+            prm[i, col:col + 3] = torch.as_tensor(coeffs[key])
+        prm[i, 46] = coeffs["sigma_hepatocity"]
+    return scene.replace(media=scene.media.replace(params=prm)), rows
+
+
+def _quiet(fn, logfile):
+    """fn() with its stdout (the tools' log lines and tables) in logfile."""
+    import contextlib
+    with open(logfile, "a") as f, contextlib.redirect_stdout(f):
+        return fn()
+
+
+def pipeline_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases pipeline_render, pipeline_small, evaluate_render,
+    denoise_small, inverse_render and largesteps: the fork's liver
+    pipeline on the card, with seeded synthetic spectra tables
+    (tests/torch_pipeline_inputs.py) in the reference's place -> the
+    launch counts of the driver's render, the evaluation's two rows and
+    the inverse-rendering loop."""
+    from liverrenderer_tpu_torch.pipeline import medium_models
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, SKY
+    pin = _tests_module("torch_pipeline_inputs")
+    data_dir = medium_models.DATA_DIR
+    medium_models.DATA_DIR = pin.write_tables(os.path.join(workdir, "data"))
+    try:
+        scenes = os.path.join(workdir, "scenes")
+        xml = pin.write_scenes(scenes, WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+                               bump_res=BUMP[0], sky=SKY,
+                               max_depth=PIPE_DEPTH)
+        settings = pin.write_settings(
+            os.path.join(workdir, "RendererSettings.yml"), WIDTH, HEIGHT,
+            SPP, PIPE_DEPTH)
+        logfile = os.path.join(workdir, "tools.log")
+        pipe_counts, coeffs, rows = driver_phases(
+            torch, np, lrt, ci, smi, workdir, xml, scenes, settings, logfile,
+            pin)
+        eval_counts, sss_counts = evaluate_phase(
+            torch, np, lrt, ci, smi, workdir, xml, scenes, logfile, pin)
+        denoise_phase(torch, np, lrt)
+        inv_counts = inverse_phase(torch, lrt, ci, smi, workdir, xml, coeffs,
+                                   rows)
+        largesteps_phase(torch, np, lrt, smi)
+    finally:
+        medium_models.DATA_DIR = data_dir
+    return dict(pipeline=pipe_counts, evaluate=eval_counts,
+                evaluate_sss=sss_counts, inverse=inv_counts)
+
+
+def driver_phases(torch, np, lrt, ci, smi, workdir, xml, scenes, settings,
+                  logfile, pin):
+    """pipeline_render and pipeline_small -> (launch counts of the
+    driver's render, the coefficients, the liver rows)."""
+    from liverrenderer_tpu_torch.pipeline import driver
+    from liverrenderer_tpu_torch.pipeline.prepare_medium import \
+        compute_coefficients
+    ss = _tests_module("torch_sensor_scenes")
+    n_pix = WIDTH * HEIGHT
+    # ---- 14a. the driver at full width: settings -> coefficients ->
+    # load_file -> the media's rows -> render -> EXR, PNG, time.txt
+    t0 = time.perf_counter()
+    coeffs = compute_coefficients(driver.load_settings(settings)["tissue"])
+    coeff_s = time.perf_counter() - t0
+    out = os.path.join(workdir, "driver")
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    rc = _quiet(lambda: driver.main([settings, "--scenes-dir", scenes,
+                                     "--out-dir", out]), logfile)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    pipe_counts = launch_counts(ci)
+    times = dict(ln.split(": ", 1) for ln in open(os.path.join(
+        out, "time.txt")).read().splitlines())
+    load_s = float(times["Load time"].split()[0])
+    render_s = 60.0 * float(times["Render time"].split()[0])
+    exr = lrt.read_image(os.path.join(out, "liver-singlemesh.exr"))
+    by_hand, rows = _by_hand(torch, lrt.load_file(xml), coeffs)
+    _, ref = timed_render(torch, lrt, by_hand, SPP)
+    frac, mean_rel = ss.images_agree(exr, ref.cpu().numpy())
+    _, plain = timed_render(torch, lrt, lrt.load_file(xml), SPP)
+    plain = plain.cpu().numpy()
+    changed = float(np.abs(exr - plain).mean() / np.abs(plain).mean())
+    emit("pipeline_render", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+         max_depth=PIPE_DEPTH, command="driver.main([settings, "
+         "'--scenes-dir', D, '--out-dir', O])", returncode=rc,
+         coefficients_seconds=coeff_s, main_seconds=main_s,
+         time_txt=times, load_seconds=load_s, render_seconds=render_s,
+         paths_per_s=n_pix * SPP / render_s, liver_rows=rows,
+         coefficients={k: coeffs[k] for k in (
+             "sigma_collagen1_R", "sigma_elastin1_G", "sigma_blood",
+             "sigma_bile", "sigma_lipid_water", "sigma_hepatocity")},
+         launches=pipe_counts[0], merge_launches=pipe_counts[1],
+         vs_by_hand_pixel_frac=frac, vs_by_hand_mean_rel=mean_rel,
+         vs_unsubstituted_mean_abs_rel=changed, mean=float(exr.mean()))
+    check(rc == 0 and exr.shape == (HEIGHT, WIDTH, 3)
+          and bool(np.isfinite(exr).all()), "pipeline_render: the EXR")
+    check(rows, "pipeline_render: the scene has no liver medium")
+    check(frac >= CLI_PIX_FRAC and mean_rel <= MEAN_RTOL,
+          "pipeline_render: the driver's EXR differs from the render with "
+          "the coefficients written by hand")
+    check(changed > 1e-3, "pipeline_render: the coefficients did not "
+          f"reach the medium (mean change {changed})")
+    check(pipe_counts[0] > 0 and pipe_counts[1] > 0,
+          "pipeline_render: the render did not launch the kernels")
+
+    # ---- 14b. the driver at test size (the proxy at subdiv 2 with the
+    # small height map and sky of xml_small), card against CPU
+    w_s, h_s, spp_s = PIPE_SMALL
+    scenes_s = os.path.join(workdir, "scenes_small")
+    pin.write_scenes(scenes_s, w_s, h_s, spp_s, 2, SEED,
+                     bump_res=BUMP_SMALL[0], sky=SKY_SMALL,
+                     max_depth=PIPE_DEPTH)
+    settings_s = pin.write_settings(os.path.join(workdir, "small.yml"), w_s,
+                                    h_s, spp_s, PIPE_DEPTH)
+    small = {}
+    for dev, extra in (("card", []), ("cpu", ["--cpu"])):
+        o = os.path.join(workdir, f"small_{dev}")
+        _quiet(lambda: driver.main([settings_s, "--scenes-dir", scenes_s,
+                                    "--out-dir", o, *extra]), logfile)
+        small[dev] = lrt.read_image(os.path.join(o, "liver-singlemesh.exr"))
+    frac_s, mean_rel_s = ss.images_agree(small["card"], small["cpu"])
+    emit("pipeline_small", film=[w_s, h_s], spp=spp_s, pixel_frac=frac_s,
+         mean_rel=mean_rel_s, mean=float(small["card"].mean()))
+    check(frac_s >= PIX_FRAC_MIN and mean_rel_s <= MEAN_RTOL,
+          "pipeline_small: the card's image disagrees with the CPU's")
+    return pipe_counts, coeffs, rows
+
+
+def evaluate_phase(torch, np, lrt, ci, smi, workdir, xml, scenes, logfile,
+                   pin):
+    """evaluate_render -> launch counts of the Liver-SingleMesh and the
+    SSS rows."""
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.pipeline import evaluate
+    from liverrenderer_tpu_torch.ssub import vae as tvae
+    from liverrenderer_tpu_torch.tonemap import tonemap
+    sss_in = _tests_module("torch_sss_inputs")
+    # ---- 14c. evaluate at its defaults against a golden PNG
+    golden = os.path.join(scenes, pin.LIVER_GOLDEN)
+    os.makedirs(os.path.dirname(golden), exist_ok=True)
+    g_scene = lrt.load_file(xml, res_width=GOLDEN_SCALE * WIDTH,
+                            res_height=GOLDEN_SCALE * HEIGHT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = lrt.render(g_scene, spp=GOLDEN_SPP, seed=GOLDEN_SEED)
+    g = g.cpu().numpy()
+    golden_s = time.perf_counter() - t0
+    del g_scene
+    write_png(golden, (tonemap(g) * 255 + 0.5).astype(np.uint8))
+    ev_out = os.path.join(workdir, "evaluate")
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    _quiet(lambda: evaluate.main(["--scenes-dir", scenes, "--scenes",
+                                  "Liver-SingleMesh", "--out-dir", ev_out]),
+           logfile)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = launch_counts(ci)
+    with open(os.path.join(ev_out, "results.json")) as f:
+        row = json.load(f)["Liver-SingleMesh"]
+    # the learned-SSS row with the soap substitute and a synthetic VAE
+    w_e, h_e, spp_e = EVAL_SSS
+    model = sss_in.write_model(os.path.join(workdir, "vae"), seed=SEED)
+    with sss_in.substituted(*model, tvae):
+        pin.write_sss_scene(scenes, w_e, h_e, spp_e, GOLDEN_SCALE)
+        reset_counts(ci)
+        t0 = time.perf_counter()
+        sss_row = _quiet(lambda: evaluate.evaluate(
+            scenes, ev_out, GOLDEN_SCALE, spp_e, ["SphereLiverPoint-SSS"],
+            merge=True), logfile)["SphereLiverPoint-SSS"]
+        torch.cuda.synchronize()
+        sss_s = time.perf_counter() - t0
+        sss_counts = launch_counts(ci)
+
+    def finite(x):
+        vals = x.values() if isinstance(x, dict) else \
+            x if isinstance(x, list) else [x]
+        return all(finite(v) for v in vals) if isinstance(
+            x, (dict, list)) else isinstance(x, (bool, str)) or \
+            bool(np.isfinite(x))
+    emit("evaluate_render", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+         golden=[GOLDEN_SCALE * WIDTH, GOLDEN_SCALE * HEIGHT],
+         golden_spp=GOLDEN_SPP, golden_seconds=golden_s,
+         evaluate_seconds=eval_s, row=row, launches=eval_counts[0],
+         merge_launches=eval_counts[1], sss_film=[w_e, h_e], sss_spp=spp_e,
+         sss_seconds=sss_s, sss_row=sss_row, sss_launches=sss_counts[0],
+         sss_merge_launches=sss_counts[1])
+    check("error" not in row and "error" not in sss_row,
+          f"evaluate_render: an error row: {row} {sss_row}")
+    check(finite(row) and finite(sss_row),
+          "evaluate_render: a value is not finite")
+    check(row["denoise"]["denoised_rmse"] < row["denoise"]["noisy_rmse"],
+          "evaluate_render: the denoised image is no closer to the golden")
+    check(sss_row.get("silhouette_iou", 0) > 0.5,
+          "evaluate_render: the SSS row's silhouette")
+    check(eval_counts[0] > 0 and sss_counts[0] > 0,
+          "evaluate_render: no sweep launched")
+    return eval_counts, sss_counts
+
+
+def denoise_phase(torch, np, lrt):
+    """denoise_small."""
+    from liverrenderer_tpu_torch import denoise as tdn
+    from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
+    ss = _tests_module("torch_sensor_scenes")
+    w_s, h_s, spp_s = PIPE_SMALL
+    # ---- 14d. the denoiser, card against CPU
+    rng = np.random.default_rng(SEED)
+    bufs = [rng.random((h_s, w_s, 3)).astype(np.float32) for _ in range(3)]
+    bufs.append(0.05 * rng.random((h_s, w_s)).astype(np.float32))
+    at_cpu = tdn.atrous_denoise(*[torch.as_tensor(b) for b in bufs])
+    at_card = tdn.atrous_denoise(*[torch.as_tensor(b).cuda() for b in bufs])
+    at_err = float((at_card.cpu() - at_cpu).abs().max())
+    at_ok = bool(torch.allclose(at_card.cpu(), at_cpu, rtol=DENOISE_RTOL,
+                                atol=DENOISE_ATOL))
+    d_small = liver_proxy_dict(w_s, h_s, spp_s, 2, SEED)
+    dn = {dev: tdn.denoise_render(lrt.load_dict(d_small, device=dev),
+                                  spp=spp_s, seed=SEED).cpu().numpy()
+          for dev in ("cuda", "cpu")}
+    frac_d, mean_rel_d = ss.images_agree(dn["cuda"], dn["cpu"])
+    emit("denoise_small", film=[w_s, h_s], spp=spp_s,
+         atrous_max_abs_err=at_err, atrous_equal_within_tol=at_ok,
+         denoise_render_pixel_frac=frac_d, denoise_render_mean_rel=mean_rel_d)
+    check(at_ok, f"denoise_small: atrous_denoise card vs CPU {at_err}")
+    check(frac_d >= PIX_FRAC_MIN and mean_rel_d <= MEAN_RTOL,
+          "denoise_small: denoise_render card vs CPU")
+
+
+def inverse_phase(torch, lrt, ci, smi, workdir, xml, coeffs, rows):
+    """inverse_render -> the loop's launch counts."""
+    from liverrenderer_tpu_torch.checkpoint import \
+        OptimizationCheckpointer as Checkpointer
+    from liverrenderer_tpu_torch.pipeline import driver
+    n_pix = WIDTH * HEIGHT
+    # ---- 14e. inverse rendering: Adam on media.params with checkpoints
+    scene = driver.apply_medium_coefficients(lrt.load_file(xml), coeffs)
+    cols = torch.tensor(_liver_columns(), device=scene.device)
+    mask = torch.zeros_like(scene.media.params)
+    mask[rows[0], cols] = 1.0
+    reset_counts(ci)
+    target = lrt.render(scene, spp=INV_TARGET_SPP, seed=SEED + 7)
+
+    def loss_fn(img):
+        return torch.mean((img - target) ** 2)
+
+    def step(param, opt, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, _ = lrt.render_grad(
+            lrt.apply_params(scene, {"media.params": param.detach()}),
+            {"media.params": param.detach()}, loss_fn, spp=GRAD_SPP,
+            seed=INV_SEED + k)
+        g = grads["media.params"] * mask
+        opt.zero_grad()
+        param.grad = g
+        opt.step()
+        with torch.no_grad():
+            param.clamp_(min=0.0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, float(loss), g
+
+    ck_dir = os.path.join(workdir, "checkpoints")
+    p0 = scene.media.params * (1.0 + mask)        # the liver columns x2
+    param = p0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([param], lr=INV_LR)
+    ck = Checkpointer(ck_dir, keep=INV_KEEP)
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, gnorms, saved = [], [], [], {}
+    g_finite = True
+    for k in range(1, INV_STEPS + 1):
+        s_k, l_k, g = step(param, opt, k)
+        secs.append(s_k)
+        losses.append(l_k)
+        gnorms.append(float(g.norm()))
+        g_finite = g_finite and bool(torch.isfinite(g).all())
+        ck.save(k, {"media.params": param.detach()}, opt.state_dict())
+        saved[k] = param.detach().clone()
+    peak = torch.cuda.max_memory_allocated()
+    on_disk = ck.all_steps()
+    ck.close()
+    # a fresh run resumes from step INV_RESUME and redoes the rest
+    ck2 = Checkpointer(ck_dir, keep=INV_KEEP)
+    p_like = {"media.params": torch.zeros_like(p0)}
+    fresh = torch.optim.Adam([torch.zeros_like(p0, requires_grad=True)],
+                             lr=INV_LR)
+    r_step, r_params, r_state = ck2.restore(p_like, fresh.state_dict(),
+                                            step=INV_RESUME)
+    param2 = r_params["media.params"].clone().requires_grad_(True)
+    opt2 = torch.optim.Adam([param2], lr=INV_LR)
+    opt2.load_state_dict(r_state)
+    restored_equal = bool(torch.equal(param2.detach(), saved[INV_RESUME]))
+    resumed = []
+    for k in range(INV_RESUME + 1, INV_STEPS + 1):
+        resumed.append(step(param2, opt2, k)[0])
+    inv_counts = launch_counts(ci)
+    diff = float((param2.detach() - param.detach()).abs().max())
+    scale = float(param.detach().abs().max())
+    emit("inverse_render", card=smi, film=[WIDTH, HEIGHT],
+         target_spp=INV_TARGET_SPP, spp=GRAD_SPP, steps=INV_STEPS, lr=INV_LR,
+         seconds_per_step=secs, resumed_seconds_per_step=resumed,
+         fwd_bwd_paths_per_s=[n_pix * GRAD_SPP / x for x in secs],
+         loss=losses, grad_norm=gnorms, max_memory_allocated=peak,
+         steps_on_disk=on_disk, restored_step=r_step,
+         restored_equal=restored_equal, resumed_max_abs_diff=diff,
+         param_abs_max=scale, launches=inv_counts[0],
+         merge_launches=inv_counts[1])
+    check(g_finite and min(gnorms) > 0,
+          "inverse_render: a gradient is not finite or zero")
+    check(on_disk == list(range(INV_STEPS - INV_KEEP + 1, INV_STEPS + 1)),
+          f"inverse_render: steps on disk {on_disk}")
+    check(r_step == INV_RESUME and restored_equal,
+          "inverse_render: the restored parameters differ from the saved")
+    check(diff <= INV_RESUME_RTOL * scale,
+          f"inverse_render: resumed parameters differ by {diff}")
+    return inv_counts
+
+
+def largesteps_phase(torch, np, lrt, smi):
+    """largesteps."""
+    from liverrenderer_tpu_torch.scene.liver_proxy import liver_mesh
+    # ---- 14f. LargeSteps: the CG solve and its gradient, card vs CPU
+    ls_out = {}
+    for subdiv in LARGESTEPS_SUBDIVS:
+        v, f, _, _ = liver_mesh(subdiv, SEED)
+        w = torch.as_tensor(np.random.default_rng(subdiv).normal(
+            size=v.shape).astype(np.float32))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            ls = lrt.LargeSteps(len(v), f, device=dev)
+            u = ls.to_differential(torch.as_tensor(v, device=dev) * 1.1)
+            u.requires_grad_(True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = ls.from_differential(u)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (x * w.to(dev)).sum().backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res[dev] = dict(x=x.detach().cpu(), g=u.grad.cpu(),
+                            ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                            iterations=ls.iterations,
+                            backward_iterations=ls.backward_iterations)
+        errs = {k: float((res["cuda"][k] - res["cpu"][k]).abs().max()
+                         / res["cpu"][k].abs().max()) for k in ("x", "g")}
+        ls_out[f"subdiv_{subdiv}"] = dict(
+            vertices=len(v), edges=int(ls.edges.shape[0]), rel_err=errs,
+            **{f"{dev}_{k}": res[dev][k] for dev in res
+               for k in ("ms", "backward_ms", "iterations",
+                         "backward_iterations")})
+    emit("largesteps", card=smi, **ls_out)
+    bad = [k for k, v in ls_out.items()
+           if max(v["rel_err"].values()) > LARGESTEPS_RTOL]
+    check(not bad, f"largesteps: the card disagrees with the CPU: {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2575,6 +3012,7 @@ def main() -> int:
         _tests_module("torch_xml_files")
         _tests_module("torch_sss_inputs")
         _tests_module("torch_sensor_scenes")
+        _tests_module("torch_pipeline_inputs")
     except (ImportError, FileNotFoundError) as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -2866,6 +3304,13 @@ def main() -> int:
     # the other sensors
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as workdir:
         cli = cli_phases(torch, np, lrt, ci, smi, workdir)
+
+    # ---- 14. the fork's liver pipeline: the driver, evaluate with its
+    # denoise probe, the denoiser, the inverse-rendering loop, LargeSteps
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as workdir:
+        pipe = pipeline_phases(torch, np, lrt, ci, smi, workdir)
+    pipe_sweeps = sum(c[0] for c in pipe.values())
+    pipe_merges = sum(c[1] for c in pipe.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -2891,7 +3336,8 @@ def main() -> int:
              + med["vp_counts"][0] + sss["counts"][0]
              + sss["plain_counts"][0] + sss["dipole_counts"][0]
              + sss["grad_counts"]["fwd_launches"] + cli["counts"][0]
-             + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0],
+             + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0]
+             + pipe_sweeps,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -2917,6 +3363,10 @@ def main() -> int:
              render_control_launches=split_counts(cli["control"]),
              render_control_plain_launches=split_counts(cli["plain"]),
              thinlens_render_launches=split_counts(cli["thinlens"]),
+             pipeline_render_launches=split_counts(pipe["pipeline"]),
+             evaluate_render_launches=split_counts(pipe["evaluate"]),
+             evaluate_sss_launches=split_counts(pipe["evaluate_sss"]),
+             inverse_render_launches=split_counts(pipe["inverse"]),
              sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
              sss_event_bound_ms={g: v["bound_ms"]
                                  for g, v in sss["kernel"].items()},
@@ -2967,13 +3417,17 @@ def main() -> int:
              + sss["dipole_counts"][1]
              + sss["grad_counts"]["fwd_merge_launches"]
              + cli["counts"][1] + cli["control"][1] + cli["plain"][1]
-             + cli["thinlens"][1],
+             + cli["thinlens"][1] + pipe_merges,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
              sss_render_launches=sss["counts"][1],
              cli_render_launches=cli["counts"][1],
              thinlens_render_launches=cli["thinlens"][1],
+             pipeline_render_launches=pipe["pipeline"][1],
+             evaluate_render_launches=pipe["evaluate"][1],
+             evaluate_sss_launches=pipe["evaluate_sss"][1],
+             inverse_render_launches=pipe["inverse"][1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -31,7 +31,13 @@ replay adjoint or the scan adjoint.
     aovs = lrt.render_aovs(scene, ("depth", "albedo"))
 
 The command-line renderer: `python -m liverrenderer_tpu_torch.cli
-scene.xml -o out.exr` (on the card; `--cpu` renders on the CPU).
+scene.xml -o out.exr` (on the card; `--cpu` renders on the CPU).  The
+fork's liver pipeline: `python -m liverrenderer_tpu_torch.pipeline.driver
+settings.yml` (tissue fractions -> the media's coefficients -> render),
+`python -m liverrenderer_tpu_torch.pipeline.evaluate` (RMSE and SSIM
+against goldens) and `python -m liverrenderer_tpu_torch.denoise scene.xml`
+(the a-trous denoiser), each with `--cpu`; for inverse rendering
+`LargeSteps` and `checkpoint.OptimizationCheckpointer`.
 """
 
 import torch as _torch
@@ -52,9 +58,10 @@ from .integrators.prb import render_fwd_grad, render_grad  # noqa: E402
 from .integrators.aux import (render_aovs, render_depth,  # noqa: E402
                               render_direct, render_moments)
 from .util import SceneParameters, apply_params, traverse  # noqa: E402
+from .largesteps import LargeSteps  # noqa: E402
 
 __all__ = ["load_dict", "load_file", "cornell_box", "read_image",
            "write_image", "render", "RenderControl", "render_grad",
            "render_fwd_grad", "render_aovs", "render_depth", "render_direct",
            "render_moments", "traverse", "apply_params", "SceneParameters",
-           "Transform"]
+           "Transform", "LargeSteps"]

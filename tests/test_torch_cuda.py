@@ -566,3 +566,136 @@ def test_sensor_on_the_card_matches_cpu(name):
     from torch_sensor_scenes import sensor_scenes
     d, spp = sensor_scenes((16, 12))[name]
     _card_vs_cpu(d, spp)
+
+
+def _pipeline_inputs(tmp_path, monkeypatch, w=16, h=12, spp=4, depth=4):
+    """(settings, scenes dir) at test size, with medium_models.DATA_DIR on
+    the synthetic spectra."""
+    import torch_pipeline_inputs as pin
+    from liverrenderer_tpu_torch.pipeline import medium_models
+    monkeypatch.setattr(medium_models, "DATA_DIR",
+                        pin.write_tables(str(tmp_path / "data")))
+    scenes = str(tmp_path / "scenes")
+    pin.write_scenes(scenes, w, h, spp, subdiv=2, bump_res=32, sky=(64, 32),
+                     max_depth=depth)
+    return pin.write_settings(str(tmp_path / "s.yml"), w, h, spp,
+                              depth), scenes
+
+
+@pytest.mark.cuda
+def test_pipeline_driver_on_the_card_matches_cpu(tmp_path, monkeypatch):
+    """`pipeline.driver` without --cpu renders on the card, with it on the
+    CPU; the EXRs agree as the card and CPU renders do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.pipeline import driver
+    from torch_sensor_scenes import images_agree
+    settings, scenes = _pipeline_inputs(tmp_path, monkeypatch)
+    out = {}
+    for name, extra in (("card", []), ("cpu", ["--cpu"])):
+        assert driver.main([settings, "--scenes-dir", scenes, "--out-dir",
+                            str(tmp_path / name), *extra]) == 0
+        out[name] = lrt.read_image(str(tmp_path / name /
+                                       "liver-singlemesh.exr"))
+    frac, mean_rel = images_agree(out["card"], out["cpu"])
+    assert frac >= 0.99 and mean_rel <= 1e-3
+
+
+@pytest.mark.cuda
+def test_evaluate_on_the_card_matches_cpu(tmp_path, monkeypatch):
+    """`pipeline.evaluate` of the Liver-SingleMesh row (its denoise probe
+    at 4 spp) on the card and on the CPU: no error row, metrics close."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import torch_pipeline_inputs as pin
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.pipeline import evaluate
+    from liverrenderer_tpu_torch.tonemap import tonemap
+    _, scenes = _pipeline_inputs(tmp_path, monkeypatch)
+    xml, gold, mask, opts = evaluate.CONFIGS["Liver-SingleMesh"]
+    monkeypatch.setitem(evaluate.CONFIGS, "Liver-SingleMesh",
+                        (xml, gold, mask, dict(opts, denoise_probe=4)))
+    golden = os.path.join(scenes, pin.LIVER_GOLDEN)
+    os.makedirs(os.path.dirname(golden))
+    g = lrt.render(lrt.load_file(os.path.join(scenes, xml), res_width=64,
+                                 res_height=48), spp=4, seed=9)
+    write_png(golden, (tonemap(g.cpu().numpy()) * 255 + 0.5)
+              .astype(np.uint8))
+    rows = {dev: evaluate.evaluate(scenes, str(tmp_path / dev), 4, 4,
+                                   ["Liver-SingleMesh"], device=dev)
+            ["Liver-SingleMesh"] for dev in ("cuda", "cpu")}
+    assert "error" not in rows["cuda"] and "error" not in rows["cpu"]
+    for k in ("rmse", "ssim"):
+        assert abs(rows["cuda"][k] - rows["cpu"][k]) <= 1e-3, k
+        assert abs(rows["cuda"]["denoise"][f"denoised_{k}"]
+                   - rows["cpu"]["denoise"][f"denoised_{k}"]) <= 1e-3, k
+
+
+@pytest.mark.cuda
+def test_denoise_on_the_card_matches_cpu(tmp_path):
+    """atrous_denoise on card tensors against CPU tensors, and `denoise`
+    without --cpu writing its EXR."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import subprocess
+    import sys
+    from pathlib import Path
+    from liverrenderer_tpu_torch import denoise
+    from torch_sensor_scenes import CLI_XML
+    rng = np.random.default_rng(3)
+    bufs = [torch.as_tensor(rng.random(s).astype(np.float32))
+            for s in ((24, 32, 3), (24, 32, 3), (24, 32, 3), (24, 32))]
+    cpu = denoise.atrous_denoise(*bufs)
+    card = denoise.atrous_denoise(*[b.cuda() for b in bufs])
+    assert card.device.type == "cuda"
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-6)
+    xml = tmp_path / "scene.xml"
+    xml.write_text(CLI_XML)
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-m", "liverrenderer_tpu_torch."
+                        "denoise", str(xml), "-o", str(tmp_path / "d.exr"),
+                        "--spp", "4"], capture_output=True, text=True,
+                       cwd=str(root), timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert np.isfinite(lrt.read_image(str(tmp_path / "d.exr"))).all()
+
+
+@pytest.mark.cuda
+def test_largesteps_on_the_card_matches_cpu():
+    """from_differential and its gradient on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.liver_proxy import liver_mesh
+    v, f, _, _ = liver_mesh(3, 0)
+    w = torch.as_tensor(np.random.default_rng(1).normal(size=v.shape)
+                        .astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ls = lrt.LargeSteps(len(v), f, device=dev)
+        u = torch.tensor(v * 1.1, device=dev, requires_grad=True)
+        x = ls.from_differential(u)
+        (x * w.to(dev)).sum().backward()
+        out[dev] = (x.detach().cpu(), u.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.checkpoint import OptimizationCheckpointer
+    p = torch.zeros(5, device="cuda", requires_grad=True)
+    opt = torch.optim.Adam([p], lr=0.1)
+    p.sum().backward()
+    opt.step()
+    ck = OptimizationCheckpointer(str(tmp_path))
+    ck.save(1, {"p": p.detach()}, opt.state_dict())
+    q = torch.zeros(5, device="cuda", requires_grad=True)
+    fresh = torch.optim.Adam([q], lr=0.1)
+    step, params, state = ck.restore({"p": q.detach()}, fresh.state_dict())
+    assert step == 1 and params["p"].device.type == "cuda"
+    fresh.load_state_dict(state)
+    torch.testing.assert_close(fresh.state_dict()["state"][0]["exp_avg"],
+                               opt.state_dict()["state"][0]["exp_avg"])
