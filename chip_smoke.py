@@ -156,7 +156,7 @@ result line):
                    liver proxy (bio media)
   grid_render      the fog Cornell box's layout with a null-BSDF cube of a
                    256^3 smoothed-noise grid medium (scale 4, albedo 0.8,
-                   HG g 0.5) in place of its fog, depth 16, cut to 256x256
+                   HG g 0.5) in place of its fog, cut to depth 8, 256x256
                    at 1 spp (one full regen wavefront; GRID_RES says why):
                    seconds, Mpaths/s, iterations, bounce and shadow
                    sweeps, peak memory; profiles of it and of the same
@@ -268,6 +268,27 @@ result line):
   largesteps       LargeSteps.from_differential and its gradient on the
                    liver mesh at subdiv 4 and 8 (655,362 vertices), card
                    against CPU: CG iterations, ms
+  spectral_small   the spectral variant (hero-wavelength packets) at test
+                   size, card against CPU: the bumped, sky-lit proxy at
+                   16x12 (image and its media.params replay gradient), the
+                   fog Cornell box (volpath, NEE) and the spectral Cornell
+                   box's render_specfilm bins
+  spectral_render  the main path in the spectral variant at full size
+                   (428x240, 64 spp, biovolpath depth 12, bump and sky) in
+                   turns with the RGB render (rgb, spectral, spectral,
+                   rgb): seconds, paths/s, spectral_over_rgb, iterations
+                   (= sweeps), merges, peak memory, launches per iteration
+                   and device idle of a 2 spp profile of each, and the
+                   mean-luminance ratio of the two images (within 15 %)
+  spectral_render_grad  its 16 spp render_grad of media.params on the
+                   replay adjoint (packet-space pool): seconds of one run
+                   after a warm-up against a 16 spp spectral primal, peak
+                   memory, forward and replay launches
+  specfilm_render  BASELINE's Cornell box (256x256, path depth 8) in the
+                   spectral variant: render_specfilm at 64 spp, 16 bins
+                   (passes of 2^20 lanes): seconds, passes, launches; the
+                   bins integrated against CIE Y against the spectral
+                   render's mean luminance (within 5 %)
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -280,8 +301,10 @@ result line):
                    twin, the dipole proxy and the vaescatter gradient +
                    the CLI scene's in-process render, the render_control
                    renders and the thinlens render + the driver's render,
-                   the evaluation's rows and the inverse-rendering loop),
-                   agreement, times and bound
+                   the evaluation's rows and the inverse-rendering loop +
+                   the spectral render, its gradient, the spectral
+                   Cornell render and its specfilm), agreement, times and
+                   bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -337,8 +360,12 @@ WIDE_BLOCK = 1 << 18
 # and each iteration walks ~31 NEE steps (~18,800 host launches), so a
 # path costs ~0.3 ms (3,240 paths/s on the card) and 1080^2 at 2 spp
 # would take ~12 min alone.  The primal, its profile, the same cube of
-# homogeneous fog and the media.grids gradient all at that size.
+# homogeneous fog and the media.grids gradient all at that size.  Its
+# depth is cut from the fog box's 16 to 8: at 16 the phase took ~128 s of
+# a script run that passed 850 s on an H100 with the spectral phases;
+# every lane runs to the 4 * depth iteration cap, and at 8 it took 46 s.
 GRID_RES, GRID_SPP, GRID_GRAD_SPP, GRID_N = 256, 1, 1, 256
+GRID_DEPTH = 8
 # volpathmis on test_volpathmis.py's chromatic fog, in turns with volpath,
 # at 540^2 (cut from 1080^2: volpath's two host-bound regen renders took
 # 24-42 s); the per-pixel variance over VAR_SEEDS seeds at VAR_RES^2,
@@ -386,6 +413,16 @@ INV_RESUME_RTOL = 1e-5
 LARGESTEPS_SUBDIVS = (4, 8)
 LARGESTEPS_RTOL = 1e-5
 DENOISE_RTOL, DENOISE_ATOL = 1e-5, 1e-6
+# the spectral variant: spectral_small's proxy film and spp, its fog box
+# (film, spp, depth); specfilm_render's bins (the film, spp and depth are
+# BASELINE's Cornell box's); the gates the JAX package's own spectral
+# tests set: the luminance of the spectral main path against RGB (within
+# 15 %, test_spectral_biovolpath_runs_and_matches) and the specfilm's
+# energy against the spectral render's luminance (5 %,
+# test_specfilm_energy_consistent)
+SPEC_SMALL, SPEC_FOG_SMALL = (16, 12, 4), (16, 4, 6)
+SPECFILM_BINS = 16
+SPEC_LUM_RTOL, SPECFILM_RTOL = 0.15, 0.05
 # sensors_small's Cornell box film: every sensor scene at 16x12 or less
 SENSOR_CORNELL_FILM = (16, 12)
 # media_small: film, spp; the point light of its grid cubes
@@ -849,22 +886,22 @@ def primal_trace(prof, secs, iterations):
                 device_idle_share=1.0 - busy / 1e3 / secs)
 
 
-def load_scene(lrt, d, device="cuda"):
+def load_scene(lrt, d, device="cuda", variant=None):
     """A scene dict through load_dict, or an XML file's path through
     load_file."""
     if isinstance(d, str):
-        return lrt.load_file(d, device=device)
-    return lrt.load_dict(d, device=device)
+        return lrt.load_file(d, device=device, variant=variant)
+    return lrt.load_dict(d, device=device, variant=variant)
 
 
-def image_vs_cpu(np, lrt, d, spp):
+def image_vs_cpu(np, lrt, d, spp, variant=None):
     """The same render on the card and on the CPU (plain version) ->
     (pixel fraction within tolerance, relative difference of the means,
     card image mean, pixel fraction exactly equal).  d: a scene dict or
     an XML file's path."""
-    img_cpu = lrt.render(load_scene(lrt, d, "cpu"), spp=spp,
+    img_cpu = lrt.render(load_scene(lrt, d, "cpu", variant), spp=spp,
                          seed=SEED).numpy()
-    img_gpu = lrt.render(load_scene(lrt, d), spp=spp,
+    img_gpu = lrt.render(load_scene(lrt, d, variant=variant), spp=spp,
                          seed=SEED).cpu().numpy()
     close = np.abs(img_gpu - img_cpu) <= PIX_ATOL + PIX_RTOL \
         * np.abs(img_cpu)
@@ -874,7 +911,7 @@ def image_vs_cpu(np, lrt, d, spp):
             float((img_gpu == img_cpu).all(-1).mean()))
 
 
-def grad_vs_cpu(lrt, d, spp, keys=("media.params",)):
+def grad_vs_cpu(lrt, d, spp, keys=("media.params",), variant=None):
     """Gradient of the mean image with respect to `keys` (flattened and
     joined) on the card and on the CPU -> (cosine, relative difference of
     the norms, CPU gradient norm, card gradient finite).  d: a scene dict
@@ -887,8 +924,8 @@ def grad_vs_cpu(lrt, d, spp, keys=("media.params",)):
                                   lambda im: im.mean(), spp=spp, seed=SEED)
         return torch.cat([g[k].cpu().double().reshape(-1) for k in keys])
 
-    b = grad(load_scene(lrt, d, "cpu"))
-    a = grad(load_scene(lrt, d))
+    b = grad(load_scene(lrt, d, "cpu", variant))
+    a = grad(load_scene(lrt, d, variant=variant))
     cos = float((a * b).sum() / (a.norm() * b.norm()))
     return (cos, abs(float(a.norm() / b.norm()) - 1.0), float(b.norm()),
             bool(a.isfinite().all()))
@@ -1872,7 +1909,8 @@ def media_phases(torch, np, lrt, ci, treplay, smi):
     # ---- 11b. the grid medium at full size
     t0 = time.perf_counter()
     grid = smooth_noise_grid(GRID_N, SEED)
-    gscene = lrt.load_dict(grid_cornell_box(GRID_RES, grid=grid))
+    gscene = lrt.load_dict(grid_cornell_box(GRID_RES, grid=grid,
+                                            max_depth=GRID_DEPTH))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     check(gscene.device.type == "cuda" and gscene.needs_medium_nee,
@@ -1880,7 +1918,7 @@ def media_phases(torch, np, lrt, ci, treplay, smi):
     # profiles of the same cube of homogeneous fog at the grid's mean
     # density (after its warm-up; it counts the iterations the null
     # collisions add) and of the grid render, which warms the timed run up
-    homog = grid_cornell_box(GRID_RES, grid=grid)
+    homog = grid_cornell_box(GRID_RES, grid=grid, max_depth=GRID_DEPTH)
     homog["grid_box"]["interior"] = {
         "type": "homogeneous", "scale": 4.0,
         "sigma_t": {"type": "rgb", "value": [float(grid.mean())] * 3},
@@ -2996,6 +3034,194 @@ def largesteps_phase(torch, np, lrt, smi):
     check(not bad, f"largesteps: the card disagrees with the CPU: {bad}")
 
 
+
+def spectral_phases(torch, np, lrt, ci, treplay, smi):
+    """Phases spectral_small, spectral_render, spectral_render_grad and
+    specfilm_render -> the launch counts the kernels line reports."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.core import spectrum as spec
+    from liverrenderer_tpu_torch.scene.cornell import (cornell_box,
+                                                       fog_cornell_box)
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict)
+    SP = "spectral"
+
+    # ---- 15a. at test size, card against CPU
+    w, h, spp = SPEC_SMALL
+    small = liver_proxy_dict(w, h, spp, 2, SEED, bump=BUMP_SMALL,
+                             sky=SKY_SMALL)
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, spp, SP)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, small, spp, variant=SP)
+    res_f, spp_f, depth_f = SPEC_FOG_SMALL
+    fog = fog_cornell_box(res_f, max_depth=depth_f)
+    ffrac, fmean_rel, fmean, fexact = image_vs_cpu(np, lrt, fog, spp_f, SP)
+    cb_small = _cornell_dict(cornell_box, res_f, "box", 4)
+    bins = [lrt.render_specfilm(lrt.load_dict(cb_small, device=dev,
+                                              variant=SP),
+                                n_bins=SPECFILM_BINS, spp=spp_f,
+                                seed=SEED).cpu().numpy()
+            for dev in ("cpu", "cuda")]
+    bclose = np.abs(bins[1] - bins[0]) <= PIX_ATOL + PIX_RTOL \
+        * np.abs(bins[0])
+    bfrac = float(bclose.mean())
+    bmean_rel = float(abs(bins[1].mean() - bins[0].mean())
+                      / abs(bins[0].mean()))
+    emit("spectral_small", film=[w, h], spp=spp, bump=list(BUMP_SMALL),
+         sky=list(SKY_SMALL), pixel_frac=frac, pixel_exact=exact,
+         mean_rel=mean_rel, mean=mean, grad_cosine=cos,
+         grad_norm_rel=norm_rel, grad_norm=gnorm, fog_film=[res_f, res_f],
+         fog_spp=spp_f, fog_pixel_frac=ffrac, fog_pixel_exact=fexact,
+         fog_mean_rel=fmean_rel, fog_mean=fmean,
+         specfilm_bins=SPECFILM_BINS, specfilm_frac=bfrac,
+         specfilm_mean_rel=bmean_rel)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "spectral_small: the card's proxy disagrees with the CPU's")
+    check(gfin and gnorm > 0, "spectral_small: gradient not finite or zero")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "spectral_small: the card's gradient disagrees with the CPU's")
+    check(ffrac >= PIX_FRAC_MIN and fmean_rel <= MEAN_RTOL,
+          "spectral_small: the card's fog box disagrees with the CPU's")
+    check(bfrac >= PIX_FRAC_MIN and bmean_rel <= MEAN_RTOL,
+          "spectral_small: the card's specfilm disagrees with the CPU's")
+
+    # ---- 15b. the main path in the spectral variant at full size, in
+    # turns with RGB
+    d = liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP,
+                         sky=SKY)
+    sp, rgb = lrt.load_dict(d, variant=SP), lrt.load_dict(d)
+    check(sp.spectral and sp.device.type == "cuda" and not rgb.spectral,
+          "spectral proxy: not spectral, or not on the card")
+    for sc in (sp, rgb):
+        lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
+    rgb_s, img_rgb = timed_render(torch, lrt, rgb, SPP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    secs, img = timed_render(torch, lrt, sp, SPP)
+    counts = launch_counts(ci)
+    peak = torch.cuda.max_memory_allocated()
+    sp_s = [secs, timed_render(torch, lrt, sp, SPP)[0]]
+    rgb_s = [rgb_s, timed_render(torch, lrt, rgb, SPP)[0]]
+    traces = {}
+    for name, sc in (("spectral", sp), ("rgb", rgb)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            reset_counts(ci)
+            secs_tr, _ = timed_render(torch, lrt, sc, BUMP_TRACE_SPP)
+        traces[name] = primal_trace(prof, secs_tr, ci.LAUNCHES)
+    finite = bool(torch.isfinite(img).all())
+    lum_sp = float(spec.luminance(img).mean())
+    lum_rgb = float(spec.luminance(img_rgb).mean())
+    paths = WIDTH * HEIGHT * SPP
+    t_sp, t_rgb = sum(sp_s) / 2, sum(rgb_s) / 2
+    emit("spectral_render", film=[WIDTH, HEIGHT], spp=SPP,
+         max_depth=sp.max_depth, tris=sp.n_tris, n_spec=spec.N_SPEC,
+         card=smi, seconds=round(secs, 3), paths_per_s=paths / secs,
+         spectral_seconds_reps=sp_s, rgb_seconds_reps=rgb_s,
+         spectral_paths_per_s=paths / t_sp, rgb_paths_per_s=paths / t_rgb,
+         spectral_over_rgb=t_sp / t_rgb, finite=finite,
+         shape=list(img.shape), mean=float(img.mean()),
+         luminance=lum_sp, rgb_luminance=lum_rgb,
+         luminance_ratio=lum_sp / lum_rgb, iterations=counts[0],
+         launches=counts[0], merge_launches=counts[1],
+         shadow_launches=counts[2], max_memory_allocated=peak,
+         trace_spp=BUMP_TRACE_SPP, trace=traces,
+         launches_per_iteration_added=traces["spectral"][
+             "launches_per_iteration"] - traces["rgb"][
+             "launches_per_iteration"])
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 3), "spectral image shape")
+    check(finite, "spectral image has non-finite values")
+    check(abs(lum_sp / lum_rgb - 1.0) <= SPEC_LUM_RTOL,
+          f"spectral luminance {lum_sp} vs RGB {lum_rgb}: beyond "
+          f"{SPEC_LUM_RTOL:.0%}")
+    check(counts[0] > 0 and counts[1] > 0,
+          "the spectral render did not launch the sweep and merge kernels")
+    check(counts[2] == 0, "the spectral liver render made shadow queries")
+
+    # ---- 15c. its gradient (single walk, packet-space pool)
+    runs = [grad_run(torch, lrt, ci, treplay, sp, GRAD_SPP)]   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs.append(grad_run(torch, lrt, ci, treplay, sp, GRAD_SPP))
+    gpeak = torch.cuda.max_memory_allocated()
+    grad_counts = runs[1][3]
+    check(runs[0][3] == grad_counts,
+          "spectral render_grad: launch counts differ between reps")
+    g = runs[1][1]
+    t_primal = timed_render(torch, lrt, sp, GRAD_SPP)[0]
+    t_grad = runs[1][0]
+    gpaths = WIDTH * HEIGHT * GRAD_SPP
+    finite_g = bool(torch.isfinite(g).all())
+    emit("spectral_render_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+         max_depth=sp.max_depth, card=smi, seconds=t_grad,
+         seconds_reps=[r[0] for r in runs],
+         fwd_bwd_paths_per_s=gpaths / t_grad, primal_seconds=t_primal,
+         primal_paths_per_s=gpaths / t_primal,
+         fwd_bwd_over_primal=t_grad / t_primal, grad_finite=finite_g,
+         grad_abs_max=float(g.abs().max()),
+         grad_sigma_t=[float(x) for x in g[0, 0:3]],
+         image_mean=float(runs[1][2].mean()), max_memory_allocated=gpeak,
+         **grad_counts)
+    check(finite_g and float(g.abs().max()) > 0,
+          "spectral render_grad: gradient not finite or zero")
+    for k in ("fwd_launches", "fwd_merge_launches", "replay_launches",
+              "replay_merge_launches"):
+        check(grad_counts[k] > 0, f"spectral render_grad: {k} is 0")
+    del sp, rgb
+
+    # ---- 15d. the binned spectral film of BASELINE's Cornell box
+    box = lrt.load_dict(_cornell_dict(cornell_box, CORNELL_RES, "gaussian"),
+                        variant=SP)
+    from liverrenderer_tpu_torch.integrators.spectral import \
+        MAX_SPEC_WAVEFRONT
+    n_pix = CORNELL_RES * CORNELL_RES
+    spp_pass = max(1, min(CORNELL_SPP, MAX_SPEC_WAVEFRONT // n_pix))
+    lrt.render_specfilm(box, n_bins=SPECFILM_BINS, spp=spp_pass,
+                        seed=SEED + 1)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    film = lrt.render_specfilm(box, n_bins=SPECFILM_BINS, spp=CORNELL_SPP,
+                               seed=SEED)
+    torch.cuda.synchronize()
+    film_s = time.perf_counter() - t0
+    film_counts = launch_counts(ci)
+    film_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    box_s, box_img = timed_render(torch, lrt, box, CORNELL_SPP)
+    box_counts = launch_counts(ci)
+    box_peak = torch.cuda.max_memory_allocated()
+    centers = spec.SPEC_MIN + (np.arange(SPECFILM_BINS) + 0.5) * (
+        spec.SPEC_MAX - spec.SPEC_MIN) / SPECFILM_BINS
+    ybar = torch.tensor(spec.cie1931_xyz_bar(centers)[:, 1],
+                        dtype=torch.float32, device="cuda")
+    Y = float(((film * ybar).sum(-1) / spec._CIE_Y_INT).mean())
+    lum = float(spec.luminance(box_img).mean())
+    cpaths = n_pix * CORNELL_SPP
+    emit("specfilm_render", film=[CORNELL_RES, CORNELL_RES],
+         spp=CORNELL_SPP, max_depth=box.max_depth, bins=SPECFILM_BINS,
+         card=smi, seconds=film_s, paths_per_s=cpaths / film_s,
+         passes=CORNELL_SPP // spp_pass, lanes_per_pass=n_pix * spp_pass,
+         shape=list(film.shape), finite=bool(torch.isfinite(film).all()),
+         min=float(film.min()), energy_Y=Y, render_luminance=lum,
+         energy_ratio=Y / lum, max_memory_allocated=film_peak,
+         **split_counts(film_counts), render_seconds=box_s,
+         render_paths_per_s=cpaths / box_s,
+         render_max_memory_allocated=box_peak,
+         render_launches=split_counts(box_counts))
+    check(tuple(film.shape) == (CORNELL_RES, CORNELL_RES, SPECFILM_BINS),
+          "specfilm shape")
+    check(bool(torch.isfinite(film).all()) and float(film.min()) >= 0,
+          "specfilm has negative or non-finite bins")
+    check(abs(Y / lum - 1.0) <= SPECFILM_RTOL,
+          f"specfilm energy {Y} vs the render's luminance {lum}: beyond "
+          f"{SPECFILM_RTOL:.0%}")
+    check(film_counts[0] > 0 and box_counts[0] > 0,
+          "the specfilm or the spectral Cornell render launched no sweep")
+    return dict(counts=counts, grad_counts=grad_counts, film=film_counts,
+                box=box_counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3311,6 +3537,11 @@ def main() -> int:
         pipe = pipeline_phases(torch, np, lrt, ci, smi, workdir)
     pipe_sweeps = sum(c[0] for c in pipe.values())
     pipe_merges = sum(c[1] for c in pipe.values())
+
+    # ---- 15. the spectral variant: the main path, its gradient and the
+    # binned spectral film
+    spc = spectral_phases(torch, np, lrt, ci, treplay, smi)
+    spc_grad = spc["grad_counts"]
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -3337,7 +3568,9 @@ def main() -> int:
              + sss["plain_counts"][0] + sss["dipole_counts"][0]
              + sss["grad_counts"]["fwd_launches"] + cli["counts"][0]
              + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0]
-             + pipe_sweeps,
+             + pipe_sweeps + spc["counts"][0] + spc_grad["fwd_launches"]
+             + spc_grad["replay_launches"] + spc["film"][0]
+             + spc["box"][0],
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -3367,6 +3600,10 @@ def main() -> int:
              evaluate_render_launches=split_counts(pipe["evaluate"]),
              evaluate_sss_launches=split_counts(pipe["evaluate_sss"]),
              inverse_render_launches=split_counts(pipe["inverse"]),
+             spectral_render_launches=spc["counts"][0],
+             spectral_render_grad_launches=spc_grad,
+             specfilm_launches=split_counts(spc["film"]),
+             spectral_cornell_render_launches=split_counts(spc["box"]),
              sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
              sss_event_bound_ms={g: v["bound_ms"]
                                  for g, v in sss["kernel"].items()},
@@ -3417,7 +3654,10 @@ def main() -> int:
              + sss["dipole_counts"][1]
              + sss["grad_counts"]["fwd_merge_launches"]
              + cli["counts"][1] + cli["control"][1] + cli["plain"][1]
-             + cli["thinlens"][1] + pipe_merges,
+             + cli["thinlens"][1] + pipe_merges + spc["counts"][1]
+             + spc_grad["fwd_merge_launches"]
+             + spc_grad["replay_merge_launches"] + spc["film"][1]
+             + spc["box"][1],
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
@@ -3428,6 +3668,7 @@ def main() -> int:
              evaluate_render_launches=pipe["evaluate"][1],
              evaluate_sss_launches=pipe["evaluate_sss"][1],
              inverse_render_launches=pipe["inverse"][1],
+             spectral_render_launches=spc["counts"][1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -8,8 +8,9 @@ mesh (OBJ, PLY, serialized) and image (PNG, EXR, PFM) files, renders the
 biovolpath liver path (bump and normal maps, bitmap textures, the envmap,
 next-event estimation) and the surface path family, with subsurface
 scattering (the learned vaescatter BSSRDF and the classical dipole), on
-the regenerating wavefront, and differentiates them through the PRB
-replay adjoint or the scan adjoint.
+the regenerating wavefront, in RGB or the spectral variant
+(hero-wavelength packets), and differentiates them through the PRB replay
+adjoint or the scan adjoint.
 
     import liverrenderer_tpu_torch as lrt
     from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
@@ -29,6 +30,11 @@ replay adjoint or the scan adjoint.
     ctl = lrt.RenderControl(timeout=60.0, on_progress=print)
     img = lrt.render(scene, control=ctl)            # ctl.frame(): partial
     aovs = lrt.render_aovs(scene, ("depth", "albedo"))
+    # the spectral variant: hero-wavelength packets, CIE estimate to RGB
+    sp = lrt.load_dict(liver_proxy_dict(428, 240, 64), variant="spectral")
+    img = lrt.render(sp)                         # also render_grad
+    box = lrt.load_dict(lrt.cornell_box(), variant="spectral")
+    bins = lrt.render_specfilm(box, n_bins=16, spp=16)   # (h, w, 16)
 
 The command-line renderer: `python -m liverrenderer_tpu_torch.cli
 scene.xml -o out.exr` (on the card; `--cpu` renders on the CPU).  The
@@ -57,11 +63,12 @@ from .integrators.regen import RenderControl  # noqa: E402
 from .integrators.prb import render_fwd_grad, render_grad  # noqa: E402
 from .integrators.aux import (render_aovs, render_depth,  # noqa: E402
                               render_direct, render_moments)
+from .integrators.spectral import render_specfilm  # noqa: E402
 from .util import SceneParameters, apply_params, traverse  # noqa: E402
 from .largesteps import LargeSteps  # noqa: E402
 
 __all__ = ["load_dict", "load_file", "cornell_box", "read_image",
            "write_image", "render", "RenderControl", "render_grad",
            "render_fwd_grad", "render_aovs", "render_depth", "render_direct",
-           "render_moments", "traverse", "apply_params", "SceneParameters",
-           "Transform", "LargeSteps"]
+           "render_moments", "render_specfilm", "traverse", "apply_params",
+           "SceneParameters", "Transform", "LargeSteps"]

@@ -1,12 +1,24 @@
-"""RGB-side spectrum helpers for scene loading (counterpart of the host
-part of liverrenderer_tpu/core/spectrum.py): the sRGB transfer curves and
-the conversion of `blackbody`, `regular` and `irregular` spectra to linear
-RGB, all numpy on the host, in the JAX package's float64 operations.
-Transport stays RGB; hero-wavelength spectral rendering is ROADMAP M10.
+"""Spectrum helpers (counterpart of liverrenderer_tpu/core/spectrum.py).
+
+Host side, numpy in the JAX package's float64 operations: the sRGB
+transfer curves and the conversion of `blackbody`, `regular` and
+`irregular` spectra to linear RGB for scene loading.
+
+Transport side, torch on the lanes' device: the spectral variant's
+hero-wavelength packets.  Each lane carries N_SPEC wavelengths over
+[SPEC_MIN, SPEC_MAX) (`sample_hero`); RGB reflectances are lifted to the
+packet by the Smits (1999) basis (`smits_upsample`), RGB radiances by the
+same basis times the D65 illuminant (`smits_upsample_illum`), and a
+finished lane's packet becomes linear sRGB by the Monte-Carlo CIE
+estimate (`spec_to_rgb_estimate`).  The tables are the JAX package's,
+computed in numpy the same way; each lives once per device.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 # np.trapz was renamed np.trapezoid in numpy 2.0
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
@@ -80,3 +92,192 @@ def blackbody_rgb(temperature, scale=1.0):
     grid = np.linspace(360.0, 830.0, 256)
     spd = planck(grid, float(temperature))
     return (spd_to_rgb(grid, spd) * scale).astype(np.float32)
+
+
+def luminance(c):
+    return (0.212671 * c[..., 0] + 0.715160 * c[..., 1]
+            + 0.072169 * c[..., 2])
+
+
+# ---------------------------------------------------------------------------
+# the spectral variant's transport
+# ---------------------------------------------------------------------------
+
+SPEC_MIN = 360.0
+SPEC_MAX = 830.0
+N_SPEC = 4            # packet entries per lane (hero + 3 strata)
+
+# Smits (1999) base spectra, 10 bins over 380..720 nm ("An RGB to Spectrum
+# Conversion for Reflectances", tables 2-3)
+_SMITS_LAM = np.linspace(380.0, 720.0, 10)
+_SMITS = {
+    "white":   [1.0000, 1.0000, 0.9999, 0.9993, 0.9992, 0.9998, 1.0000,
+                1.0000, 1.0000, 1.0000],
+    "cyan":    [0.9710, 0.9426, 1.0007, 1.0007, 1.0007, 1.0007, 0.1564,
+                0.0000, 0.0000, 0.0000],
+    "magenta": [1.0000, 1.0000, 0.9685, 0.2229, 0.0000, 0.0458, 0.8369,
+                1.0000, 1.0000, 0.9959],
+    "yellow":  [0.0001, 0.0000, 0.1088, 0.6651, 1.0000, 1.0000, 0.9996,
+                0.9586, 0.9685, 0.9840],
+    "red":     [0.1012, 0.0515, 0.0000, 0.0000, 0.0000, 0.0000, 0.8325,
+                1.0149, 1.0149, 1.0149],
+    "green":   [0.0000, 0.0000, 0.0273, 0.7937, 1.0000, 0.9418, 0.1719,
+                0.0000, 0.0000, 0.0025],
+    "blue":    [1.0000, 1.0000, 0.8916, 0.3323, 0.0000, 0.0000, 0.0003,
+                0.0369, 0.0483, 0.0496],
+}
+# (10, 7): the bases as columns in the order w, c, m, y, r, g, b
+_SMITS_TABLE = np.asarray(
+    [_SMITS[k] for k in ("white", "cyan", "magenta", "yellow", "red",
+                         "green", "blue")], np.float32).T
+
+_D65_GRID = np.linspace(SPEC_MIN, SPEC_MAX, 236)
+_D65_TABLE = d65_spd(_D65_GRID).astype(np.float32)
+# normalised so that rgb (1, 1, 1) lifts to the D65 SPD whose XYZ -> sRGB
+# is (1, 1, 1), the sRGB white point
+_D65_TABLE /= float(_trapezoid(
+    _D65_TABLE * cie1931_xyz_bar(_D65_GRID)[:, 1], _D65_GRID)
+    / _trapezoid(cie1931_xyz_bar(_D65_GRID)[:, 1], _D65_GRID))
+
+_CIE_GRID = np.linspace(SPEC_MIN, SPEC_MAX, 236)
+_CIE_TABLE = cie1931_xyz_bar(_CIE_GRID).astype(np.float32)   # (236, 3)
+_CIE_Y_INT = float(_trapezoid(_CIE_TABLE[:, 1], _CIE_GRID))
+
+_TABLES = {"smits": _SMITS_TABLE, "d65": _D65_TABLE, "cie": _CIE_TABLE,
+           "xyz_to_srgb_t": _XYZ_TO_SRGB.T.astype(np.float32)}
+
+
+@functools.lru_cache(maxsize=None)
+def _table(name: str, device: torch.device) -> torch.Tensor:
+    """A constant table on `device`, copied there once (a copy per lift
+    would cost a host-to-device transfer in every bounce)."""
+    return torch.as_tensor(_TABLES[name], device=device)
+
+
+def _interp(tbl, lam, lo, hi):
+    """Rows of `tbl` (M, ...) interpolated linearly at lam over [lo, hi]
+    (clamped at both ends) -> lam.shape + tbl.shape[1:]."""
+    x = torch.clamp((lam - lo) / (hi - lo), 0.0, 1.0) * (tbl.shape[0] - 1)
+    i0 = torch.clamp(x.to(torch.int64), 0, tbl.shape[0] - 2)
+    f = x - i0
+    if tbl.dim() > 1:
+        f = f[..., None]
+    return tbl[i0] * (1 - f) + tbl[i0 + 1] * f
+
+
+def _smits_bases(lam):
+    """The seven Smits bases at lam (..., K) -> (..., K, 7), linear over
+    their 10 bins and flat beyond 380 and 720 nm."""
+    return _interp(_table("smits", lam.device), lam,
+                   float(np.float32(_SMITS_LAM[0])),
+                   float(np.float32(_SMITS_LAM[-1])))
+
+
+def _smits_combine(rgb, bases):
+    """The Smits decomposition of rgb (..., 3) over bases (..., K, 7)
+    -> (..., K): white plus one secondary (cyan, magenta or yellow) plus
+    one primary, by the channel order.  The six cases are tested in the
+    JAX package's order, so a tie between equal channels picks the same
+    (first) case."""
+    w, c, m, y, r, g, bl = bases.unbind(-1)
+    R, G, B = rgb[..., 0:1], rgb[..., 1:2], rgb[..., 2:3]
+
+    def comb(lo, mid, hi, sec, prim):
+        return lo * w + (mid - lo) * sec + (hi - mid) * prim
+
+    out = torch.where(
+        (R <= G) & (G <= B), comb(R, G, B, c, bl),
+        torch.where(
+            (R <= B) & (B <= G), comb(R, B, G, c, g),
+            torch.where(
+                (G <= R) & (R <= B), comb(G, R, B, m, bl),
+                torch.where(
+                    (G <= B) & (B <= R), comb(G, B, R, m, r),
+                    torch.where((B <= R) & (R <= G), comb(B, R, G, y, g),
+                                comb(B, G, R, y, r))))))
+    # maximum, not clamp: at out == 0 the derivative splits evenly, as
+    # jnp.maximum's does (clamp passes it whole)
+    return torch.maximum(out, torch.zeros_like(out))
+
+
+def smits_upsample(rgb, lam):
+    """Linear-sRGB reflectance (..., 3) lifted to spectral samples at the
+    wavelengths lam (..., K) -> (..., K), by the Smits basis."""
+    return _smits_combine(rgb, _smits_bases(lam))
+
+
+def d65(lam):
+    """The normalised D65 illuminant at lam (...,) -> (...,)."""
+    return _interp(_table("d65", lam.device), lam, SPEC_MIN, SPEC_MAX)
+
+
+def smits_upsample_illum(rgb, lam):
+    """An RGB radiance lifted to a spectrum: the reflectance lift times
+    D65 (the reference's srgb_d65 emitter model), so whites stay neutral
+    because sRGB is D65-referenced."""
+    return smits_upsample(rgb, lam) * d65(lam)
+
+
+class Packet:
+    """The lanes' hero wavelengths lam (N, K) with their lifts.  The Smits
+    bases and D65 at lam are interpolated once and shared by every lift
+    of the packet (a bounce lifts several RGB factors at the same
+    wavelengths); the results equal smits_upsample and
+    smits_upsample_illum.  refl also takes extra dims between the lanes
+    and the channels, (N, ..., 3) -> (N, ..., K), in one pass."""
+
+    def __init__(self, lam):
+        self.lam = lam
+        self._bases = _smits_bases(lam)
+        self._d65 = None
+
+    def refl(self, rgb):
+        b = self._bases
+        for _ in range(rgb.dim() - 2):
+            b = b.unsqueeze(1)
+        return _smits_combine(rgb, b)
+
+    def illum(self, rgb):
+        if self._d65 is None:
+            self._d65 = d65(self.lam)
+        return self.refl(rgb) * self._d65
+
+
+def sample_hero(u):
+    """Hero-wavelength packet from one uniform per lane: lam (..., N_SPEC),
+    equally shifted strata over [SPEC_MIN, SPEC_MAX), each with the
+    uniform pdf 1 / (SPEC_MAX - SPEC_MIN)."""
+    span = SPEC_MAX - SPEC_MIN
+    lam0 = SPEC_MIN + u * span
+    shifts = torch.arange(N_SPEC, dtype=torch.float32, device=u.device) \
+        * (span / N_SPEC)
+    lam = lam0[..., None] + shifts
+    return torch.where(lam >= SPEC_MAX, lam - span, lam)
+
+
+def xyz_bar(lam):
+    """CIE colour matching functions at lam (...,) -> (..., 3), linear in
+    the 236-sample table."""
+    return _interp(_table("cie", lam.device), lam, SPEC_MIN, SPEC_MAX)
+
+
+def rgb_estimate_weights(lam):
+    """d rgb_j / d L_k of `spec_to_rgb_estimate` at wavelengths lam
+    (..., K) -> (..., K, 3).  The estimate is linear in L, so these
+    weights turn an RGB loss cotangent into the packet cotangent the
+    spectral replay adjoint walks with: delta_k = sum_j delta_j W[k, j]."""
+    span = SPEC_MAX - SPEC_MIN
+    K = lam.shape[-1]
+    return (xyz_bar(lam) @ _table("xyz_to_srgb_t", lam.device)) \
+        * (span / (K * _CIE_Y_INT))
+
+
+def spec_to_rgb_estimate(L, lam):
+    """Monte-Carlo spectral-to-RGB: radiance samples L (..., K) at lam
+    (..., K), drawn with the uniform hero pdf -> (..., 3) linear sRGB.
+    A spectrally flat radiance 1 maps to RGB luminance 1 (the film-side
+    CIE integration of the reference's hdrfilm)."""
+    span = SPEC_MAX - SPEC_MIN
+    xyz = torch.mean(L[..., None] * xyz_bar(lam), dim=-2) * span \
+        / _CIE_Y_INT
+    return xyz @ _table("xyz_to_srgb_t", lam.device)

@@ -27,10 +27,15 @@ def _integrator_sample(scene: Scene, sampler, ray, mode="primal"):
     if scene.integrator in _VOLPATH_FAMILY:
         return volpath_mod.sample(scene, sampler, ray, mode=mode)
     if scene.integrator == "volpathmis":
-        # the JAX package sends volpathmis to volpath only with bio
-        # transport on, which needs a biovolpath integrator
+        if scene.spectral:
+            # the wavelength-packet tracking subsumes the RGB channels'
+            # MIS: a spectral volpathmis scene runs the volpath machinery,
+            # as in the JAX package
+            return volpath_mod.sample(scene, sampler, ray, mode=mode)
+        # the JAX package sends an RGB volpathmis scene to volpath only
+        # with bio transport on, which needs a biovolpath integrator
         # (volpath._has_bio): bio media reach volpathmis through the base
-        # majorant sampling, so every volpathmis scene runs its module
+        # majorant sampling, so every RGB volpathmis scene runs its module
         return volpathmis_mod.sample(scene, sampler, ray, mode=mode)
     if scene.integrator in ("aov", "depth", "moment"):
         # the JAX package's render refuses them too: integrators/aux.py

@@ -20,7 +20,13 @@ Every bounce processes all lanes branchlessly:
 Unlike the volpath family, the environment is folded into L inside the
 bounce (the state has no env_weight).  Every sampler draw of the JAX
 bounce happens here in the same order, so both packages walk the same
-paths.  The spectral variant raises.
+paths.
+
+The spectral variant (scene.spectral): each lane draws a hero-wavelength
+packet after its camera sample, L and the throughput hold the packet's
+N_SPEC entries, every RGB reflectance factor (BSDF values and weights) is
+lifted to the packet by the Smits basis and every radiance (emitters, the
+environment) D65-referenced; `sample` returns the CIE estimate in RGB.
 """
 from __future__ import annotations
 
@@ -33,12 +39,12 @@ import torch.utils.checkpoint
 from ..accel.intersect import ray_intersect, ray_test
 from ..bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
 from ..core import math as m
+from ..core import spectrum as spec
 from ..core.rng import Sampler
 from ..core.types import INF, Ray
 from ..emitter.dispatch import (eval_emitter_hit, eval_environment,
                                 pdf_emitter_direction,
                                 sample_emitter_direction)
-from ..errors import not_ported
 from ..scene.ir import F_DELTA, F_SMOOTH, SSUB_DIPOLE, SSUB_VAE, Scene
 from ..ssub.dipole import dipole_lo
 from ..ssub.event import subsurface_event
@@ -53,38 +59,52 @@ class PathState:
     depth: Tensor        # (N,)
     ray_o: Tensor        # (N,3)
     ray_d: Tensor        # (N,3)
-    L: Tensor            # (N,3) accumulated radiance
-    throughput: Tensor   # (N,3)
+    L: Tensor            # (N,C) accumulated radiance (C = 3, or N_SPEC)
+    throughput: Tensor   # (N,C)
     eta: Tensor          # (N,)
     prev_p: Tensor       # (N,3) last scatter position (the MIS reference)
     prev_pdf: Tensor     # (N,) last BSDF sample's pdf
     prev_smooth: Tensor  # (N,) bool: the last lobe was smooth (MIS-able)
     sampler: Sampler
     valid: Tensor        # (N,) bool: the ray hit something
+    lam: Tensor | None = None   # (N,N_SPEC) hero wavelengths (spectral)
 
 
-def check_supported(scene: Scene):
-    if scene.spectral:
-        raise not_ported("the spectral variant", "Queue 1 M10")
+def _same(v):
+    return v
+
+
+def lifts(scene: Scene, lam):
+    """(packet, refl, illum): the lanes' spectrum.Packet with its lifts of
+    an RGB reflectance and an RGB radiance factor in the spectral variant;
+    (None, identity, identity) in RGB."""
+    if not scene.spectral:
+        return None, _same, _same
+    pk = spec.Packet(lam)
+    return pk, pk.refl, pk.illum
 
 
 def init_state(ray: Ray, sampler: Sampler, scene: Scene) -> PathState:
-    check_supported(scene)
     n = ray.o.shape[0]
     dev = ray.o.device
     f32 = dict(device=dev, dtype=torch.float32)
+    lam, C = None, 3
+    if scene.spectral:
+        u, sampler = sampler.next_1d()
+        lam, C = spec.sample_hero(u), spec.N_SPEC
     return PathState(
         active=torch.ones((n,), dtype=torch.bool, device=dev),
         depth=torch.zeros((n,), dtype=torch.int64, device=dev),
         ray_o=ray.o, ray_d=ray.d,
-        L=torch.zeros((n, 3), **f32),
-        throughput=torch.ones((n, 3), **f32),
+        L=torch.zeros((n, C), **f32),
+        throughput=torch.ones((n, C), **f32),
         eta=torch.ones((n,), **f32),
         prev_p=ray.o,
         prev_pdf=torch.ones((n,), **f32),
         prev_smooth=torch.zeros((n,), dtype=torch.bool, device=dev),
         sampler=sampler,
         valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+        lam=lam,
     )
 
 
@@ -96,6 +116,7 @@ def bounce(scene: Scene, st: PathState, ad: bool = False) -> PathState:
     delta lobe keeps its sampled weight, detached."""
     n = st.ray_o.shape[0]
     active = st.active
+    _, refl, illum = lifts(scene, st.lam)
     ray = Ray(o=st.ray_o, d=st.ray_d,
               maxt=st.ray_o.new_full((n,), INF))
     si = ray_intersect(scene, ray)
@@ -105,6 +126,7 @@ def bounce(scene: Scene, st: PathState, ad: bool = False) -> PathState:
     # ---- emission gathered along the BSDF-sampled ray
     em_val, eidx = eval_emitter_hit(scene, si, ray.d)
     env_val = eval_environment(scene, ray.d)
+    em_val, env_val = illum(em_val), illum(env_val)
     hit_emitter = (eidx >= 0) & si.valid
     escaped = ~si.valid
     eidx_mis = eidx
@@ -136,7 +158,8 @@ def bounce(scene: Scene, st: PathState, ad: bool = False) -> PathState:
     bval, bpdf = bsdf_eval_pdf(scene, si, bsdf_idx, si.to_local(ds.d))
     mis_em = m.mis_weight(ds.pdf, torch.where(ds.delta, 0.0, bpdf))
     L = L + torch.where(nee_valid[:, None],
-                        st.throughput * bval * em_weight * mis_em[:, None],
+                        st.throughput * refl(bval) * illum(em_weight)
+                        * mis_em[:, None],
                         0.0)
 
     # ---- BSDF sampling
@@ -145,15 +168,15 @@ def bounce(scene: Scene, st: PathState, ad: bool = False) -> PathState:
     bs = bsdf_sample(scene, si, bsdf_idx, ub1, ub2)
     wo_world = si.to_world(bs.wo)
     new_ray = si.spawn_ray(wo_world)
-    weight = bs.weight
+    weight = refl(bs.weight)
     smooth_lobe = (bs.sampled_type & F_DELTA) == 0
     if ad:
         new_ray = Ray(o=new_ray.o.detach(), d=new_ray.d.detach(),
                       maxt=new_ray.maxt)
         val2, _ = bsdf_eval_pdf(scene, si, bsdf_idx,
                                 si.to_local(wo_world.detach()))
-        w_re = val2 / torch.clamp(bs.pdf.detach(), min=1e-12)[:, None]
-        weight = torch.where(smooth_lobe[:, None], w_re, bs.weight.detach())
+        w_re = refl(val2) / torch.clamp(bs.pdf.detach(), min=1e-12)[:, None]
+        weight = torch.where(smooth_lobe[:, None], w_re, weight.detach())
     throughput = st.throughput * weight
     eta = st.eta * bs.eta
     pdf = bs.pdf
@@ -229,4 +252,7 @@ def sample(scene: Scene, sampler: Sampler, ray: Ray, mode: str = "primal"):
                 bounce, scene, st, True, use_reentrant=False)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return st.L, st.valid, st.sampler
+    L = st.L
+    if scene.spectral:
+        L = spec.spec_to_rgb_estimate(L, st.lam)
+    return L, st.valid, st.sampler

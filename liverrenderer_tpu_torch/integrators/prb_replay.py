@@ -29,6 +29,12 @@ bounce, so its walk has no env_weight: the cotangents are those of L and
 the throughput only, and an environment parameter's gradient arrives
 through the L cotangent.
 
+Spectral scenes walk in packet space: the pool holds each path's
+wavelength-packet radiance, the environment radiance E is lifted to the
+lane's packet, and the path's RGB loss cotangent becomes a packet
+cotangent once per lane life through the weights of the (linear) CIE
+estimate at lane death (`_to_packet_ct`).
+
 Schedules: one stored forward + one walk (`_RenderAcc`, a
 torch.autograd.Function) when the film fits one regen tile and its sample
 budget fits the path pool; otherwise the tiled schedule, in which every
@@ -45,6 +51,7 @@ from typing import Dict
 import torch
 
 from .. import film as film_mod
+from ..core import spectrum as spec
 from ..emitter.dispatch import eval_environment
 from ..scene.ir import FILTER_TENT, Scene
 from ..util import _as_leaf, apply_params
@@ -140,6 +147,20 @@ def _aux_pool(scene: Scene, g_rgb, pool_L, seed, spp_total: int, pix0: int,
     return torch.cat([torch.cat(deltas), pool_L], -1)
 
 
+def _to_packet_ct(scene: Scene, delta_rgb, lam):
+    """A path's RGB loss cotangent (N, 3) -> its wavelength-packet
+    cotangent (N, N_SPEC) through the CIE estimate's weights at lam, in
+    the spectral variant; the RGB cotangent itself otherwise."""
+    if not scene.spectral:
+        return delta_rgb
+    return (spec.rgb_estimate_weights(lam) @ delta_rgb[:, :, None])[..., 0]
+
+
+def _lift_env(scene: Scene, E, lam):
+    """Environment radiance lifted to the lanes' packet (spectral)."""
+    return spec.smits_upsample_illum(E, lam) if scene.spectral else E
+
+
 def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
                  pix0: int, tile_pix: int, samp0: int, spp_chunk: int,
                  on_death=None) -> Dict[str, Tensor]:
@@ -162,7 +183,8 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
 
     st, _ = _make_lanes(sc_det, torch.arange(W, device=dev), seed,
                         spp_total, pix0, tile_pix, samp0)
-    delta, Ltot = aux_pool[:W, 0:3], aux_pool[:W, 3:3 + C]
+    delta = _to_packet_ct(scene, aux_pool[:W, 0:3], st.lam)
+    Ltot = aux_pool[:W, 3:3 + C]
     grads = [torch.zeros_like(v) for v in values]
     refills = (budget + W - 1) // W
     lane_cap = regen_mod._lane_cap(scene)
@@ -191,7 +213,8 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
                 # the env radiance along the post-bounce ray both closes
                 # the suffix identity and, through its own cotangent at
                 # lane death, carries the deferred env-parameter gradient
-                outs.append(eval_environment(sc, st2.ray_d))
+                outs.append(_lift_env(scene, eval_environment(sc, st2.ray_d),
+                                      st2.lam))
         L2d, tp2d = outs[0].detach(), outs[1].detach()
         if not has_envw:
             R2 = L2d
@@ -199,7 +222,8 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
             if diff_env:
                 E_det = outs[3].detach()
             else:
-                E_det = eval_environment(sc_det, st2.ray_d.detach())
+                E_det = _lift_env(scene, eval_environment(
+                    sc_det, st2.ray_d.detach()), st2.lam)
             ew2d = outs[2].detach()
             R2 = L2d + ew2d * E_det
         big = torch.abs(tp2d) > 1e-12
@@ -237,7 +261,9 @@ def _replay_walk(scene: Scene, params, seed, spp_total: int, aux_pool,
                                 tile_pix, samp0)
         st = _select_state(take, new_st, st)
         rows = aux_pool[safe_ids]
-        delta = torch.where(take[:, None], rows[:, 0:3], delta)
+        delta = torch.where(take[:, None],
+                            _to_packet_ct(scene, rows[:, 0:3], new_st.lam),
+                            delta)
         Ltot = torch.where(take[:, None], rows[:, 3:3 + C], Ltot)
         age = torch.where(take, 0, age)
         next_s = torch.clamp(next_s + died.sum(), max=budget)

@@ -32,9 +32,9 @@ import time
 import torch
 
 from .. import film as film_mod
+from ..core import spectrum as spec
 from ..core.rng import make_sampler
 from ..emitter.dispatch import eval_environment
-from ..errors import not_ported
 from ..scene.ir import FILTER_BOX, FILTER_TENT, Scene
 from ..sensor.perspective import APERTURE_SENSORS, sample_ray
 from . import path as path_mod
@@ -64,21 +64,26 @@ def _lane_cap(scene: Scene) -> int:
 
 
 def pool_channels(scene: Scene) -> int:
-    """Channel count of the stored-path pool: RGB (the spectral variant,
-    which pools the wavelength packet, is not ported)."""
-    if scene.spectral:
-        raise not_ported("the spectral variant", "Queue 1 M10")
-    return 3
+    """Channel count of the stored-path pool: the spectral variant pools
+    the wavelength packet (the replay adjoint's suffix weights live in
+    packet space), RGB otherwise."""
+    return spec.N_SPEC if scene.spectral else 3
 
 
 def _finalize_L2(scene: Scene, st):
     """(film_rgb, pool_vec) at lane death: the volpath family's deferred
     environment term folded in (the surface family folds it into L inside
-    its bounce).  Both are the RGB radiance (they differ only in the
-    spectral variant, whose pool keeps the wavelength packet)."""
-    if not hasattr(st, "env_weight"):
-        return st.L, st.L
-    L = st.L + st.env_weight * eval_environment(scene, st.ray_d)
+    its bounce).  A spectral lane gives the film the CIE estimate of its
+    packet and the pool the packet itself; an RGB lane gives both its
+    radiance."""
+    L = st.L
+    if hasattr(st, "env_weight"):
+        env = eval_environment(scene, st.ray_d)
+        if scene.spectral:
+            env = spec.smits_upsample_illum(env, st.lam)
+        L = L + st.env_weight * env
+    if scene.spectral:
+        return spec.spec_to_rgb_estimate(L, st.lam), L
     return L, L
 
 
@@ -331,9 +336,13 @@ def render_regen_host(scene: Scene, seed, spp: int,
 
 
 def regen_applicable(scene: Scene, mode: str) -> bool:
+    # an RGB volpathmis scene runs its own module (integrators/
+    # volpathmis.py), which the regen wavefront does not carry; a
+    # spectral one runs the volpath bounce (integrators/common.py)
+    names = ("volpath", "biovolpath", "biovolpath06") + _SURFACE \
+        + (("volpathmis",) if scene.spectral else ())
     return (mode == "primal"
-            and scene.integrator in ("volpath", "biovolpath", "biovolpath06")
-            + _SURFACE
+            and scene.integrator in names
             and scene.rfilter in (FILTER_BOX, FILTER_TENT)
             # the thinlens's and irradiancemeter's second 2-D sample is
             # not drawn by the lane set-up

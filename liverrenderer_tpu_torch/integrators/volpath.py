@@ -20,6 +20,15 @@ traces the program.
 Every sampler draw of the JAX bounce happens here too, in the same order,
 including draws whose value goes unused: the counter RNG keys on the draw
 order, so the two packages walk the same paths.
+
+The spectral variant (scene.spectral): each lane draws a hero-wavelength
+packet after its channel draw, and the tracked channel indexes packet
+entries (distance sampling at the tracked wavelength, ratio weights per
+entry, the bio one-hot on the tracked wavelength; RGB is the 3-band case
+of the same scheme).  Medium coefficients, BSDF factors and the null
+surfaces' transmission are lifted to the packet by the Smits basis,
+emitters and the environment D65-referenced; `sample` returns the CIE
+estimate in RGB.
 """
 from __future__ import annotations
 
@@ -33,13 +42,13 @@ from ..accel.intersect import ray_intersect, ray_test
 from ..bsdf.dispatch import (bsdf_eval_pdf, bsdf_sample,
                              eval_null_transmission)
 from ..core import math as m
+from ..core import spectrum as spec
 from ..core.rng import M32, Sampler
 from ..core.types import INF, Ray
 from ..emitter.dispatch import (eval_emitter_hit, eval_environment,
                                 pdf_emitter_direction,
                                 sample_emitter_direction)
-from ..errors import not_ported
-from ..media.dispatch import (_index_spectrum, bio_mode,
+from ..media.dispatch import (_index_spectrum, _lift, bio_mode,
                               finalize_interaction, medium_is_bio,
                               medium_phase, sample_interaction,
                               sample_interaction_candidate,
@@ -48,6 +57,7 @@ from ..phase.dispatch import phase_eval, phase_sample
 from ..scene.ir import (BSDF_MASK, BSDF_NULL, F_DELTA, F_NULL, F_SMOOTH,
                         MEDIUM_GLISSON, MEDIUM_HOMOGENEOUS, MEDIUM_LIVER,
                         MEDIUM_PARENCHYMA, Scene)
+from .path import lifts
 from .shading import shading_frame_with_bump
 
 Tensor = torch.Tensor
@@ -71,13 +81,15 @@ class VolpathState:
     eta: Tensor
     medium: Tensor          # (N,) current medium, -1 = vacuum
     tissue_depth: Tensor    # (N,) fork extension (biovolpath.cpp)
-    channel: Tensor         # (N,) tracked RGB channel
+    channel: Tensor         # (N,) tracked channel: an RGB index, or the
+    #                         packet entry in the spectral variant
     prev_p: Tensor
     prev_pdf: Tensor
     specular_chain: Tensor
     valid: Tensor
-    env_weight: Tensor      # (N,3) deferred environment weight
+    env_weight: Tensor      # (N,C) deferred environment weight
     sampler: Sampler
+    lam: Tensor | None = None   # (N,N_SPEC) hero wavelengths (spectral)
 
 
 def _has_bio(scene: Scene) -> bool:
@@ -88,29 +100,27 @@ def _has_bio(scene: Scene) -> bool:
         for t in (MEDIUM_GLISSON, MEDIUM_PARENCHYMA, MEDIUM_LIVER))
 
 
-def check_supported(scene: Scene):
-    """Raise for what the port does not carry."""
-    if scene.spectral:
-        raise not_ported("the spectral variant", "Queue 1 M10")
-
-
 def init_state(ray: Ray, sampler: Sampler, scene: Scene) -> VolpathState:
     n = ray.o.shape[0]
     dev = ray.o.device
     # the channel draw stays although the stratified channel below does
     # not read it: the draw order keys the counter RNG
     u, sampler = sampler.next_1d()
+    lam, n_ch = None, 3
+    if scene.spectral:
+        ul, sampler = sampler.next_1d()
+        lam, n_ch = spec.sample_hero(ul), spec.N_SPEC
     # tracked channel stratified over the pixel's sample indices with a
-    # per-pixel hash rotation (exactly floor/ceil(spp/3) per channel)
-    rot = (((sampler.pix * 2654435761) & 0xFFFFFFFF) >> 16) % 3
-    channel = (sampler.samp + rot) % 3
+    # per-pixel hash rotation (exactly floor/ceil(spp/n_ch) per channel)
+    rot = (((sampler.pix * 2654435761) & 0xFFFFFFFF) >> 16) % n_ch
+    channel = (sampler.samp + rot) % n_ch
     f32 = dict(device=dev, dtype=torch.float32)
     return VolpathState(
         active=torch.ones((n,), dtype=torch.bool, device=dev),
         depth=torch.zeros((n,), dtype=torch.int64, device=dev),
         ray_o=ray.o, ray_d=ray.d,
-        L=torch.zeros((n, 3), **f32),
-        throughput=torch.ones((n, 3), **f32),
+        L=torch.zeros((n, n_ch), **f32),
+        throughput=torch.ones((n, n_ch), **f32),
         eta=torch.ones((n,), **f32),
         medium=torch.full((n,), scene.camera_medium, dtype=torch.int64,
                           device=dev),
@@ -120,8 +130,9 @@ def init_state(ray: Ray, sampler: Sampler, scene: Scene) -> VolpathState:
         prev_pdf=torch.ones((n,), **f32),
         specular_chain=torch.ones((n,), dtype=torch.bool, device=dev),
         valid=torch.zeros((n,), dtype=torch.bool, device=dev),
-        env_weight=torch.zeros((n, 3), **f32),
+        env_weight=torch.zeros((n, n_ch), **f32),
         sampler=sampler,
+        lam=lam,
     )
 
 
@@ -152,7 +163,7 @@ def _nee_is_analytic(scene: Scene) -> bool:
 
 def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
                               tissue_depth, sampler: Sampler, active,
-                              max_steps: int, bounded: bool):
+                              max_steps: int, bounded: bool, packet=None):
     """NEE with the transmittance along the shadow path through media and
     null surfaces -> (DirectionSample, emitter weight * transmittance,
     sampler).
@@ -162,12 +173,16 @@ def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
     through ray_intersect: `bounded` runs exactly max_steps steps (the
     replay and scan adjoints), else it steps until no lane is active (at
     most WALK_MAX_STEPS, one host sync each).  The walk's own draws come
-    from a sampler that is then replaced by dim + WALK_DIMS."""
+    from a sampler that is then replaced by dim + WALK_DIMS.  packet: the
+    lanes' spectrum.Packet in the spectral variant (the emitter weight,
+    the media and the null surfaces' transmission lifted to it)."""
     u2, sampler = sampler.next_2d()
     u1, sampler = sampler.next_1d()
     ds, em_weight = sample_emitter_direction(scene, ref_p, u2, u1)
     n = ref_p.shape[0]
     active = active & (ds.pdf > 0)
+    if packet is not None:
+        em_weight = packet.illum(em_weight)
     eps = (1.0 + torch.amax(torch.abs(ref_p), -1)) * 1e-4
     o0 = ref_p + ds.d * eps[:, None]
     dist = ds.dist * (1.0 - 1e-3) - eps
@@ -175,7 +190,7 @@ def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
     if _nee_is_analytic(scene):
         occ = ray_test(scene, Ray(o=o0, d=ds.d, maxt=dist))
         prm = m.table_lookup(scene.media.params, torch.clamp(medium, min=0))
-        sig = prm[:, 0:3] * prm[:, 6:7]
+        sig = _lift(prm[:, 0:3] * prm[:, 6:7], packet)
         # environment emitters have dist = inf: exp(-inf * sig) is 0 but
         # its sigma derivative is nan (0 * inf); the limit (0, gradient 0)
         # is taken explicitly
@@ -188,7 +203,7 @@ def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
 
     w_o, w_active, w_medium = o0, active, medium
     remaining = dist
-    tr = ref_p.new_ones((n, 3))
+    tr = ref_p.new_ones(em_weight.shape)
     w_sampler = sampler
 
     def step():
@@ -200,7 +215,7 @@ def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
         in_med = act & (w_medium >= 0)
         mei, w_sampler = sample_interaction(
             scene, w_medium, w_o, ds.d, surf_t, w_sampler, channel,
-            tissue_depth, in_med)
+            tissue_depth, in_med, packet)
         tr_a, ffpdf = transmittance_eval_pdf(scene, w_medium, mei, surf_t)
         tr_pdf = _index_spectrum(ffpdf, channel)
         # sampling densities are detached (PRB rule); undetached, the
@@ -223,9 +238,9 @@ def sample_emitter_attenuated(scene: Scene, ref_p, medium, channel,
 
         # lanes that reached a surface first pass through null surfaces
         hit_surface = act & ~scattered & si.valid & (si.t < remaining)
-        null_tr = eval_null_transmission(
+        null_tr = _lift(eval_null_transmission(
             scene, si, m.table_lookup(scene.shape_bsdf,
-                                      torch.clamp(si.shape, min=0)))
+                                      torch.clamp(si.shape, min=0))), packet)
         tr = torch.where(hit_surface[:, None], tr * null_tr, tr)
 
         # only lanes that keep walking move: a lane that escaped toward an
@@ -262,8 +277,8 @@ def bounce(scene: Scene, st: VolpathState,
     """One bounce of every lane.  bounded_nee: the NEE shadow walk runs a
     fixed max_depth steps (the gradients' walks) instead of until its
     lanes end (the primal and the stored forward)."""
-    check_supported(scene)
     n = st.ray_o.shape[0]
+    packet, refl, illum = lifts(scene, st.lam)
     sampler = st.sampler
     active = st.active
     in_medium = active & (st.medium >= 0)
@@ -276,7 +291,7 @@ def bounce(scene: Scene, st: VolpathState,
     # surface query, so the kernel's chunk culling skips geometry beyond it
     cand, sampler = sample_interaction_candidate(
         scene, st.medium, st.ray_o, st.ray_d, sampler, st.channel,
-        tissue_depth, in_medium)
+        tissue_depth, in_medium, packet)
     ray_maxt = torch.where(in_medium & torch.isfinite(cand["dist"]),
                            cand["dist"], INF)
     ray = Ray(o=st.ray_o, d=st.ray_d, maxt=ray_maxt)
@@ -378,7 +393,8 @@ def bounce(scene: Scene, st: VolpathState,
         # no NEE anywhere: BSDF sampling owns MIS (emitter pdf 0)
         em_pdf = torch.zeros_like(st.prev_pdf)
     mis_b = m.mis_weight(st.prev_pdf, em_pdf)
-    contrib = torch.where(((eidx >= 0) & si.valid)[:, None], em_val, 0.0)
+    contrib = torch.where(((eidx >= 0) & si.valid)[:, None], illum(em_val),
+                          0.0)
     hide = scene.hide_emitters & (st.depth == 0)
     gather = active_surface & ~hide & ~reached_max
     L = L + torch.where(gather[:, None],
@@ -401,12 +417,12 @@ def bounce(scene: Scene, st: VolpathState,
         ref_p = torch.where(nee_med[:, None], mei.p, si.p)
         ds, emw, sampler = sample_emitter_attenuated(
             scene, ref_p, st.medium, st.channel, tissue_depth, sampler,
-            nee_any, scene.max_depth, bounded_nee)
+            nee_any, scene.max_depth, bounded_nee, packet)
         bval, bpdf = bsdf_eval_pdf(scene, si, bsdf_idx, si.to_local(ds.d))
         ph_val = phase_eval(ptype, g, m.dot(st.ray_d, ds.d), pprm, st.ray_d,
                             ds.d, scene.media.phase_types)
         cpdf = torch.where(nee_med, ph_val, bpdf)
-        cval = torch.where(nee_med[:, None], ph_val[:, None], bval)
+        cval = torch.where(nee_med[:, None], ph_val[:, None], refl(bval))
         mis_e = m.mis_weight(ds.pdf, torch.where(ds.delta, 0.0, cpdf))
         tp_nee = torch.where(nee_med[:, None], throughput_pre_phase,
                              throughput)
@@ -420,7 +436,7 @@ def bounce(scene: Scene, st: VolpathState,
     wo_surf = si.to_world(bs.wo)
     surf_ok = active_surface & (bs.pdf > 0)
     non_null = surf_ok & ((bs.sampled_type & F_NULL) == 0)
-    throughput = torch.where(surf_ok[:, None], throughput * bs.weight,
+    throughput = torch.where(surf_ok[:, None], throughput * refl(bs.weight),
                              throughput)
     eta = torch.where(surf_ok, st.eta * bs.eta, st.eta)
     depth = torch.where(non_null, depth + 1, depth)
@@ -473,7 +489,6 @@ def sample(scene: Scene, sampler: Sampler, ray: Ray, mode: str = "primal"):
     ad: exactly max_depth bounces, each under a non-reentrant activation
     checkpoint, so reverse mode keeps one lane state per bounce and
     recomputes the bounce in the backward pass."""
-    check_supported(scene)
     st = init_state(ray, sampler, scene)
     if mode == "primal":
         for _ in range(scene.max_depth * 4):
@@ -487,4 +502,8 @@ def sample(scene: Scene, sampler: Sampler, ray: Ray, mode: str = "primal"):
     else:
         raise ValueError(f"unknown mode {mode!r}")
     env = eval_environment(scene, st.ray_d)
+    if scene.spectral:
+        env = spec.smits_upsample_illum(env, st.lam)
+        return spec.spec_to_rgb_estimate(st.L + st.env_weight * env,
+                                         st.lam), st.valid, st.sampler
     return st.L + st.env_weight * env, st.valid, st.sampler

@@ -52,7 +52,7 @@ from ..phase.dispatch import phase_eval, phase_sample
 from ..scene.ir import F_DELTA, F_NULL, F_SMOOTH, Scene
 from .shading import shading_frame_with_bump
 from .volpath import (WALK_DIMS, WALK_MAX_STEPS, _is_transition,
-                      _target_medium, check_supported)
+                      _target_medium)
 
 Tensor = torch.Tensor
 _N_CH = 3
@@ -425,7 +425,6 @@ def sample(scene: Scene, sampler: Sampler, ray: Ray, mode: str = "primal"):
     every lane dies or 4 * max_depth iterations (null events do not count
     depth); ad: exactly max_depth bounces under activation checkpoints,
     with the NEE walk bounded."""
-    check_supported(scene)
     st = init_state(ray, sampler, scene)
     if mode == "primal":
         for _ in range(scene.max_depth * 4):

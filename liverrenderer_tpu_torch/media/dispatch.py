@@ -13,6 +13,12 @@ tracking): parameter gradients flow through the coefficients, the
 transmittance/pdf ratios and, for the bio media, the score-function
 log-likelihood `log_p` of the sampled event, which the integrator folds in
 as exp(log_p - log_p.detach()) (value 1, derivative d log_p).
+
+The spectral variant passes the lanes' hero-wavelength packet
+(core/spectrum.Packet; the JAX package's `lam`): every RGB coefficient
+(sigma_t, the albedo, the bio elements' sigmas, the standard parenchyma's
+hard-coded pair) is lifted to the packet by the Smits basis, and the
+tracked channel indexes packet entries.
 """
 from __future__ import annotations
 
@@ -39,8 +45,15 @@ _BIO_TYPES = (MEDIUM_GLISSON, MEDIUM_PARENCHYMA, MEDIUM_LIVER)
 
 
 def _index_spectrum(spec, channel):
-    """spec (N,C), channel (N,) -> (N,)."""
+    """spec (N,C), channel (N,) -> (N,): C = 3 (RGB) or N_SPEC (the
+    tracked channel indexes the lane's wavelength packet)."""
     return torch.gather(spec, -1, channel[:, None])[:, 0]
+
+
+def _lift(v3, packet):
+    """RGB (N,...,3) -> the packet's (N,...,N_SPEC) by the Smits basis in
+    the spectral variant (packet given), identity otherwise."""
+    return v3 if packet is None else packet.refl(v3)
 
 
 def _select_rows(idx, *rows):
@@ -110,7 +123,7 @@ def _eval_grid(scene: Scene, gid, p):
 
 
 def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
-                          tissue_depth):
+                          tissue_depth, packet=None):
     """Competing-exponential element sampling for the bio media (liver.cpp
     computeDistance / glissonCapsule.cpp computeDistance) ->
     (bio_type, distance, rate_total, rate_chosen, sampler).  The rates are
@@ -137,6 +150,11 @@ def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
     bile = torch.where(is_liver, prm[:, 43:46], prm[:, 15:18])
     lipid = torch.where(is_liver, prm[:, 48:51], prm[:, 18:21])
     hep = torch.where(mtype == MEDIUM_LIVER, prm[:, 46], prm[:, 21])
+    if packet is not None:
+        # each element's RGB sigma lifted to the packet, the five in one
+        # pass of the lift
+        coll, elas, blood, bile, lipid = packet.refl(torch.stack(
+            [coll, elas, blood, bile, lipid], 1)).unbind(1)
 
     # six uniforms (2 glisson + 4 parenchyma elements) in 2 hashes
     u6, sampler = sampler.next_nd(6)
@@ -188,7 +206,8 @@ def _bio_compute_distance(scene: Scene, mtype, prm, channel, sampler,
 
 
 def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
-                                 sampler, channel, tissue_depth, active):
+                                 sampler, channel, tissue_depth, active,
+                                 packet=None):
     """Phase 1 of free-flight sampling: the tentative collision distance and
     the coefficients at the candidate point.  The distance law never
     depends on the surface distance, so the integrator samples the medium
@@ -199,8 +218,8 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     mtype = med.mtype[midx]
     prm = m.table_lookup(med.params, midx)
     scale = prm[:, 6]
-    sigma_t_base = prm[:, 0:3] * scale[:, None]
-    albedo = prm[:, 3:6]
+    sigma_t_base = _lift(prm[:, 0:3] * scale[:, None], packet)
+    albedo = _lift(prm[:, 3:6], packet)
 
     u, sampler = sampler.next_1d()
     u = torch.clamp(u, max=1.0 - 1e-7)
@@ -218,7 +237,7 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     if bio_present:
         btype, bdist, rate_total, rate_chosen, sampler = \
             _bio_compute_distance(scene, mtype, prm, channel, sampler,
-                                  tissue_depth)
+                                  tissue_depth, packet)
         is_bio = mtype >= MEDIUM_GLISSON
         dist = torch.where(is_bio, bdist, dist)
         bio_type = torch.where(is_bio, btype, bio_type)
@@ -240,10 +259,13 @@ def sample_interaction_candidate(scene: Scene, medium_idx, ray_o, ray_d,
     sigma_s = sigma_t * albedo
     if MEDIUM_PARENCHYMA in tp and not bio_mode(scene):
         par = (mtype == MEDIUM_PARENCHYMA)[:, None]
-        sigma_t = torch.where(par, ray_o.new_tensor(_PARENCHYMA_SIGMA_T),
-                              sigma_t)
-        sigma_s = torch.where(par, ray_o.new_tensor(_PARENCHYMA_SIGMA_S),
-                              sigma_s)
+        st_hc = ray_o.new_tensor(_PARENCHYMA_SIGMA_T)
+        ss_hc = ray_o.new_tensor(_PARENCHYMA_SIGMA_S)
+        if packet is not None:
+            st_hc = packet.refl(st_hc.expand(n, 3))
+            ss_hc = packet.refl(ss_hc.expand(n, 3))
+        sigma_t = torch.where(par, st_hc, sigma_t)
+        sigma_s = torch.where(par, ss_hc, sigma_s)
     # maximum, not clamp: at sigma_t = majorant (a heterogeneous medium at
     # its grid's maximum) its derivative is split evenly, as jnp.maximum's
     sigma_n = torch.maximum(majorant - sigma_t, torch.zeros_like(sigma_t))
@@ -294,13 +316,13 @@ def finalize_interaction(cand, maxt, channel, active) -> MediumInteraction:
 
 
 def sample_interaction(scene: Scene, medium_idx, ray_o, ray_d, maxt,
-                       sampler, channel, tissue_depth, active):
+                       sampler, channel, tissue_depth, active, packet=None):
     """Free-flight sample in each lane's medium over [0, maxt] ->
     (MediumInteraction, sampler); mei.t = inf where the lane reached maxt
     first.  The NEE shadow walk calls it once per step."""
     cand, sampler = sample_interaction_candidate(
         scene, medium_idx, ray_o, ray_d, sampler, channel, tissue_depth,
-        active)
+        active, packet)
     return finalize_interaction(cand, maxt, channel, active), sampler
 
 

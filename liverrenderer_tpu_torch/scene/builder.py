@@ -96,6 +96,10 @@ CONDUCTOR_IOR = {
 _INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "volpathmis",
                 "prbvolpath", "path", "direct", "prb", "prb_basic", "aov",
                 "depth", "moment")
+# integrators the spectral variant admits (the JAX builder's list less
+# stokes)
+_SPECTRAL_INTEGRATORS = ("path", "direct", "volpath", "volpathmis",
+                         "biovolpath", "biovolpath06", "prbvolpath")
 _SENSOR_TYPES = {"perspective": SENSOR_PERSPECTIVE,
                  "thinlens": SENSOR_THINLENS,
                  "orthographic": SENSOR_ORTHOGRAPHIC,
@@ -1292,8 +1296,6 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
     if d.get("type") != "scene":
         raise ValueError("top-level dict must be a scene")
     variant = variant or d.get("variant")
-    if variant and "spectral" in str(variant):
-        raise not_ported("the spectral variant", "Queue 1 M10")
     b = _Builder(base_dir)
     # pass 1: named non-shape resources (so refs resolve)
     for key, val in d.items():
@@ -1344,7 +1346,19 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
                     b.add_shape(sval)
         elif t in _EMITTER_TYPES:
             b.build_emitter(val)
-    return b.finalize()
+    arrays, statics = b.finalize()
+    if variant and "spectral" in str(variant):
+        # the JAX builder's gate: the surface-path and volumetric families
+        # (stokes, which it also admits, raises above: not ported)
+        if statics["integrator"] not in _SPECTRAL_INTEGRATORS:
+            raise ValueError(
+                "the spectral variant covers the surface-path and "
+                f"volumetric families, not {statics['integrator']!r}")
+        if statics["ssub.enabled"]:
+            raise ValueError("the spectral variant does not support "
+                             "subsurface shapes (RGB only)")
+        statics["spectral"] = True
+    return arrays, statics
 
 
 def load_dict(d: Dict[str, Any], device="cuda", base_dir: str = ".",
@@ -1352,7 +1366,9 @@ def load_dict(d: Dict[str, Any], device="cuda", base_dir: str = ".",
     """Build the port's Scene on `device` from a Mitsuba-style dict: the
     card unless the caller passes device="cpu".  Raises RuntimeError when
     asked for the card and there is none.  Relative file names resolve
-    against base_dir; variant "spectral" is not ported (ROADMAP M10)."""
+    against base_dir.  variant "spectral" (or a top-level "variant" key)
+    builds the hero-wavelength variant: the surface-path and volumetric
+    families without subsurface shapes."""
     import torch
     from ..bridge import scene_from_numpy
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():

@@ -234,9 +234,11 @@ def test_fog_cornell_render_on_the_card_matches_cpu():
     assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
 
 
-def _card_vs_cpu(d, spp):
-    ref = lrt.render(lrt.load_dict(d, device="cpu"), spp=spp).numpy()
-    img = lrt.render(lrt.load_dict(d), spp=spp).cpu().numpy()
+def _card_vs_cpu(d, spp, variant=None):
+    ref = lrt.render(lrt.load_dict(d, device="cpu", variant=variant),
+                     spp=spp).numpy()
+    img = lrt.render(lrt.load_dict(d, variant=variant),
+                     spp=spp).cpu().numpy()
     close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
     assert close.all(-1).mean() >= 0.99
     assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
@@ -699,3 +701,37 @@ def test_checkpoint_restores_onto_the_card(tmp_path):
     fresh.load_state_dict(state)
     torch.testing.assert_close(fresh.state_dict()["state"][0]["exp_avg"],
                                opt.state_dict()["state"][0]["exp_avg"])
+
+
+@pytest.mark.cuda
+def test_spectral_proxy_on_the_card_matches_cpu():
+    """The spectral variant of the bumped, sky-lit liver proxy
+    (hero-wavelength packets on the biovolpath regen wavefront) on the card
+    against the CPU render, through the sweep kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = liver_proxy_dict(16, 12, 4, 2, 0, bump=(32, 0.05), sky=(64, 32))
+    before = tci.LAUNCHES
+    _card_vs_cpu(d, 4, variant="spectral")
+    assert tci.LAUNCHES > before
+
+
+@pytest.mark.cuda
+def test_specfilm_on_the_card_matches_cpu():
+    """render_specfilm of the spectral Cornell box on the card against the
+    CPU, per bin: >= 99 % of the (pixel, bin) entries within rtol 1e-3 /
+    atol 1e-4, the means within 1e-3 (the card's scatter-add sums in
+    another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = _cornell(16, "box")
+    d["integrator"] = {"type": "path", "max_depth": 4}
+    bins = {}
+    for dev in ("cpu", "cuda"):
+        sc = lrt.load_dict(d, device=dev, variant="spectral")
+        bins[dev] = lrt.render_specfilm(sc, n_bins=16, spp=8).cpu().numpy()
+    img, ref = bins["cuda"], bins["cpu"]
+    assert img.shape == (16, 16, 16)
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())

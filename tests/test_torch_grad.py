@@ -62,7 +62,7 @@ def _port_state(jst):
     """The port's VolpathState holding the JAX state's exact values."""
     kw = {f.name: _t(getattr(jst, f.name))
           for f in dataclasses.fields(tvp.VolpathState)
-          if f.name != "sampler"}
+          if f.name != "sampler" and getattr(jst, f.name) is not None}
     js = jst.sampler
     kw["sampler"] = TSampler(seed=_t(js.seed), dim=_t(js.dim),
                              samp=_t(js.samp), pix=_t(js.pix))
