@@ -289,6 +289,38 @@ result line):
                    (passes of 2^20 lanes): seconds, passes, launches; the
                    bins integrated against CIE Y against the spectral
                    render's mean luminance (within 5 %)
+  m10_small        the light tracer, polarized transport and the splat
+                   radiance field at test size, card against CPU:
+                   render_ptracer of the Cornell box at 16x16;
+                   render_stokes of a polarizer-retarder-polarizer stack
+                   and of a gold mirror, RGB and spectral (per pixel and
+                   Stokes component); three splats (volprim_rf_basic, SH
+                   degree 2): image, volprims.opacity and volprims.sh
+                   gradients through the scan adjoint
+  ptracer_render   BASELINE's Cornell box (256x256, 64 spp: 1,048,576
+                   light paths, depth 8) through render_ptracer: seconds
+                   (two runs), light paths/s, sweeps, peak memory, a
+                   profile (launches per step, device idle), and its mean
+                   against `path` on the same scene with hide_emitters,
+                   timed in turns (within 5 %)
+  stokes_render    the Cornell box with a smooth gold large box under
+                   stokes, 256x256, 64 spp, depth 8: seconds, paths/s,
+                   peak memory, sweeps, launches per bounce and device
+                   idle of a profile; S0's mean against `path` (within
+                   5 %); the DOP on the gold block's pixels, and behind a
+                   polarizer at 30 deg filling the view (in (0, 1]); the
+                   spectral x polarized variant in turns with RGB
+                   (spectral_over_rgb, the linear DOP within 0.08, S0
+                   within 15 %)
+  volprim_render   16,384 seeded ellipsoids (1,310,720 triangles: K2's
+                   regime; SH degree 3, srgb) at 428x240, 4 spp, max_depth
+                   64: build seconds, seconds, paths/s, iterations, sweep
+                   and merge launches, splits per query, ms per query on
+                   the render's own rays (CUDA events) beside its bound,
+                   the kernels against the plain version on 16,384 rays of
+                   one query, a profile (device idle), and a 1 spp
+                   render_grad of volprims.opacity and volprims.sh (scan
+                   adjoint) against a 1 spp primal, peak memory
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -303,8 +335,9 @@ result line):
                    renders and the thinlens render + the driver's render,
                    the evaluation's rows and the inverse-rendering loop +
                    the spectral render, its gradient, the spectral
-                   Cornell render and its specfilm), agreement, times and
-                   bound
+                   Cornell render and its specfilm + the ptracer, stokes
+                   and volprim renders and the volprim gradient),
+                   agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
 """
@@ -423,6 +456,30 @@ DENOISE_RTOL, DENOISE_ATOL = 1e-5, 1e-6
 SPEC_SMALL, SPEC_FOG_SMALL = (16, 12, 4), (16, 4, 6)
 SPECFILM_BINS = 16
 SPEC_LUM_RTOL, SPECFILM_RTOL = 0.15, 0.05
+
+# the light tracer, polarized transport and the splat radiance field
+# (m10_phases): m10_small's film and spp; BASELINE's Cornell box (256^2,
+# 64 spp, depth 8) for the ptracer (w * h * spp / 4 = 1,048,576 light
+# paths) and stokes renders, the stokes one with the large box a smooth
+# gold conductor, and a polarizer at POLARIZER_THETA degrees filling the
+# view in front of the camera; the gates of the JAX package's own tests:
+# the ptracer's and stokes S0's means within 5 % of `path`
+# (test_ptracer_matches_path, test_stokes_s0_matches_path_with_area_light),
+# the spectral x polarized DOP within 0.08 of RGB's and its S0 within 15 %
+# (test_spectral_stokes_matches_rgb_fresnel); every profile at the timed
+# render's size.
+# The splat cloud: VP_SPLATS seeded ellipsoids (80 triangles each:
+# 1,310,720, K2's regime) at 428x240, VP_SPP spp, max_depth 64, SH degree
+# 3; its gradient at VP_GRAD_SPP; the kernels against the plain version
+# on VP_SUB_RAYS rays of one of its queries.  Cut: a trained 3DGS scene
+# has 10^5-10^6 splats, past 2^21 triangles, where the BVH route runs
+# 99-136x slower than the sweep, so the cloud stops at 16,384.
+M10_SMALL = (16, 16)
+M10_PATH_RTOL = 0.05
+DOP_ATOL, SPEC_S0_RTOL = 0.08, 0.15
+POLARIZER_THETA = 30.0
+VP_SPLATS, VP_SPP, VP_GRAD_SPP, VP_SUB_RAYS = 16384, 4, 1, 16384
+VP_KEYS = ("volprims.opacity", "volprims.sh")
 # sensors_small's Cornell box film: every sensor scene at 16x12 or less
 SENSOR_CORNELL_FILM = (16, 12)
 # media_small: film, spp; the point light of its grid cubes
@@ -787,13 +844,18 @@ def split_counts(c):
                 shadow_merge_launches=s_merge)
 
 
-def timed_render(torch, lrt, scene, spp):
-    """Wall seconds of one render, from a synchronised card."""
+def timed_call(torch, fn):
+    """Wall seconds of fn() from a synchronised card, and its result."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = lrt.render(scene, spp=spp, seed=SEED)
+    out = fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, img
+    return time.perf_counter() - t0, out
+
+
+def timed_render(torch, lrt, scene, spp):
+    """Wall seconds of one render, from a synchronised card."""
+    return timed_call(torch, lambda: lrt.render(scene, spp=spp, seed=SEED))
 
 
 def grad_run(torch, lrt, ci, treplay, scene, spp, walks=1,
@@ -894,6 +956,19 @@ def load_scene(lrt, d, device="cuda", variant=None):
     return lrt.load_dict(d, device=device, variant=variant)
 
 
+def arrays_agree(np, img, ref):
+    """Card image against CPU image, per pixel over the trailing axes ->
+    (pixel fraction within tolerance, difference of the means relative
+    to the mean magnitude, card mean).  The magnitude, not the mean: the
+    signed Stokes components S1..S3 may average to ~0."""
+    close = np.abs(img - ref) <= PIX_ATOL + PIX_RTOL * np.abs(ref)
+    close = close.reshape(close.shape[:2] + (-1,))
+    return (float(close.all(-1).mean()),
+            float(abs(img.mean() - ref.mean())
+                  / max(float(np.abs(ref).mean()), 1e-12)),
+            float(img.mean()))
+
+
 def image_vs_cpu(np, lrt, d, spp, variant=None):
     """The same render on the card and on the CPU (plain version) ->
     (pixel fraction within tolerance, relative difference of the means,
@@ -903,12 +978,8 @@ def image_vs_cpu(np, lrt, d, spp, variant=None):
                          seed=SEED).numpy()
     img_gpu = lrt.render(load_scene(lrt, d, variant=variant), spp=spp,
                          seed=SEED).cpu().numpy()
-    close = np.abs(img_gpu - img_cpu) <= PIX_ATOL + PIX_RTOL \
-        * np.abs(img_cpu)
-    return (float(close.all(-1).mean()),
-            float(abs(img_gpu.mean() - img_cpu.mean())
-                  / abs(img_cpu.mean())), float(img_gpu.mean()),
-            float((img_gpu == img_cpu).all(-1).mean()))
+    return arrays_agree(np, img_gpu, img_cpu) \
+        + (float((img_gpu == img_cpu).all(-1).mean()),)
 
 
 def grad_vs_cpu(lrt, d, spp, keys=("media.params",), variant=None):
@@ -3222,6 +3293,267 @@ def spectral_phases(torch, np, lrt, ci, treplay, smi):
                 box=box_counts)
 
 
+def stokes_dop(S, mask, linear=False):
+    """Degree of polarization of the Stokes vector averaged over the
+    masked pixels and the channels (S: (h, w, 4, C)); linear: of S1 and
+    S2 only, the per-channel means first (test_polarization.py's)."""
+    s = S[mask].mean(0)                               # (4, C)
+    if linear:
+        return float((s[1].mean() ** 2 + s[2].mean() ** 2) ** 0.5
+                     / max(float(s[0].mean()), 1e-9))
+    v = s.mean(-1)
+    return float((v[1:] ** 2).sum() ** 0.5 / max(float(v[0]), 1e-9))
+
+
+def m10_phases(torch, np, lrt, ci, smi):
+    """Phases m10_small, ptracer_render, stokes_render and volprim_render
+    -> the launch counts the kernels line reports."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.scene.cornell import cornell_box
+    from liverrenderer_tpu_torch.scene.ir import BSDF_CONDUCTOR
+    from liverrenderer_tpu_torch.scene.transform import Transform
+    ms = _tests_module("torch_m10_scenes")
+
+    # ---- 16a. at test size, card against CPU
+    res_s, spp_s = M10_SMALL
+    small = {}
+    d = _cornell_dict(cornell_box, res_s, "box")
+    img = [lrt.render_ptracer(lrt.load_dict(d, device=dev), spp=spp_s,
+                              seed=SEED).cpu().numpy()
+           for dev in ("cpu", "cuda")]
+    small["ptracer_cornell"] = arrays_agree(np, img[1], img[0])
+    stack = ms.stack_dict([{"type": "polarizer", "theta": 90.0},
+                           {"type": "retarder", "theta": 45.0},
+                           {"type": "polarizer", "theta": POLARIZER_THETA}])
+    for name, sd in (("stack", stack), ("gold_mirror",
+                                        ms.gold_mirror_dict())):
+        for var in (None, "spectral"):
+            S = [lrt.render_stokes(lrt.load_dict(sd, device=dev,
+                                                 variant=var),
+                                   spp=spp_s, seed=SEED).cpu().numpy()
+                 for dev in ("cpu", "cuda")]
+            small[f"stokes_{name}_{var or 'rgb'}"] = arrays_agree(
+                np, S[1], S[0])
+    splats = ms.three_splats(srgb=True, degree=2)
+    frac, mean_rel, mean, _ = image_vs_cpu(np, lrt, splats, spp_s)
+    small["volprim_3_splats"] = (frac, mean_rel, mean)
+    cos, norm_rel, gnorm, gfin = grad_vs_cpu(lrt, splats, spp_s, VP_KEYS)
+    emit("m10_small", film=[res_s, res_s], spp=spp_s,
+         **{k: dict(pixel_frac=v[0], mean_rel=v[1], mean=v[2])
+            for k, v in small.items()},
+         volprim_grad_cosine=cos, volprim_grad_norm_rel=norm_rel,
+         volprim_grad_norm=gnorm)
+    for k, v in small.items():
+        check(v[0] >= PIX_FRAC_MIN and v[1] <= MEAN_RTOL,
+              f"m10_small ({k}): the card disagrees with the CPU: {v}")
+    check(gfin and gnorm > 0, "m10_small: volprims gradient not finite or 0")
+    check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+          "m10_small: the card's volprims gradient disagrees with the CPU's")
+
+    # ---- 16b. the light tracer on BASELINE's Cornell box, in turns with
+    # the path tracer on the same scene with its emitters hidden
+    d = _cornell_dict(cornell_box, CORNELL_RES, "gaussian")
+    box = lrt.load_dict(d)
+    hidden = box.replace(hide_emitters=True)
+    n_paths = CORNELL_RES * CORNELL_RES * max(1, CORNELL_SPP // 4)
+    lrt.render_ptracer(box, spp=4, seed=SEED + 1)              # warm-up
+    lrt.render(hidden, spp=1, seed=SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    pt_s, pt = timed_call(torch, lambda: lrt.render_ptracer(
+        box, spp=CORNELL_SPP, seed=SEED))
+    pt_counts = launch_counts(ci)
+    pt_peak = torch.cuda.max_memory_allocated()
+    path_s, fw = timed_render(torch, lrt, hidden, CORNELL_SPP)
+    path_s = [path_s, timed_render(torch, lrt, hidden, CORNELL_SPP)[0]]
+    pt_s = [pt_s, timed_call(torch, lambda: lrt.render_ptracer(
+        box, spp=CORNELL_SPP, seed=SEED))[0]]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        secs_tr, _ = timed_call(torch, lambda: lrt.render_ptracer(
+            box, spp=CORNELL_SPP, seed=SEED))
+    pt_trace = primal_trace(prof, secs_tr, box.max_depth)
+    rel = abs(float(pt.mean()) - float(fw.mean())) / float(fw.mean())
+    emit("ptracer_render", film=[CORNELL_RES, CORNELL_RES], spp=CORNELL_SPP,
+         max_depth=box.max_depth, light_paths=n_paths, card=smi,
+         seconds=pt_s[0], seconds_reps=pt_s,
+         light_paths_per_s=n_paths / pt_s[0],
+         path_seconds_reps=path_s, ptracer_over_path=pt_s[0] / path_s[0],
+         finite=bool(torch.isfinite(pt).all()), mean=float(pt.mean()),
+         path_mean=float(fw.mean()), mean_rel_to_path=rel,
+         max_memory_allocated=pt_peak, **split_counts(pt_counts),
+         trace=pt_trace)
+    check(tuple(pt.shape) == (CORNELL_RES, CORNELL_RES, 3),
+          "ptracer image shape")
+    check(bool(torch.isfinite(pt).all()), "ptracer image not finite")
+    check(rel <= M10_PATH_RTOL, f"ptracer mean {float(pt.mean())} vs path "
+          f"{float(fw.mean())}: beyond {M10_PATH_RTOL:.0%}")
+    check(pt_counts[0] >= 2 * box.max_depth,
+          "the ptracer render did not launch the sweep kernel")
+
+    # ---- 16c. polarized transport: the Cornell box with a gold block
+    d = _cornell_dict(cornell_box, CORNELL_RES, "gaussian")
+    d["large-box"]["bsdf"] = {"type": "conductor", "material": "Au"}
+    d_st = dict(d, integrator={"type": "stokes", "max_depth": CORNELL_DEPTH})
+    st, pth = lrt.load_dict(d_st), lrt.load_dict(d)
+    sp = lrt.load_dict(d_st, variant="spectral")
+    check(sp.spectral and st.integrator == "stokes", "stokes scenes")
+    for sc in (st, sp):
+        lrt.render_stokes(sc, spp=1, seed=SEED + 1)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    st_s, S = timed_call(torch, lambda: lrt.render_stokes(
+        st, spp=CORNELL_SPP, seed=SEED))
+    st_counts = launch_counts(ci)
+    st_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    sp_s, Ssp = timed_call(torch, lambda: lrt.render_stokes(
+        sp, spp=CORNELL_SPP, seed=SEED))
+    sp_counts = launch_counts(ci)
+    sp_peak = torch.cuda.max_memory_allocated()
+    sp_s = [sp_s, timed_call(torch, lambda: lrt.render_stokes(
+        sp, spp=CORNELL_SPP, seed=SEED))[0]]
+    st_s = [st_s, timed_call(torch, lambda: lrt.render_stokes(
+        st, spp=CORNELL_SPP, seed=SEED))[0]]
+    path_s, img = timed_render(torch, lrt, pth, CORNELL_SPP)
+    s0_rel = abs(float(S[..., 0, :].mean()) - float(img.mean())) \
+        / float(img.mean())
+    # the gold block's pixels: the primary hits on the conductor's shape
+    bt = pth.bsdfs.btype[pth.shape_bsdf]
+    gold = int(torch.nonzero(bt == BSDF_CONDUCTOR)[0, 0])
+    mask = lrt.render_aovs(pth, ("shape_index",))["shape_index"] == gold
+    dop_gold = stokes_dop(S, mask)
+    # a polarizer at POLARIZER_THETA filling the view in front of the
+    # camera (at z = 3.5, the camera at 3.9)
+    d_pol = dict(d_st, polarizer={
+        "type": "rectangle",
+        "to_world": Transform().translate([0, 0, 3.5]).scale(0.5)
+        .matrix.copy(),
+        "bsdf": {"type": "polarizer", "theta": POLARIZER_THETA}})
+    pol = lrt.load_dict(d_pol)
+    reset_counts(ci)
+    pol_s, Sp = timed_call(torch, lambda: lrt.render_stokes(
+        pol, spp=CORNELL_SPP, seed=SEED))
+    pol_counts = launch_counts(ci)
+    dop_pol = stokes_dop(Sp, mask)
+    dop_rgb, dop_sp = stokes_dop(S, mask, True), stokes_dop(Ssp, mask, True)
+    s0_sp_rel = abs(float(Ssp[mask][:, 0].mean())
+                    - float(S[mask][:, 0].mean())) \
+        / float(S[mask][:, 0].mean())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ci)
+        secs_tr, _ = timed_call(torch, lambda: lrt.render_stokes(
+            st, spp=CORNELL_SPP, seed=SEED))
+    st_trace = primal_trace(prof, secs_tr, ci.LAUNCHES - ci.SHADOW_LAUNCHES)
+    lanes = CORNELL_RES * CORNELL_RES * CORNELL_SPP
+    t_sp, t_rgb = sum(sp_s) / 2, sum(st_s) / 2
+    emit("stokes_render", film=[CORNELL_RES, CORNELL_RES], spp=CORNELL_SPP,
+         max_depth=CORNELL_DEPTH, card=smi, seconds=st_s[0],
+         seconds_reps=st_s, paths_per_s=lanes / st_s[0],
+         path_seconds=path_s, stokes_over_path=st_s[0] / path_s,
+         shape=list(S.shape), finite=bool(torch.isfinite(S).all()),
+         s0_mean=float(S[..., 0, :].mean()), path_mean=float(img.mean()),
+         s0_rel_to_path=s0_rel, gold_pixels=int(mask.sum()),
+         dop_gold=dop_gold, polarizer_theta=POLARIZER_THETA,
+         polarizer_seconds=pol_s, dop_gold_behind_polarizer=dop_pol,
+         spectral_seconds_reps=sp_s, spectral_over_rgb=t_sp / t_rgb,
+         dolp_gold_rgb=dop_rgb, dolp_gold_spectral=dop_sp,
+         spectral_s0_rel=s0_sp_rel, max_memory_allocated=st_peak,
+         spectral_max_memory_allocated=sp_peak,
+         launches=split_counts(st_counts),
+         polarizer_launches=split_counts(pol_counts),
+         spectral_launches=split_counts(sp_counts),
+         trace=st_trace)
+    check(tuple(S.shape) == (CORNELL_RES, CORNELL_RES, 4, 3),
+          "stokes image shape")
+    for name, x in (("rgb", S), ("polarizer", Sp), ("spectral", Ssp)):
+        check(bool(torch.isfinite(x).all()), f"stokes {name}: not finite")
+    check(s0_rel <= M10_PATH_RTOL, f"stokes S0 mean vs path: {s0_rel}")
+    check(int(mask.sum()) > 0, "no pixel sees the gold block")
+    check(0.0 < dop_pol <= 1.0 + 1e-6,
+          f"DOP behind the polarizer {dop_pol} not in (0, 1]")
+    check(abs(dop_sp - dop_rgb) < DOP_ATOL,
+          f"spectral DOP {dop_sp} vs RGB {dop_rgb}")
+    check(s0_sp_rel < SPEC_S0_RTOL, f"spectral S0 vs RGB: {s0_sp_rel}")
+    check(st_counts[0] > 0 and st_counts[2] > 0,
+          "the stokes render launched no bounce or no shadow sweep")
+    del S, Sp, Ssp, st, sp, pol
+
+    # ---- 16d. the splat radiance field at K2's size
+    t0 = time.perf_counter()
+    vp = lrt.load_dict(ms.splat_cloud(VP_SPLATS, SEED, (WIDTH, HEIGHT)))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(vp.n_tris == VP_SPLATS * 80 and vp.n_tris > ci.MAX_VMEM_TRIS
+          and vp.n_tris <= ci.MAX_STREAM_TRIS,
+          f"the splat cloud has {vp.n_tris} triangles")
+    lrt.render(vp, spp=1, seed=SEED + 1)                      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    vp_s, calls = capture_render(torch, lrt, ci, vp, VP_SPP)
+    vp_counts = launch_counts(ci)
+    vp_peak = torch.cuda.max_memory_allocated()
+    n_rays = calls[0][1].shape[1]
+    splits, per = ci.split_plan(n_rays, vp.tri_boxes.shape[0], "cuda")
+    inline = sorted(c[0] for c in calls)
+    # the kernels against the plain version, and the bound, on
+    # VP_SUB_RAYS evenly spaced rays of the middle query
+    _, rays, tris, boxes = calls[len(calls) // 2]
+    step = max(1, rays.shape[1] // VP_SUB_RAYS)
+    sub = rays[:, ::step][:, :VP_SUB_RAYS].contiguous()
+    del calls
+    res, _, _ = kernel_vs_plain(torch, ci, sub, tris, boxes, vp.n_tris,
+                                reps_plain=1)
+    check_agreement(res, "splat cloud rays")
+    k = n_rays / sub.shape[1]
+    full = roofline(res["needed_tests"] * k, res["candidate_tests"] * k,
+                    query_bytes(n_rays, tris, boxes))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reset_counts(ci)
+        secs_tr, vp_img = timed_render(torch, lrt, vp, VP_SPP)
+    vp_trace = primal_trace(prof, secs_tr, ci.LAUNCHES)
+    # its gradient through the scan adjoint, against a primal
+    prm = lrt.traverse(vp, VP_KEYS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    g_s, (_, g, _) = timed_call(torch, lambda: lrt.render_grad(
+        vp, {key: prm[key] for key in VP_KEYS}, lambda im: im.mean(),
+        spp=VP_GRAD_SPP, seed=SEED))
+    g_counts = launch_counts(ci)
+    g_peak = torch.cuda.max_memory_allocated()
+    p_s, _ = timed_render(torch, lrt, vp, VP_GRAD_SPP)
+    g_fin = all(bool(torch.isfinite(g[key]).all()) for key in VP_KEYS)
+    g_max = {key: float(g[key].abs().max()) for key in VP_KEYS}
+    paths = WIDTH * HEIGHT * VP_SPP
+    emit("volprim_render", film=[WIDTH, HEIGHT], spp=VP_SPP,
+         splats=VP_SPLATS, tris=vp.n_tris, sh_degree=vp.volprims.sh_degree,
+         max_depth=vp.max_depth, card=smi, build_seconds=build_s,
+         seconds=vp_s, paths_per_s=paths / vp_s, iterations=vp_counts[0],
+         finite=bool(torch.isfinite(vp_img).all()),
+         mean=float(vp_img.mean()), max_memory_allocated=vp_peak,
+         rays_per_query=n_rays, splits_per_query=splits,
+         chunks_per_split=per, **split_counts(vp_counts),
+         query_ms_median=inline[len(inline) // 2],
+         query_ms_total=sum(inline), query_wall_share=sum(inline)
+         / (vp_s * 1e3), query_bound_ms=full["bound_ms"],
+         query_bound_by=full["bound_by"],
+         query_share=full["bound_ms"] / inline[len(inline) // 2],
+         sub_rays=int(sub.shape[1]), sub_query=res, trace=vp_trace,
+         grad_spp=VP_GRAD_SPP, grad_seconds=g_s, grad_primal_seconds=p_s,
+         grad_over_primal=g_s / p_s, grad_finite=g_fin, grad_abs_max=g_max,
+         grad_max_memory_allocated=g_peak,
+         grad_launches=split_counts(g_counts))
+    check(tuple(vp_img.shape) == (HEIGHT, WIDTH, 3), "volprim image shape")
+    check(bool(torch.isfinite(vp_img).all()) and float(vp_img.mean()) > 0,
+          "volprim image not finite or black")
+    check(vp_counts[0] > 0 and vp_counts[1] > 0,
+          "the volprim render did not launch the sweep and merge kernels")
+    check(g_fin and all(v > 0 for v in g_max.values()),
+          "volprim render_grad: gradient not finite or zero")
+    return dict(ptracer=pt_counts, stokes=st_counts, polarizer=pol_counts,
+                spectral=sp_counts, volprim=vp_counts, volprim_grad=g_counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3542,6 +3874,12 @@ def main() -> int:
     # binned spectral film
     spc = spectral_phases(torch, np, lrt, ci, treplay, smi)
     spc_grad = spc["grad_counts"]
+
+    # ---- 16. the light tracer, polarized transport (RGB and spectral)
+    # and the splat radiance field at K2's size
+    m10 = m10_phases(torch, np, lrt, ci, smi)
+    m10_sweeps = sum(c[0] for c in m10.values())
+    m10_merges = sum(c[1] for c in m10.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -3570,7 +3908,7 @@ def main() -> int:
              + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0]
              + pipe_sweeps + spc["counts"][0] + spc_grad["fwd_launches"]
              + spc_grad["replay_launches"] + spc["film"][0]
-             + spc["box"][0],
+             + spc["box"][0] + m10_sweeps,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -3604,6 +3942,7 @@ def main() -> int:
              spectral_render_grad_launches=spc_grad,
              specfilm_launches=split_counts(spc["film"]),
              spectral_cornell_render_launches=split_counts(spc["box"]),
+             m10_launches={k: split_counts(c) for k, c in m10.items()},
              sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
              sss_event_bound_ms={g: v["bound_ms"]
                                  for g, v in sss["kernel"].items()},
@@ -3657,7 +3996,7 @@ def main() -> int:
              + cli["thinlens"][1] + pipe_merges + spc["counts"][1]
              + spc_grad["fwd_merge_launches"]
              + spc_grad["replay_merge_launches"] + spc["film"][1]
-             + spc["box"][1],
+             + spc["box"][1] + m10_merges,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
@@ -3669,6 +4008,8 @@ def main() -> int:
              evaluate_sss_launches=pipe["evaluate_sss"][1],
              inverse_render_launches=pipe["inverse"][1],
              spectral_render_launches=spc["counts"][1],
+             volprim_render_launches=m10["volprim"][1],
+             volprim_render_grad_launches=m10["volprim_grad"][1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -10,7 +10,9 @@ next-event estimation) and the surface path family, with subsurface
 scattering (the learned vaescatter BSSRDF and the classical dipole), on
 the regenerating wavefront, in RGB or the spectral variant
 (hero-wavelength packets), and differentiates them through the PRB replay
-adjoint or the scan adjoint.
+adjoint or the scan adjoint; also the light tracer (`ptracer`), polarized
+transport (`stokes`, RGB and spectral) and the radiance field over
+Gaussian-splat ellipsoids (`volprim_rf_basic`).
 
     import liverrenderer_tpu_torch as lrt
     from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
@@ -35,6 +37,12 @@ adjoint or the scan adjoint.
     img = lrt.render(sp)                         # also render_grad
     box = lrt.load_dict(lrt.cornell_box(), variant="spectral")
     bins = lrt.render_specfilm(box, n_bins=16, spp=16)   # (h, w, 16)
+    # the light tracer, polarized transport, the splat radiance field
+    rgb_box = lrt.load_dict(lrt.cornell_box())
+    img = lrt.render_ptracer(rgb_box, spp=64)    # (h, w, 3)
+    S = lrt.render_stokes(polarized_scene, spp=16)   # (h, w, 4, 3)
+    img = lrt.render(splat_scene)                # also render_grad of
+                                                 # volprims.opacity / .sh
 
 The command-line renderer: `python -m liverrenderer_tpu_torch.cli
 scene.xml -o out.exr` (on the card; `--cpu` renders on the CPU).  The
@@ -64,11 +72,14 @@ from .integrators.prb import render_fwd_grad, render_grad  # noqa: E402
 from .integrators.aux import (render_aovs, render_depth,  # noqa: E402
                               render_direct, render_moments)
 from .integrators.spectral import render_specfilm  # noqa: E402
+from .integrators.ptracer import render_ptracer  # noqa: E402
+from .integrators.stokes import render_stokes  # noqa: E402
 from .util import SceneParameters, apply_params, traverse  # noqa: E402
 from .largesteps import LargeSteps  # noqa: E402
 
 __all__ = ["load_dict", "load_file", "cornell_box", "read_image",
            "write_image", "render", "RenderControl", "render_grad",
            "render_fwd_grad", "render_aovs", "render_depth", "render_direct",
-           "render_moments", "render_specfilm", "traverse", "apply_params",
+           "render_moments", "render_specfilm", "render_ptracer",
+           "render_stokes", "traverse", "apply_params",
            "SceneParameters", "Transform", "LargeSteps"]

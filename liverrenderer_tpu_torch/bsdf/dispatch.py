@@ -1,8 +1,10 @@
 """BSDF sampling and evaluation over the wavefront (counterpart of
 liverrenderer_tpu/bsdf/dispatch.py) for the stock families: diffuse,
 smooth, thin and rough dielectric, smooth and rough conductor, smooth,
-rough and polarized plastic (its unpolarized projection), null, and the
-one-level blendbsdf and mask wrappers.  Every family present in the scene
+rough and polarized plastic (its unpolarized projection), null, the
+polarizer, retarder and circular elements (their unpolarized
+projection: integrators/stokes.py applies their Mueller matrices), and
+the one-level blendbsdf and mask wrappers.  Every family present in the scene
 is evaluated on all lanes and combined with masked selects.
 
 Conventions: directions in the local shading frame, wi points away from
@@ -12,7 +14,7 @@ probability as the pdf of a delta lobe; twosided flips the frame when
 cos_theta(wi) < 0.  Per-lane rows (type, twosided, texture slots, nested
 BSDFs, params) are read with core/math.table_lookup, as in the JAX
 package, so that a parameter's gradient is one reduction per row.
-Principled, principledthin, hair, measured and the polarizers raise.
+Principled, principledthin, hair and measured raise.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ from ..core import microfacet as mf
 from ..core import warp
 from ..core.types import BSDFSample
 from ..errors import not_ported
-from ..scene.ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC,
-                        BSDF_DIFFUSE, BSDF_MASK, BSDF_NULL, BSDF_PLASTIC,
-                        BSDF_PPLASTIC, BSDF_ROUGHCONDUCTOR,
+from ..scene.ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
+                        BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK, BSDF_NULL,
+                        BSDF_PLASTIC, BSDF_POLARIZER, BSDF_PPLASTIC,
+                        BSDF_RETARDER, BSDF_ROUGHCONDUCTOR,
                         BSDF_ROUGHDIELECTRIC, BSDF_ROUGHPLASTIC,
                         BSDF_THINDIELECTRIC, F_DELTA_REFL, F_DELTA_TRANS,
                         F_DIFFUSE_REFL, F_GLOSSY_REFL, F_GLOSSY_TRANS,
@@ -411,6 +414,18 @@ def _null_sample(wi, u1, u2, p, t0, t1):
         torch.full(n, F_NULL, dtype=torch.int64, device=wi.device)
 
 
+def _element(scale):
+    """A transmissive polarization element (polarizer.cpp, retarder.cpp,
+    circular.cpp): straight through with pdf 1; its unpolarized weight is
+    scale * transmittance (the Mueller matrix's M00).  The stokes
+    integrator applies the rest of the matrix."""
+    def sample(wi, u1, u2, p, t0, t1):
+        n = wi.shape[:-1]
+        return -wi, wi.new_ones(n), scale * t0, wi.new_ones(n), \
+            torch.full(n, F_NULL, dtype=torch.int64, device=wi.device)
+    return sample
+
+
 _SAMPLERS = {
     BSDF_DIFFUSE: _diffuse_sample,
     BSDF_DIELECTRIC: _dielectric_sample,
@@ -422,6 +437,9 @@ _SAMPLERS = {
     BSDF_PPLASTIC: _pplastic_sample,
     BSDF_ROUGHDIELECTRIC: _roughdielectric_sample,
     BSDF_NULL: _null_sample,
+    BSDF_POLARIZER: _element(0.5),
+    BSDF_RETARDER: _element(1.0),
+    BSDF_CIRCULAR: _element(0.5),
 }
 
 # families with a non-delta lobe; the others evaluate to zero
@@ -443,7 +461,7 @@ def _check_types(b):
            if t not in _SAMPLERS and t not in _NESTED]
     if bad:
         raise not_ported(f"BSDF type codes {bad} (principled, hair, "
-                         "measured, polarizers)", "Queue 1 M10")
+                         "measured)", "Queue 1 M10")
 
 
 def _gather_ctx(scene: Scene, si, idx):

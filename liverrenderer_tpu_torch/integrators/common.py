@@ -7,12 +7,13 @@ import torch
 
 from .. import film as film_mod
 from ..core.rng import make_sampler
-from ..errors import not_ported
 from ..scene.ir import Scene
 from ..sensor.perspective import APERTURE_SENSORS, ray_weight, sample_ray
 from . import path as path_mod
 from . import volpath as volpath_mod
 from . import volpathmis as volpathmis_mod
+from . import volprim as volprim_mod
+from .stokes import sample_stokes
 
 MAX_WAVEFRONT = 1 << 22   # lanes per pass
 SSS_WAVEFRONT = 1 << 17   # lanes per pass of a subsurface scene
@@ -37,13 +38,21 @@ def _integrator_sample(scene: Scene, sampler, ray, mode="primal"):
         # (volpath._has_bio): bio media reach volpathmis through the base
         # majorant sampling, so every RGB volpathmis scene runs its module
         return volpathmis_mod.sample(scene, sampler, ray, mode=mode)
+    if scene.integrator == "volprim_rf_basic":
+        return volprim_mod.sample(scene, sampler, ray, mode=mode)
+    if scene.integrator == "stokes":
+        # render of a stokes scene is S0, the unpolarized image;
+        # stokes.render_stokes gives all four components
+        S, sampler = sample_stokes(scene, sampler, ray)
+        return S[:, :, 0], S.new_ones(S.shape[0], dtype=torch.bool), sampler
     if scene.integrator in ("aov", "depth", "moment"):
         # the JAX package's render refuses them too: integrators/aux.py
         # renders them
         raise ValueError(f"unknown integrator {scene.integrator} (render "
                          "it with render_aovs, render_depth or "
                          "render_moments)")
-    raise not_ported(f"the {scene.integrator!r} integrator", "Queue 1 M10")
+    # ptracer, as in the JAX package: ptracer.render_ptracer renders it
+    raise ValueError(f"unknown integrator {scene.integrator}")
 
 
 def render_pass(scene: Scene, seed: int, spp_pass: int, sample_offset: int,

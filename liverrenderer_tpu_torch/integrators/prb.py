@@ -2,12 +2,16 @@
 parameters (counterpart of liverrenderer_tpu/integrators/prb.py).
 
 `render_grad` runs the PRB replay adjoint (prb_replay.py) wherever it
-applies and the scan adjoint otherwise: each render pass walks exactly
-max_depth bounces (`path.sample` or `volpath.sample` with mode="ad",
-every bounce under an activation checkpoint) and reverse-mode autograd
-differentiates it, with the detached-sampling rules of the bounce.  Passes are independent Monte
-Carlo estimates, so the gradient of their sum is the sum of per-pass
-gradients; the counter RNG makes each pass walk the primal's paths.
+applies and the scan adjoint otherwise (the fixed-wavefront scenes, and
+every volprim_rf_basic scene: the replay does not carry it): each render
+pass walks exactly max_depth bounces (`path.sample`, `volpath.sample` or
+`volprim.sample` with mode="ad", every bounce under an activation
+checkpoint) and reverse-mode autograd differentiates it, with the
+detached-sampling rules of the bounce.  A stokes scene raises where a
+parameter reaches its loop, as in the JAX package.  Passes are
+independent Monte Carlo estimates, so the gradient of their sum is the
+sum of per-pass gradients; the counter RNG makes each pass walk the
+primal's paths.
 """
 from __future__ import annotations
 
@@ -23,6 +27,14 @@ from .prb_replay import (_detach, _leaves, _loss_from_acc,
 from .regen import regen_applicable, render_regen
 
 Tensor = torch.Tensor
+
+# The JAX package's stokes loop is a lax.while_loop, which JAX does not
+# differentiate in reverse mode: its render_grad raises whenever a
+# parameter reaches the loop (and gives zeros when none does).  The port
+# refuses the same cases rather than add a gradient the reference lacks.
+_STOKES_REFUSAL = ("render_grad: reverse-mode differentiation does not "
+                   "work for the stokes integrator's while loop, as in the "
+                   "JAX package")
 
 
 def _grad_jit(scene: Scene, params: Dict[str, Tensor], seed, spp: int,
@@ -54,6 +66,8 @@ def _grad_jit(scene: Scene, params: Dict[str, Tensor], seed, spp: int,
             f = torch.sum(acc_i[..., 0:3] * g_rgb)
             if not f.requires_grad:
                 continue
+            if scene.integrator == "stokes":
+                raise ValueError(_STOKES_REFUSAL)
             gs = torch.autograd.grad(f, leaves, allow_unused=True)
         grads = [g if gi is None else g + gi for g, gi in zip(grads, gs)]
     return loss, dict(zip(keys, grads)), image

@@ -3,9 +3,10 @@ liverrenderer_tpu/scene/builder.py), cut to the plugins of the slices
 ported so far:
 
   integrators  biovolpath, biovolpath06, volpath, volpathmis, prbvolpath,
-               path, direct, prb, prb_basic; aov, depth and moment, which
-               render refuses as the JAX package's does
-               (integrators/aux.py renders them)
+               path, direct, prb, prb_basic, stokes, volprim_rf_basic;
+               ptracer, aov, depth and moment, which render refuses as
+               the JAX package's does (integrators/ptracer.py and aux.py
+               render them)
   sensor       perspective (to_world, fov, fov_axis), thinlens,
                orthographic, distant (direction, target), radiancemeter,
                irradiancemeter (nested in its shape) and batch (its child
@@ -14,10 +15,13 @@ ported so far:
                independent, stratified, multijitter, orthogonal and
                ldsampler samplers
   shapes       mesh, blender, obj, ply, serialized, rectangle, cube, disk,
-               cylinder, sphere (analytic), and merge's children
+               cylinder, sphere (analytic), ellipsoids and ellipsoidsmesh
+               (instanced icospheres; with opacities and SH coefficients
+               the radiance field's splats), and merge's children
   bsdfs        diffuse (also the default of a shape without a BSDF),
                dielectric, thindielectric, roughdielectric, conductor,
                roughconductor, plastic, roughplastic, pplastic, null, the
+               polarizer, retarder and circular elements, the
                one-level blendbsdf and mask, and the twosided, bumpmap and
                normalmap wrappers (folded into the BSDF and shape tables,
                also through a ref)
@@ -56,8 +60,9 @@ from ..core.rng import KINDS as _SAMPLERS
 from ..core.spectrum import blackbody_rgb, spd_to_rgb, srgb_to_linear
 from ..errors import not_ported
 from . import geometry as geo
-from .ir import (BSDF_BLEND, BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_DIFFUSE,
-                 BSDF_MASK, BSDF_NULL, BSDF_P, BSDF_PLASTIC, BSDF_PPLASTIC,
+from .ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
+                 BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK, BSDF_NULL, BSDF_P,
+                 BSDF_PLASTIC, BSDF_POLARIZER, BSDF_PPLASTIC, BSDF_RETARDER,
                  BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
                  BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, EMITTER_AREA,
                  EMITTER_CONSTANT, EMITTER_DIRECTIONAL, EMITTER_ENVMAP,
@@ -95,11 +100,11 @@ CONDUCTOR_IOR = {
 
 _INTEGRATORS = ("biovolpath", "biovolpath06", "volpath", "volpathmis",
                 "prbvolpath", "path", "direct", "prb", "prb_basic", "aov",
-                "depth", "moment")
-# integrators the spectral variant admits (the JAX builder's list less
-# stokes)
+                "depth", "moment", "ptracer", "stokes", "volprim_rf_basic")
+# integrators the spectral variant admits (the JAX builder's list)
 _SPECTRAL_INTEGRATORS = ("path", "direct", "volpath", "volpathmis",
-                         "biovolpath", "biovolpath06", "prbvolpath")
+                         "biovolpath", "biovolpath06", "prbvolpath",
+                         "stokes")
 _SENSOR_TYPES = {"perspective": SENSOR_PERSPECTIVE,
                  "thinlens": SENSOR_THINLENS,
                  "orthographic": SENSOR_ORTHOGRAPHIC,
@@ -108,11 +113,14 @@ _SENSOR_TYPES = {"perspective": SENSOR_PERSPECTIVE,
                  "irradiancemeter": SENSOR_IRRADIANCEMETER,
                  "batch": SENSOR_BATCH}
 _SHAPE_TYPES = ("mesh", "blender", "obj", "ply", "serialized", "rectangle",
-                "cube", "disk", "cylinder", "sphere")
+                "cube", "disk", "cylinder", "sphere", "ellipsoids",
+                "ellipsoidsmesh")
 _BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
                "conductor", "roughconductor", "plastic", "roughplastic",
                "pplastic", "null", "mask", "blendbsdf", "twosided",
-               "bumpmap", "normalmap")
+               "bumpmap", "normalmap", "polarizer", "retarder", "circular")
+_ELEMENTS = {"polarizer": BSDF_POLARIZER, "retarder": BSDF_RETARDER,
+             "circular": BSDF_CIRCULAR}
 # a filter name the table lacks takes the gaussian, as in the JAX builder
 _FILTERS = {"box": FILTER_BOX, "tent": FILTER_TENT,
             "gaussian": FILTER_GAUSSIAN, "mitchell": FILTER_MITCHELL,
@@ -126,17 +134,13 @@ _SUBSURFACE_TYPES = ("vaescatter", "dipole")
 _CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "srgb", "rawconstant")
 # plugin names of the JAX builder that the port does not carry yet
 _OTHER_TYPES = {
-    "ptracer": "Queue 1 M10", "stokes": "Queue 1 M10",
-    "volprim_rf_basic": "Queue 1 M10",
     "linearcurve": "Queue 1 M10", "bsplinecurve": "Queue 1 M10",
     "sdfgrid": "Queue 1 M10",
-    "ellipsoids": "Queue 1 M10", "ellipsoidsmesh": "Queue 1 M10",
     "instance": "Queue 1 M10", "shapegroup": "Queue 1 M10",
     "mesh_attribute": "Queue 1 M10",
     "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
 }
-for _t in ("principled", "principledthin", "hair", "polarizer", "retarder",
-           "circular", "measured"):
+for _t in ("principled", "principledthin", "hair", "measured"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
 for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
@@ -455,6 +459,13 @@ class _Builder:
         self.rr_depth = 5
         self.hide_emitters = False
         self.camera_medium = -1
+        self.srgb_primitives = True
+        self.vp_center: List[np.ndarray] = []
+        self.vp_scale: List[np.ndarray] = []
+        self.vp_rot: List[np.ndarray] = []
+        self.vp_opacity: List[np.ndarray] = []
+        self.vp_sh: List[np.ndarray] = []
+        self.vp_tri: List[tuple] = []
 
     # --- textures ---------------------------------------------------------
     def _push_texture(self, ttype, data, bitmap=-1) -> int:
@@ -621,6 +632,24 @@ class _Builder:
                                    twosided=twosided)
         if t == "null":
             return self._push_bsdf(BSDF_NULL, p, flags=F_NULL, twosided=True)
+        if t in _ELEMENTS:
+            # transmissive Mueller elements: p0 = axis angle theta, p1 =
+            # the retarder's phase delta (radians), p2 = 1 for left-handed
+            def deg(key, default):
+                v = d.get(key)
+                return float(np.deg2rad(default if v is None
+                                        or isinstance(v, dict)
+                                        else float(v)))
+            p[0], p[1] = deg("theta", 0.0), deg("delta", 90.0)
+            p[2] = 1.0 if str(d.get("polarization_mode",
+                                    d.get("handedness", "right"))
+                              ).lower().startswith("l") else 0.0
+            tex0 = self.build_texture(
+                d.get("transmittance", d.get("theta_transmittance", 1.0)),
+                1.0)
+            return self._push_bsdf(_ELEMENTS[t], p, tex0=tex0,
+                                   flags=F_NULL | F_DELTA_TRANS,
+                                   twosided=True)
         if t == "mask":
             tex0 = self.build_texture(d.get("opacity", 0.5), 0.5)
             inner = [v for k, v in d.items() if isinstance(v, dict)
@@ -944,9 +973,55 @@ class _Builder:
             return load_mesh(self._path(d["filename"]),
                              face_normals=bool(d.get("face_normals", False)),
                              shape_index=int(d.get("shape_index", 0)))
+        if t in ("ellipsoids", "ellipsoidsmesh"):
+            return self._ellipsoids(d)
         # mesh, and blender (a mesh handed over by the host application)
         return geo.MeshData(d["vertices"], d["faces"], d.get("normals"),
                             d.get("uvs"))
+
+    def _ellipsoids(self, d) -> geo.MeshData:
+        """N ellipsoids, rows of center [0:3], scale [3:6] and quaternion
+        (x, y, z, w) [6:10], as instanced icospheres in the triangle
+        buffer; with opacities or SH coefficients they are the
+        radiance-field integrator's splats (the vp_* lists)."""
+        if "data" in d:
+            rows = np.asarray(d["data"], np.float32).reshape(-1, 10)
+            centers, scales, quats = rows[:, 0:3], rows[:, 3:6], rows[:, 6:10]
+        else:
+            centers = np.asarray(d["centers"], np.float32)
+            scales = np.asarray(d["scales"], np.float32)
+            quats = np.asarray(d["quaternions"], np.float32)
+        extent = float(d.get("extent", 3.0))
+        R = geo.quat_to_matrix(quats)                        # (N, 3, 3)
+        base = geo.icosphere(int(d.get("subdiv", 1)))
+        bv, bf = base.vertices, base.faces
+        n_e, n_v = len(centers), len(bv)
+        # world vertices c + R (s extent v), normals R (n / s)
+        sv = bv[None, :, :] * (scales[:, None, :] * extent)
+        wv = np.einsum("nij,nvj->nvi", R, sv) + centers[:, None, :]
+        nn = bv[None, :, :] / np.maximum(scales[:, None, :], 1e-12)
+        wn = np.einsum("nij,nvj->nvi", R, nn)
+        wn /= np.maximum(np.linalg.norm(wn, axis=-1, keepdims=True), 1e-12)
+        faces = bf[None, :, :] + (np.arange(n_e) * n_v)[:, None, None]
+        if "opacities" in d or "sh_coeffs" in d:
+            op = np.asarray(d.get("opacities", np.ones(n_e)),
+                            np.float32).reshape(-1)
+            shc = np.asarray(d.get("sh_coeffs", np.zeros((n_e, 3))),
+                             np.float32).reshape(n_e, -1, 3)
+            ell_base = sum(len(c) for c in self.vp_center)
+            self.vp_center.append(centers)
+            self.vp_scale.append(scales * extent)
+            self.vp_rot.append(R.astype(np.float32))
+            self.vp_opacity.append(op)
+            self.vp_sh.append(shc)
+            self.vp_tri.append(
+                (sum(len(f) for f in self.faces),
+                 ell_base + np.repeat(np.arange(n_e, dtype=np.int32),
+                                      len(bf))))
+        return geo.MeshData(wv.reshape(-1, 3),
+                            faces.reshape(-1, 3).astype(np.int32),
+                            wn.reshape(-1, 3),
+                            np.zeros((n_e * n_v, 2), np.float32))
 
     # --- sensor / film ------------------------------------------------------
     def build_sensor(self, d):
@@ -1123,6 +1198,8 @@ class _Builder:
         }
         ssub_arrays, ssub_statics = self._subsurface(V, F)
         arrays.update(ssub_arrays)
+        vp_arrays, vp_statics = self._volprims(T)
+        arrays.update(vp_arrays)
         # static NEE reachability (as the JAX builder): surface NEE needs a
         # shape-referenced smooth BSDF, medium NEE a non-bio medium of a
         # shape (a sensor medium does not count) under a stock volpath
@@ -1169,9 +1246,37 @@ class _Builder:
             "needs_medium_nee": bool(self.e_type)
             and self.integrator in ("volpath", "volpathmis", "prbvolpath")
             and any(self.m_type[m] < MEDIUM_GLISSON for m in used_media),
-            **ssub_statics,
+            **ssub_statics, **vp_statics,
         }
         return arrays, statics
+
+    def _volprims(self, T):
+        """The splat table's arrays and statics: the SH padded to the
+        largest K, sh_degree = sqrt(K) - 1, tri_ell -1 on every triangle
+        that is no splat's; a one-row placeholder without splats."""
+        if not self.vp_center:
+            return {"volprims.center": np.zeros((1, 3), np.float32),
+                    "volprims.scale": np.ones((1, 3), np.float32),
+                    "volprims.rot": np.eye(3, dtype=np.float32)[None],
+                    "volprims.opacity": np.zeros((1,), np.float32),
+                    "volprims.sh": np.zeros((1, 1, 3), np.float32),
+                    "volprims.tri_ell": np.full((1,), -1, np.int32)}, {}
+        K = max(s.shape[1] for s in self.vp_sh)
+        sh = np.concatenate([np.pad(s, ((0, 0), (0, K - s.shape[1]), (0, 0)))
+                             for s in self.vp_sh])
+        tri_ell = np.full((max(T, 1),), -1, np.int32)
+        for start, ell in self.vp_tri:
+            tri_ell[start:start + len(ell)] = ell
+        cat = np.concatenate
+        return {"volprims.center": cat(self.vp_center).astype(np.float32),
+                "volprims.scale": cat(self.vp_scale).astype(np.float32),
+                "volprims.rot": cat(self.vp_rot).astype(np.float32),
+                "volprims.opacity": cat(self.vp_opacity).astype(np.float32),
+                "volprims.sh": sh.astype(np.float32),
+                "volprims.tri_ell": tri_ell}, {
+            "volprims.count": sum(len(c) for c in self.vp_center),
+            "volprims.sh_degree": int(np.sqrt(K)) - 1,
+            "volprims.srgb": self.srgb_primitives}
 
     def _sensor_arrays(self, V):
         """The sensor table, with the scene's bounding sphere (over the
@@ -1323,11 +1428,13 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
         t = val.get("type")
         if t in _INTEGRATORS:
             b.integrator = t
-            b.max_depth = int(val.get("max_depth", 8))
+            b.max_depth = int(val.get("max_depth",
+                                      64 if t == "volprim_rf_basic" else 8))
             if b.max_depth < 0:
                 b.max_depth = 64
             b.rr_depth = int(val.get("rr_depth", 5))
             b.hide_emitters = bool(val.get("hide_emitters", False))
+            b.srgb_primitives = bool(val.get("srgb_primitives", True))
         elif t in _SENSOR_TYPES:
             b.build_sensor(val)
     # pass 3: shapes + standalone emitters
@@ -1348,12 +1455,12 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
             b.build_emitter(val)
     arrays, statics = b.finalize()
     if variant and "spectral" in str(variant):
-        # the JAX builder's gate: the surface-path and volumetric families
-        # (stokes, which it also admits, raises above: not ported)
+        # the JAX builder's gate: the surface-path, volumetric and
+        # polarized families
         if statics["integrator"] not in _SPECTRAL_INTEGRATORS:
             raise ValueError(
-                "the spectral variant covers the surface-path and "
-                f"volumetric families, not {statics['integrator']!r}")
+                "the spectral variant covers the surface-path, volumetric "
+                f"and polarized families, not {statics['integrator']!r}")
         if statics["ssub.enabled"]:
             raise ValueError("the spectral variant does not support "
                              "subsurface shapes (RGB only)")
@@ -1367,8 +1474,8 @@ def load_dict(d: Dict[str, Any], device="cuda", base_dir: str = ".",
     card unless the caller passes device="cpu".  Raises RuntimeError when
     asked for the card and there is none.  Relative file names resolve
     against base_dir.  variant "spectral" (or a top-level "variant" key)
-    builds the hero-wavelength variant: the surface-path and volumetric
-    families without subsurface shapes."""
+    builds the hero-wavelength variant: the surface-path, volumetric and
+    polarized families without subsurface shapes."""
     import torch
     from ..bridge import scene_from_numpy
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():

@@ -276,6 +276,24 @@ class SubsurfaceTable(_Table):
 
 
 @dataclass
+class VolPrims(_Table):
+    """Volumetric (Gaussian-splat) primitives of the radiance-field
+    integrator (reference ellipsoids shapes and volprim_rf_basic.py).
+    Each ellipsoid row carries the 3DGS parameters; tri_ell maps every
+    triangle of the instanced-icosphere tessellation back to its
+    ellipsoid (-1: not a splat)."""
+    center: Tensor    # (N, 3)
+    scale: Tensor     # (N, 3)
+    rot: Tensor       # (N, 3, 3) from the quaternion
+    opacity: Tensor   # (N,)
+    sh: Tensor        # (N, K, 3) SH coefficients, K = (deg + 1)^2
+    tri_ell: Tensor   # (T,) triangle -> ellipsoid, -1 none
+    count: int = 0
+    sh_degree: int = 0
+    srgb: bool = True
+
+
+@dataclass
 class Scene(_Table):
     # geometry (world space)
     vertices: Tensor         # (V,3)
@@ -313,6 +331,7 @@ class Scene(_Table):
     bvh: BVH
     sensor: Sensor
     ssub: SubsurfaceTable
+    volprims: VolPrims
     # static config
     n_shapes: int = 0
     n_tris: int = 0
@@ -349,4 +368,4 @@ class Scene(_Table):
 # sub-table classes by the annotation their Scene field carries
 TABLES = {cls.__name__: cls for cls in
           (Textures, BSDFs, Emitters, Media, BVH, Sensor, SubsurfaceTable,
-           DiscreteDistribution, Distribution2D)}
+           VolPrims, DiscreteDistribution, Distribution2D)}

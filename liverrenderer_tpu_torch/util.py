@@ -14,9 +14,10 @@ radiance, a point light's position and intensity), textures.data (the
 texture rows: a constant's rgb, a checkerboard's colours, uv transforms)
 and textures.bitmaps (the bitmap stack; its bilinear taps read it only
 when the scene packs no quads, so with quads its gradient is zero, as in
-the JAX package) and media.grids (the heterogeneous media's density
-grids).  The JAX package's other keys raise `not_ported` naming their
-ROADMAP item.
+the JAX package), media.grids (the heterogeneous media's density
+grids), and volprims.opacity and volprims.sh (the radiance field's
+splats).  The JAX package's other key, vertices, raises `not_ported`
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,14 +45,18 @@ _LEAVES: Dict[str, tuple] = {
                              textures=s.textures.replace(bitmaps=v))),
     "media.grids": (lambda s: s.media.grids,
                     lambda s, v: s.replace(media=s.media.replace(grids=v))),
+    "volprims.opacity": (lambda s: s.volprims.opacity,
+                         lambda s, v: s.replace(
+                             volprims=s.volprims.replace(opacity=v))),
+    "volprims.sh": (lambda s: s.volprims.sh,
+                    lambda s, v: s.replace(
+                        volprims=s.volprims.replace(sh=v))),
 }
 
 # the JAX package's keys whose modules the port does not carry yet
 _NOT_PORTED = {
     "vertices": ("vertex gradients (projective boundary terms)",
                  "Queue 1 M10"),
-    "volprims.opacity": ("volumetric primitives", "Queue 1 M10"),
-    "volprims.sh": ("volumetric primitives", "Queue 1 M10"),
 }
 
 

@@ -74,7 +74,8 @@ def test_traverse_and_apply_params_keys(scenes):
     sp = lrt.traverse(ts)
     assert set(sp.keys()) == {"media.params", "bsdfs.params",
                               "emitters.params", "textures.data",
-                              "textures.bitmaps", "media.grids"}
+                              "textures.bitmaps", "media.grids",
+                              "volprims.opacity", "volprims.sh"}
     new = torch.full_like(ts.media.params, 0.5).requires_grad_()
     sc = lrt.apply_params(ts, {"media.params": new})
     # replaced without a copy, everything else shared
@@ -83,7 +84,7 @@ def test_traverse_and_apply_params_keys(scenes):
     sp2 = SceneParameters(ts, ["bsdfs.params"])
     sp2["bsdfs.params"] = np.full(tuple(ts.bsdfs.params.shape), 2.0)
     assert float(sp2.update().bsdfs.params[0, 0]) == 2.0
-    for key in ("vertices", "volprims.opacity", "volprims.sh"):
+    for key in ("vertices",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lrt.traverse(ts, [key])
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -120,18 +120,14 @@ def test_pack_tris_equal(np_rng, T, with_perm):
 
 
 def test_unported_plugins_raise():
-    for bsdf in ("principled", "hair", "measured", "polarizer"):
+    for bsdf in ("principled", "hair", "measured"):
         d = liver_proxy_dict(4, 4, 1, 0)
         d["liver"]["bsdf"] = {"type": bsdf}
         with pytest.raises(NotImplementedError, match="M10"):
             lrt.load_dict(d, device="cpu")
     d = liver_proxy_dict(4, 4, 1, 0)
-    # the spectral variant loads; stokes, which the JAX builder
-    # admits under it, is not ported
+    # the spectral variant loads
     assert lrt.load_dict(d, device="cpu", variant="spectral").spectral
-    d["integrator"] = {"type": "stokes"}
-    with pytest.raises(NotImplementedError, match="M10"):
-        lrt.load_dict(d, device="cpu", variant="spectral")
     d = liver_proxy_dict(4, 4, 1, 0)
     d["env"] = {"type": "sunsky"}
     with pytest.raises(NotImplementedError, match="M10"):
@@ -278,7 +274,9 @@ def test_every_raise_names_an_open_roadmap_item():
               "irregular", "heterogeneous", "volpathmis", "vaescatter",
               "dipole", "thinlens", "orthographic", "distant",
               "radiancemeter", "irradiancemeter", "batch", "aov", "depth",
-              "moment"):
+              "moment", "ptracer", "stokes", "volprim_rf_basic",
+              "ellipsoids", "ellipsoidsmesh", "polarizer", "retarder",
+              "circular"):
         assert t not in tbuilder._OTHER_TYPES, t
     # the phase plugins load; a gridvolume is a medium's sigma_t, and as a
     # 3-D texture it still raises (M10)

@@ -178,13 +178,15 @@ def test_gate_refuses_what_jax_refuses(kind):
 
 
 def test_gate_keeps_stokes_unported():
-    """The JAX builder admits stokes under spectral; the port does not
-    carry stokes and still names its ROADMAP item."""
+    """The JAX builder admits stokes under spectral, and so does the port
+    (the spectral x polarized variant); an RGB load of the same dict
+    stays RGB."""
     d = _cornell(tcornell.cornell_box, "stokes")
     assert lr.load_dict(_cornell(lr.cornell_box, "stokes"),
                         variant="spectral").spectral
-    with pytest.raises(NotImplementedError, match="Queue 1 M10"):
-        lrt.load_dict(d, device="cpu", variant="spectral")
+    ts = lrt.load_dict(d, device="cpu", variant="spectral")
+    assert ts.spectral and ts.integrator == "stokes"
+    assert not lrt.load_dict(d, device="cpu").spectral
 
 
 def test_variant_key_in_the_dict():
