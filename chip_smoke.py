@@ -82,8 +82,8 @@ result line):
   bump_env_render  the bumped, sky-lit liver proxy at 428x240, 64 spp, depth
                    12 (bench.py's workload path; 1,024^2 height map, 1,024
                    x 512 sky): seconds, paths/s, image checks, sweep and
-                   merge launches, peak memory, in turns with the plain
-                   proxy (the ratio compares them within this call); host
+                   merge launches, peak memory, then the plain proxy
+                   (the ratio compares them within this call); host
                    launches per iteration of both from torch.profiler
   bump_env_render_grad  render_grad of its mean image at 16 spp, d/d
                    media.params: seconds of one run after a warm-up
@@ -221,7 +221,7 @@ result line):
                    (piz_over_zip), and --aovs depth,position,sh_normal,
                    albedo at full width
   render_control   the bumped, sky-lit proxy at 428x240, 64 spp with an
-                   uncancelled RenderControl in turns with the plain render
+                   uncancelled RenderControl after the plain render
                    (control_over_plain, the images agreeing), and a control
                    that cancels at half the progress on a film split into
                    tiles of 32,768 pixels: it stops, its frame is finite,
@@ -250,7 +250,7 @@ result line):
   evaluate_render  pipeline.evaluate.main at its defaults (downsample 4:
                    428x240, 64 spp, the 16 spp denoise probe) on the
                    Liver-SingleMesh row against a golden PNG rendered by
-                   the port at 1712x960, 16 spp, seed 9 and tonemapped:
+                   the port at 1712x960, 4 spp, seed 9 and tonemapped:
                    rmse, ssim, seconds, paths/s, the noisy and denoised
                    metrics (the denoised rmse must be lower); the
                    learned-SSS row (the soap substitute, the silhouette
@@ -275,8 +275,8 @@ result line):
                    box's render_specfilm bins
   spectral_render  the main path in the spectral variant at full size
                    (428x240, 64 spp, biovolpath depth 12, bump and sky) in
-                   turns with the RGB render (rgb, spectral, spectral,
-                   rgb): seconds, paths/s, spectral_over_rgb, iterations
+                   turns with the RGB render (rgb, spectral): seconds,
+                   paths/s, spectral_over_rgb, iterations
                    (= sweeps), merges, peak memory, launches per iteration
                    and device idle of a 2 spp profile of each, and the
                    mean-luminance ratio of the two images (within 15 %)
@@ -321,6 +321,40 @@ result line):
                    one query, a profile (device idle), and a 1 spp
                    render_grad of volprims.opacity and volprims.sh (scan
                    adjoint) against a 1 spp primal, peak memory
+  shape_small      the vertices key at test size, card against CPU: the
+                   vertex gradient of render_grad (replay adjoint plus
+                   both boundary terms) on tests/test_projective.py's
+                   occluder at 16^2 and the bumped, sky-lit proxy at 16x12,
+                   8 spp (cosine, norms); the primary boundary term's
+                   65,536 uniform samples: the same edges, the share of
+                   samples with the same visibility and side
+  projective_fd    the JAX tests' finite-difference gates on the card: the
+                   occluder at 24^2 (render_grad 128 spp against central
+                   FD at 512 spp, fd < -0.5, rtol 0.2) and the rough
+                   mirror (64 spp, rtol 0.35)
+  shape_grad       the vertex gradient of the bumped, sky-lit proxy at
+                   428x240, 16 spp, biovolpath depth 12: median seconds of
+                   3 after a warm-up, split into the replay adjoint, the
+                   primary and the indirect boundary term, the sweep and
+                   merge launches of each boundary round, peak memory, the
+                   media.params render_grad in turns (vertices_over_media),
+                   the share of silhouette vertices with a non-zero
+                   gradient
+  shape_optimize   2 Adam steps on LargeSteps' latent (lambda 19) of the
+                   same proxy toward its vertices scaled by 1.03 about
+                   their centroid: seconds per step, the image loss at a
+                   fixed seed and the mean vertex distance before and
+                   after (both must fall)
+  principled_small principled (clearcoat and sheen, anisotropic,
+                   spec_trans seen from both sides), principledthin and a
+                   measured plate (a seeded synthetic RGL file the phase
+                   writes) at 32x32, 16 spp, card against CPU
+  principled_render  BASELINE's Cornell box with a principled tall block
+                   and a principledthin short block, 256x256, 64 spp, path
+                   depth 8, gaussian (one fixed pass), in turns with the
+                   diffuse box (principled_over_diffuse): seconds, peak
+                   memory, launches per bounce, a profile of each (device
+                   idle)
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -336,7 +370,8 @@ result line):
                    the evaluation's rows and the inverse-rendering loop +
                    the spectral render, its gradient, the spectral
                    Cornell render and its specfilm + the ptracer, stokes
-                   and volprim renders and the volprim gradient),
+                   and volprim renders and the volprim gradient + the
+                   shape and principled phases' runs),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
@@ -432,13 +467,15 @@ THINLENS = {"aperture_radius": 0.05, "focus_distance": 5.0}
 # the fork's liver pipeline (pipeline_phases): the driver's settings at
 # bench.py's workload size (RendererSettings.yml's own 1920x1080 at 256
 # spp is ~80x the paths, ~10 min on the card: cut for the time limit); the
-# evaluation's golden at 4x that film, 16 spp, tonemapped to a PNG; its SSS
+# evaluation's golden at 4x that film, 4 spp (64 per evaluated pixel
+# after the 4x downscale; 16 spp took ~46 s on an H100), tonemapped
+# to a PNG; its SSS
 # row at a small film and spp; the inverse-rendering loop's target spp,
 # Adam steps, learning rate, checkpoints kept and the step it resumes
 # from; the LargeSteps meshes (liver_mesh subdivisions)
 PIPE_DEPTH = 12
 PIPE_SMALL = (16, 12, 4)
-GOLDEN_SCALE, GOLDEN_SPP, GOLDEN_SEED = 4, 16, 9
+GOLDEN_SCALE, GOLDEN_SPP, GOLDEN_SEED = 4, 4, 9
 EVAL_SSS = (64, 48, 16)
 INV_TARGET_SPP, INV_STEPS, INV_LR, INV_KEEP, INV_RESUME = 64, 4, 1e-2, 3, 2
 INV_SEED = 100
@@ -480,6 +517,30 @@ DOP_ATOL, SPEC_S0_RTOL = 0.08, 0.15
 POLARIZER_THETA = 30.0
 VP_SPLATS, VP_SPP, VP_GRAD_SPP, VP_SUB_RAYS = 16384, 4, 1, 16384
 VP_KEYS = ("volprims.opacity", "volprims.sh")
+# shape gradients (shape_phases): shape_small's spp (the occluder at
+# 16^2, the bumped, sky-lit proxy at 16x12) and its per-sample gate (the
+# share of boundary samples whose visibility and side agree); the JAX
+# package's own FD gates (tests/test_projective.py): the occluder at 24^2,
+# render_grad at 128 spp against central FD of eps 0.05 at 512 spp (fd <
+# -0.5, rtol 0.2), the rough mirror at 64 spp, eps 0.08 (|fd| > 1e-3, rtol
+# 0.35); the main path's vertex gradient at 428x240, GRAD_SPP; and
+# shape_optimize's Adam steps and rate on LargeSteps' latent (lambda 19,
+# as tests/test_largesteps.py) toward the proxy scaled by SHAPE_SCALE
+# about its centroid.  Cut from 4 steps to 2: the new phases took 171 s
+# of a first run on an H100 (the script had 782 s of its 1,200 before
+# them), ~7-8 s per step, and a whole run took 1,016 s on an H100
+# whose host was slower than the first's
+SHAPE_SMALL_SPP = 8
+SHAPE_LANE_MIN = 0.999
+FD_SPP, FD_SEED, FD_GRAD_SEED = 512, 11, 5
+OCC_FD = (24, 128, 0.05, 0.2)      # film, render_grad spp, eps, rtol
+MIRROR_FD = (24, 64, 0.08, 0.35)
+SHAPE_STEPS, SHAPE_LR, SHAPE_LAMBDA, SHAPE_SCALE = 2, 2e-3, 19.0, 1.03
+SHAPE_LOSS_SEED = 77
+# the principled, principledthin and measured BSDFs (principled_phases):
+# principled_small's film and spp; principled_render is BASELINE's
+# Cornell box (CORNELL_RES, CORNELL_SPP, depth 8, gaussian: one fixed pass)
+PRINCIPLED_SMALL = (32, 16)
 # sensors_small's Cornell box film: every sensor scene at 16x12 or less
 SENSOR_CORNELL_FILM = (16, 12)
 # media_small: film, spp; the point light of its grid cubes
@@ -1298,12 +1359,12 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
     secs, img = timed_render(torch, lrt, bumped, SPP)
     counts = launch_counts(ci)
     peak = torch.cuda.max_memory_allocated()
-    # in turns with the plain proxy: plain, bumped, plain
+    # then the plain proxy (one render each: the second pair took ~15 s of
+    # the script's time limit)
     torch.cuda.reset_peak_memory_stats()
     plain_s = [timed_render(torch, lrt, plain, SPP)[0]]
     plain_peak = torch.cuda.max_memory_allocated()
-    bumped_s = [secs, timed_render(torch, lrt, bumped, SPP)[0]]
-    plain_s.append(timed_render(torch, lrt, plain, SPP)[0])
+    bumped_s = [secs]
     traces = {}
     for name, sc in (("bumped", bumped), ("plain", plain)):
         lrt.render(sc, spp=BUMP_TRACE_SPP, seed=SEED)            # warm-up
@@ -1313,7 +1374,7 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
         traces[name] = primal_trace(prof, secs_tr, ci.LAUNCHES)
     finite = bool(torch.isfinite(img).all())
     paths = WIDTH * HEIGHT * SPP
-    t_b, t_p = sum(bumped_s) / 2, sum(plain_s) / 2
+    t_b, t_p = bumped_s[0], plain_s[0]
     emit("bump_env_render", film=[WIDTH, HEIGHT], spp=SPP,
          max_depth=bumped.max_depth, tris=bumped.n_tris, bump=list(BUMP),
          sky=list(SKY), card=smi, build_seconds=build_s,
@@ -2623,7 +2684,7 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
     runs = {"plain": [], "control": []}
     ctl_img = plain_img = None
     ctl_counts = plain_counts = None
-    for kind in ("plain", "control", "control", "plain"):
+    for kind in ("plain", "control"):
         reset_counts(ci)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3171,8 +3232,9 @@ def spectral_phases(torch, np, lrt, ci, treplay, smi):
     secs, img = timed_render(torch, lrt, sp, SPP)
     counts = launch_counts(ci)
     peak = torch.cuda.max_memory_allocated()
-    sp_s = [secs, timed_render(torch, lrt, sp, SPP)[0]]
-    rgb_s = [rgb_s, timed_render(torch, lrt, rgb, SPP)[0]]
+    # one timed render each (a second pair took ~27 s of the script's
+    # time limit)
+    sp_s, rgb_s = [secs], [rgb_s]
     traces = {}
     for name, sc in (("spectral", sp), ("rgb", rgb)):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3183,7 +3245,7 @@ def spectral_phases(torch, np, lrt, ci, treplay, smi):
     lum_sp = float(spec.luminance(img).mean())
     lum_rgb = float(spec.luminance(img_rgb).mean())
     paths = WIDTH * HEIGHT * SPP
-    t_sp, t_rgb = sum(sp_s) / 2, sum(rgb_s) / 2
+    t_sp, t_rgb = sp_s[0], rgb_s[0]
     emit("spectral_render", film=[WIDTH, HEIGHT], spp=SPP,
          max_depth=sp.max_depth, tris=sp.n_tris, n_spec=spec.N_SPEC,
          card=smi, seconds=round(secs, 3), paths_per_s=paths / secs,
@@ -3554,6 +3616,372 @@ def m10_phases(torch, np, lrt, ci, smi):
                 spectral=sp_counts, volprim=vp_counts, volprim_grad=g_counts)
 
 
+def _vertex_grad(lrt, sc, spp, loss_fn=None, seed=SEED, V=None):
+    """render_grad of the vertices V (the scene's unless given; loss: the
+    mean image unless given) -> (loss, gradient, image)."""
+    V = sc.vertices if V is None else V
+    loss, g, img = lrt.render_grad(sc, {"vertices": V},
+                                   loss_fn or (lambda im: im.mean()),
+                                   spp=spp, seed=seed)
+    return loss, g["vertices"], img
+
+
+def _cosine(torch, a, b):
+    a, b = a.cpu().double().reshape(-1), b.cpu().double().reshape(-1)
+    return (float((a * b).sum() / (a.norm() * b.norm())),
+            abs(float(a.norm() / b.norm()) - 1.0), float(b.norm()))
+
+
+def _boundary_lanes(torch, np, sc, proj, n):
+    """The primary boundary term's samples of scene sc (uniform by length,
+    one round of n, a seeded d loss / d image) -> (edges, lanes dict)."""
+    rng = np.random.default_rng(SEED)
+    delta = torch.as_tensor(rng.uniform(
+        0, 1, (sc.film_h, sc.film_w, 3)).astype(np.float32)
+        / (sc.film_h * sc.film_w * 3), device=sc.device)
+    ev, ef = proj.edge_table(sc.faces, sc.n_tris)
+    w = proj.silhouette_weights(sc, sc.vertices, ev, ef)[0]
+    lanes = {}
+    _, _, e_idx = proj._boundary_grad(sc, sc.vertices, ev, ef, delta, w,
+                                      SEED + 7, n, 6, lanes=lanes)
+    return e_idx.cpu(), {k: v.cpu() for k, v in lanes.items()}
+
+
+def _fd_check(torch, np, lrt, ms, d, mask_args, spp, eps):
+    """render_grad of the mean image along an edge-growing mask against
+    central FD of the mean image (FD_SPP, FD_SEED) -> (g_x, fd, seconds
+    of the render_grad)."""
+    sc = lrt.load_dict(d)
+    V = sc.vertices
+    mask, n = ms.right_edge_mask(V.cpu().numpy(), *mask_args)
+    check(n == 2, f"the FD scene's edge has {n} vertices, not 2")
+    mask = torch.as_tensor(mask, device="cuda")
+    t0 = time.perf_counter()
+    _, g, _ = _vertex_grad(lrt, sc, spp, seed=FD_GRAD_SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(bool(torch.isfinite(g).all()), "FD scene: gradient not finite")
+
+    def loss_at(dv):
+        s2 = lrt.apply_params(sc, {"vertices": V + dv * mask})
+        return float(lrt.render(s2, spp=FD_SPP, seed=FD_SEED).mean())
+
+    fd = (loss_at(eps) - loss_at(-eps)) / (2 * eps)
+    return float((g * mask).sum()), fd, secs
+
+
+def shape_phases(torch, np, lrt, ci, smi):
+    """Phases shape_small, projective_fd, shape_grad and shape_optimize ->
+    the launch counts the kernels line reports."""
+    from liverrenderer_tpu_torch.integrators import prb as tprb
+    from liverrenderer_tpu_torch.integrators import projective as proj
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict)
+    ms = _tests_module("torch_m10_scenes")
+    counts = {}
+
+    # ---- 17a. at test size, card against CPU: the vertex gradient of
+    # render_grad and the primary boundary term's samples
+    small = {"occluder": ms.occluder_dict(16),
+             "bumped_proxy": liver_proxy_dict(16, 12, 4, 2, SEED,
+                                              bump=BUMP_SMALL,
+                                              sky=SKY_SMALL)}
+    out = {}
+    for name, d in small.items():
+        reset_counts(ci)
+        g_gpu = _vertex_grad(lrt, lrt.load_dict(d), SHAPE_SMALL_SPP)[1]
+        counts[f"small_{name}"] = launch_counts(ci)
+        g_cpu = _vertex_grad(lrt, lrt.load_dict(d, device="cpu"),
+                             SHAPE_SMALL_SPP)[1]
+        cos, norm_rel, gnorm = _cosine(torch, g_gpu, g_cpu)
+        e_gpu, l_gpu = _boundary_lanes(torch, np, lrt.load_dict(d), proj,
+                                       1 << 16)
+        e_cpu, l_cpu = _boundary_lanes(torch, np,
+                                       lrt.load_dict(d, device="cpu"), proj,
+                                       1 << 16)
+        same = (l_gpu["visible"] == l_cpu["visible"]) \
+            & (l_gpu["fg_p"] == l_cpu["fg_p"]) \
+            & (l_gpu["fg_m"] == l_cpu["fg_m"])
+        out[name] = dict(
+            grad_cosine=cos, grad_norm_rel=norm_rel, grad_norm=gnorm,
+            grad_finite=bool(torch.isfinite(g_gpu).all()),
+            edges_equal=bool(torch.equal(e_gpu, e_cpu)),
+            lanes_same=float(same.float().mean()),
+            visible_lanes=int(l_gpu["visible"].sum()),
+            **split_counts(counts[f"small_{name}"]))
+    emit("shape_small", spp=SHAPE_SMALL_SPP, boundary_samples=1 << 16,
+         card=smi, **out)
+    for name, v in out.items():
+        check(v["grad_finite"] and v["grad_norm"] > 0,
+              f"shape_small ({name}): gradient not finite or zero")
+        check(v["grad_cosine"] >= GRAD_COS_MIN
+              and v["grad_norm_rel"] <= GRAD_NORM_RTOL,
+              f"shape_small ({name}): the card's vertex gradient disagrees "
+              f"with the CPU's: {v}")
+        check(v["edges_equal"], f"shape_small ({name}): sampled edges differ")
+        check(v["lanes_same"] >= SHAPE_LANE_MIN,
+              f"shape_small ({name}): boundary lanes differ: {v}")
+        check(v["visible_lanes"] > 0, f"shape_small ({name}): no visible "
+              "boundary sample")
+
+    # ---- 17b. the JAX tests' finite-difference gates, on the card
+    fd = {}
+    res, spp, eps, rtol = OCC_FD
+    reset_counts(ci)
+    g_x, f, secs = _fd_check(torch, np, lrt, ms, ms.occluder_dict(res),
+                             (0.0, 0.3), spp, eps)
+    fd["occluder"] = dict(film=res, spp=spp, eps=eps, grad=g_x, fd=f,
+                          rel=abs(g_x - f) / abs(f), rtol=rtol,
+                          render_grad_seconds=secs)
+    res, spp, eps, rtol = MIRROR_FD
+    g_x, f, secs = _fd_check(torch, np, lrt, ms, ms.mirror_dict(res),
+                             (2.5, 0.4), spp, eps)
+    counts["fd"] = launch_counts(ci)
+    fd["rough_mirror"] = dict(film=res, spp=spp, eps=eps, grad=g_x, fd=f,
+                              rel=abs(g_x - f) / max(abs(f), 1e-12),
+                              rtol=rtol, render_grad_seconds=secs)
+    emit("projective_fd", fd_spp=FD_SPP, card=smi, **fd,
+         **split_counts(counts["fd"]))
+    check(fd["occluder"]["fd"] < -0.5, "projective_fd: the occluder's FD "
+          f"is not below -0.5: {fd['occluder']}")
+    check(abs(fd["rough_mirror"]["fd"]) > 1e-3,
+          "projective_fd: the mirror's silhouette does not move the loss")
+    for k, v in fd.items():
+        check(v["rel"] <= v["rtol"], f"projective_fd ({k}): AD {v['grad']} "
+              f"against FD {v['fd']}: beyond rtol {v['rtol']}")
+
+    # ---- 17c. the slice's path at full width: the vertex gradient of the
+    # bumped, sky-lit proxy, split into the replay adjoint and the two
+    # boundary terms, in turns with the media.params gradient
+    d = liver_proxy_dict(WIDTH, HEIGHT, GRAD_SPP, SUBDIV, SEED, bump=BUMP,
+                         sky=SKY)
+    scene = lrt.load_dict(d)
+    rounds, parts = [], {}
+    # the position of n_samples in each boundary round's arguments
+    n_arg = {"_boundary_grad": 7, "_indirect_boundary_grad": 6}
+    orig = {k: getattr(proj, k) for k in n_arg}
+    terms = {k: getattr(tprb, k) for k in ("boundary_gradient",
+                                            "indirect_boundary_gradient")}
+
+    def counted(name):
+        def fn(*a, **kw):
+            c0 = launch_counts(ci)
+            r = orig[name](*a, **kw)
+            c1 = launch_counts(ci)
+            rounds.append(dict(term=name.strip("_"), samples=a[n_arg[name]],
+                               launches=c1[0] - c0[0],
+                               merge_launches=c1[1] - c0[1]))
+            return r
+        return fn
+
+    def timed_term(name):
+        def fn(*a, **kw):
+            secs, r = timed_call(torch, lambda: terms[name](*a, **kw))
+            parts[name] = parts.get(name, 0.0) + secs
+            return r
+        return fn
+
+    def vertex_run():
+        rounds.clear()
+        parts.clear()
+        reset_counts(ci)
+        secs, (_, g, img) = timed_call(
+            torch, lambda: _vertex_grad(lrt, scene, GRAD_SPP))
+        return secs, g, img, launch_counts(ci), list(rounds), dict(parts)
+
+    def media_run():
+        return timed_call(torch, lambda: lrt.render_grad(
+            scene, {"media.params": scene.media.params},
+            lambda im: im.mean(), spp=GRAD_SPP, seed=SEED))[0]
+
+    for k in orig:
+        setattr(proj, k, counted(k))
+    for k in terms:
+        setattr(tprb, k, timed_term(k))
+    try:
+        vertex_run()            # warm-up (the media run walks the same code)
+        torch.cuda.reset_peak_memory_stats()
+        v_runs, m_runs = [], []
+        for _ in range(3):
+            v_runs.append(vertex_run())
+            m_runs.append(media_run())
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for k, f in orig.items():
+            setattr(proj, k, f)
+        for k, f in terms.items():
+            setattr(tprb, k, f)
+    med = sorted(v_runs, key=lambda r: r[0])[1]
+    secs, g, img, c, rnds, prt = med
+    counts["shape_grad"] = c
+    t_media = sorted(m_runs)[1]
+    ev, ef = proj.edge_table(scene.faces, scene.n_tris)
+    w = proj.silhouette_weights(scene, scene.vertices, ev, ef)[0]
+    sil_v = torch.unique(ev[w > 0].reshape(-1))
+    g_sil = g[sil_v]
+    nz_sil = float((g_sil.abs().sum(-1) > 0).float().mean())
+    prim_s = prt.get("boundary_gradient", 0.0)
+    ind_s = prt.get("indirect_boundary_gradient", 0.0)
+    emit("shape_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+         max_depth=scene.max_depth, tris=scene.n_tris,
+         vertices=int(scene.vertices.shape[0]), bump=list(BUMP),
+         sky=list(SKY), card=smi, seconds=secs,
+         seconds_reps=[r[0] for r in v_runs],
+         replay_adjoint_seconds=secs - prim_s - ind_s,
+         primary_boundary_seconds=prim_s,
+         indirect_boundary_seconds=ind_s,
+         media_params_seconds=t_media,
+         media_params_seconds_reps=m_runs,
+         vertices_over_media=secs / t_media,
+         boundary_rounds=rnds, max_memory_allocated=peak,
+         grad_finite=bool(torch.isfinite(g).all()),
+         grad_abs_max=float(g.abs().max()),
+         silhouette_vertices=int(sil_v.numel()),
+         silhouette_nonzero_share=nz_sil,
+         image_mean=float(img.mean()), **split_counts(c))
+    check(bool(torch.isfinite(g).all()), "shape_grad: gradient not finite")
+    check(c[0] > 0 and c[1] > 0, f"shape_grad: sweep and merge launches "
+          f"{c[:2]}")
+    check(sil_v.numel() > 0 and float(g_sil.abs().max()) > 0
+          and nz_sil >= 0.99, "shape_grad: the gradient is zero on "
+          f"silhouette vertices ({nz_sil:.3f} of them non-zero, gate 0.99)")
+    check(len(rnds) == 4 and all(r["launches"] > 0 for r in rnds),
+          f"shape_grad: boundary rounds without sweeps: {rnds}")
+
+    # ---- 17d. shape optimisation: LargeSteps + Adam toward the proxy
+    # scaled about its centroid
+    V0 = scene.vertices
+    c0 = V0.mean(0, keepdim=True)
+    V_t = c0 + SHAPE_SCALE * (V0 - c0)
+    target = lrt.render(lrt.apply_params(scene, {"vertices": V_t}),
+                        spp=GRAD_SPP, seed=SHAPE_LOSS_SEED + 1)
+
+    def loss_fn(im):
+        return ((im - target) ** 2).mean()
+
+    def eval_loss(V):
+        img = lrt.render(lrt.apply_params(scene, {"vertices": V}),
+                         spp=GRAD_SPP, seed=SHAPE_LOSS_SEED)
+        return float(loss_fn(img))
+
+    ls = lrt.LargeSteps(int(V0.shape[0]), scene.faces.cpu().numpy(),
+                        lambda_=SHAPE_LAMBDA)
+    u = ls.to_differential(V0).detach().requires_grad_()
+    opt = torch.optim.Adam([u], lr=SHAPE_LR)
+    loss0, dist0 = eval_loss(V0), float((V0 - V_t).norm(dim=-1).mean())
+    reset_counts(ci)
+    step_s, losses = [], []
+    for k in range(SHAPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        V = ls.from_differential(u)
+        loss, gv, _ = _vertex_grad(lrt, scene, GRAD_SPP, loss_fn,
+                                   seed=SEED + 1 + k, V=V.detach())
+        V.backward(gv)
+        opt.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts["shape_optimize"] = launch_counts(ci)
+    check(counts["shape_optimize"][0] > 0 and counts["shape_optimize"][1]
+          > 0, "shape_optimize did not launch the sweep and merge kernels")
+    V1 = ls.from_differential(u).detach()
+    loss1, dist1 = eval_loss(V1), float((V1 - V_t).norm(dim=-1).mean())
+    emit("shape_optimize", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+         steps=SHAPE_STEPS, lr=SHAPE_LR, lambda_=SHAPE_LAMBDA,
+         target_scale=SHAPE_SCALE, card=smi, seconds_per_step=step_s,
+         step_losses=losses, loss_before=loss0, loss_after=loss1,
+         vertex_distance_before=dist0, vertex_distance_after=dist1,
+         cg_iterations=ls.iterations,
+         cg_backward_iterations=ls.backward_iterations,
+         **split_counts(counts["shape_optimize"]))
+    check(loss1 < loss0, f"shape_optimize: the loss did not fall "
+          f"({loss0} -> {loss1})")
+    check(dist1 < dist0, f"shape_optimize: the vertices did not move "
+          f"toward the target ({dist0} -> {dist1})")
+    return counts
+
+
+def principled_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases principled_small and principled_render -> the launch counts
+    the kernels line reports."""
+    from torch.profiler import ProfilerActivity, profile
+    from liverrenderer_tpu_torch.bsdf.measured import write_tensor_file
+    from liverrenderer_tpu_torch.scene.cornell import cornell_box
+    ms = _tests_module("torch_m10_scenes")
+    counts = {}
+
+    # ---- 18a. at test size, card against CPU
+    res, spp = PRINCIPLED_SMALL
+    mfile = os.path.join(workdir, "synthetic.bsdf")
+    write_tensor_file(mfile, ms.synthetic_measured(seed=SEED))
+    scenes = {"principled": ms.bsdf_plane_dict(
+        ms.PRINCIPLED["clearcoat_sheen"], res),
+        "principled_anisotropic": ms.bsdf_plane_dict(
+            ms.PRINCIPLED["anisotropic"], res),
+        "principled_spec_trans_below": ms.bsdf_plane_dict(
+            ms.PRINCIPLED["spec_trans"], res, from_below=True),
+        "principled_spec_trans_above": ms.bsdf_plane_dict(
+            ms.PRINCIPLED["spec_trans"], res),
+        "principledthin": ms.bsdf_plane_dict(ms.PRINCIPLED["thin"], res,
+                                             from_below=True),
+        "measured": ms.measured_plate_dict(mfile, res)}
+    out = {}
+    reset_counts(ci)
+    for k, d in scenes.items():
+        frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, d, spp)
+        out[k] = dict(pixel_frac=frac, mean_rel=mean_rel, mean=mean,
+                      pixel_exact=exact)
+    counts["small"] = launch_counts(ci)
+    emit("principled_small", film=[res, res], spp=spp, **out,
+         **split_counts(counts["small"]))
+    for k, v in out.items():
+        check(v["pixel_frac"] >= PIX_FRAC_MIN
+              and v["mean_rel"] <= MEAN_RTOL and v["mean"] > 0,
+              f"principled_small ({k}): the card disagrees with the CPU: "
+              f"{v}")
+
+    # ---- 18b. BASELINE's Cornell box with principled blocks, in turns
+    # with the diffuse box
+    d_diff = _cornell_dict(cornell_box, CORNELL_RES, "gaussian")
+    d_pr = ms.principled_cornell(
+        lambda: _cornell_dict(cornell_box, CORNELL_RES, "gaussian"))
+    pr, diff = lrt.load_dict(d_pr), lrt.load_dict(d_diff)
+    for sc in (pr, diff):
+        lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    t_pr, img = timed_render(torch, lrt, pr, CORNELL_SPP)
+    counts["render"] = launch_counts(ci)
+    peak = torch.cuda.max_memory_allocated()
+    t_diff = [timed_render(torch, lrt, diff, CORNELL_SPP)[0]]
+    t_diff.append(timed_render(torch, lrt, diff, CORNELL_SPP)[0])
+    t_pr = [t_pr, timed_render(torch, lrt, pr, CORNELL_SPP)[0]]
+    traces = {}
+    for k, sc in (("principled", pr), ("diffuse", diff)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            secs_tr, _ = timed_render(torch, lrt, sc, CORNELL_SPP)
+        traces[k] = primal_trace(prof, secs_tr, sc.max_depth)
+    paths = CORNELL_RES * CORNELL_RES * CORNELL_SPP
+    fin = bool(torch.isfinite(img).all())
+    emit("principled_render", film=[CORNELL_RES, CORNELL_RES],
+         spp=CORNELL_SPP, max_depth=pr.max_depth, card=smi,
+         seconds=t_pr[0], seconds_reps=t_pr, paths_per_s=paths / t_pr[0],
+         diffuse_seconds_reps=t_diff,
+         principled_over_diffuse=sorted(t_pr)[0] / sorted(t_diff)[0],
+         finite=fin, mean=float(img.mean()), max_memory_allocated=peak,
+         launches_per_bounce=counts["render"][0] / pr.max_depth,
+         trace=traces, **split_counts(counts["render"]))
+    check(fin and tuple(img.shape) == (CORNELL_RES, CORNELL_RES, 3),
+          "principled_render: image not finite or of the wrong shape")
+    check(0.01 < float(img.mean()) < 10.0,
+          f"principled_render: mean {float(img.mean())} out of range")
+    check(counts["render"][0] > 0, "principled_render did not launch the "
+          "sweep kernel")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3880,6 +4308,17 @@ def main() -> int:
     m10 = m10_phases(torch, np, lrt, ci, smi)
     m10_sweeps = sum(c[0] for c in m10.values())
     m10_merges = sum(c[1] for c in m10.values())
+
+    # ---- 17. shape gradients: the vertices key, the boundary terms and
+    # their guiding, LargeSteps;  18. the principled, principledthin and
+    # measured BSDFs
+    shape = shape_phases(torch, np, lrt, ci, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bsdf_") as workdir:
+        prin = principled_phases(torch, np, lrt, ci, smi, workdir)
+    s15 = {**{f"shape_{k}": c for k, c in shape.items()},
+           **{f"principled_{k}": c for k, c in prin.items()}}
+    s15_sweeps = sum(c[0] for c in s15.values())
+    s15_merges = sum(c[1] for c in s15.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -3908,7 +4347,7 @@ def main() -> int:
              + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0]
              + pipe_sweeps + spc["counts"][0] + spc_grad["fwd_launches"]
              + spc_grad["replay_launches"] + spc["film"][0]
-             + spc["box"][0] + m10_sweeps,
+             + spc["box"][0] + m10_sweeps + s15_sweeps,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -3943,6 +4382,8 @@ def main() -> int:
              specfilm_launches=split_counts(spc["film"]),
              spectral_cornell_render_launches=split_counts(spc["box"]),
              m10_launches={k: split_counts(c) for k, c in m10.items()},
+             shape_principled_launches={k: split_counts(c)
+                                        for k, c in s15.items()},
              sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
              sss_event_bound_ms={g: v["bound_ms"]
                                  for g, v in sss["kernel"].items()},
@@ -3996,7 +4437,7 @@ def main() -> int:
              + cli["thinlens"][1] + pipe_merges + spc["counts"][1]
              + spc_grad["fwd_merge_launches"]
              + spc_grad["replay_merge_launches"] + spc["film"][1]
-             + spc["box"][1] + m10_merges,
+             + spc["box"][1] + m10_merges + s15_merges,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
@@ -4010,6 +4451,8 @@ def main() -> int:
              spectral_render_launches=spc["counts"][1],
              volprim_render_launches=m10["volprim"][1],
              volprim_render_grad_launches=m10["volprim_grad"][1],
+             shape_grad_launches=shape["shape_grad"][1],
+             shape_optimize_launches=shape["shape_optimize"][1],
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -3,7 +3,8 @@ liverrenderer_tpu/bsdf/dispatch.py) for the stock families: diffuse,
 smooth, thin and rough dielectric, smooth and rough conductor, smooth,
 rough and polarized plastic (its unpolarized projection), null, the
 polarizer, retarder and circular elements (their unpolarized
-projection: integrators/stokes.py applies their Mueller matrices), and
+projection: integrators/stokes.py applies their Mueller matrices), the
+principled and principledthin models, the measured (RGL) material, and
 the one-level blendbsdf and mask wrappers.  Every family present in the scene
 is evaluated on all lanes and combined with masked selects.
 
@@ -14,7 +15,7 @@ probability as the pdf of a delta lobe; twosided flips the frame when
 cos_theta(wi) < 0.  Per-lane rows (type, twosided, texture slots, nested
 BSDFs, params) are read with core/math.table_lookup, as in the JAX
 package, so that a parameter's gradient is one reduction per row.
-Principled, principledthin, hair and measured raise.
+Hair raises (it comes with the curves).
 """
 from __future__ import annotations
 
@@ -27,14 +28,17 @@ from ..core import warp
 from ..core.types import BSDFSample
 from ..errors import not_ported
 from ..scene.ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
-                        BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK, BSDF_NULL,
-                        BSDF_PLASTIC, BSDF_POLARIZER, BSDF_PPLASTIC,
+                        BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK,
+                        BSDF_MEASURED, BSDF_NULL, BSDF_PLASTIC,
+                        BSDF_POLARIZER, BSDF_PPLASTIC, BSDF_PRINCIPLED,
+                        BSDF_PRINCIPLEDTHIN,
                         BSDF_RETARDER, BSDF_ROUGHCONDUCTOR,
                         BSDF_ROUGHDIELECTRIC, BSDF_ROUGHPLASTIC,
                         BSDF_THINDIELECTRIC, F_DELTA_REFL, F_DELTA_TRANS,
                         F_DIFFUSE_REFL, F_GLOSSY_REFL, F_GLOSSY_TRANS,
                         F_NULL, Scene)
 from ..texture.eval import eval_texture
+from .measured import measured_eval_pdf, measured_sample
 
 
 def _flip_z(v):
@@ -408,6 +412,358 @@ def _roughdielectric_sample(wi, u1, u2, p, t0, t1):
     return wo, pdf, weight, eta_s, st
 
 
+# ---------------------------------------------------------------------------
+# principledthin (principledthin.cpp core lobes): GGX specular reflection
+# and thin transmission plus diffuse reflection and translucency.  Row: p0
+# eta, p1 roughness, p2 spec_trans, p3 diff_trans (halved at build); tex0
+# base_color.
+# ---------------------------------------------------------------------------
+
+def _principledthin_probs(p):
+    """Lobe selection probabilities (unit sampling rates)."""
+    st_ = p[..., 2]
+    dt = p[..., 3]
+    p_sr = st_ * 0.5
+    p_st = st_ * 0.5
+    p_dr = (1.0 - st_) * (1.0 - dt)
+    p_dt = (1.0 - st_) * dt
+    tot = torch.clamp(p_sr + p_st + p_dr + p_dt, min=1e-8)
+    return p_sr / tot, p_st / tot, p_dr / tot, p_dt / tot
+
+
+def _principledthin_alphas(p):
+    eta = torch.clamp(p[..., 0], min=1.01)
+    rough = torch.clamp(p[..., 1], 0.03, 1.0)
+    alpha = rough * rough
+    # the Disney thin-surface transmission roughness remap
+    rt = torch.clamp((0.65 * eta - 0.35) * rough, 0.03, 1.0)
+    return eta, alpha, rt * rt
+
+
+def _principledthin_eval(wi, wo, p, t0, t1):
+    eta, alpha, alpha_t = _principledthin_alphas(p)
+    st_ = p[..., 2]
+    dt = p[..., 3]
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    p_sr, p_st, p_dr, p_dt = _principledthin_probs(p)
+    up = co > 0
+    act = ci > 0
+
+    # reflection side: GGX specular + Lambert diffuse
+    h = m.normalize(wi + wo)
+    d_r = mf.ggx_d(h, alpha, alpha)
+    g_r = mf.ggx_smith_g1(wi, h, alpha, alpha) \
+        * mf.ggx_smith_g1(wo, h, alpha, alpha)
+    F_r, _, _, _ = fr.fresnel_dielectric(torch.sum(wi * h, -1), eta)
+    spec_r = st_ * F_r * d_r * g_r / torch.clamp(4.0 * ci, min=1e-8)
+    diff_r = t0 * ((1.0 - st_) * (1.0 - dt) * warp.INV_PI
+                   * torch.clamp(co, min=0.0))[..., None]
+    pdf_h_r = mf.ggx_pdf_visible(wi, h, alpha, alpha)
+    pdf_sr = pdf_h_r / torch.clamp(4.0 * torch.abs(torch.sum(wo * h, -1)),
+                                   min=1e-8)
+    pdf_refl = p_sr * pdf_sr \
+        + p_dr * warp.square_to_cosine_hemisphere_pdf(wo)
+
+    # transmission side: thin microfacet transmission (the reflection of
+    # the flipped direction) + diffuse Lambert transmission
+    wo_f = _flip_z(wo)
+    h_t = m.normalize(wi + wo_f)
+    d_t = mf.ggx_d(h_t, alpha_t, alpha_t)
+    g_t = mf.ggx_smith_g1(wi, h_t, alpha_t, alpha_t) \
+        * mf.ggx_smith_g1(wo_f, h_t, alpha_t, alpha_t)
+    F_t, _, _, _ = fr.fresnel_dielectric(torch.sum(wi * h_t, -1), eta)
+    spec_t = torch.sqrt(torch.clamp(t0, min=0.0)) \
+        * (st_ * (1.0 - F_t) * d_t * g_t
+           / torch.clamp(4.0 * ci, min=1e-8))[..., None]
+    diff_t = t0 * ((1.0 - st_) * dt * warp.INV_PI
+                   * torch.clamp(-co, min=0.0))[..., None]
+    pdf_h_t = mf.ggx_pdf_visible(wi, h_t, alpha_t, alpha_t)
+    pdf_st = pdf_h_t / torch.clamp(
+        4.0 * torch.abs(torch.sum(wo_f * h_t, -1)), min=1e-8)
+    pdf_trans = p_st * pdf_st \
+        + p_dt * warp.square_to_cosine_hemisphere_pdf(wo_f)
+
+    val = torch.where(up[..., None], spec_r[..., None] + diff_r,
+                      spec_t + diff_t)
+    pdf = torch.where(up, pdf_refl, pdf_trans)
+    return torch.where(act[..., None], val, 0.0), torch.where(act, pdf, 0.0)
+
+
+def _principledthin_sample(wi, u1, u2, p, t0, t1):
+    eta, alpha, alpha_t = _principledthin_alphas(p)
+    ci = m.cos_theta(wi)
+    p_sr, p_st, p_dr, p_dt = _principledthin_probs(p)
+    c1 = p_sr
+    c2 = c1 + p_st
+    c3 = c2 + p_dr
+    take_sr = u1 < c1
+    take_st = (u1 >= c1) & (u1 < c2)
+    take_dr = (u1 >= c2) & (u1 < c3)
+
+    h_r = mf.ggx_sample_vndf(wi, u2, alpha, alpha)
+    wo_sr = _reflect_h(wi, h_r)
+    h_t = mf.ggx_sample_vndf(wi, u2, alpha_t, alpha_t)
+    wo_st = _flip_z(_reflect_h(wi, h_t))
+    wo_cos = warp.square_to_cosine_hemisphere(u2)
+    wo = torch.where(take_sr[..., None], wo_sr,
+                     torch.where(take_st[..., None], wo_st,
+                                 torch.where(take_dr[..., None], wo_cos,
+                                             _flip_z(wo_cos))))
+    val, pdf = _principledthin_eval(wi, wo, p, t0, t1)
+    # a sample that leaked to the other hemisphere than its lobe's has no
+    # density in that side's eval pdf: reject it
+    want_up = take_sr | take_dr
+    act = (ci > 0) & (pdf > 0) & ((m.cos_theta(wo) > 0) == want_up)
+    weight = torch.where(act[..., None],
+                         val / torch.clamp(pdf, min=1e-12)[..., None], 0.0)
+    st = torch.where(take_sr, F_GLOSSY_REFL,
+                     torch.where(take_st, F_GLOSSY_TRANS,
+                                 torch.where(take_dr, F_DIFFUSE_REFL,
+                                             F_GLOSSY_TRANS)))
+    return wo, torch.where(act, pdf, 0.0), weight, wi.new_ones(pdf.shape), \
+        st
+
+
+# ---------------------------------------------------------------------------
+# principled (principled.cpp, the full Disney model): metallic blend,
+# dielectric / Schlick fresnel with spec_tint, microfacet specular
+# transmission, GTR1 clearcoat, sheen with sheen_tint, retro-reflection and
+# the Hanrahan-Krueger fake subsurface (flatness).  Row: p0 metallic, p1
+# roughness, p2 eta, p3 clearcoat, p4 clearcoat_gloss, p5 anisotropic, p6
+# sheen, p7 sheen_tint, p8 spec_trans, p9 flatness, p10 spec_tint; tex0
+# base_color.
+# ---------------------------------------------------------------------------
+
+def _schlick_w(cos_t):
+    """(1 - cos)^5 (principledhelpers.h schlick_weight)."""
+    w = torch.clamp(1.0 - cos_t, 0.0, 1.0)
+    return (w * w) * (w * w) * w
+
+
+def _calc_schlick(r0, cos_i, eta):
+    """Schlick fresnel on the transmitted angle when the relative IOR
+    along the ray is below 1 (principledhelpers.h calc_schlick)."""
+    outside = cos_i >= 0.0
+    eta_it = torch.where(outside, eta, 1.0 / eta)
+    eta_ti = torch.where(outside, 1.0 / eta, eta)
+    ctt = m.safe_sqrt(1.0 - (1.0 - cos_i * cos_i) * eta_ti * eta_ti)
+    w = torch.where(eta_it > 1.0, _schlick_w(torch.abs(cos_i)),
+                    _schlick_w(ctt))
+    if r0.ndim == w.ndim:                       # a scalar R0
+        return r0 + (1.0 - r0) * w
+    return r0 + (1.0 - r0) * w[..., None]
+
+
+def _gtr1_d(wh, a):
+    """GTR1 NDF of the clearcoat (principledhelpers.h GTR1Isotropic)."""
+    cz = m.cos_theta(wh)
+    a2 = a * a
+    d = (a2 - 1.0) / (torch.pi * torch.log(a2)
+                      * (1.0 + (a2 - 1.0) * cz * cz))
+    return torch.where(d * cz > 1e-20, d, 0.0)
+
+
+def _gtr1_sample(u, a):
+    a2 = a * a
+    phi = 2.0 * torch.pi * u[..., 0]
+    ct2 = (1.0 - torch.pow(a2, 1.0 - u[..., 1])) / (1.0 - a2)
+    st = torch.sqrt(torch.clamp(1.0 - ct2, min=0.0))
+    ct = torch.sqrt(torch.clamp(ct2, min=0.0))
+    return torch.stack([torch.cos(phi) * st, torch.sin(phi) * st, ct], -1)
+
+
+def _smith_ggx1(v, wh, alpha):
+    """Separable Smith G1 at the clearcoat's fixed alpha
+    (principledhelpers.h smith_ggx1)."""
+    a2 = alpha * alpha
+    cz = torch.abs(m.cos_theta(v))
+    cz2 = torch.clamp(cz * cz, min=1e-12)
+    tan2 = (1.0 - cz2) / cz2
+    g = 2.0 / (1.0 + torch.sqrt(1.0 + a2 * tan2))
+    g = torch.where(m.cos_theta(v) == 1.0, 1.0, g)
+    return torch.where(torch.sum(v * wh, -1) * m.cos_theta(v) <= 0.0, 0.0, g)
+
+
+def _principled_fetch(p):
+    metallic = p[..., 0]
+    rough = torch.clamp(p[..., 1], 0.0, 1.0)
+    eta = torch.clamp(p[..., 2], min=1.0009)
+    r2 = rough * rough
+    aspect = torch.sqrt(1.0 - 0.9 * p[..., 5])
+    ax = torch.clamp(r2 / aspect, min=1e-3)
+    ay = torch.clamp(r2 * aspect, min=1e-3)
+    return (metallic, rough, eta, p[..., 3], p[..., 4], ax, ay, p[..., 6],
+            p[..., 7], p[..., 8], p[..., 9], p[..., 10])
+
+
+def _principled_probs(front, bsdfw, brdf, cc, F_die):
+    """Lobe selection probabilities (unit sampling rates)."""
+    p_sr = torch.where(front, 1.0 - bsdfw * (1.0 - F_die), F_die)
+    p_st = torch.where(front, bsdfw * (1.0 - F_die), 1.0 - F_die)
+    p_cc = torch.where(front, 0.25 * cc, 0.0)
+    p_di = torch.where(front, brdf, 0.0)
+    tot = torch.clamp(p_sr + p_st + p_cc + p_di, min=1e-12)
+    return p_sr / tot, p_st / tot, p_cc / tot, p_di / tot
+
+
+def _principled_eval(wi, wo, p, t0, t1):
+    (metallic, rough, eta, cc, ccg, ax, ay, sheen, sheen_tint, strans,
+     flat, stint) = _principled_fetch(p)
+    base = t0
+    ci = m.cos_theta(wi)
+    co = m.cos_theta(wo)
+    brdf = (1.0 - metallic) * (1.0 - strans)
+    bsdfw = (1.0 - metallic) * strans
+    refl = ci * co > 0.0
+    refr = ci * co < 0.0
+    front = ci > 0.0
+    eta_path = torch.where(front, eta, 1.0 / eta)
+
+    wh = m.normalize(wi + wo * torch.where(refl, 1.0, eta_path)[..., None])
+    wh = wh * torch.sign(m.cos_theta(wh))[..., None]       # point up
+    cos_ih = torch.sum(wi * wh, -1)
+    cos_oh = torch.sum(wo * wh, -1)
+    F_die, _, _, _ = fr.fresnel_dielectric(cos_ih, eta)
+
+    sgn = torch.sign(ci)
+    mm_r = (cos_ih * sgn > 0.0) & (cos_oh * sgn > 0.0)
+    mm_t = (cos_ih * sgn > 0.0) & (cos_oh * (-sgn) > 0.0)
+
+    # ggx_smith_g1 and ggx_pdf_visible are even in v with an orientation
+    # mask, so wi and wo pass unflipped
+    D = mf.ggx_d(wh, ax, ay)
+    G = mf.ggx_smith_g1(wi, wh, ax, ay) * mf.ggx_smith_g1(wo, wh, ax, ay)
+
+    # main specular reflection (the blended principled fresnel)
+    lum = 0.212671 * base[..., 0] + 0.715160 * base[..., 1] \
+        + 0.072169 * base[..., 2]
+    c_tint = torch.where(lum[..., None] > 0.0,
+                         base / torch.clamp(lum, min=1e-12)[..., None], 1.0)
+    eta_it_m = torch.where(cos_ih >= 0.0, eta, 1.0 / eta)
+    f0_tint = c_tint * (((eta_it_m - 1.0) / (eta_it_m + 1.0)) ** 2)[..., None]
+    F_schlick = metallic[..., None] * _calc_schlick(base, cos_ih, eta) \
+        + ((1.0 - metallic) * stint)[..., None] \
+        * _calc_schlick(f0_tint, cos_ih, eta)
+    F_front = ((1.0 - metallic) * (1.0 - stint) * F_die)[..., None] \
+        + F_schlick
+    F_prin = torch.where(front[..., None], F_front,
+                         (bsdfw * F_die)[..., None])
+    sr_on = refl & mm_r & (F_die > 0.0)
+    val = torch.where(sr_on[..., None],
+                      F_prin * (D * G / torch.clamp(
+                          4.0 * torch.abs(ci), min=1e-8))[..., None], 0.0)
+
+    # specular microfacet transmission (radiance-mode eta scale)
+    st_on = refr & mm_t & (bsdfw > 0.0) & (F_die < 1.0)
+    denom = cos_ih + eta_path * cos_oh
+    tr = bsdfw * torch.abs(
+        ((1.0 / torch.clamp(eta_path * eta_path, min=1e-12))
+         * (1.0 - F_die) * D * G * eta_path * eta_path * cos_ih * cos_oh)
+        / (ci * torch.clamp(denom * denom, min=1e-12)))
+    val = val + torch.where(st_on[..., None],
+                            torch.sqrt(torch.clamp(base, min=0.0))
+                            * tr[..., None], 0.0)
+
+    # clearcoat (GTR1, a fixed 0.04 Schlick, Smith G at alpha 0.25)
+    cc_on = refl & mm_r & front & (cc > 0.0)
+    a_cc = 0.1 + (0.001 - 0.1) * ccg
+    Fcc = _calc_schlick(torch.full_like(ci, 0.04), cos_ih, eta)
+    Dcc = _gtr1_d(wh, a_cc)
+    Gcc = _smith_ggx1(wi, wh, 0.25) * _smith_ggx1(wo, wh, 0.25)
+    val = val + torch.where(cc_on[..., None],
+                            (0.25 * cc * Fcc * Dcc * Gcc
+                             * torch.abs(co))[..., None], 0.0)
+
+    # diffuse + retro-reflection + fake subsurface + sheen
+    di_on = refl & front & (brdf > 0.0)
+    Fo = _schlick_w(torch.abs(co))
+    Fi = _schlick_w(torch.abs(ci))
+    f_diff = (1.0 - 0.5 * Fi) * (1.0 - 0.5 * Fo)
+    cos_d = cos_oh
+    Rr = 2.0 * rough * cos_d * cos_d
+    f_retro = Rr * (Fo + Fi + Fo * Fi * (Rr - 1.0))
+    fss90 = 0.5 * Rr
+    fss = (1.0 + (fss90 - 1.0) * Fo) * (1.0 + (fss90 - 1.0) * Fi)
+    f_ss = 1.25 * (fss * (1.0 / torch.clamp(torch.abs(co) + torch.abs(ci),
+                                            min=1e-8) - 0.5) + 0.5)
+    f_d = (f_diff + f_retro) * (1.0 - flat) + f_ss * flat
+    val = val + torch.where(di_on[..., None],
+                            (brdf * torch.abs(co) / torch.pi
+                             * f_d)[..., None] * base, 0.0)
+    sh_on = refl & front & (sheen > 0.0) & (metallic < 1.0)
+    Fd = _schlick_w(torch.abs(cos_d))
+    c_sheen = 1.0 + (c_tint - 1.0) * sheen_tint[..., None]
+    val = val + torch.where(sh_on[..., None],
+                            (sheen * (1.0 - metallic) * Fd
+                             * torch.abs(co))[..., None] * c_sheen, 0.0)
+
+    # pdf over the four lobes
+    p_sr, p_st, p_cc, p_di = _principled_probs(front, bsdfw, brdf, cc,
+                                               F_die)
+    pdf_h = mf.ggx_pdf_visible(wi, wh, ax, ay)
+    dwh_r = 1.0 / torch.clamp(4.0 * torch.abs(cos_oh), min=1e-8)
+    dwh_t = torch.abs((eta_path * eta_path) * cos_oh) \
+        / torch.clamp(denom * denom, min=1e-12)
+    pdf = torch.where(refl & mm_r, p_sr * pdf_h * dwh_r, 0.0)
+    pdf = pdf + torch.where(refl, p_di * torch.clamp(co, min=0.0) / torch.pi,
+                            0.0)
+    pdf = pdf + torch.where(refr & mm_t, p_st * pdf_h * dwh_t, 0.0)
+    pdf_cc_h = torch.clamp(m.cos_theta(wh), min=0.0) * _gtr1_d(wh, a_cc)
+    pdf = pdf + torch.where(refl & mm_r, p_cc * pdf_cc_h * dwh_r, 0.0)
+
+    act = (ci != 0.0) & (front | (bsdfw > 0.0))
+    return torch.where(act[..., None], val, 0.0), torch.where(act, pdf, 0.0)
+
+
+def _principled_sample(wi, u1, u2, p, t0, t1):
+    (metallic, rough, eta, cc, ccg, ax, ay, sheen, sheen_tint, strans,
+     flat, stint) = _principled_fetch(p)
+    ci = m.cos_theta(wi)
+    brdf = (1.0 - metallic) * (1.0 - strans)
+    bsdfw = (1.0 - metallic) * strans
+    front = ci > 0.0
+
+    # the main specular micro normal first (upper hemisphere on both
+    # sides), its fresnel driving the lobe probabilities; the eval's wh
+    # reconstruction lands on exactly this normal
+    wi_m = wi * torch.sign(ci)[..., None]
+    h_spec = mf.ggx_sample_vndf(wi_m, u2, ax, ay)
+    cos_ih = torch.sum(wi * h_spec, -1)
+    F_die, ctt, eta_it, eta_ti = fr.fresnel_dielectric(cos_ih, eta)
+
+    p_sr, p_st, p_cc, p_di = _principled_probs(front, bsdfw, brdf, cc,
+                                               F_die)
+    take_di = u1 < p_di
+    take_cc = (~take_di) & (u1 < p_di + p_cc)
+    take_st = (~take_di) & (~take_cc) & (u1 < p_di + p_cc + p_st)
+    take_sr = (~take_di) & (~take_cc) & (~take_st)
+
+    wo_sr = 2.0 * cos_ih[..., None] * h_spec - wi
+    # refraction through the up-oriented micro normal: the fresnel
+    # helper's cos_theta_t carries the sign of either side
+    wo_st = m.normalize(h_spec * (eta_ti * cos_ih + ctt)[..., None]
+                        - eta_ti[..., None] * wi)
+    a_cc = 0.1 + (0.001 - 0.1) * ccg
+    wo_cc = _reflect_h(wi, _gtr1_sample(u2, a_cc))
+    wo_di = warp.square_to_cosine_hemisphere(u2)
+    wo = torch.where(take_sr[..., None], wo_sr,
+                     torch.where(take_st[..., None], wo_st,
+                                 torch.where(take_cc[..., None], wo_cc,
+                                             wo_di)))
+    co = m.cos_theta(wo)
+
+    val, pdf = _principled_eval(wi, wo, p, t0, t1)
+    side_ok = torch.where(take_st, ci * co < 0.0, ci * co > 0.0)
+    act = (ci != 0.0) & (front | (bsdfw > 0.0)) & side_ok & (pdf > 1e-12)
+    weight = torch.where(act[..., None],
+                         val / torch.clamp(pdf, min=1e-12)[..., None], 0.0)
+    eta_s = torch.where(take_st & act, eta_it, 1.0)
+    st = torch.where(take_di, F_DIFFUSE_REFL,
+                     torch.where(take_st, F_GLOSSY_TRANS, F_GLOSSY_REFL))
+    return wo, torch.where(act, pdf, 0.0), weight, eta_s, st
+
+
 def _null_sample(wi, u1, u2, p, t0, t1):
     n = wi.shape[:-1]
     return -wi, wi.new_ones(n), wi.new_ones(n + (3,)), wi.new_ones(n), \
@@ -436,6 +792,8 @@ _SAMPLERS = {
     BSDF_ROUGHPLASTIC: _roughplastic_sample,
     BSDF_PPLASTIC: _pplastic_sample,
     BSDF_ROUGHDIELECTRIC: _roughdielectric_sample,
+    BSDF_PRINCIPLED: _principled_sample,
+    BSDF_PRINCIPLEDTHIN: _principledthin_sample,
     BSDF_NULL: _null_sample,
     BSDF_POLARIZER: _element(0.5),
     BSDF_RETARDER: _element(1.0),
@@ -450,18 +808,21 @@ _EVALS = {
     BSDF_ROUGHPLASTIC: _roughplastic_eval,
     BSDF_PPLASTIC: _pplastic_eval,
     BSDF_ROUGHDIELECTRIC: _roughdielectric_eval,
+    BSDF_PRINCIPLED: _principled_eval,
+    BSDF_PRINCIPLEDTHIN: _principledthin_eval,
 }
 
-# wrappers resolved here before the family dispatch
+# wrappers resolved here before the family dispatch; the measured
+# material reads the Scene's own table
 _NESTED = (BSDF_BLEND, BSDF_MASK)
 
 
 def _check_types(b):
-    bad = [t for t in b.types_present
-           if t not in _SAMPLERS and t not in _NESTED]
+    bad = [t for t in b.types_present if t not in _SAMPLERS
+           and t not in _NESTED and t != BSDF_MEASURED]
     if bad:
-        raise not_ported(f"BSDF type codes {bad} (principled, hair, "
-                         "measured)", "Queue 1 M10")
+        raise not_ported(f"BSDF type codes {bad} (hair, with the curves)",
+                         "Queue 1 M10")
 
 
 def _gather_ctx(scene: Scene, si, idx):
@@ -498,6 +859,13 @@ def _family_sample(scene: Scene, wi_f, u1, u2, btype, p, t0, t1):
         weight = torch.where(sel[..., None], fw, weight)
         eta = torch.where(sel, feta, eta)
         st = torch.where(sel, fst, st)
+    if BSDF_MEASURED in scene.bsdfs.types_present:
+        mwo, mpdf, mw = measured_sample(scene.measured, wi_f, u1, u2)
+        sel = btype == BSDF_MEASURED
+        wo = torch.where(sel[..., None], mwo, wo)
+        pdf = torch.where(sel, mpdf, pdf)
+        weight = torch.where(sel[..., None], mw * t0, weight)
+        st = torch.where(sel, F_GLOSSY_REFL, st)
     return wo, pdf, weight, eta, st
 
 
@@ -512,6 +880,11 @@ def _family_eval(scene: Scene, wi_f, wo_f, btype, p, t0, t1):
         sel = btype == ftype
         val = torch.where(sel[..., None], fv, val)
         pdf = torch.where(sel, fp, pdf)
+    if BSDF_MEASURED in scene.bsdfs.types_present:
+        mv, mp = measured_eval_pdf(scene.measured, wi_f, wo_f)
+        sel = btype == BSDF_MEASURED
+        val = torch.where(sel[..., None], mv * t0, val)
+        pdf = torch.where(sel, mp, pdf)
     return val, pdf
 
 

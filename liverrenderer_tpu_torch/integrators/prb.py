@@ -12,6 +12,11 @@ parameter reaches its loop, as in the JAX package.  Passes are
 independent Monte Carlo estimates, so the gradient of their sum is the
 sum of per-pass gradients; the counter RNG makes each pass walk the
 primal's paths.
+
+When the vertices are differentiated, the visibility boundary terms of
+integrators/projective.py are added to either adjoint's interior
+gradient: the primarily visible silhouettes and those seen from interior
+path vertices.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from ..scene.ir import Scene
 from ..util import _leaf, apply_params
 from .common import MAX_WAVEFRONT, _render_jit, render_pass
+from .projective import boundary_gradient, indirect_boundary_gradient
 from .prb_replay import (_detach, _leaves, _loss_from_acc,
                          render_grad_replay, replay_applicable)
 from .regen import regen_applicable, render_regen
@@ -92,14 +98,31 @@ def render_grad(scene: Scene, params: Dict[str, Tensor], loss_fn: Callable,
     `params` maps util.traverse keys to tensors; `loss_fn` maps the
     developed (h, w, 3) image to a scalar tensor.  Runs on the scene's
     device.  The PRB replay adjoint serves every configuration it
-    applies to; replay=False forces the scan adjoint."""
+    applies to; replay=False forces the scan adjoint.  With "vertices" in
+    params the boundary terms are added to its gradient: the primary one
+    and the indirect one with prefixes of up to min(3, max_depth - 2)
+    bounces, at their default sample counts and guiding."""
     for k in params:
-        _leaf(k)       # raises for keys the port does not carry
+        _leaf(k)       # raises for unknown keys
     if replay is None:
         replay = replay_applicable(scene, params, spp)
     if replay:
-        return render_grad_replay(scene, params, loss_fn, spp=spp, seed=seed)
-    return _render_grad_scan(scene, params, loss_fn, spp, seed, spp_pass)
+        out = render_grad_replay(scene, params, loss_fn, spp=spp, seed=seed)
+    else:
+        out = _render_grad_scan(scene, params, loss_fn, spp, seed, spp_pass)
+    if "vertices" not in params:
+        return out
+    loss, grads, image = out
+    im = image.detach().requires_grad_()
+    with torch.enable_grad():
+        (delta,) = torch.autograd.grad(loss_fn(im), im)
+    g_b = boundary_gradient(scene, params, delta, seed=seed + 7)
+    g_i = indirect_boundary_gradient(
+        scene, params, delta, seed=seed + 13,
+        depth_max=max(1, min(3, scene.max_depth - 2)))
+    grads = dict(grads)
+    grads["vertices"] = grads["vertices"] + g_b + g_i
+    return loss, grads, image
 
 
 def render_fwd_grad(scene: Scene, params: Dict[str, Tensor], spp: int = 16,

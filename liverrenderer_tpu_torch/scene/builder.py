@@ -55,14 +55,19 @@ import numpy as np
 
 from ..accel.bvh import build_bvh
 from ..accel.cuda_intersect import pack_tris
+from ..bsdf.measured import MeasuredData
+from ..bsdf.measured import empty_table_arrays as empty_measured_arrays
+from ..bsdf.measured import table_arrays as measured_table_arrays
 from ..core.distr import build_distribution_2d_np
 from ..core.rng import KINDS as _SAMPLERS
 from ..core.spectrum import blackbody_rgb, spd_to_rgb, srgb_to_linear
 from ..errors import not_ported
 from . import geometry as geo
 from .ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
-                 BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK, BSDF_NULL, BSDF_P,
-                 BSDF_PLASTIC, BSDF_POLARIZER, BSDF_PPLASTIC, BSDF_RETARDER,
+                 BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK, BSDF_MEASURED,
+                 BSDF_NULL, BSDF_P, BSDF_PLASTIC, BSDF_POLARIZER,
+                 BSDF_PPLASTIC, BSDF_PRINCIPLED, BSDF_PRINCIPLEDTHIN,
+                 BSDF_RETARDER,
                  BSDF_ROUGHCONDUCTOR, BSDF_ROUGHDIELECTRIC,
                  BSDF_ROUGHPLASTIC, BSDF_THINDIELECTRIC, EMITTER_AREA,
                  EMITTER_CONSTANT, EMITTER_DIRECTIONAL, EMITTER_ENVMAP,
@@ -118,7 +123,8 @@ _SHAPE_TYPES = ("mesh", "blender", "obj", "ply", "serialized", "rectangle",
 _BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
                "conductor", "roughconductor", "plastic", "roughplastic",
                "pplastic", "null", "mask", "blendbsdf", "twosided",
-               "bumpmap", "normalmap", "polarizer", "retarder", "circular")
+               "bumpmap", "normalmap", "polarizer", "retarder", "circular",
+               "principled", "principledthin", "measured")
 _ELEMENTS = {"polarizer": BSDF_POLARIZER, "retarder": BSDF_RETARDER,
              "circular": BSDF_CIRCULAR}
 # a filter name the table lacks takes the gaussian, as in the JAX builder
@@ -140,8 +146,7 @@ _OTHER_TYPES = {
     "mesh_attribute": "Queue 1 M10",
     "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
 }
-for _t in ("principled", "principledthin", "hair", "measured"):
-    _OTHER_TYPES[_t] = "Queue 1 M10"
+_OTHER_TYPES["hair"] = "Queue 1 M10"
 for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
     _OTHER_TYPES[_t] = "Queue 1 M10"
 
@@ -155,6 +160,13 @@ def _unsupported(t):
     if t not in _OTHER_TYPES:
         return ValueError(f"unknown plugin type {t!r}")
     return not_ported(f"the {t!r} plugin", _OTHER_TYPES[t])
+
+
+def _scalar(d, key, default) -> float:
+    """A scalar parameter; a textured one (a dict) takes its default, as
+    in the JAX builder."""
+    v = d.get(key, default)
+    return default if isinstance(v, dict) else float(v)
 
 
 def _spectrum_to_rgb(val, default=1.0) -> np.ndarray:
@@ -392,6 +404,7 @@ def _pack_grids(grids, to_local):
 class _Builder:
     def __init__(self, base_dir: str = "."):
         self.base_dir = base_dir
+        self.measured: List[MeasuredData] = []
         self.tex_type: List[int] = []
         self.tex_data: List[np.ndarray] = []
         self.tex_bitmap: List[int] = []
@@ -630,6 +643,54 @@ class _Builder:
             return self._push_bsdf(code, p, tex0=tex0,
                                    flags=F_GLOSSY_REFL | F_DIFFUSE_REFL,
                                    twosided=twosided)
+        if t == "principledthin":
+            # principledthin.cpp's core lobes; diff_trans in [0, 2] is
+            # halved at build
+            p[0] = _scalar(d, "eta", 1.5)
+            p[1] = _scalar(d, "roughness", 0.5)
+            p[2] = _scalar(d, "spec_trans", 0.0)
+            p[3] = 0.5 * _scalar(d, "diff_trans", 0.0)
+            tex0 = self.build_texture(d.get("base_color", 0.5), 0.5)
+            return self._push_bsdf(
+                BSDF_PRINCIPLEDTHIN, p, tex0=tex0,
+                flags=F_GLOSSY_REFL | F_DIFFUSE_REFL | F_GLOSSY_TRANS,
+                twosided=True)
+        if t == "principled":
+            # principled.cpp, the full Disney model, scalar parameters
+            p[0] = _scalar(d, "metallic", 0.0)
+            p[1] = _scalar(d, "roughness", 0.5)
+            strans = _scalar(d, "spec_trans", 0.0)
+            if "eta" in d:
+                eta = _scalar(d, "eta", 1.5)
+                if strans > 0.0 and eta == 1.0:
+                    eta = 1.001          # principled.cpp's plausibility clamp
+            else:
+                spec = _scalar(d, "specular", 0.5)
+                if strans > 0.0 and spec == 0.0:
+                    spec = 1e-3          # principled.cpp's plausibility clamp
+                eta = 2.0 / (1.0 - np.sqrt(0.08 * spec)) - 1.0
+            p[2] = eta
+            for i, (key, dflt) in enumerate(
+                    (("clearcoat", 0.0), ("clearcoat_gloss", 0.0),
+                     ("anisotropic", 0.0), ("sheen", 0.0),
+                     ("sheen_tint", 0.0)), start=3):
+                p[i] = _scalar(d, key, dflt)
+            p[8] = strans
+            p[9] = _scalar(d, "flatness", 0.0)
+            p[10] = _scalar(d, "spec_tint", 0.0)
+            tex0 = self.build_texture(d.get("base_color", 0.5), 0.5)
+            flags = F_GLOSSY_REFL | F_DIFFUSE_REFL
+            if strans > 0.0:
+                flags |= F_GLOSSY_TRANS
+            return self._push_bsdf(BSDF_PRINCIPLED, p, tex0=tex0,
+                                   flags=flags,
+                                   twosided=twosided and strans == 0.0)
+        if t == "measured":
+            # measured.cpp, the RGL data-driven material
+            self.measured.append(MeasuredData(self._path(d["filename"])))
+            return self._push_bsdf(BSDF_MEASURED, p,
+                                   tex0=self.build_texture([1.0] * 3),
+                                   flags=F_GLOSSY_REFL, twosided=twosided)
         if t == "null":
             return self._push_bsdf(BSDF_NULL, p, flags=F_NULL, twosided=True)
         if t in _ELEMENTS:
@@ -1139,6 +1200,7 @@ class _Builder:
         i32 = np.int32
         arrays = {
             "vertices": V.astype(np.float32), "faces": F,
+            "normals": Nrm.astype(np.float32), "tri_shape": TS,
             "sph_center": (np.stack(self.sph_center) if self.sph_center
                            else np.zeros((1, 3))).astype(np.float32),
             "sph_radius": np.asarray(self.sph_radius or [1.0], np.float32),
@@ -1200,6 +1262,11 @@ class _Builder:
         arrays.update(ssub_arrays)
         vp_arrays, vp_statics = self._volprims(T)
         arrays.update(vp_arrays)
+        if self.measured:
+            ms_arrays, ms_statics = measured_table_arrays(self.measured)
+        else:
+            ms_arrays, ms_statics = empty_measured_arrays(), {}
+        arrays.update(ms_arrays)
         # static NEE reachability (as the JAX builder): surface NEE needs a
         # shape-referenced smooth BSDF, medium NEE a non-bio medium of a
         # shape (a sensor medium does not count) under a stock volpath
@@ -1246,7 +1313,7 @@ class _Builder:
             "needs_medium_nee": bool(self.e_type)
             and self.integrator in ("volpath", "volpathmis", "prbvolpath")
             and any(self.m_type[m] < MEDIUM_GLISSON for m in used_media),
-            **ssub_statics, **vp_statics,
+            **ssub_statics, **vp_statics, **ms_statics,
         }
         return arrays, statics
 

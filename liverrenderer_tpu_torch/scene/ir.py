@@ -162,6 +162,13 @@ class BSDFs(_Table):
                        alpha_u, alpha_v; tex0 = diffuse_reflectance
       MASK             tex0 = opacity, inner = the nested BSDF
       BLEND            tex0 = weight, inner / inner2 = the nested BSDFs
+      PRINCIPLEDTHIN   p0 = eta, p1 = roughness, p2 = spec_trans, p3 =
+                       diff_trans / 2; tex0 = base_color
+      PRINCIPLED       p0 = metallic, p1 = roughness, p2 = eta, p3 =
+                       clearcoat, p4 = clearcoat_gloss, p5 = anisotropic,
+                       p6 = sheen, p7 = sheen_tint, p8 = spec_trans, p9 =
+                       flatness, p10 = spec_tint; tex0 = base_color
+      MEASURED         tex0 = white (the Scene's measured table)
     """
     btype: Tensor      # (B,)
     params: Tensor     # (B, BSDF_P)
@@ -294,10 +301,33 @@ class VolPrims(_Table):
 
 
 @dataclass
+class MeasuredTable(_Table):
+    """The RGL measured material's tables (bsdf/measured.py): the slices'
+    incidence angles, the vndf and luminance warps (row CDF (S, H+1),
+    conditional CDF (S, H, W+1), texel pdf (S, H, W)), the RGB spectra
+    (S, 3, H, W), ndf and sigma (H, W).  One material per scene; a 1-2
+    texel placeholder when there is none."""
+    theta_i: Tensor
+    vndf_row: Tensor
+    vndf_cond: Tensor
+    vndf_pdf: Tensor
+    lum_row: Tensor
+    lum_cond: Tensor
+    lum_pdf: Tensor
+    spectra: Tensor
+    ndf: Tensor
+    sigma: Tensor
+    jacobian: bool = False
+    enabled: bool = False
+
+
+@dataclass
 class Scene(_Table):
     # geometry (world space)
     vertices: Tensor         # (V,3)
     faces: Tensor            # (T,3)
+    normals: Tensor          # (V,3) vertex normals
+    tri_shape: Tensor        # (T,) owning shape of each triangle
     sph_center: Tensor       # (Sp,3)
     sph_radius: Tensor       # (Sp,)
     sph_shape: Tensor        # (Sp,)
@@ -332,6 +362,7 @@ class Scene(_Table):
     sensor: Sensor
     ssub: SubsurfaceTable
     volprims: VolPrims
+    measured: MeasuredTable
     # static config
     n_shapes: int = 0
     n_tris: int = 0
@@ -368,4 +399,4 @@ class Scene(_Table):
 # sub-table classes by the annotation their Scene field carries
 TABLES = {cls.__name__: cls for cls in
           (Textures, BSDFs, Emitters, Media, BVH, Sensor, SubsurfaceTable,
-           VolPrims, DiscreteDistribution, Distribution2D)}
+           VolPrims, MeasuredTable, DiscreteDistribution, Distribution2D)}

@@ -75,7 +75,8 @@ def test_traverse_and_apply_params_keys(scenes):
     assert set(sp.keys()) == {"media.params", "bsdfs.params",
                               "emitters.params", "textures.data",
                               "textures.bitmaps", "media.grids",
-                              "volprims.opacity", "volprims.sh"}
+                              "volprims.opacity", "volprims.sh",
+                              "vertices"}
     new = torch.full_like(ts.media.params, 0.5).requires_grad_()
     sc = lrt.apply_params(ts, {"media.params": new})
     # replaced without a copy, everything else shared
@@ -84,11 +85,12 @@ def test_traverse_and_apply_params_keys(scenes):
     sp2 = SceneParameters(ts, ["bsdfs.params"])
     sp2["bsdfs.params"] = np.full(tuple(ts.bsdfs.params.shape), 2.0)
     assert float(sp2.update().bsdfs.params[0, 0]) == 2.0
-    for key in ("vertices",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lrt.traverse(ts, [key])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lrt.render_grad(ts, {key: torch.zeros(1)}, torch.mean, spp=1)
+    # the vertices traverse, and render_grad returns their gradient
+    V = lrt.traverse(ts, ["vertices"])["vertices"]
+    assert V is ts.vertices
+    _, g, _ = lrt.render_grad(ts, {"vertices": V}, torch.mean, spp=1)
+    assert g["vertices"].shape == V.shape
+    assert torch.isfinite(g["vertices"]).all()
     with pytest.raises(KeyError):
         lrt.apply_params(ts, {"sensor.fov": 1.0})
 

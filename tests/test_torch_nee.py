@@ -355,15 +355,17 @@ def test_nee_scene_buffers_equal_bit_for_bit(monkeypatch, kind):
 
 
 def test_unported_gradient_keys_name_their_item():
-    """The vertex key raises naming the ROADMAP item that brings it (M10);
-    the texture rows are a key (a brighter albedo brightens the image).
+    """The vertex key is carried now: its gradient has the vertices'
+    shape and is finite; the texture rows are a key (a brighter albedo
+    brightens the image).
     The bitmap stack and the media grids are keys: on a scene whose taps
     read quads the bitmaps' gradient is zero, as in the JAX package, and
     on a scene without a grid medium so is the grids'."""
     ts = lrt.load_dict(tcornell.plane_light_dict(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        lrt.render_grad(ts, {"vertices": ts.vertices},
-                        lambda im: im.mean(), spp=1)
+    _, g, _ = lrt.render_grad(ts, {"vertices": ts.vertices},
+                              lambda im: im.mean(), spp=1)
+    assert g["vertices"].shape == ts.vertices.shape
+    assert torch.isfinite(g["vertices"]).all()
     _, g, _ = lrt.render_grad(ts, {"media.grids": ts.media.grids},
                               lambda im: im.mean(), spp=1)
     assert g["media.grids"].shape == ts.media.grids.shape

@@ -22,13 +22,15 @@ import liverrenderer_tpu as lr
 import liverrenderer_tpu._native as jnative
 from liverrenderer_tpu.accel import pallas_intersect as jpk
 import liverrenderer_tpu_torch as lrt
-from liverrenderer_tpu_torch import util as tutil
 from liverrenderer_tpu_torch.accel import cuda_intersect as tci
 from liverrenderer_tpu_torch.bridge import numpy_tree, scene_from_numpy
+from liverrenderer_tpu_torch.bsdf.measured import write_tensor_file
 from liverrenderer_tpu_torch.scene import builder as tbuilder
+from liverrenderer_tpu_torch.scene import ir
 from liverrenderer_tpu_torch.scene import cornell as tcornell
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
 from liverrenderer_tpu_torch.scene.transform import Transform
+from torch_m10_scenes import synthetic_measured
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,12 +121,20 @@ def test_pack_tris_equal(np_rng, T, with_perm):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unported_plugins_raise():
-    for bsdf in ("principled", "hair", "measured"):
+def test_unported_plugins_raise(tmp_path):
+    # principled, principledthin and measured load; hair still raises
+    mfile = str(tmp_path / "m.bsdf")
+    write_tensor_file(mfile, synthetic_measured())
+    for bsdf, code in (("principled", ir.BSDF_PRINCIPLED),
+                       ("principledthin", ir.BSDF_PRINCIPLEDTHIN),
+                       ("measured", ir.BSDF_MEASURED)):
         d = liver_proxy_dict(4, 4, 1, 0)
-        d["liver"]["bsdf"] = {"type": bsdf}
-        with pytest.raises(NotImplementedError, match="M10"):
-            lrt.load_dict(d, device="cpu")
+        d["liver"]["bsdf"] = {"type": bsdf, "filename": mfile}
+        assert code in lrt.load_dict(d, device="cpu").bsdfs.types_present
+    d = liver_proxy_dict(4, 4, 1, 0)
+    d["liver"]["bsdf"] = {"type": "hair"}
+    with pytest.raises(NotImplementedError, match="M10"):
+        lrt.load_dict(d, device="cpu")
     d = liver_proxy_dict(4, 4, 1, 0)
     # the spectral variant loads
     assert lrt.load_dict(d, device="cpu", variant="spectral").spectral
@@ -245,12 +255,10 @@ def _source_items():
 
 def test_every_raise_names_an_open_roadmap_item():
     """Every item a raise of the port names (the builder's plugin table,
-    the emitter dispatch's and util's tables, and every literal
-    not_ported call) is an open item that ROADMAP.md declares, and none is
-    one this slice closed."""
-    items = (set(tbuilder._OTHER_TYPES.values())
-             | {v[1] for v in tutil._NOT_PORTED.values()}
-             | _source_items())
+    the emitter dispatch's table, and every literal not_ported call) is an
+    open item that ROADMAP.md declares, and none is one this slice
+    closed."""
+    items = set(tbuilder._OTHER_TYPES.values()) | _source_items()
     labels = _roadmap_labels()
     assert "M9" in labels and "M10" in labels \
         and not {"M2", "M3", "M5", "M8"} & labels
@@ -276,7 +284,7 @@ def test_every_raise_names_an_open_roadmap_item():
               "radiancemeter", "irradiancemeter", "batch", "aov", "depth",
               "moment", "ptracer", "stokes", "volprim_rf_basic",
               "ellipsoids", "ellipsoidsmesh", "polarizer", "retarder",
-              "circular"):
+              "circular", "principled", "principledthin", "measured"):
         assert t not in tbuilder._OTHER_TYPES, t
     # the phase plugins load; a gridvolume is a medium's sigma_t, and as a
     # 3-D texture it still raises (M10)

@@ -1,10 +1,12 @@
-"""Scene dicts of the light tracer, polarized transport and the splat
-radiance field (numpy and the port's Transform, no JAX), shared by the
+"""Scene dicts of the light tracer, polarized transport, the splat
+radiance field, shape gradients and the principled, principledthin and
+measured BSDFs (numpy and the port's Transform, no JAX), shared by the
 port's CPU tests and chip_smoke.py.
 
 Transforms are plain 4x4 matrices, so both packages' builders read the
 same dicts.  The scenes are those of tests/test_polarization.py,
-tests/test_volprim.py and tests/test_components.py.
+tests/test_volprim.py, tests/test_components.py, tests/test_projective.py,
+tests/test_principled.py and tests/test_measured.py.
 """
 import numpy as np
 
@@ -173,4 +175,170 @@ def splat_cloud(n, seed=0, res=(428, 240), degree=3, max_depth=64):
                    res=res, fov=40.0, cam_z=3.5, srgb=True,
                    max_depth=max_depth)
     del d["integrator"]["srgb_primitives"]
+    return d
+
+
+# ---------------------------------------------------------------------------
+# shape gradients (tests/test_projective.py's scenes)
+# ---------------------------------------------------------------------------
+
+def _dark_quad(to_world):
+    return {"type": "rectangle", "to_world": to_world.matrix.copy(),
+            "bsdf": {"type": "diffuse",
+                     "reflectance": {"type": "rgb", "value": [0.02] * 3}}}
+
+
+def occluder_dict(res=24):
+    """A dark quad in front of a bright emissive plane, path depth 2."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": 2},
+            "sensor": _sensor(res, 45.0, [0, 0, 2.0], [0, 0, 0]),
+            "bg": {"type": "rectangle",
+                   "to_world": Transform().translate([0, 0, -1.0])
+                   .scale(3.0).matrix.copy(),
+                   "emitter": {"type": "area",
+                               "radiance": {"type": "rgb",
+                                            "value": [4.0] * 3}}},
+            "occ": _dark_quad(Transform().scale(0.4))}
+
+
+def _rough_al(alpha):
+    return {"type": "roughconductor", "material": "Al", "alpha": alpha}
+
+
+def mirror_dict(res=24, alpha=0.1):
+    """A dark quad behind the camera, seen only in a rough mirror against
+    a bright constant environment, path depth 4."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": 4},
+            "sensor": _sensor(res, 45.0, [0, 0, 2.0], [0, 0, -1.0]),
+            "mirror": {"type": "rectangle",
+                       "to_world": Transform().translate([0, 0, -1.0])
+                       .scale(3.0).matrix.copy(),
+                       "bsdf": _rough_al(alpha)},
+            "occ": _dark_quad(Transform().translate([0, 0, 2.5]).scale(0.5)),
+            "env": _white_env(2.0)}
+
+
+def two_mirror_dict(res=24, alpha=0.08):
+    """A dark quad seen only after two rough-mirror bounces, path depth
+    5."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": 5},
+            "sensor": _sensor(res, 45.0, [0, 0, 2.0], [0, 0, -1.0]),
+            "mirrorA": {"type": "rectangle",
+                        "to_world": Transform().translate([0, 0, -1.0])
+                        .rotate([0, 1, 0], 45).scale(2.5).matrix.copy(),
+                        "bsdf": _rough_al(alpha)},
+            "mirrorB": {"type": "rectangle",
+                        "to_world": Transform().translate([3.0, 0, -1.0])
+                        .rotate([0, 1, 0], -45).scale(2.0).matrix.copy(),
+                        "bsdf": _rough_al(alpha)},
+            "occ": _dark_quad(Transform().translate([3.0, 0, 2.5])
+                              .scale(0.4)),
+            "env": _white_env(2.0)}
+
+
+def right_edge_mask(V, z, x_min):
+    """(mask (V, 3) moving +x the vertices on the plane z with x > x_min,
+    their count): an occluder's right edge."""
+    sel = (np.abs(V[:, 2] - z) < 1e-4) & (V[:, 0] > x_min)
+    mask = np.zeros_like(V)
+    mask[sel, 0] = 1.0
+    return mask, int(sel.sum())
+
+
+# ---------------------------------------------------------------------------
+# principled, principledthin and measured (tests/test_principled.py and
+# tests/test_measured.py)
+# ---------------------------------------------------------------------------
+
+def _rgb(v):
+    return {"type": "rgb", "value": list(v)}
+
+
+PRINCIPLED = {
+    "core": {"type": "principled", "metallic": 0.6, "roughness": 0.35,
+             "specular": 0.7, "base_color": _rgb([0.7, 0.4, 0.3])},
+    "clearcoat_sheen": {"type": "principled", "metallic": 0.2,
+                        "roughness": 0.5, "clearcoat": 0.8,
+                        "clearcoat_gloss": 0.6, "sheen": 0.6,
+                        "sheen_tint": 0.5, "flatness": 0.4,
+                        "base_color": _rgb([0.6, 0.5, 0.4])},
+    "anisotropic": {"type": "principled", "roughness": 0.4,
+                    "anisotropic": 0.8, "spec_tint": 0.5,
+                    "base_color": _rgb([0.7, 0.3, 0.2])},
+    "spec_trans": {"type": "principled", "roughness": 0.45,
+                   "spec_trans": 0.7, "eta": 1.45, "spec_tint": 0.3,
+                   "base_color": _rgb([0.8, 0.7, 0.6])},
+    "thin": {"type": "principledthin", "roughness": 0.4, "eta": 1.4,
+             "spec_trans": 0.4, "diff_trans": 0.6,
+             "base_color": _rgb([0.6, 0.7, 0.5])},
+}
+
+
+def bsdf_plane_dict(bsdf, res=16, max_depth=3, from_below=False):
+    """A rectangle of `bsdf` under a constant environment and a small
+    area light, seen from above (or from below, for transmission)."""
+    z = -4.0 if from_below else 4.0
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "sensor": _sensor(res, 45, [0.3, 0.2, z], [0, 0, 0]),
+            "plane": {"type": "rectangle", "bsdf": bsdf},
+            "lamp": {"type": "rectangle",
+                     "to_world": Transform().translate([0.5, 0.0, 2.0])
+                     .scale(0.3).matrix.copy(),
+                     "emitter": {"type": "area",
+                                 "radiance": _rgb([20.0] * 3)}},
+            "env": _white_env(0.5)}
+
+
+def synthetic_measured(S=6, H=16, W=16, seed=0):
+    """The fields of a smooth glossy synthetic material in the RGL layout
+    (tests/test_measured.py's, with a seeded ripple on the vndf)."""
+    rng = np.random.default_rng(seed)
+    theta_i = np.linspace(0.0, np.pi / 2, S).astype(np.float32)
+    yy, xx = np.meshgrid(np.linspace(0, 1, H, endpoint=False) + 0.5 / H,
+                         np.linspace(0, 1, W, endpoint=False) + 0.5 / W,
+                         indexing="ij")
+    vndf = np.zeros((1, S, H, W), np.float32)
+    lum = np.zeros((1, S, H, W), np.float32)
+    for s in range(S):
+        c = 0.15 + 0.5 * s / S
+        vndf[0, s] = np.exp(-((xx - c) ** 2 + (yy - 0.5) ** 2) / 0.08) \
+            + 0.05 + 0.02 * rng.uniform(size=(H, W))
+        lum[0, s] = np.exp(-((xx - 0.4) ** 2) / 0.2) + 0.1
+    rgb = np.zeros((1, S, 3, H, W), np.float32)
+    rgb[0, :, 0] = 0.6
+    rgb[0, :, 1] = 0.3 + 0.3 * xx
+    rgb[0, :, 2] = 0.1
+    return {"theta_i": theta_i, "phi_i": np.zeros(1, np.float32),
+            "vndf": vndf, "luminance": lum, "rgb": rgb,
+            "ndf": np.ones((H, W), np.float32),
+            "sigma": np.full((H, W), 0.25, np.float32),
+            "jacobian": np.zeros(1, np.uint8),
+            "description": np.frombuffer(b"synthetic", np.uint8).copy()}
+
+
+def measured_plate_dict(path, res=16, max_depth=3):
+    """A plate of the measured material at `path` under the plane's
+    lights, seen at an angle."""
+    d = bsdf_plane_dict({"type": "measured", "filename": path}, res,
+                        max_depth)
+    d["sensor"] = _sensor(res, 45, [1.5, 0.5, 3.5], [0, 0, 0])
+    return d
+
+
+def principled_cornell(cornell):
+    """BASELINE's Cornell box with a principled tall block (metallic 0.4,
+    roughness 0.4, clearcoat 0.7, sheen 0.4) and a principledthin short
+    block; `cornell` is the port's scene/cornell.cornell_box."""
+    d = cornell()
+    d["large-box"]["bsdf"] = {"type": "principled", "metallic": 0.4,
+                              "roughness": 0.4, "clearcoat": 0.7,
+                              "clearcoat_gloss": 0.5, "sheen": 0.4,
+                              "base_color": _rgb([0.6, 0.5, 0.4])}
+    d["small-box"]["bsdf"] = {"type": "principledthin", "roughness": 0.3,
+                              "spec_trans": 0.3, "diff_trans": 0.4,
+                              "base_color": _rgb([0.5, 0.6, 0.7])}
     return d
