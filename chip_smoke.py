@@ -325,16 +325,16 @@ result line):
                    vertex gradient of render_grad (replay adjoint plus
                    both boundary terms) on tests/test_projective.py's
                    occluder at 16^2 and the bumped, sky-lit proxy at 16x12,
-                   8 spp (cosine, norms); the primary boundary term's
-                   65,536 uniform samples: the same edges, the share of
+                   4 spp (cosine, norms); the primary boundary term's
+                   32,768 uniform samples: the same edges, the share of
                    samples with the same visibility and side
   projective_fd    the JAX tests' finite-difference gates on the card: the
                    occluder at 24^2 (render_grad 128 spp against central
                    FD at 512 spp, fd < -0.5, rtol 0.2) and the rough
                    mirror (64 spp, rtol 0.35)
   shape_grad       the vertex gradient of the bumped, sky-lit proxy at
-                   428x240, 16 spp, biovolpath depth 12: median seconds of
-                   3 after a warm-up, split into the replay adjoint, the
+                   428x240, 16 spp, biovolpath depth 12: the faster of 2
+                   runs after a warm-up, split into the replay adjoint, the
                    primary and the indirect boundary term, the sweep and
                    merge launches of each boundary round, peak memory, the
                    media.params render_grad in turns (vertices_over_media),
@@ -355,6 +355,37 @@ result line):
                    diffuse box (principled_over_diffuse): seconds, peak
                    memory, launches per bounce, a profile of each (device
                    idle)
+  m10b_small       the rest of M10 at test size, card against CPU: the
+                   sun-lit bumped proxy (and its media.params gradient),
+                   the mesh-attribute quad and the volume-textured wall,
+                   4 instances (and the bsdfs.params gradient of their
+                   rough-plastic cap), a 32^3 SDF sphere, a 24-strand hair
+                   tuft; the instance pass and the SDF march on 16,384
+                   camera rays (hit sets, prims, t)
+  sunsky_render    the main path (the bumped proxy, 428x240, 64 spp,
+                   biovolpath depth 12) under a Preetham sunsky, timed
+                   against the synthetic-sky render (sunsky_over_envmap);
+                   its 16 spp media.params render_grad
+  texture_render   BASELINE's Cornell box (256x256, 64 spp, gaussian: one
+                   fixed pass) with a vertex-coloured block and a
+                   volume-textured block, in turns with the plain box
+  instanced_render 100 instances of tests/test_instancing.py's group under
+                   the constant light, 256x256, 64 spp, depth 8 (regen),
+                   against the flattened twin (instanced_over_flattened,
+                   the images' mean difference < 2e-3): host syncs and
+                   pairs of the instance pass, its launches and seconds
+                   on one query of 65,536 camera rays, peak memory and
+                   geometry bytes; 16 instances of the liver proxy
+                   (flattened past 65,536 triangles: K2) at 128^2, 4 spp
+  sdf_render       a seeded 64^3 lumpy SDF sphere on the Cornell box,
+                   256x256, 16 spp: seconds against the plain box, the
+                   march's steps per query, and its launches and seconds
+                   on one query of 65,536 camera rays
+  hair_render      400 seeded B-spline strands (172,800 tube triangles:
+                   K2's regime) with the hair BSDF, 256x256, 16 spp, depth
+                   8, gaussian: seconds, ms per query on its own rays (CUDA
+                   events) beside the bound from 16,384 of them, the
+                   kernels against the plain version on those
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -371,7 +402,10 @@ result line):
                    the spectral render, its gradient, the spectral
                    Cornell render and its specfilm + the ptracer, stokes
                    and volprim renders and the volprim gradient + the
-                   shape and principled phases' runs),
+                   shape and principled phases' runs + the rest of
+                   M10's: m10b_small, the sunsky render and gradient, the
+                   textured, instanced, SDF and hair renders; the hair
+                   tuft's query in K2's regime beside its bound),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
 non-zero before it.  Without a CUDA device the script exits 2.
@@ -529,8 +563,14 @@ VP_KEYS = ("volprims.opacity", "volprims.sh")
 # about its centroid.  Cut from 4 steps to 2: the new phases took 171 s
 # of a first run on an H100 (the script had 782 s of its 1,200 before
 # them), ~7-8 s per step, and a whole run took 1,016 s on an H100
-# whose host was slower than the first's
-SHAPE_SMALL_SPP = 8
+# whose host was slower than the first's.  Cut again when the rest of
+# M10's phases came (69 s; the whole script 1,034 s on an H100, its
+# other phases 8 % slower than the run before on a slower host):
+# shape_small from 8 to 4 spp and from 65,536 to 32,768 boundary samples
+# (its CPU side was ~63 of its 72 s), shape_grad from 3 timed runs to 2
+SHAPE_SMALL_SPP = 4
+SHAPE_SMALL_SAMPLES = 1 << 15
+SHAPE_GRAD_REPS = 2
 SHAPE_LANE_MIN = 0.999
 FD_SPP, FD_SEED, FD_GRAD_SEED = 512, 11, 5
 OCC_FD = (24, 128, 0.05, 0.2)      # film, render_grad spp, eps, rtol
@@ -541,6 +581,32 @@ SHAPE_LOSS_SEED = 77
 # principled_small's film and spp; principled_render is BASELINE's
 # Cornell box (CORNELL_RES, CORNELL_SPP, depth 8, gaussian: one fixed pass)
 PRINCIPLED_SMALL = (32, 16)
+# the rest of M10 (m10b_phases): m10b_small's spp (one scene per step at
+# test size); sunsky_render is the main path (BUMP, 428x240, SPP,
+# biovolpath depth 12) under a Preetham sunsky at SUNSKY_HOUR, against the
+# synthetic sky; texture_render and sdf_render are BASELINE's Cornell box
+# (CORNELL_RES, gaussian: one fixed pass) with the textured blocks, and
+# with a seeded SDF_RES^3 lumpy sphere at SDF_SPP; instanced_render is
+# tests/test_instancing.py's group INST_N times under the constant light
+# (box filter: the regen wavefront) at CORNELL_RES^2, INST_SPP, depth 8,
+# and the liver proxy's group LIVER_INST times (its flattened twin past
+# 65,536 triangles, K2's regime) at LIVER_INST_RES^2, LIVER_INST_SPP;
+# hair_render a tuft of HAIR_STRANDS B-spline strands (6-sided tubes,
+# ~432 triangles each: K2's regime) with the hair BSDF at CORNELL_RES^2,
+# HAIR_SPP, depth 8, gaussian (one fixed pass).  Cuts: a head of hair has
+# 10^4-10^5 strands (~10^7 tube triangles, past 2^21 and the sweep);
+# every render is timed once (the phases must fit in ~100 s of the
+# script's 1,200 s), the sunsky's render_grad once with no warm-up
+M10B_SMALL_SPP = 8
+# the instance pass's and the SDF march's hit sets on 16,384 camera rays,
+# card against CPU: the march converges where an interpolated distance
+# falls below 1e-3, which an ulp of t can move on a grazing ray
+M10B_LANE_MIN = 0.999
+SUNSKY_HOUR = 10.0
+SDF_RES, SDF_SPP = 64, 16
+INST_N, INST_SPP = 100, 64
+LIVER_INST, LIVER_INST_RES, LIVER_INST_SPP = 16, 128, 4
+HAIR_STRANDS, HAIR_SPP, HAIR_SUB_RAYS = 400, 16, 16384
 # sensors_small's Cornell box film: every sensor scene at 16x12 or less
 SENSOR_CORNELL_FILM = (16, 12)
 # media_small: film, spp; the point light of its grid cubes
@@ -3695,10 +3761,10 @@ def shape_phases(torch, np, lrt, ci, smi):
                              SHAPE_SMALL_SPP)[1]
         cos, norm_rel, gnorm = _cosine(torch, g_gpu, g_cpu)
         e_gpu, l_gpu = _boundary_lanes(torch, np, lrt.load_dict(d), proj,
-                                       1 << 16)
+                                       SHAPE_SMALL_SAMPLES)
         e_cpu, l_cpu = _boundary_lanes(torch, np,
                                        lrt.load_dict(d, device="cpu"), proj,
-                                       1 << 16)
+                                       SHAPE_SMALL_SAMPLES)
         same = (l_gpu["visible"] == l_cpu["visible"]) \
             & (l_gpu["fg_p"] == l_cpu["fg_p"]) \
             & (l_gpu["fg_m"] == l_cpu["fg_m"])
@@ -3709,7 +3775,8 @@ def shape_phases(torch, np, lrt, ci, smi):
             lanes_same=float(same.float().mean()),
             visible_lanes=int(l_gpu["visible"].sum()),
             **split_counts(counts[f"small_{name}"]))
-    emit("shape_small", spp=SHAPE_SMALL_SPP, boundary_samples=1 << 16,
+    emit("shape_small", spp=SHAPE_SMALL_SPP,
+         boundary_samples=SHAPE_SMALL_SAMPLES,
          card=smi, **out)
     for name, v in out.items():
         check(v["grad_finite"] and v["grad_norm"] > 0,
@@ -3802,7 +3869,7 @@ def shape_phases(torch, np, lrt, ci, smi):
         vertex_run()            # warm-up (the media run walks the same code)
         torch.cuda.reset_peak_memory_stats()
         v_runs, m_runs = [], []
-        for _ in range(3):
+        for _ in range(SHAPE_GRAD_REPS):
             v_runs.append(vertex_run())
             m_runs.append(media_run())
         peak = torch.cuda.max_memory_allocated()
@@ -3811,10 +3878,9 @@ def shape_phases(torch, np, lrt, ci, smi):
             setattr(proj, k, f)
         for k, f in terms.items():
             setattr(tprb, k, f)
-    med = sorted(v_runs, key=lambda r: r[0])[1]
-    secs, g, img, c, rnds, prt = med
+    secs, g, img, c, rnds, prt = min(v_runs, key=lambda r: r[0])
     counts["shape_grad"] = c
-    t_media = sorted(m_runs)[1]
+    t_media = min(m_runs)
     ev, ef = proj.edge_table(scene.faces, scene.n_tris)
     w = proj.silhouette_weights(scene, scene.vertices, ev, ef)[0]
     sil_v = torch.unique(ev[w > 0].reshape(-1))
@@ -3980,6 +4046,346 @@ def principled_phases(torch, np, lrt, ci, smi, workdir):
     check(counts["render"][0] > 0, "principled_render did not launch the "
           "sweep kernel")
     return counts
+
+
+def _instanced_grad_vs_cpu(torch, lrt, d, spp):
+    """bsdfs.params of the mean image on the card and on the CPU, over
+    the entries both find finite (a diffuse row's entries are nan in both
+    packages where a rough plastic is present: tests/test_torch_instancing
+    .py) -> (cosine, relative difference of the norms, CPU norm, the nan
+    patterns equal)."""
+    g = []
+    for dev in ("cpu", "cuda"):
+        sc = lrt.load_dict(d, device=dev)
+        prm = lrt.traverse(sc, ["bsdfs.params"])
+        _, gr, _ = lrt.render_grad(sc, {"bsdfs.params": prm["bsdfs.params"]},
+                                   lambda im: im.mean(), spp=spp, seed=SEED)
+        g.append(gr["bsdfs.params"].cpu().double())
+    same = bool(torch.equal(torch.isnan(g[0]), torch.isnan(g[1])))
+    fin = torch.isfinite(g[0]) & torch.isfinite(g[1])
+    b, a = g[0][fin], g[1][fin]
+    return (float((a * b).sum() / (a.norm() * b.norm())),
+            abs(float(a.norm() / b.norm()) - 1.0), float(b.norm()), same)
+
+
+def _profiled_launches(torch, fn):
+    """Host kernel launches and seconds of one call of fn, profiled for
+    CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        secs, out = timed_call(torch, fn)
+    launches = sum(1 for e in raw_events(prof) if e[0] in LAUNCH_NAMES)
+    return launches, secs, out
+
+
+def _camera_rays(torch, sc, n, gen):
+    """n rays of the scene's camera through uniform film positions."""
+    from liverrenderer_tpu_torch.sensor.perspective import sample_ray
+    pos = torch.rand((n, 2), generator=gen, device="cuda") \
+        * torch.tensor([sc.film_w, sc.film_h], device="cuda")
+    return sample_ray(sc, pos)
+
+
+def m10b_phases(torch, np, lrt, ci, treplay, smi, workdir):
+    """Phases m10b_small, sunsky_render, texture_render, instanced_render,
+    sdf_render and hair_render -> the launch counts the kernels line
+    reports, and the hair tuft's K2 query times."""
+    from liverrenderer_tpu_torch.accel import intersect as tint
+    from liverrenderer_tpu_torch.scene.cornell import cornell_box
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict)
+    ms = _tests_module("torch_m10_scenes")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    counts = {}
+
+    def cornell(rfilter="gaussian"):
+        return _cornell_dict(cornell_box, CORNELL_RES, rfilter)
+
+    # ---- 19a. one scene per step at test size, card against CPU
+    spp = M10B_SMALL_SPP
+    tuft_small = os.path.join(workdir, "tuft_small.txt")
+    ms.write_hair_tuft(tuft_small, 24, SEED, n_ctrl=6)
+    rough_cap = {"type": "roughplastic", "alpha": 0.3,
+                 "diffuse_reflectance": {"type": "rgb",
+                                         "value": [0.2, 0.6, 0.3]}}
+    small = {
+        "sunsky_proxy": ms.sunsky_proxy(liver_proxy_dict(
+            16, 12, 4, 2, SEED, bump=BUMP_SMALL), hour=SUNSKY_HOUR),
+        "mesh_attribute": ms.attr_quad_dict(16),
+        "volume": ms.volume_wall_dict(16),
+        "instances": ms.instancing_dict(4, "point", (24, 18),
+                                        cap_bsdf=rough_cap),
+        "sdf": ms.sdf_dict(ms.sphere_sdf(32), 16, light="point"),
+        "hair_tuft": ms.hair_tuft_dict(tuft_small, 16, spp, 4)}
+    out = {}
+    reset_counts(ci)
+    for k, d in small.items():
+        frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, d, spp)
+        out[k] = dict(pixel_frac=frac, mean_rel=mean_rel, mean=mean,
+                      pixel_exact=exact)
+    counts["small"] = launch_counts(ci)
+    cos_s, nrel_s, gn_s, gfin_s = grad_vs_cpu(lrt, small["sunsky_proxy"],
+                                              4)
+    cos_i, nrel_i, gn_i, nan_i = _instanced_grad_vs_cpu(
+        torch, lrt, small["instances"], spp)
+    # the instance pass and the SDF march per lane, card against CPU
+    lanes = {}
+    for k in ("instances", "sdf"):
+        scs = [lrt.load_dict(small[k], device=dev) for dev in ("cpu",
+                                                               "cuda")]
+        ray = _camera_rays(torch, scs[1], 1 << 14, gen)
+        res = []
+        for sc in scs:
+            r = type(ray)(o=ray.o.to(sc.device), d=ray.d.to(sc.device),
+                          maxt=ray.maxt.to(sc.device))
+            t, prim, _, _, sph = tint.ray_intersect_preliminary(sc, r)
+            res.append((t.cpu(), prim.cpu(), sph.cpu()))
+        (tc, pc, sc_), (tg, pg, sg) = res
+        hit = (pc >= 0) | (sc_ >= 0)
+        same = (pg == pc) & (sg == sc_) & hit
+        lanes[k] = dict(
+            hits=int(hit.sum()),
+            same_hit=float((((pg >= 0) | (sg >= 0)) == hit).float().mean()),
+            same_prim=float(((pg == pc) & (sg == sc_)).float().mean()),
+            max_rel_dt=float(((tg - tc).abs() / tc.abs())[same].max())
+            if same.any() else 0.0)
+    emit("m10b_small", spp=spp, **out, sunsky_grad_cosine=cos_s,
+         sunsky_grad_norm_rel=nrel_s, sunsky_grad_norm=gn_s,
+         instanced_grad_cosine=cos_i, instanced_grad_norm_rel=nrel_i,
+         instanced_grad_norm=gn_i, instanced_grad_nan_alike=nan_i,
+         lanes=lanes, **split_counts(counts["small"]))
+    for k, v in out.items():
+        check(v["pixel_frac"] >= PIX_FRAC_MIN and v["mean_rel"] <= MEAN_RTOL
+              and v["mean"] > 0,
+              f"m10b_small ({k}): the card disagrees with the CPU: {v}")
+    check(gfin_s and gn_s > 0, "m10b_small: sunsky gradient not finite or 0")
+    for k, c, n in (("sunsky", cos_s, nrel_s), ("instanced", cos_i, nrel_i)):
+        check(c >= GRAD_COS_MIN and n <= GRAD_NORM_RTOL,
+              f"m10b_small: the card's {k} gradient disagrees with the CPU's")
+    check(nan_i and gn_i > 0, "m10b_small: instanced gradient")
+    for k, v in lanes.items():
+        check(v["hits"] > 0 and v["same_hit"] >= M10B_LANE_MIN
+              and v["same_prim"] >= PRIM_AGREE_MIN
+              and v["max_rel_dt"] <= T_RTOL,
+              f"m10b_small: the {k} query disagrees with the CPU: {v}")
+    check(counts["small"][0] > 0, "m10b_small launched no sweep")
+
+    # ---- 19b. the main path under a sunsky, against the synthetic sky
+    sun = lrt.load_dict(ms.sunsky_proxy(liver_proxy_dict(
+        WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP), hour=SUNSKY_HOUR))
+    env = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+                                         bump=BUMP, sky=SKY))
+    check(sun.emitters.env_index >= 0 and sun.has_heightmap,
+          "sunsky proxy: no envmap or no bump map")
+    for sc in (sun, env):
+        lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ci)
+    t_sun, img = timed_render(torch, lrt, sun, SPP)
+    counts["sunsky"] = launch_counts(ci)
+    peak = torch.cuda.max_memory_allocated()
+    t_env, _ = timed_render(torch, lrt, env, SPP)
+    g_s, g, _, g_counts = grad_run(torch, lrt, ci, treplay, sun, GRAD_SPP)
+    counts["sunsky_grad"] = (
+        g_counts["fwd_launches"] + g_counts["replay_launches"],
+        g_counts["fwd_merge_launches"] + g_counts["replay_merge_launches"],
+        0, 0)
+    paths = WIDTH * HEIGHT * SPP
+    fin = bool(torch.isfinite(img).all())
+    emit("sunsky_render", film=[WIDTH, HEIGHT], spp=SPP,
+         max_depth=sun.max_depth, hour=SUNSKY_HOUR, card=smi,
+         seconds=t_sun, paths_per_s=paths / t_sun, envmap_seconds=t_env,
+         sunsky_over_envmap=t_sun / t_env, finite=fin,
+         mean=float(img.mean()), max_memory_allocated=peak,
+         grad_spp=GRAD_SPP, grad_seconds=g_s,
+         grad_paths_per_s=WIDTH * HEIGHT * GRAD_SPP / g_s,
+         grad_finite=bool(torch.isfinite(g).all()),
+         grad_sigma_t=[float(x) for x in g[0, 0:3]], **g_counts,
+         **split_counts(counts["sunsky"]))
+    check(fin and tuple(img.shape) == (HEIGHT, WIDTH, 3),
+          "sunsky_render: image not finite or of the wrong shape")
+    check(0.05 < float(img.mean()) < 50.0,
+          f"sunsky_render: mean {float(img.mean())} out of range")
+    check(counts["sunsky"][0] > 0 and counts["sunsky"][1] > 0,
+          "sunsky_render did not launch the sweep and merge kernels")
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+          "sunsky render_grad: gradient not finite or zero")
+    del sun, env, img
+
+    # ---- 19c. mesh-attribute and volume textures on the Cornell box
+    tex = lrt.load_dict(ms.textured_cornell(cornell, seed=SEED))
+    plain = lrt.load_dict(cornell())
+    for sc in (tex, plain):
+        lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
+    reset_counts(ci)
+    t_tex, img = timed_render(torch, lrt, tex, CORNELL_SPP)
+    counts["texture"] = launch_counts(ci)
+    t_plain, _ = timed_render(torch, lrt, plain, CORNELL_SPP)
+    t_tex = [t_tex, timed_render(torch, lrt, tex, CORNELL_SPP)[0]]
+    t_plain = [t_plain, timed_render(torch, lrt, plain, CORNELL_SPP)[0]]
+    fin = bool(torch.isfinite(img).all())
+    emit("texture_render", film=[CORNELL_RES, CORNELL_RES], spp=CORNELL_SPP,
+         max_depth=tex.max_depth, card=smi, seconds_reps=t_tex,
+         plain_seconds_reps=t_plain,
+         textured_over_plain=min(t_tex) / min(t_plain),
+         paths_per_s=CORNELL_RES ** 2 * CORNELL_SPP / min(t_tex),
+         has_vertex_attr=tex.has_vertex_attr, finite=fin,
+         mean=float(img.mean()), **split_counts(counts["texture"]))
+    check(fin and tex.has_vertex_attr, "texture_render: image or scene")
+    check(0.01 < float(img.mean()) < 10.0, "texture_render: mean")
+    check(counts["texture"][0] > 0, "texture_render launched no sweep")
+    del tex, plain, img
+
+    # ---- 19d. instancing: 100 instances against the flattened twin, and
+    # the liver proxy's group
+    d = ms.instancing_dict(INST_N, "constant", (CORNELL_RES, CORNELL_RES),
+                           max_depth=CORNELL_DEPTH)
+    inst = lrt.load_dict(d)
+    flat = lrt.load_dict(d, flatten_instances=True)
+    check(inst.n_instances == INST_N and flat.n_instances == 0,
+          "instanced_render: scenes")
+    inst_res = {}
+    imgs = {}
+    for name, sc in (("instanced", inst), ("flattened", flat)):
+        lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ci)
+        tint.INST_SYNCS = tint.INST_PAIRS = 0
+        secs, imgs[name] = timed_render(torch, lrt, sc, INST_SPP)
+        counts[name] = launch_counts(ci)
+        inst_res[name] = dict(
+            seconds=secs, peak=torch.cuda.max_memory_allocated(),
+            queries=counts[name][0], syncs=tint.INST_SYNCS,
+            pairs=tint.INST_PAIRS, tris=sc.n_tris,
+            geometry_bytes=sum(x.numel() * x.element_size() for x in (
+                sc.tri_buf, sc.tri_si, sc.vertices, sc.inst_tris,
+                sc.inst_si, sc.inst_xf)))
+    # one query of the instance pass on 65,536 camera rays: launches,
+    # host syncs and seconds
+    ray = _camera_rays(torch, inst, 1 << 16, gen)
+    t0 = torch.where(torch.isfinite(ray.maxt), ray.maxt, float("inf"))
+    n0 = tint.INST_SYNCS
+    q_launch, q_s, _ = _profiled_launches(torch, lambda: tint._instances(
+        inst, ray, t0, torch.full_like(t0, -1, dtype=torch.int64),
+        torch.zeros_like(t0), torch.zeros_like(t0)))
+    q_syncs = tint.INST_SYNCS - n0
+    diff = (imgs["instanced"] - imgs["flattened"]).abs()
+    # the liver proxy's group: its flattened twin in K2's regime
+    d_l = ms.instancing_dict(LIVER_INST, "constant",
+                             (LIVER_INST_RES, LIVER_INST_RES),
+                             max_depth=CORNELL_DEPTH,
+                             group=ms.liver_group(SUBDIV, SEED))
+    li, lf = lrt.load_dict(d_l), lrt.load_dict(d_l, flatten_instances=True)
+    check(lf.n_tris > ci.MAX_VMEM_TRIS and li.n_tris == 2,
+          f"liver group: the flattened twin has {lf.n_tris} triangles")
+    liver = {}
+    for name, sc in (("instanced", li), ("flattened", lf)):
+        lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
+        reset_counts(ci)
+        tint.INST_SYNCS = tint.INST_PAIRS = 0
+        secs, im = timed_render(torch, lrt, sc, LIVER_INST_SPP)
+        counts[f"liver_{name}"] = launch_counts(ci)
+        liver[name] = dict(seconds=secs, queries=counts[f"liver_{name}"][0],
+                           syncs=tint.INST_SYNCS, pairs=tint.INST_PAIRS,
+                           tris=sc.n_tris, mean=float(im.mean()),
+                           finite=bool(torch.isfinite(im).all()))
+    emit("instanced_render", film=[CORNELL_RES, CORNELL_RES], spp=INST_SPP,
+         max_depth=CORNELL_DEPTH, instances=INST_N, card=smi,
+         group_rows=inst.n_inst_tris, **{k: v for k, v in
+                                         inst_res.items()},
+         instanced_over_flattened=inst_res["instanced"]["seconds"]
+         / inst_res["flattened"]["seconds"],
+         pass_rays=int(ray.o.shape[0]), pass_launches=q_launch,
+         pass_syncs=q_syncs, pass_seconds=q_s,
+         image_mean_abs_diff=float(diff.mean()),
+         image_max_abs_diff=float(diff.max()),
+         liver_group=dict(instances=LIVER_INST, film=[LIVER_INST_RES] * 2,
+                          spp=LIVER_INST_SPP, group_rows=li.n_inst_tris,
+                          instanced_over_flattened=liver["instanced"][
+                              "seconds"] / liver["flattened"]["seconds"],
+                          **liver),
+         **{f"{k}_launches": split_counts(counts[k]) for k in
+            ("instanced", "flattened", "liver_instanced",
+             "liver_flattened")})
+    for name, v in list(inst_res.items()) + list(liver.items()):
+        check(v["queries"] > 0, f"instanced_render ({name}) launched no "
+              "sweep")
+    check(all(v["finite"] for v in liver.values()), "liver group images")
+    check(bool(torch.isfinite(imgs["instanced"]).all())
+          and float(diff.mean()) < 2e-3,
+          f"instanced vs flattened: mean |diff| {float(diff.mean())}")
+    check(counts["liver_flattened"][1] > 0,
+          "the liver group's flattened twin did not run the merge (K2)")
+    del inst, flat, li, lf, imgs
+
+    # ---- 19e. an SDF on the Cornell box
+    sdf = lrt.load_dict(ms.sdf_cornell(cornell, SDF_RES, SEED))
+    check(sdf.n_sdfs == 1, "sdf_render: no SDF")
+    lrt.render(sdf, spp=1, seed=SEED + 1)                      # warm-up
+    reset_counts(ci)
+    tint.SDF_STEPS_RUN = 0
+    t_sdf, img = timed_render(torch, lrt, sdf, SDF_SPP)
+    counts["sdf"] = launch_counts(ci)
+    steps = tint.SDF_STEPS_RUN
+    t_plain, _ = timed_render(torch, lrt, lrt.load_dict(cornell()), SDF_SPP)
+    ray = _camera_rays(torch, sdf, 1 << 16, gen)
+    n0 = tint.SDF_STEPS_RUN
+    q_launch, q_s, (_, k) = _profiled_launches(torch, lambda: tint._sdfs(
+        sdf, ray, torch.full_like(ray.maxt, float("inf"))))
+    fin = bool(torch.isfinite(img).all())
+    emit("sdf_render", film=[CORNELL_RES, CORNELL_RES], spp=SDF_SPP,
+         grid=[SDF_RES] * 3, max_depth=sdf.max_depth, card=smi,
+         seconds=t_sdf, plain_seconds=t_plain, sdf_over_plain=t_sdf / t_plain,
+         march_steps_run=steps, march_steps_per_query=steps
+         / max(counts["sdf"][0], 1), finite=fin, mean=float(img.mean()),
+         march_rays=int(ray.o.shape[0]), march_launches=q_launch,
+         march_seconds=q_s, march_steps=tint.SDF_STEPS_RUN - n0,
+         march_hits=int((k >= 0).sum()), **split_counts(counts["sdf"]))
+    check(fin and 0.01 < float(img.mean()) < 10.0, "sdf_render: image")
+    check(counts["sdf"][0] > 0, "sdf_render launched no sweep")
+    check(int((k >= 0).sum()) > 0, "sdf_render: the march hit nothing")
+    del sdf, img
+
+    # ---- 19f. a hair tuft in K2's regime
+    tuft = os.path.join(workdir, "tuft.txt")
+    ms.write_hair_tuft(tuft, HAIR_STRANDS, SEED)
+    d = ms.hair_tuft_dict(tuft, CORNELL_RES, HAIR_SPP, CORNELL_DEPTH)
+    d["sensor"]["film"]["rfilter"] = {"type": "gaussian"}
+    hair = lrt.load_dict(d)
+    check(ci.MAX_VMEM_TRIS < hair.n_tris <= ci.MAX_STREAM_TRIS,
+          f"hair tuft: {hair.n_tris} triangles, not in K2's regime")
+    lrt.render(hair, spp=1, seed=SEED + 1)                     # warm-up
+    reset_counts(ci)
+    t_h, calls = capture_render(torch, lrt, ci, hair, HAIR_SPP)
+    counts["hair"] = launch_counts(ci)
+    n_rays = calls[0][1].shape[1]
+    inline = sorted(c[0] for c in calls)
+    _, rays, tris, boxes = calls[len(calls) // 2]
+    step = max(1, rays.shape[1] // HAIR_SUB_RAYS)
+    sub = rays[:, ::step][:, :HAIR_SUB_RAYS].contiguous()
+    del calls
+    res, _, _ = kernel_vs_plain(torch, ci, sub, tris, boxes, hair.n_tris,
+                                reps_plain=1)
+    check_agreement(res, "hair tuft rays")
+    kk = n_rays / sub.shape[1]
+    full = roofline(res["needed_tests"] * kk, res["candidate_tests"] * kk,
+                    query_bytes(n_rays, tris, boxes))
+    med = inline[len(inline) // 2]
+    emit("hair_render", film=[CORNELL_RES, CORNELL_RES], spp=HAIR_SPP,
+         max_depth=CORNELL_DEPTH, strands=HAIR_STRANDS, tris=hair.n_tris,
+         card=smi, seconds=t_h,
+         paths_per_s=CORNELL_RES ** 2 * HAIR_SPP / t_h,
+         rays_per_query=n_rays, query_ms_median=med,
+         query_ms_total=sum(inline), query_wall_share=sum(inline)
+         / (t_h * 1e3), query_bound_ms=full["bound_ms"],
+         query_bound_by=full["bound_by"], query_share=full["bound_ms"] / med,
+         sub_rays=int(sub.shape[1]), sub_query=res,
+         **split_counts(counts["hair"]))
+    check(counts["hair"][0] > 0 and counts["hair"][1] > 0,
+          "hair_render did not launch the sweep and merge kernels")
+    return counts, dict(ms=med, bound_ms=full["bound_ms"],
+                        share=full["bound_ms"] / med, tris=hair.n_tris,
+                        sweep_ms=res["sweep_ms"], plain_ms=res["plain_ms"])
 
 
 def main() -> int:
@@ -4319,6 +4725,14 @@ def main() -> int:
            **{f"principled_{k}": c for k, c in prin.items()}}
     s15_sweeps = sum(c[0] for c in s15.values())
     s15_merges = sum(c[1] for c in s15.values())
+
+    # ---- 19. the rest of M10: the sunsky, mesh-attribute and volume
+    # textures, instancing, SDF grids, curves with the hair BSDF
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m10b_") as workdir:
+        m10b, hair_k2 = m10b_phases(torch, np, lrt, ci, treplay, smi,
+                                    workdir)
+    m10b_sweeps = sum(c[0] for c in m10b.values())
+    m10b_merges = sum(c[1] for c in m10b.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -4347,7 +4761,7 @@ def main() -> int:
              + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0]
              + pipe_sweeps + spc["counts"][0] + spc_grad["fwd_launches"]
              + spc_grad["replay_launches"] + spc["film"][0]
-             + spc["box"][0] + m10_sweeps + s15_sweeps,
+             + spc["box"][0] + m10_sweeps + s15_sweeps + m10b_sweeps,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -4384,6 +4798,11 @@ def main() -> int:
              m10_launches={k: split_counts(c) for k, c in m10.items()},
              shape_principled_launches={k: split_counts(c)
                                         for k, c in s15.items()},
+             m10b_launches={k: split_counts(c) for k, c in m10b.items()},
+             hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
+             hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
+             hair_k2_sweep_ms=hair_k2["sweep_ms"],
+             hair_k2_plain_ms=hair_k2["plain_ms"],
              sss_event_ms={g: v["ms"] for g, v in sss["kernel"].items()},
              sss_event_bound_ms={g: v["bound_ms"]
                                  for g, v in sss["kernel"].items()},
@@ -4437,7 +4856,7 @@ def main() -> int:
              + cli["thinlens"][1] + pipe_merges + spc["counts"][1]
              + spc_grad["fwd_merge_launches"]
              + spc_grad["replay_merge_launches"] + spc["film"][1]
-             + spc["box"][1] + m10_merges + s15_merges,
+             + spc["box"][1] + m10_merges + s15_merges + m10b_merges,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
@@ -4453,6 +4872,7 @@ def main() -> int:
              volprim_render_grad_launches=m10["volprim_grad"][1],
              shape_grad_launches=shape["shape_grad"][1],
              shape_optimize_launches=shape["shape_optimize"][1],
+             m10b_launches={k: c[1] for k, c in m10b.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -9,19 +9,22 @@ Strategies for the triangle stream:
   (`_bvh_tris`), for meshes past 2^21 triangles and intersector="bvh";
 * ``brute``: a chunked Moeller-Trumbore sweep over faces/vertices, the
   JAX package's CPU default for small scenes.
-Analytic spheres are tested brute force after the triangles.
+Then the instance pass (`_instances`: each instanced shapegroup's shared
+group-local triangles moved to world space per (lane, instance) pair whose
+world box the lane's ray enters), the analytic spheres (brute force) and
+the SDF grids (`_sdfs`, a fixed-count masked sphere trace).
 `compute_si` turns the winner into a full SurfaceInteraction.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from ..core import math as m
 from ..core.types import INF, Ray, SurfaceInteraction
-from ..errors import not_ported
-from ..scene.ir import Scene
+from ..scene.ir import INST_CHUNK, Scene
 from . import cuda_intersect
 from .bvh import MAX_LEAF
 
@@ -88,6 +91,13 @@ def _ray_aabb(o, inv_d, maxt, bmin, bmax):
     return torch.clamp(near, min=0.0), hit
 
 
+def _inv_dir(d):
+    """1 / d with components below 1e-12 in magnitude pushed to +-1e-12."""
+    d_safe = torch.where(torch.abs(d) < 1e-12,
+                         torch.where(d >= 0, 1e-12, -1e-12), d)
+    return 1.0 / d_safe
+
+
 def _stack_push(stack, sp, val, mask):
     """stack[lane, sp] = val where mask (the slot clamped to the depth)."""
     slot = torch.clamp(sp, max=stack.shape[1] - 1)[:, None]
@@ -130,9 +140,7 @@ def _bvh_tris(scene: Scene, ray: Ray, t_best, any_hit: bool,
     t_best = t_best.detach().clone()          # updated in place below
     N = ray.o.shape[0]
     dev = ray.o.device
-    d_safe = torch.where(torch.abs(ray.d) < 1e-12,
-                         torch.where(ray.d >= 0, 1e-12, -1e-12), ray.d)
-    inv_d = 1.0 / d_safe
+    inv_d = _inv_dir(ray.d)
     stack = torch.zeros((N, bvh.depth + 2), dtype=torch.int64, device=dev)
     sp = torch.ones((N,), dtype=torch.int64, device=dev)   # root at slot 0
     prim = torch.full((N,), -1, dtype=torch.int64, device=dev)
@@ -186,14 +194,136 @@ def _tri_strategy(scene: Scene):
     kernel for CUDA tensors (cuda_intersect.intersect_closest launches it
     or raises), its plain version for CPU tensors.  Larger meshes and
     intersector="bvh" take the BVH traversal."""
-    if scene.n_instances or scene.n_sdfs:
-        raise not_ported("instanced and SDF geometry", "Queue 1 M10")
     if scene.intersector == "brute" or scene.n_tris == 0:
         return _brute_tris
     if scene.intersector == "bvh" \
             or scene.n_tris > cuda_intersect.MAX_STREAM_TRIS:
         return _bvh_tris
     return _kernel_tris
+
+
+# the instance pass's working set: (lane, instance) entries per box-test
+# block, and pair x triangle-row entries per Moeller-Trumbore block (its
+# (pairs, rows, 3, 3) world triangles are 36 B an entry), on the CPU and
+# on a CUDA device
+INST_BOX_BLOCK = 1 << 22
+INST_PAIR_BLOCK = {"cpu": 1 << 21, "cuda": 1 << 23}
+# counters of the instance pass (chip_smoke.py reads them): its host
+# syncs (one per lane block: the list of box-hit pairs) and the pairs
+INST_SYNCS = 0
+INST_PAIRS = 0
+
+
+def _instance_pairs(scene: Scene, ray: Ray, inv_d, t_best, lo, hi):
+    """(lane, instance) pairs of lanes lo..hi whose ray enters the
+    instance's world box before min(maxt, t_best), lane-major: one host
+    sync."""
+    global INST_SYNCS
+    o = ray.o[lo:hi, None, :]
+    _, box = _ray_aabb(o, inv_d[lo:hi, None, :],
+                       torch.minimum(ray.maxt[lo:hi], t_best[lo:hi])[:, None],
+                       scene.inst_bmin[None], scene.inst_bmax[None])
+    pairs = torch.nonzero(box)
+    INST_SYNCS += 1
+    return pairs[:, 0] + lo, pairs[:, 1]
+
+
+def _pair_hits(scene: Scene, ray: Ray, t_best, lane, inst):
+    """Closest hit of each (lane, instance) pair among the instance's
+    group triangles -> (t, code, u, v), t = inf where none beats t_best.
+    The group-local triangles go to world space with the instance's 3x4
+    (vertices, then edges: the flattening builder's operations, so
+    instanced and flattened geometry agree to fp32 rounding); ties keep
+    the first row, as the JAX package's chunk loop with its strict
+    t < t_best."""
+    P = lane.shape[0]
+    dev = lane.device
+    rows = scene.inst_max_chunks * INST_CHUNK
+    rb = min(rows, max(INST_CHUNK, INST_PAIR_BLOCK[dev.type] // max(P, 1)
+                       // INST_CHUNK * INST_CHUNK))
+    xf = scene.inst_xf[inst]
+    M = xf[:, :12].reshape(-1, 3, 4)
+    start = scene.inst_face_start[inst]
+    n_rows = scene.inst_n_chunks[inst] * INST_CHUNK
+    o = ray.o[lane][:, None, :]
+    d = ray.d[lane][:, None, :]
+    tb = torch.minimum(t_best[lane], ray.maxt[lane])
+    best_t = torch.full((P,), INF, device=dev)
+    best_r = torch.zeros((P,), dtype=torch.int64, device=dev)
+    best_u = torch.zeros((P,), device=dev)
+    best_v = torch.zeros((P,), device=dev)
+    last = scene.inst_tris.shape[0] - 1
+    for r0 in range(0, rows, rb):
+        r = torch.arange(r0, min(r0 + rb, rows), device=dev)
+        valid = r[None] < n_rows[:, None]
+        blk = scene.inst_tris[torch.clamp(start[:, None] + r[None], max=last)]
+        pw = torch.einsum("pij,prkj->prki", M[:, :, :3], blk) \
+            + M[:, None, None, :, 3]                  # (P, R, 3, 3)
+        p0 = pw[:, :, 0]
+        t, u, v, hit = _moeller_trumbore(o, d, p0, pw[:, :, 1] - p0,
+                                         pw[:, :, 2] - p0)
+        hit &= valid & (t < tb[:, None])
+        t = torch.where(hit, t, INF)
+        j = torch.argmin(t, dim=1)
+        tj = torch.gather(t, 1, j[:, None])[:, 0]
+        better = tj < best_t
+        best_t = torch.where(better, tj, best_t)
+        best_r = torch.where(better, r0 + j, best_r)
+        best_u = torch.where(better, torch.gather(u, 1, j[:, None])[:, 0],
+                             best_u)
+        best_v = torch.where(better, torch.gather(v, 1, j[:, None])[:, 0],
+                             best_v)
+    code = scene.n_tris + inst * scene.n_inst_tris + start + best_r
+    return best_t, code, best_u, best_v
+
+
+def _instances(scene: Scene, ray: Ray, t_best, prim, uu, vv):
+    """The instanced-geometry pass (counterpart of the JAX package's
+    `_instances`): the pairs of lanes and instances whose boxes they
+    enter, each pair's closest group triangle, and per lane the closest
+    pair (the lowest code among equal t: the JAX scan's instance order).
+    Hits are encoded prim = n_tris + instance * n_inst_tris + group row.
+    Never differentiated (ray_intersect detaches the search)."""
+    global INST_PAIRS
+    N = ray.o.shape[0]
+    dev = ray.o.device
+    ray = Ray(o=ray.o.detach(), d=ray.d.detach(), maxt=ray.maxt.detach())
+    t_best = t_best.detach()
+    inv_d = _inv_dir(ray.d)
+    lane_blk = max(1, INST_BOX_BLOCK // max(scene.n_instances, 1))
+    for lo in range(0, N, lane_blk):
+        # lane blocks are disjoint: a block reads only its own lanes of
+        # t_best
+        lane, inst = _instance_pairs(scene, ray, inv_d, t_best, lo,
+                                     min(lo + lane_blk, N))
+        INST_PAIRS += lane.shape[0]
+        if lane.shape[0] == 0:
+            continue
+        pb = max(1, INST_PAIR_BLOCK[dev.type] // INST_CHUNK)
+        lt = torch.full((N,), INF, device=dev)
+        out = []
+        for b in range(0, lane.shape[0], pb):
+            res = _pair_hits(scene, ray, t_best, lane[b:b + pb],
+                             inst[b:b + pb])
+            out.append(res)
+            lt = lt.scatter_reduce(0, lane[b:b + pb], res[0], "amin")
+        t_p, code_p, u_p, v_p = (torch.cat(x) for x in zip(*out))
+        cand = torch.isfinite(t_p) & (t_p == lt[lane])
+        big = torch.iinfo(torch.int64).max
+        lc = torch.full((N,), big, dtype=torch.int64, device=dev)
+        lc = lc.scatter_reduce(0, lane, torch.where(cand, code_p, big),
+                               "amin")
+        win = cand & (code_p == lc[lane])
+        wu = torch.zeros((N,), device=dev).index_add_(
+            0, lane, torch.where(win, u_p, 0.0))
+        wv = torch.zeros((N,), device=dev).index_add_(
+            0, lane, torch.where(win, v_p, 0.0))
+        better = lt < t_best
+        t_best = torch.where(better, lt, t_best)
+        prim = torch.where(better, lc, prim)
+        uu = torch.where(better, wu, uu)
+        vv = torch.where(better, wv, vv)
+    return t_best, prim, uu, vv
 
 
 def _spheres(scene: Scene, ray: Ray, t_best):
@@ -222,16 +352,112 @@ def _spheres(scene: Scene, ray: Ray, t_best):
     return t_best, sph
 
 
+_SDF_STEPS = 96
+# the march stops early once every lane is dead (a dead lane's step
+# changes nothing, so the result is the full count's); tested every
+# this many steps, one host sync each
+SDF_CHECK_EVERY = 16
+SDF_STEPS_RUN = 0       # march steps run (chip_smoke.py reads it)
+
+
+def _trilinear(grid, whd, k, p):
+    """Trilinear sample of SDF grid k (per lane or one) at local p (N, 3)
+    in [0,1]^3; whd (.., 3) the true (W, H, D)."""
+    W = (whd[..., 0] - 1).to(torch.float32)
+    H = (whd[..., 1] - 1).to(torch.float32)
+    D = (whd[..., 2] - 1).to(torch.float32)
+    fx = torch.clamp(p[:, 0], 0.0, 1.0) * W
+    fy = torch.clamp(p[:, 1], 0.0, 1.0) * H
+    fz = torch.clamp(p[:, 2], 0.0, 1.0) * D
+    x0 = torch.minimum(torch.clamp(fx.to(torch.int64), min=0),
+                       whd[..., 0] - 2)
+    y0 = torch.minimum(torch.clamp(fy.to(torch.int64), min=0),
+                       whd[..., 1] - 2)
+    z0 = torch.minimum(torch.clamp(fz.to(torch.int64), min=0),
+                       whd[..., 2] - 2)
+    tx = fx - x0
+    ty = fy - y0
+    tz = fz - z0
+    _, Dm, Hm, Wm = grid.shape
+    flat = grid.reshape(-1)
+    base = ((k * Dm + z0) * Hm + y0) * Wm + x0
+
+    def g(dz, dy, dx):
+        return flat[base + (dz * Hm + dy) * Wm + dx]
+
+    c00 = g(0, 0, 0) * (1 - tx) + g(0, 0, 1) * tx
+    c01 = g(0, 1, 0) * (1 - tx) + g(0, 1, 1) * tx
+    c10 = g(1, 0, 0) * (1 - tx) + g(1, 0, 1) * tx
+    c11 = g(1, 1, 0) * (1 - tx) + g(1, 1, 1) * tx
+    c0 = c00 * (1 - ty) + c01 * ty
+    c1 = c10 * (1 - ty) + c11 * ty
+    return c0 * (1 - tz) + c1 * tz
+
+
+def _sdfs(scene: Scene, ray: Ray, t_best):
+    """Sphere-trace the SDF grid shapes (sdfgrid.cpp; counterpart of the
+    JAX package's `_sdfs`): per SDF a masked march of _SDF_STEPS steps
+    from the ray's entry into the local unit cube, converged where the
+    distance falls below 1e-3 -> (t_best, sdf index or -1)."""
+    global SDF_STEPS_RUN
+    N = ray.o.shape[0]
+    dev = ray.o.device
+    ray = Ray(o=ray.o.detach(), d=ray.d.detach(), maxt=ray.maxt.detach())
+    sdf_idx = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    eps = 1e-3
+    for k in range(scene.n_sdfs):
+        A = scene.sdf_to_local[k]
+        o_l = ray.o @ A[:3, :3].T + A[:3, 3]
+        d_l = ray.d @ A[:3, :3].T
+        dl_len = torch.clamp(m.norm(d_l), min=1e-12)
+        inv = 1.0 / torch.where(torch.abs(d_l) > 1e-12, d_l, 1e-12)
+        t0 = (0.0 - o_l) * inv
+        t1 = (1.0 - o_l) * inv
+        near = torch.amax(torch.minimum(t0, t1), -1)
+        far = torch.amin(torch.maximum(t0, t1), -1)
+        box = (near <= far) & (far > 0.0) & (near < t_best)
+        t = torch.clamp(near, min=0.0) + 1e-5
+        whd = scene.sdf_whd[k]
+        hit = torch.zeros((N,), dtype=torch.bool, device=dev)
+        dead = ~box
+        stop = torch.minimum(far, t_best)
+        for i in range(_SDF_STEPS):
+            if i % SDF_CHECK_EVERY == 0 and bool(dead.all()):
+                break
+            SDF_STEPS_RUN += 1
+            val = _trilinear(scene.sdf_grids, whd, k, o_l + t[:, None] * d_l)
+            conv = (val < eps) & ~dead
+            step = torch.clamp(val, min=0.25 * eps) / dl_len
+            t_next = t + step
+            dead2 = dead | conv | (t_next > stop)
+            t = torch.where(dead, t, t_next)
+            # keep t at the converged point, not the advanced one
+            t = torch.where(conv, t - step, t)
+            hit = hit | conv
+            dead = dead2
+        take = hit & (t < t_best) & (t > 1e-5)
+        t_best = torch.where(take, t, t_best)
+        sdf_idx = torch.where(take, k, sdf_idx)
+    return t_best, sdf_idx
+
+
 def ray_intersect_preliminary(scene: Scene, ray: Ray, any_hit: bool = False,
                               shadow: bool = False):
-    """(t, prim, u, v, sph_idx); prim = -1 and sph = -1 => miss.
-    any_hit: only occlusion is read (the ray sort is skipped); shadow: a
-    next-event shadow query (counted apart by the kernel's wrapper)."""
+    """(t, prim, u, v, sph_idx); prim = -1 and sph = -1 => miss.  An
+    instanced hit is prim = n_tris + instance * n_inst_tris + group row,
+    an SDF hit sph = n_spheres + its index.  any_hit: only occlusion is
+    read (the ray sort is skipped); shadow: a next-event shadow query
+    (counted apart by the kernel's wrapper)."""
     t_best = torch.where(torch.isfinite(ray.maxt), ray.maxt, INF)
     strat = _tri_strategy(scene)
     t_best, prim, uu, vv = strat(scene, ray, t_best, any_hit=any_hit,
                                  shadow=shadow)
+    if scene.n_instances:
+        t_best, prim, uu, vv = _instances(scene, ray, t_best, prim, uu, vv)
     t_best, sph = _spheres(scene, ray, t_best)
+    if scene.n_sdfs:
+        t_best, sdf = _sdfs(scene, ray, t_best)
+        sph = torch.where(sdf >= 0, scene.n_spheres + sdf, sph)
     prim = torch.where(sph >= 0, -1, prim)
     return t_best, prim, uu, vv, sph
 
@@ -245,11 +471,10 @@ def ray_test(scene: Scene, ray: Ray):
 
 def compute_si(scene: Scene, ray: Ray, t, prim, u, v, sph
                ) -> SurfaceInteraction:
-    """Full SurfaceInteraction from a preliminary hit (triangles and
-    analytic spheres)."""
-    if scene.has_vertex_attr or scene.has_tangents:
-        raise not_ported("vertex attributes and curve tangents",
-                         "Queue 1 M10")
+    """Full SurfaceInteraction from a preliminary hit (triangles, instanced
+    triangles, analytic spheres and SDF grids), with the interpolated
+    vertex attribute and, on curve tubes, the fiber tangent as the
+    frame's s axis."""
     hit_tri = prim >= 0
     hit_sph = sph >= 0
     hit = hit_tri | hit_sph
@@ -258,6 +483,8 @@ def compute_si(scene: Scene, ray: Ray, t, prim, u, v, sph
     v = torch.where(hit_tri & torch.isfinite(v), v, 0.0)
     t = torch.where(hit & torch.isfinite(t), t, 1.0)
 
+    is_inst = hit_tri & (prim >= scene.n_tris) if scene.n_instances \
+        else torch.zeros_like(hit_tri)
     prim_s = torch.clamp(prim, 0, max(scene.n_tris - 1, 0))
     row = scene.tri_si[prim_s]
     p0 = row[:, 0:3]
@@ -265,10 +492,13 @@ def compute_si(scene: Scene, ray: Ray, t, prim, u, v, sph
     e2 = row[:, 6:9]
     # the sweep carries only (t, prim): re-derive the winner's (t, u, v)
     tt, uu2, vv2, hh = _moeller_trumbore(ray.o, ray.d, p0, e1, e2)
-    ok = hit_tri & hh
+    ok = hit_tri & ~is_inst & hh
     u = torch.where(ok, uu2, u)
     v = torch.where(ok, vv2, v)
     t = torch.where(ok, tt, t)
+    if scene.n_instances:
+        row, p0, e1, e2, u, v, t = _instance_rows(scene, ray, prim, is_inst,
+                                                  row, p0, e1, e2, u, v, t)
     w = 1.0 - u - v
     p_tri = p0 + e1 * u[:, None] + e2 * v[:, None]
     ng_tri = m.normalize(m.cross(e1, e2))
@@ -282,7 +512,8 @@ def compute_si(scene: Scene, ray: Ray, t, prim, u, v, sph
         + row[:, 22:24] * v[:, None]
     shape_tri = row[:, 24].to(torch.int64)
 
-    sph_s = torch.clamp(sph, min=0)
+    # an SDF hit's sph (n_spheres + k) lies past the sphere table
+    sph_s = torch.clamp(sph, 0, scene.sph_radius.shape[0] - 1)
     c = scene.sph_center[sph_s]
     r = scene.sph_radius[sph_s]
     t_sph = torch.where(hit_sph, t, 1.0)
@@ -301,11 +532,99 @@ def compute_si(scene: Scene, ray: Ray, t, prim, u, v, sph
     uv = torch.where(hs, uv_sph, uv_tri)
     shape = torch.where(hit_sph, shape_sph,
                         torch.where(hit_tri, shape_tri, -1))
+    if scene.n_sdfs:
+        p, ng, ns, uv, shape = _sdf_si(scene, ray, t, sph, hit_sph,
+                                       p, ng, ns, uv, shape)
+
+    attr = None
+    if scene.has_vertex_attr:
+        fa = scene.faces[prim_s]
+        va = scene.vertex_attrs
+        attr = va[fa[:, 0]] * w[:, None] + va[fa[:, 1]] * u[:, None] \
+            + va[fa[:, 2]] * v[:, None]
     frame = m.make_frame(ns)
+    if scene.has_tangents:
+        # curve tubes: the frame's s axis along the interpolated fiber
+        # tangent (the hair BSDF's +x convention, scene/curves.py)
+        f = scene.faces[prim_s]
+        tv = scene.tangents
+        tg = tv[f[:, 0]] * w[:, None] + tv[f[:, 1]] * u[:, None] \
+            + tv[f[:, 2]] * v[:, None]
+        tg = tg - torch.sum(tg * ns, -1, keepdim=True) * ns
+        tl = m.norm(tg)
+        use = ((tl > 1e-6) & hit_tri)[:, None]
+        s_ax = torch.where(use, tg / torch.clamp(tl, min=1e-6)[:, None],
+                           frame.s)
+        frame = dataclasses.replace(
+            frame, s=s_ax, t=torch.where(use, m.cross(ns, s_ax), frame.t))
     return SurfaceInteraction(
         t=torch.where(hit, t, INF), p=p, ng=ng, sh_frame=frame, uv=uv,
         wi=frame.to_local(-ray.d),
-        prim=torch.where(hit_sph, sph, prim), shape=shape)
+        prim=torch.where(hit_sph, sph, prim), shape=shape, attr=attr)
+
+
+def _instance_rows(scene: Scene, ray: Ray, prim, is_inst, row, p0, e1, e2,
+                   u, v, t):
+    """An instanced lane's group-local row moved to world space by its
+    instance (two gathers): the world triangle, its re-derived (t, u, v),
+    and the row with the world vertices, edges and normals spliced in."""
+    code = torch.clamp(prim - scene.n_tris, min=0)
+    iid = torch.div(code, scene.n_inst_tris, rounding_mode="floor")
+    gtri = code % scene.n_inst_tris
+    irow = scene.inst_si[gtri]
+    xf = scene.inst_xf[iid]
+    M = xf[:, :12].reshape(-1, 3, 4)
+    Nm = xf[:, 12:21].reshape(-1, 3, 3)
+
+    def xform_p(pl):
+        return torch.einsum("nij,nj->ni", M[:, :, :3], pl) + M[:, :, 3]
+
+    def xform_n(nl):
+        out = torch.einsum("nij,nj->ni", Nm, nl)
+        return out / torch.clamp(m.norm(out), min=1e-20)[:, None]
+
+    ip0 = xform_p(irow[:, 0:3])
+    ie1 = xform_p(irow[:, 3:6]) - ip0
+    ie2 = xform_p(irow[:, 6:9]) - ip0
+    itt, iu, iv, ihh = _moeller_trumbore(ray.o, ray.d, ip0, ie1, ie2)
+    iok = is_inst & ihh
+    u = torch.where(iok, iu, u)
+    v = torch.where(iok, iv, v)
+    t = torch.where(iok, itt, t)
+    ii = is_inst[:, None]
+    p0 = torch.where(ii, ip0, p0)
+    e1 = torch.where(ii, ie1, e1)
+    e2 = torch.where(ii, ie2, e2)
+    row = torch.where(ii, torch.cat(
+        [ip0, ie1, ie2, xform_n(irow[:, 9:12]), xform_n(irow[:, 12:15]),
+         xform_n(irow[:, 15:18]), irow[:, 18:25]], -1), row)
+    return row, p0, e1, e2, u, v, t
+
+
+def _sdf_si(scene: Scene, ray: Ray, t, sph, hit_sph, p, ng, ns, uv, shape):
+    """SDF lanes (sph = n_spheres + k): the hit point, the normal from the
+    grid's central differences in local space mapped by A^T, uv from the
+    local point."""
+    is_sdf = hit_sph & (sph >= scene.n_spheres)
+    k = torch.clamp(sph - scene.n_spheres, 0, scene.n_sdfs - 1)
+    A = scene.sdf_to_local[k]                      # (N, 4, 4)
+    whd = scene.sdf_whd[k]
+    p_w = ray.at(torch.where(is_sdf, t, 1.0))
+    p_l = torch.einsum("nij,nj->ni", A[:, :3, :3], p_w) + A[:, :3, 3]
+    h = 0.5 / torch.amax(whd, -1).to(torch.float32)
+    grad = []
+    for ax in range(3):
+        off = p_l.new_zeros((1, 3))
+        off[0, ax] = 1.0
+        vp = _trilinear(scene.sdf_grids, whd, k, p_l + off * h[:, None])
+        vm = _trilinear(scene.sdf_grids, whd, k, p_l - off * h[:, None])
+        grad.append(vp - vm)
+    n_w = m.normalize(torch.einsum("nij,ni->nj", A[:, :3, :3],
+                                   torch.stack(grad, -1)))
+    sd = is_sdf[:, None]
+    return (torch.where(sd, p_w, p), torch.where(sd, n_w, ng),
+            torch.where(sd, n_w, ns), torch.where(sd, p_l[:, :2], uv),
+            torch.where(is_sdf, scene.sdf_shape[k], shape))
 
 
 def ray_intersect(scene: Scene, ray: Ray,

@@ -15,7 +15,8 @@ probability as the pdf of a delta lobe; twosided flips the frame when
 cos_theta(wi) < 0.  Per-lane rows (type, twosided, texture slots, nested
 BSDFs, params) are read with core/math.table_lookup, as in the JAX
 package, so that a parameter's gradient is one reduction per row.
-Hair raises (it comes with the curves).
+Texture slots read the interaction's position and vertex attribute (the
+volume and mesh-attribute textures), as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -26,9 +27,8 @@ from ..core import math as m
 from ..core import microfacet as mf
 from ..core import warp
 from ..core.types import BSDFSample
-from ..errors import not_ported
 from ..scene.ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
-                        BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK,
+                        BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_HAIR, BSDF_MASK,
                         BSDF_MEASURED, BSDF_NULL, BSDF_PLASTIC,
                         BSDF_POLARIZER, BSDF_PPLASTIC, BSDF_PRINCIPLED,
                         BSDF_PRINCIPLEDTHIN,
@@ -38,6 +38,7 @@ from ..scene.ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
                         F_DIFFUSE_REFL, F_GLOSSY_REFL, F_GLOSSY_TRANS,
                         F_NULL, Scene)
 from ..texture.eval import eval_texture
+from .hair import hair_eval_pdf, hair_sample
 from .measured import measured_eval_pdf, measured_sample
 
 
@@ -782,6 +783,14 @@ def _element(scale):
     return sample
 
 
+def _hair_sample(wi, u1, u2, p, t0, t1):
+    return hair_sample(wi, u1, u2, p, t0)
+
+
+def _hair_eval(wi, wo, p, t0, t1):
+    return hair_eval_pdf(wi, wo, p, t0)
+
+
 _SAMPLERS = {
     BSDF_DIFFUSE: _diffuse_sample,
     BSDF_DIELECTRIC: _dielectric_sample,
@@ -794,6 +803,7 @@ _SAMPLERS = {
     BSDF_ROUGHDIELECTRIC: _roughdielectric_sample,
     BSDF_PRINCIPLED: _principled_sample,
     BSDF_PRINCIPLEDTHIN: _principledthin_sample,
+    BSDF_HAIR: _hair_sample,
     BSDF_NULL: _null_sample,
     BSDF_POLARIZER: _element(0.5),
     BSDF_RETARDER: _element(1.0),
@@ -810,6 +820,7 @@ _EVALS = {
     BSDF_ROUGHDIELECTRIC: _roughdielectric_eval,
     BSDF_PRINCIPLED: _principled_eval,
     BSDF_PRINCIPLEDTHIN: _principledthin_eval,
+    BSDF_HAIR: _hair_eval,
 }
 
 # wrappers resolved here before the family dispatch; the measured
@@ -821,17 +832,28 @@ def _check_types(b):
     bad = [t for t in b.types_present if t not in _SAMPLERS
            and t not in _NESTED and t != BSDF_MEASURED]
     if bad:
-        raise not_ported(f"BSDF type codes {bad} (hair, with the curves)",
-                         "Queue 1 M10")
+        raise ValueError(f"unknown BSDF type codes {bad}")
+
+
+def _attr(si):
+    """The interpolated vertex attribute; without vertex attributes zeros
+    (the JAX SurfaceInteraction's default), so a mesh-attribute texture
+    reads black."""
+    return si.attr if si.attr is not None else si.uv.new_zeros((1, 3))
+
+
+def _tex(scene: Scene, si, slot, idx, types):
+    """A texture slot's value at the interaction (uv, position and
+    vertex attribute)."""
+    return eval_texture(scene.textures, m.table_lookup(slot, idx), si.uv,
+                        types, p=si.p, attr=_attr(si))
 
 
 def _gather_ctx(scene: Scene, si, idx):
     """Per-lane (btype, params, tex0 value, tex1 value) rows."""
     b = scene.bsdfs
-    t0 = eval_texture(scene.textures, m.table_lookup(b.tex0, idx), si.uv,
-                      b.tex0_types)
-    t1 = eval_texture(scene.textures, m.table_lookup(b.tex1, idx), si.uv,
-                      b.tex1_types)
+    t0 = _tex(scene, si, b.tex0, idx, b.tex0_types)
+    t1 = _tex(scene, si, b.tex1, idx, b.tex1_types)
     return m.table_lookup(b.btype, idx), m.table_lookup(b.params, idx), t0, t1
 
 
@@ -890,9 +912,7 @@ def _family_eval(scene: Scene, wi_f, wo_f, btype, p, t0, t1):
 
 def _scalar_weight(scene: Scene, si, idx):
     """Blend weight / mask opacity: the mean of the outer row's tex0."""
-    b = scene.bsdfs
-    t0 = eval_texture(scene.textures, m.table_lookup(b.tex0, idx), si.uv,
-                      b.tex0_types)
+    t0 = _tex(scene, si, scene.bsdfs.tex0, idx, scene.bsdfs.tex0_types)
     return torch.clamp(torch.mean(t0, -1), 1e-4, 1.0 - 1e-4)
 
 

@@ -7,6 +7,7 @@ N (the wavefront size).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -57,6 +58,9 @@ class SurfaceInteraction:
     wi: Tensor          # (N,3) incident dir in the local shading frame
     prim: Tensor        # (N,) triangle / sphere index
     shape: Tensor       # (N,) shape index, -1 when invalid
+    # (N,3) interpolated vertex attribute (mesh_attribute textures), None
+    # when the scene carries none
+    attr: Optional[Tensor] = None
 
     @property
     def valid(self) -> Tensor:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    """`raise not_ported("the hair BSDF", "Queue 1 M10")`."""
+    """`raise not_ported("deep EXR files", "Queue 1 M9")`."""
     return NotImplementedError(
         f"{what} is not ported to liverrenderer_tpu_torch yet "
         f"(ROADMAP.md {item})")

@@ -146,7 +146,10 @@ def _probe(scene: Scene, ray: Ray, own_shape, dist):
     """Whether the ray hits the edge's own shape at about the edge's
     distance (the foreground side)."""
     t, prim, _, _, _ = ray_intersect_preliminary(scene, ray)
-    shp = torch.where(prim >= 0, scene.tri_shape[torch.clamp(prim, min=0)],
+    # an instanced hit's code lies past the table: the JAX gather clamps
+    # it to the last triangle
+    last = scene.tri_shape.shape[0] - 1
+    shp = torch.where(prim >= 0, scene.tri_shape[torch.clamp(prim, 0, last)],
                       -1)
     near = torch.abs(t - dist) < 0.05 * dist + 1e-3
     return (shp == own_shape) & near
@@ -260,6 +263,8 @@ def _merge(mask: Tensor, a, b):
         return dataclasses.replace(a, **{
             f.name: _merge(mask, getattr(a, f.name), getattr(b, f.name))
             for f in dataclasses.fields(a)})
+    if a is None:
+        return None
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
 
 

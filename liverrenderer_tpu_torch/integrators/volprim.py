@@ -109,7 +109,7 @@ def _bounce(scene: Scene, ray_d: Tensor, st: VPState) -> VPState:
                                   maxt=st.ray_o.new_full((n,), INF)))
     hit = si.valid & (si.prim >= 0)
     ell = torch.where(hit, scene.volprims.tri_ell[
-        torch.clamp(si.prim, min=0)], -1)
+        torch.clamp(si.prim, 0, scene.volprims.tri_ell.shape[0] - 1)], -1)
     active = st.active & si.valid
     # exit (back-facing) tessellation hits are null events
     entry = torch.sum(si.ng * ray_d, -1) < 0.0

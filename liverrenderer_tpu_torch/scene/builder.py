@@ -14,18 +14,25 @@ ported so far:
                default), mitchell, catmullrom or lanczos filter; the
                independent, stratified, multijitter, orthogonal and
                ldsampler samplers
-  shapes       mesh, blender, obj, ply, serialized, rectangle, cube, disk,
-               cylinder, sphere (analytic), ellipsoids and ellipsoidsmesh
-               (instanced icospheres; with opacities and SH coefficients
-               the radiance field's splats), and merge's children
+  shapes       mesh and blender (with per-vertex `vertex_attrs`), obj, ply,
+               serialized, rectangle, cube, disk, cylinder, sphere
+               (analytic), ellipsoids and ellipsoidsmesh (instanced
+               icospheres; with opacities and SH coefficients the radiance
+               field's splats), linearcurve and bsplinecurve (tubes,
+               scene/curves.py), sdfgrid, merge's children, and shapegroup
+               with its instances (one group-local stream shared by the
+               instances, or replicated with flatten_instances=True or
+               when a child is not a plain mesh)
   bsdfs        diffuse (also the default of a shape without a BSDF),
                dielectric, thindielectric, roughdielectric, conductor,
                roughconductor, plastic, roughplastic, pplastic, null, the
-               polarizer, retarder and circular elements, the
+               polarizer, retarder and circular elements, hair, the
                one-level blendbsdf and mask, and the twosided, bumpmap and
                normalmap wrappers (folded into the BSDF and shape tables,
                also through a ref)
-  textures     constant, checkerboard, bitmap (inline `data` or a file)
+  textures     constant, checkerboard, bitmap (inline `data` or a file),
+               mesh_attribute, volume / gridvolume (a 3-D grid, inline or
+               a .vol file)
   spectra      rgb, uniform, d65, rawconstant, srgb, blackbody, regular
                and irregular, as linear RGB
   media        liver, glissonCapsule / glisson, parenchyma, homogeneous,
@@ -34,7 +41,8 @@ ported so far:
                blendphase, tabphase and sggx phases
   emitters     area (attached to a shape), point, constant, envmap (inline
                `data` or a file), directional / directionalarea, spot,
-               projector
+               projector, and sunsky / sun / sky / timed_sunsky (the
+               Preetham sky baked into an envmap, emitter/sunsky.py)
   subsurface   vaescatter (the learned BSSRDF: per-vertex polynomial fits,
                the VAE from ssub/vae.load_model) and dipole (its irradiance
                point cloud), nested in a shape or named and referenced
@@ -42,8 +50,7 @@ ported so far:
 Entities are packed host-side into the same numpy tables, in the same
 order, as the JAX builder packs them; `bridge.scene_from_numpy` uploads
 them.  File names resolve against `base_dir` (the XML file's directory
-under scene/xml.load_file).  Any other plugin raises NotImplementedError
-naming the ROADMAP item that brings it.
+under scene/xml.load_file).  Any other plugin raises ValueError.
 """
 from __future__ import annotations
 
@@ -63,8 +70,9 @@ from ..core.rng import KINDS as _SAMPLERS
 from ..core.spectrum import blackbody_rgb, spd_to_rgb, srgb_to_linear
 from ..errors import not_ported
 from . import geometry as geo
-from .ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
-                 BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_MASK, BSDF_MEASURED,
+from .ir import (INST_CHUNK, BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
+                 BSDF_DIELECTRIC, BSDF_DIFFUSE, BSDF_HAIR, BSDF_MASK,
+                 BSDF_MEASURED,
                  BSDF_NULL, BSDF_P, BSDF_PLASTIC, BSDF_POLARIZER,
                  BSDF_PPLASTIC, BSDF_PRINCIPLED, BSDF_PRINCIPLEDTHIN,
                  BSDF_RETARDER,
@@ -82,8 +90,9 @@ from .ir import (BSDF_BLEND, BSDF_CIRCULAR, BSDF_CONDUCTOR,
                  SENSOR_BATCH, SENSOR_DISTANT, SENSOR_IRRADIANCEMETER,
                  SENSOR_ORTHOGRAPHIC, SENSOR_PERSPECTIVE,
                  SENSOR_RADIANCEMETER, SENSOR_THINLENS, SHAPE_MESH,
-                 SHAPE_SPHERE, SSUB_DIPOLE, SSUB_VAE, TAB_BINS, TEX_BITMAP,
-                 TEX_CHECKERBOARD, TEX_CONST, TEX_P)
+                 SHAPE_SDF, SHAPE_SPHERE, SSUB_DIPOLE, SSUB_VAE, TAB_BINS,
+                 TEX_BITMAP, TEX_CHECKERBOARD, TEX_CONST, TEX_MESHATTR, TEX_P,
+                 TEX_VOLUME)
 from .transform import Transform, from_any
 
 IOR_NAMES = {
@@ -119,12 +128,18 @@ _SENSOR_TYPES = {"perspective": SENSOR_PERSPECTIVE,
                  "batch": SENSOR_BATCH}
 _SHAPE_TYPES = ("mesh", "blender", "obj", "ply", "serialized", "rectangle",
                 "cube", "disk", "cylinder", "sphere", "ellipsoids",
-                "ellipsoidsmesh")
+                "ellipsoidsmesh", "linearcurve", "bsplinecurve", "sdfgrid")
+_CURVE_TYPES = ("linearcurve", "bsplinecurve")
+# the shapes a shapegroup's instances share as one group-local stream:
+# those that tessellate to a plain mesh.  Spheres, SDF grids, curves and
+# splats keep global tables, so their groups are replicated instead
+_INSTANCEABLE_TYPES = ("rectangle", "cube", "disk", "cylinder", "obj",
+                       "ply", "serialized", "mesh", "blender")
 _BSDF_TYPES = ("diffuse", "dielectric", "thindielectric", "roughdielectric",
                "conductor", "roughconductor", "plastic", "roughplastic",
                "pplastic", "null", "mask", "blendbsdf", "twosided",
                "bumpmap", "normalmap", "polarizer", "retarder", "circular",
-               "principled", "principledthin", "measured")
+               "principled", "principledthin", "measured", "hair")
 _ELEMENTS = {"polarizer": BSDF_POLARIZER, "retarder": BSDF_RETARDER,
              "circular": BSDF_CIRCULAR}
 # a filter name the table lacks takes the gaussian, as in the JAX builder
@@ -134,21 +149,15 @@ _FILTERS = {"box": FILTER_BOX, "tent": FILTER_TENT,
 _MEDIUM_TYPES = ("liver", "glissonCapsule", "glisson", "parenchyma",
                  "homogeneous", "heterogeneous")
 _EMITTER_TYPES = ("point", "constant", "envmap", "directional",
-                  "directionalarea", "spot", "projector")
-_TEXTURE_TYPES = ("bitmap", "checkerboard")
+                  "directionalarea", "spot", "projector", "sunsky", "sun",
+                  "sky", "timed_sunsky")
+# textures a scene may declare at its top level (the JAX builder's list)
+_TEXTURE_TYPES = ("bitmap", "checkerboard", "mesh_attribute")
 _SUBSURFACE_TYPES = ("vaescatter", "dipole")
 _CONST_TEXTURE_TYPES = ("rgb", "uniform", "d65", "srgb", "rawconstant")
-# plugin names of the JAX builder that the port does not carry yet
-_OTHER_TYPES = {
-    "linearcurve": "Queue 1 M10", "bsplinecurve": "Queue 1 M10",
-    "sdfgrid": "Queue 1 M10",
-    "instance": "Queue 1 M10", "shapegroup": "Queue 1 M10",
-    "mesh_attribute": "Queue 1 M10",
-    "volume": "Queue 1 M10", "gridvolume": "Queue 1 M10",
-}
-_OTHER_TYPES["hair"] = "Queue 1 M10"
-for _t in ("sunsky", "sun", "sky", "timed_sunsky"):
-    _OTHER_TYPES[_t] = "Queue 1 M10"
+# plugin names of the JAX builder that the port does not carry yet, with
+# the ROADMAP item that brings each (none since the M10 item)
+_OTHER_TYPES: Dict[str, str] = {}
 
 
 # build_numpy's extra array: the normals of the dipole's points, which
@@ -384,6 +393,23 @@ def _pack_phase(p: np.ndarray, phase: dict):
         raise ValueError(f"unknown phase {pt!r}")
 
 
+def _pack_volume_textures(grids, to_local):
+    """(G, D, H, W, 3) stack of the volume textures' grids, zero-padded to
+    the largest, (G, 3) true (D, H, W) and (G, 4, 4) world -> local; a 2^3
+    placeholder without any."""
+    if not grids:
+        return (np.zeros((1, 2, 2, 2, 3), np.float32),
+                np.full((1, 3), 2, np.int32), np.eye(4, dtype=np.float32)[None])
+    stack = np.zeros((len(grids), max(g.shape[0] for g in grids),
+                      max(g.shape[1] for g in grids),
+                      max(g.shape[2] for g in grids), 3), np.float32)
+    whd = np.zeros((len(grids), 3), np.int32)
+    for i, g in enumerate(grids):
+        stack[i, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+        whd[i] = g.shape[:3]
+    return stack, whd, np.stack(to_local)
+
+
 def _pack_grids(grids, to_local):
     """(G, D, H, W, 4) stack padded to the largest grid, (G, 3) true
     sizes and (G, 4, 4) transforms; a 1-voxel zero grid without any."""
@@ -434,7 +460,27 @@ class _Builder:
         self.normals: List[np.ndarray] = []
         self.uvs: List[np.ndarray] = []
         self.tri_shape: List[np.ndarray] = []
+        # per-vertex fiber tangents (curves) and rgb attributes
+        # (mesh_attribute), one block per mesh shape (zeros elsewhere)
+        self.tangents: List[np.ndarray] = []
+        self.vattrs: List[np.ndarray] = []
+        self.has_curves = False
+        self.has_vattr = False
         self.v_count = 0
+        # the volume textures' grids and world -> local transforms
+        self.vol_grids: List[np.ndarray] = []
+        self.vol_to_local: List[np.ndarray] = []
+        # SDF grid shapes
+        self.sdf_grids: List[np.ndarray] = []
+        self.sdf_to_local: List[np.ndarray] = []
+        self.sdf_shape: List[int] = []
+        # instanced shapegroups: gid -> {start, n_chunks, bmin, bmax};
+        # g_tris / g_si the padded group-local streams; one (3x4, inverse
+        # transpose 3x3, start, n_chunks, world bmin, bmax) per instance
+        self.groups: Dict[str, dict] = {}
+        self.g_tris: List[np.ndarray] = []
+        self.g_si: List[np.ndarray] = []
+        self.inst_rows: List[tuple] = []
         self.sph_center: List[np.ndarray] = []
         self.sph_radius: List[float] = []
         self.sph_shape: List[int] = []
@@ -528,6 +574,30 @@ class _Builder:
                                       raw=bool(d.get("raw", False)))
             _uv_transform(data, d)
             return self._push_texture(TEX_BITMAP, data, bid)
+        if t == "mesh_attribute":
+            # mesh_attribute.cpp: the interpolated vertex attribute (si.attr)
+            # times `scale`
+            data[0:3] = float(d.get("scale", 1.0))
+            return self._push_texture(TEX_MESHATTR, data)
+        if t in ("volume", "gridvolume"):
+            # a 3-D grid texture (textures/volume, volumes/grid.cpp),
+            # trilinear at the world position
+            if "filename" in d:
+                from ..io.vol import read_vol
+                grid = read_vol(self._path(d["filename"]))
+            else:
+                grid = np.asarray(d.get("data", d.get("grid")), np.float32)
+                if grid.ndim == 3:
+                    grid = grid[..., None]
+            if grid.shape[-1] == 1:
+                grid = np.repeat(grid, 3, -1)
+            self.vol_grids.append(grid[..., :3].astype(np.float32))
+            tw = from_any(d["to_world"]).matrix if "to_world" in d \
+                else np.eye(4)
+            self.vol_to_local.append(np.linalg.inv(tw).astype(np.float32))
+            data[0:3] = _spectrum_to_rgb(d.get("scale", 1.0), 1.0)
+            return self._push_texture(TEX_VOLUME, data,
+                                      len(self.vol_grids) - 1)
         raise _unsupported(t)
 
     # --- bsdfs ------------------------------------------------------------
@@ -691,6 +761,27 @@ class _Builder:
             return self._push_bsdf(BSDF_MEASURED, p,
                                    tex0=self.build_texture([1.0] * 3),
                                    flags=F_GLOSSY_REFL, twosided=twosided)
+        if t == "hair":
+            # hair.cpp, the Chiang fiber model: IOR ratio, beta_m, beta_n,
+            # the scale tilt, and sigma_a given or from the melanin
+            # concentrations
+            p[0] = _ior(d.get("int_ior"), 1.55) \
+                / _ior(d.get("ext_ior"), 1.000277)
+            p[1] = float(d.get("longitudinal_roughness",
+                               d.get("beta_m", 0.3)))
+            p[2] = float(d.get("azimuthal_roughness", d.get("beta_n", 0.3)))
+            p[3] = float(np.deg2rad(float(d.get("scale_tilt",
+                                                d.get("alpha", 2.0)))))
+            if "sigma_a" in d:
+                sa = _spectrum_to_rgb(d["sigma_a"], 0.0)
+            else:
+                eu = float(d.get("eumelanin", 1.3))
+                ph = float(d.get("pheomelanin", 0.0))
+                sa = eu * np.array([0.419, 0.697, 1.37]) \
+                    + ph * np.array([0.187, 0.4, 1.05])
+            tex0 = self.build_texture([float(x) for x in sa])
+            return self._push_bsdf(BSDF_HAIR, p, tex0=tex0,
+                                   flags=F_GLOSSY_REFL | F_GLOSSY_TRANS)
         if t == "null":
             return self._push_bsdf(BSDF_NULL, p, flags=F_NULL, twosided=True)
         if t in _ELEMENTS:
@@ -882,6 +973,23 @@ class _Builder:
             tex0 = self.build_texture(d.get("irradiance", 1.0), 1.0)
             return self._push_emitter(EMITTER_PROJECTOR, p, tex0=tex0,
                                       to_world=to_w.matrix)
+        if t in ("sunsky", "sun", "sky", "timed_sunsky"):
+            # the Preetham sky and sun baked into an envmap
+            from ..emitter.sunsky import preetham_envmap, sun_direction
+            if "sun_direction" in d:
+                sd = np.asarray(d["sun_direction"], np.float32)
+            else:
+                sd = sun_direction(hour=float(d.get("hour", 12.0)),
+                                   latitude=float(d.get("latitude", 35.0)),
+                                   day_of_year=int(d.get("day", 180)))
+            img = preetham_envmap(
+                turbidity=float(d.get("turbidity", 3.0)), sun_dir=sd,
+                sun_scale=float(d.get("sun_scale",
+                                      0.0 if t == "sky" else 1.0)),
+                sky_scale=float(d.get("sky_scale",
+                                      0.0 if t == "sun" else 1.0)))
+            return self.build_emitter({"type": "envmap", "data": img,
+                                       "scale": float(d.get("scale", 1.0))})
         if t != "envmap":
             raise _unsupported(t)
         p[6] = float(d.get("scale", 1.0))
@@ -980,8 +1088,35 @@ class _Builder:
             stype, prim_cnt = SHAPE_SPHERE, 1
             prim_off = len(self.sph_radius) - 1
             area = 4.0 * np.pi * radius * radius
+        elif t == "sdfgrid":
+            # sdfgrid.cpp: distances on a [0,1]^3-local grid (local units),
+            # sphere-traced by accel/intersect._sdfs
+            if "filename" in d:
+                from ..io.vol import read_vol
+                grid = read_vol(self._path(d["filename"]))[..., 0]
+            else:
+                grid = np.asarray(d.get("grid", d.get("data")), np.float32)
+            self.sdf_grids.append(grid.astype(np.float32))
+            self.sdf_to_local.append(
+                np.linalg.inv(to_w.matrix).astype(np.float32))
+            self.sdf_shape.append(shape_idx)
+            stype, prim_cnt = SHAPE_SDF, 1
+            prim_off = len(self.sdf_grids) - 1
+            sv = to_w.apply_vectors(np.eye(3))
+            area = 6.0 * float(np.cbrt(abs(np.linalg.det(sv)))) ** 2
         else:
-            mesh = self._mesh(d, t)
+            tangents = vattr = None
+            if t in _CURVE_TYPES:
+                # tessellated in world space: to_world is applied already
+                from .curves import curve_mesh
+                mesh, tangents = curve_mesh(d, self.base_dir, to_w)
+                self.has_curves = True
+                to_w = Transform()
+            else:
+                mesh = self._mesh(d, t)
+                if t in ("mesh", "blender") and "vertex_attrs" in d:
+                    vattr = np.asarray(d["vertex_attrs"], np.float32)
+                    self.has_vattr = True
             mesh = mesh.transformed(to_w)
             if mesh.normals is None:
                 mesh.normals = geo.compute_vertex_normals(mesh.vertices,
@@ -997,6 +1132,10 @@ class _Builder:
             self.faces.append(mesh.faces + self.v_count)
             self.normals.append(mesh.normals)
             self.uvs.append(mesh.uvs)
+            self.tangents.append(np.zeros_like(mesh.vertices)
+                                 if tangents is None else tangents)
+            self.vattrs.append(np.zeros_like(mesh.vertices)
+                               if vattr is None else vattr)
             self.tri_shape.append(
                 np.full(len(mesh.faces), shape_idx, np.int32))
             self.v_count += len(mesh.vertices)
@@ -1013,6 +1152,83 @@ class _Builder:
         self.s_prim_cnt.append(prim_cnt)
         self.s_area.append(area)
         self.s_ssub.append(ssub_idx)
+
+    # --- instanced shapegroups -----------------------------------------------
+    def ensure_group(self, gid: str, group: dict) -> None:
+        """Build a shapegroup's children once into a group-local triangle
+        stream that its instances share (shapegroup.cpp).  The children's
+        shape rows (BSDF, media, bump) are global and shared; only their
+        geometry goes to the group stream, padded to INST_CHUNK rows."""
+        if gid in self.groups:
+            return
+        saved = (self.vertices, self.faces, self.normals, self.uvs,
+                 self.tangents, self.vattrs, self.tri_shape, self.v_count)
+        self.vertices, self.faces, self.normals, self.uvs = [], [], [], []
+        self.tangents, self.vattrs, self.tri_shape = [], [], []
+        self.v_count = 0
+        try:
+            for sval in group.values():
+                if isinstance(sval, dict) and sval.get("type") \
+                        in _SHAPE_TYPES:
+                    self.add_shape(sval)
+            cat = np.concatenate
+            V = cat(self.vertices) if self.vertices \
+                else np.zeros((0, 3), np.float32)
+            F = cat(self.faces).astype(np.int32) if self.faces \
+                else np.zeros((0, 3), np.int32)
+            Nrm = cat(self.normals) if self.normals \
+                else np.zeros((0, 3), np.float32)
+            UV = cat(self.uvs) if self.uvs else np.zeros((0, 2), np.float32)
+            TS = cat(self.tri_shape).astype(np.int32) if self.tri_shape \
+                else np.zeros((0,), np.int32)
+        finally:
+            (self.vertices, self.faces, self.normals, self.uvs,
+             self.tangents, self.vattrs, self.tri_shape,
+             self.v_count) = saved
+        # the template shapes lie in no global primitive range
+        for sh in set(TS.tolist()):
+            self.s_prim_off[sh] = -1
+            self.s_prim_cnt[sh] = 0
+        Tg = len(F)
+        pad = (-Tg) % INST_CHUNK
+        p0, p1, p2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
+        si = np.zeros((Tg + pad, 25), np.float32)
+        si[:Tg, 0:3] = p0
+        si[:Tg, 3:6] = p1
+        si[:Tg, 6:9] = p2
+        si[:Tg, 9:12] = Nrm[F[:, 0]]
+        si[:Tg, 12:15] = Nrm[F[:, 1]]
+        si[:Tg, 15:18] = Nrm[F[:, 2]]
+        si[:Tg, 18:20] = UV[F[:, 0]]
+        si[:Tg, 20:22] = UV[F[:, 1]]
+        si[:Tg, 22:24] = UV[F[:, 2]]
+        si[:Tg, 24] = TS
+        si[Tg:, 24] = -1
+        tris = np.zeros((Tg + pad, 3, 3), np.float32)
+        tris[:Tg] = np.stack([p0, p1, p2], axis=1)
+        self.groups[gid] = {
+            "start": sum(x.shape[0] for x in self.g_tris),
+            "n_chunks": (Tg + pad) // INST_CHUNK,
+            "bmin": V.min(0) if len(V) else np.zeros(3, np.float32),
+            "bmax": V.max(0) if len(V) else np.zeros(3, np.float32)}
+        self.g_tris.append(tris)
+        self.g_si.append(si)
+
+    def add_instance(self, gid: str, to_world: Transform) -> None:
+        """One instance of a built shapegroup (instance.cpp): its to-world
+        3x4, the inverse transpose for normals, and the world box of the
+        group's transformed corners."""
+        g = self.groups[gid]
+        M = np.asarray(to_world.matrix, np.float64)
+        corners = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                            for z in (0, 1)], np.float64)
+        cw = (g["bmin"] + corners * (g["bmax"] - g["bmin"])) @ M[:3, :3].T \
+            + M[:3, 3]
+        self.inst_rows.append((M[:3, :4].astype(np.float32),
+                               np.linalg.inv(M[:3, :3]).T.astype(np.float32),
+                               g["start"], g["n_chunks"],
+                               cw.min(0).astype(np.float32),
+                               cw.max(0).astype(np.float32)))
 
     def _mesh(self, d, t) -> geo.MeshData:
         """The untransformed triangle mesh of a mesh-like shape."""
@@ -1147,8 +1363,27 @@ class _Builder:
             self.camera_medium = self.build_medium(d["medium"])
 
     # --- finalize -----------------------------------------------------------
+    def _check_texture_slots(self):
+        """Mesh-attribute and volume textures are read at the interaction
+        (its vertex attribute, its position) only in a BSDF's slots.  The
+        JAX package evaluates them as white in an emitter's radiance, a
+        bump or normal map and a mask's shadow-ray opacity; the port
+        refuses them there."""
+        kinds = {TEX_MESHATTR: "mesh_attribute", TEX_VOLUME: "volume"}
+        slots = [("an emitter", t) for t in self.e_tex0] \
+            + [("a bump or normal map", t) for t in self.s_bump_tex] \
+            + [("a mask's opacity", self.b_tex0[i])
+               for i, bt in enumerate(self.b_type) if bt == BSDF_MASK]
+        for where, t in slots:
+            if t >= 0 and self.tex_type[t] in kinds:
+                raise ValueError(
+                    f"a {kinds[self.tex_type[t]]} texture in {where} is "
+                    "not evaluated at the interaction (only BSDF slots "
+                    "are)")
+
     def finalize(self):
         """(arrays, statics) under the JAX Scene's dotted field paths."""
+        self._check_texture_slots()
         T = sum(len(f) for f in self.faces)
         V = np.concatenate(self.vertices) if self.vertices \
             else np.zeros((1, 3), np.float32)
@@ -1160,6 +1395,10 @@ class _Builder:
             else np.zeros((1, 2), np.float32)
         TS = np.concatenate(self.tri_shape).astype(np.int32) \
             if self.tri_shape else np.zeros((1,), np.int32)
+        TGT = np.concatenate(self.tangents) if self.has_curves \
+            else np.zeros((1, 3), np.float32)
+        VA = np.concatenate(self.vattrs) if self.has_vattr and self.vattrs \
+            else np.zeros((1, 3), np.float32)
         v0, v1, v2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
         # triangle areas and their global cumulative sum (area emitters
         # pick a triangle by it), in the JAX builder's numpy operations
@@ -1195,6 +1434,8 @@ class _Builder:
             env = build_distribution_2d_np(np.ones((1, 1), np.float32))
         stack, hw, quads, has_quads = _pack_bitmaps(self.bitmaps)
         gstack, gwhd, g2l = _pack_grids(self.grids, self.grid_to_local)
+        vg, vwhd, vl2w = _pack_volume_textures(self.vol_grids,
+                                               self.vol_to_local)
 
         n_s = len(self.s_bsdf)
         i32 = np.int32
@@ -1226,6 +1467,10 @@ class _Builder:
             "textures.bitmap_id": np.asarray(self.tex_bitmap or [-1], i32),
             "textures.bitmaps": stack, "textures.bitmap_hw": hw,
             "textures.quads": quads,
+            "textures.vgrids": vg, "textures.vgrid_whd": vwhd,
+            "textures.vgrid_to_local": vl2w,
+            "tangents": TGT.astype(np.float32),
+            "vertex_attrs": VA.astype(np.float32),
             "bsdfs.btype": np.asarray(self.b_type or [0], i32),
             "bsdfs.params": (np.stack(self.b_params) if self.b_params
                              else np.zeros((1, BSDF_P))).astype(np.float32),
@@ -1258,6 +1503,10 @@ class _Builder:
             "bvh.count": bvh.count, "bvh.perm": bvh.perm,
             **self._sensor_arrays(V),
         }
+        sdf_arrays, sdf_statics = self._sdf_arrays()
+        arrays.update(sdf_arrays)
+        inst_arrays, inst_statics = self._instance_arrays(T)
+        arrays.update(inst_arrays)
         ssub_arrays, ssub_statics = self._subsurface(V, F)
         arrays.update(ssub_arrays)
         vp_arrays, vp_statics = self._volprims(T)
@@ -1313,9 +1562,63 @@ class _Builder:
             "needs_medium_nee": bool(self.e_type)
             and self.integrator in ("volpath", "volpathmis", "prbvolpath")
             and any(self.m_type[m] < MEDIUM_GLISSON for m in used_media),
-            **ssub_statics, **vp_statics, **ms_statics,
+            "has_tangents": self.has_curves,
+            "has_vertex_attr": self.has_vattr,
+            **sdf_statics, **inst_statics, **ssub_statics, **vp_statics,
+            **ms_statics,
         }
         return arrays, statics
+
+    def _sdf_arrays(self):
+        """The SDF grids padded to a common (D, H, W) with 1e9, their true
+        (W, H, D), transforms and shapes; a 2^3 placeholder without
+        any."""
+        if not self.sdf_grids:
+            return {"sdf_grids": np.zeros((1, 2, 2, 2), np.float32),
+                    "sdf_whd": np.full((1, 3), 2, np.int32),
+                    "sdf_to_local": np.eye(4, dtype=np.float32)[None],
+                    "sdf_shape": np.full((1,), -1, np.int32)}, {"n_sdfs": 0}
+        gl = self.sdf_grids
+        stack = np.full((len(gl), max(g.shape[0] for g in gl),
+                         max(g.shape[1] for g in gl),
+                         max(g.shape[2] for g in gl)), 1e9, np.float32)
+        for i, g in enumerate(gl):
+            stack[i, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+        return {"sdf_grids": stack,
+                "sdf_whd": np.array([[g.shape[2], g.shape[1], g.shape[0]]
+                                     for g in gl], np.int32),
+                "sdf_to_local": np.stack(self.sdf_to_local),
+                "sdf_shape": np.asarray(self.sdf_shape, np.int32)}, \
+            {"n_sdfs": len(gl)}
+
+    def _instance_arrays(self, T):
+        """The shared group streams and the per-instance rows; one-row
+        placeholders without instances."""
+        if not self.inst_rows:
+            return {"inst_tris": np.zeros((1, 3, 3), np.float32),
+                    "inst_si": np.zeros((1, 25), np.float32),
+                    "inst_xf": np.zeros((1, 21), np.float32),
+                    "inst_face_start": np.zeros((1,), np.int32),
+                    "inst_n_chunks": np.zeros((1,), np.int32),
+                    "inst_bmin": np.zeros((1, 3), np.float32),
+                    "inst_bmax": np.zeros((1, 3), np.float32)}, {}
+        tris = np.concatenate(self.g_tris)
+        rows = self.inst_rows
+        nchunks = np.asarray([r[3] for r in rows], np.int32)
+        # hits are encoded prim = n_tris + instance * Tg + group row
+        if len(rows) * tris.shape[0] >= 2 ** 31 - max(T, 1):
+            raise ValueError("instanced prim encoding exceeds int32")
+        return {"inst_tris": tris, "inst_si": np.concatenate(self.g_si),
+                "inst_xf": np.stack([np.concatenate([r[0].reshape(12),
+                                                     r[1].reshape(9)])
+                                     for r in rows]),
+                "inst_face_start": np.asarray([r[2] for r in rows],
+                                              np.int32),
+                "inst_n_chunks": nchunks,
+                "inst_bmin": np.stack([r[4] for r in rows]),
+                "inst_bmax": np.stack([r[5] for r in rows])}, {
+            "n_instances": len(rows), "n_inst_tris": int(tris.shape[0]),
+            "inst_max_chunks": int(nchunks.max())}
 
     def _volprims(self, T):
         """The splat table's arrays and statics: the SH padded to the
@@ -1353,6 +1656,12 @@ class _Builder:
             cs = np.asarray(self.sph_center, np.float32)
             rs = np.asarray(self.sph_radius, np.float32)[:, None]
             pts += [cs - rs, cs + rs]
+        corners = np.array([[x, y, z, 1.0] for x in (0, 1) for y in (0, 1)
+                            for z in (0, 1)], np.float32)
+        for a in self.sdf_to_local:
+            pts.append((corners @ np.linalg.inv(a).T)[:, :3])
+        for r in self.inst_rows:
+            pts.append(np.stack([r[4], r[5]]))
         allp = np.concatenate(pts)
         bc = 0.5 * (allp.min(0) + allp.max(0))
         br = float(np.linalg.norm(allp - bc, axis=1).max())
@@ -1462,9 +1771,29 @@ class _Builder:
                      "ssub.has_vae": has_vae, "ssub.has_dipole": has_dipole}
 
 
+def _group_instanceable(group: dict) -> bool:
+    """True when every child of a shapegroup can share one group-local
+    stream: plain meshes without an emitter or a subsurface (the JAX
+    builder's rule; other groups are replicated, more permissive than the
+    reference, which refuses emitters in groups)."""
+    for sval in group.values():
+        if not isinstance(sval, dict) or sval.get("type") not in _SHAPE_TYPES:
+            continue
+        if sval["type"] not in _INSTANCEABLE_TYPES:
+            return False
+        for k, v in sval.items():
+            vt = v.get("type") if isinstance(v, dict) else None
+            if k in ("emitter", "subsurface") or vt in ("area",) \
+                    or vt in _SUBSURFACE_TYPES:
+                return False
+    return True
+
+
 def build_numpy(d: Dict[str, Any], base_dir: str = ".",
-                variant: str | None = None):
-    """The scene dict packed into (arrays, statics) numpy tables."""
+                variant: str | None = None, flatten_instances: bool = False):
+    """The scene dict packed into (arrays, statics) numpy tables.
+    flatten_instances: replicate every shapegroup's geometry per instance
+    instead of sharing one group-local stream."""
     if d.get("type") != "scene":
         raise ValueError("top-level dict must be a scene")
     variant = variant or d.get("variant")
@@ -1504,6 +1833,10 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
             b.srgb_primitives = bool(val.get("srgb_primitives", True))
         elif t in _SENSOR_TYPES:
             b.build_sensor(val)
+    groups = {key: val for key, val in d.items()
+              if isinstance(val, dict) and val.get("type") == "shapegroup"}
+    groups.update({val["id"]: val for val in list(groups.values())
+                   if "id" in val})
     # pass 3: shapes + standalone emitters
     for val in d.values():
         if not isinstance(val, dict):
@@ -1518,6 +1851,25 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
                 if isinstance(sval, dict) and sval.get("type") \
                         in _SHAPE_TYPES:
                     b.add_shape(sval)
+        elif t == "instance":
+            gid = next(v["id"] for v in val.values()
+                       if isinstance(v, dict) and v.get("type") == "ref")
+            group = groups[gid]
+            inst_tw = from_any(val["to_world"]) if "to_world" in val \
+                else Transform()
+            if not flatten_instances and _group_instanceable(group):
+                b.ensure_group(gid, group)
+                b.add_instance(gid, inst_tw)
+            else:
+                # replicate the group's shapes with the composed transform
+                for sval in group.values():
+                    if isinstance(sval, dict) \
+                            and sval.get("type") in _SHAPE_TYPES:
+                        child = dict(sval)
+                        child_tw = from_any(child["to_world"]) \
+                            if "to_world" in child else Transform()
+                        child["to_world"] = inst_tw.matmul(child_tw)
+                        b.add_shape(child)
         elif t in _EMITTER_TYPES:
             b.build_emitter(val)
     arrays, statics = b.finalize()
@@ -1536,19 +1888,22 @@ def build_numpy(d: Dict[str, Any], base_dir: str = ".",
 
 
 def load_dict(d: Dict[str, Any], device="cuda", base_dir: str = ".",
-              variant: str | None = None):
+              variant: str | None = None, flatten_instances: bool = False):
     """Build the port's Scene on `device` from a Mitsuba-style dict: the
     card unless the caller passes device="cpu".  Raises RuntimeError when
     asked for the card and there is none.  Relative file names resolve
     against base_dir.  variant "spectral" (or a top-level "variant" key)
     builds the hero-wavelength variant: the surface-path, volumetric and
-    polarized families without subsurface shapes."""
+    polarized families without subsurface shapes.  flatten_instances
+    replicates each shapegroup's geometry per instance (the default
+    shares one group-local stream, O(1) geometry memory in the instance
+    count)."""
     import torch
     from ..bridge import scene_from_numpy
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_dict: no CUDA device; pass device='cpu' "
                            "to build the scene on the CPU")
-    arrays, statics = build_numpy(d, base_dir, variant)
+    arrays, statics = build_numpy(d, base_dir, variant, flatten_instances)
     scene = scene_from_numpy(arrays, statics, device)
     if scene.ssub.has_dipole and DIPOLE_NORMALS in arrays:
         from ..ssub.dipole import compute_irradiance

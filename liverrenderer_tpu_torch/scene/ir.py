@@ -74,6 +74,8 @@ SHAPE_MESH = 0
 SHAPE_SPHERE = 1
 SHAPE_SDF = 2
 
+# triangles per block of the instance pass; group streams are zero-padded
+# to a multiple of it (degenerate triangles never hit)
 INST_CHUNK = 128
 
 FILTER_BOX = 0
@@ -135,7 +137,9 @@ class _Table:
 class Textures(_Table):
     """data rows: TEX_CONST rgb [0:3]; TEX_CHECKERBOARD color0 [0:3],
     color1 [3:6], uv scale [6:8], uv offset [8:10]; TEX_BITMAP uv scale
-    [6:8], uv offset [8:10] and its bitmap in `bitmap_id`."""
+    [6:8], uv offset [8:10] and its bitmap in `bitmap_id`; TEX_MESHATTR
+    and TEX_VOLUME scale [0:3] (a volume texture's grid in
+    `bitmap_id`)."""
     ttype: Tensor      # (Tx,) texture type code
     data: Tensor       # (Tx, TEX_P)
     bitmap_id: Tensor  # (Tx,) bitmap index, -1 if none
@@ -144,6 +148,12 @@ class Textures(_Table):
     # (K, H, W, 12) [c00 c10 c01 c11] per texel, repeat wrap baked in: one
     # bilinear tap is one gather (filled when has_quads)
     quads: Tensor
+    # the volume textures' grids (G, D, H, W, 3), padded to the largest,
+    # their true (D, H, W) and world -> [0,1]^3 transforms; a volume
+    # texture's bitmap_id indexes them
+    vgrids: Tensor
+    vgrid_whd: Tensor
+    vgrid_to_local: Tensor
     has_quads: bool = False
     types_present: Tuple[int, ...] = (TEX_CONST,)
 
@@ -354,6 +364,30 @@ class Scene(_Table):
     # (T, 25) per-triangle interaction row: p0 e1 e2 n0 n1 n2 uv0 uv1 uv2
     # shape
     tri_si: Tensor
+    # per-vertex fiber tangents of curve tubes and per-vertex rgb
+    # attributes of mesh_attribute textures ((1, 3) zeros when unused)
+    tangents: Tensor
+    vertex_attrs: Tensor
+    # instanced shapegroups (shapegroup.cpp / instance.cpp): each group's
+    # triangles once, in group-local space, padded to INST_CHUNK rows;
+    # inst_tris (Tg, 3, 3) local p0 p1 p2, inst_si (Tg, 25) local rows p0
+    # p1 p2 n0 n1 n2 uv0 uv1 uv2 shape; per instance inst_xf (I, 21) the
+    # to-world 3x4 [0:12] and the inverse transpose 3x3 [12:21] (row
+    # major), the group's first row and chunk count, and its world box
+    inst_tris: Tensor
+    inst_si: Tensor
+    inst_xf: Tensor
+    inst_face_start: Tensor
+    inst_n_chunks: Tensor
+    inst_bmin: Tensor
+    inst_bmax: Tensor
+    # SDF grid shapes (sdfgrid.cpp): (K, D, H, W) distances on a [0,1]^3
+    # local grid (padded with 1e9), (K, 3) true (W, H, D), (K, 4, 4) world
+    # -> local, (K,) owning shape
+    sdf_grids: Tensor
+    sdf_whd: Tensor
+    sdf_to_local: Tensor
+    sdf_shape: Tensor
     bsdfs: BSDFs
     emitters: Emitters
     textures: Textures
@@ -369,6 +403,9 @@ class Scene(_Table):
     n_spheres: int = 0
     n_sdfs: int = 0
     n_instances: int = 0
+    # the group streams' padded row count and the largest group's chunks
+    n_inst_tris: int = 0
+    inst_max_chunks: int = 0
     film_w: int = 256
     film_h: int = 256
     rfilter: int = FILTER_GAUSSIAN

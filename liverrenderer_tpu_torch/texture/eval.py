@@ -1,37 +1,36 @@
 """Texture evaluation over the wavefront (counterpart of
-liverrenderer_tpu/texture/eval.py): constant, checkerboard and bitmap
-textures, combined with masked selects over the scene's static set of
-texture types, and the height-map tap of bump mapping.
+liverrenderer_tpu/texture/eval.py): constant, checkerboard, bitmap,
+mesh-attribute and volume textures, combined with masked selects over the
+scene's static set of texture types, and the height-map tap of bump
+mapping.
 
 A bitmap tap is bilinear with repeat wrap.  When the scene packs quads
 (`Textures.has_quads`, every stack the builder makes up to 64 Mi floats)
 the four texels of a tap come from one row of `quads`; otherwise from four
 reads of `bitmaps`.  So, as in the JAX package, the `textures.bitmaps` leaf
-receives a gradient only on the four-tap path.  Mesh-attribute and volume
-textures raise: the intersector does not carry vertex attributes yet.
+receives a gradient only on the four-tap path.  A mesh-attribute texture
+reads the interaction's interpolated vertex attribute (`attr`), a volume
+texture its grid trilinearly at the world position (`p`); a call that
+passes neither evaluates them as white, as the JAX package's does (the
+builder refuses such textures in the slots that are evaluated so).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import math as m
-from ..errors import not_ported
 from ..scene.ir import (TEX_BITMAP, TEX_CHECKERBOARD, TEX_CONST, TEX_MESHATTR,
                         TEX_VOLUME, Textures)
 
 
-def _check_types(present):
-    if TEX_MESHATTR in present or TEX_VOLUME in present:
-        raise not_ported("mesh-attribute and volume textures", "Queue 1 M10")
-
-
-def eval_texture(tex: Textures, tex_idx, uv, types=None):
+def eval_texture(tex: Textures, tex_idx, uv, types=None, p=None, attr=None):
     """(N, 3) linear RGB of texture tex_idx (-1 => white) at uv (N, 2).
     `types` narrows the texture families this call can reach (a slot that
-    only ever holds constants skips the bitmap tap)."""
+    only ever holds constants skips the bitmap tap); p (N, 3) is the world
+    hit position (volume textures), attr (N, 3) the interpolated vertex
+    attribute (mesh-attribute textures)."""
     present = tex.types_present if types is None \
         else tuple(set(tex.types_present) & set(types))
-    _check_types(present)
     idx = torch.clamp(tex_idx, min=0)
     ttype = tex.ttype[idx]
     data = m.table_lookup(tex.data, idx)
@@ -50,6 +49,14 @@ def eval_texture(tex: Textures, tex_idx, uv, types=None):
         suv = uv * data[..., 6:8] + data[..., 8:10]
         col = _bilinear(tex, idx, suv)
         out = torch.where((ttype == TEX_BITMAP)[..., None], col, out)
+    if TEX_MESHATTR in present and attr is not None:
+        # mesh_attribute.cpp: the vertex attribute times data[0:3]
+        out = torch.where((ttype == TEX_MESHATTR)[..., None],
+                          attr * data[..., 0:3], out)
+    if TEX_VOLUME in present and p is not None:
+        out = torch.where((ttype == TEX_VOLUME)[..., None],
+                          _trilinear_volume(tex, idx, p) * data[..., 0:3],
+                          out)
     return torch.where((tex_idx >= 0)[..., None], out, 1.0)
 
 
@@ -132,3 +139,39 @@ def eval_texture_grad_mono(tex: Textures, tex_idx, uv):
         dv = torch.where(sel, dhdy * hw[..., 0].to(torch.float32)
                          * data[..., 7], dv)
     return h, du, dv
+
+
+def _trilinear_volume(tex: Textures, idx, p):
+    """A volume texture's grid (bitmap_id holds its index), trilinear at
+    the world position p through the grid's world -> [0,1]^3 transform
+    (volumes/grid.cpp); the JAX package's operations in its order."""
+    vid = torch.clamp(tex.bitmap_id[idx], min=0)
+    g2l = tex.vgrid_to_local[vid]
+    pl = torch.einsum("nij,nj->ni", g2l[:, :3, :3], p) + g2l[:, :3, 3]
+    whd = tex.vgrid_whd[vid]
+    D = (whd[:, 0] - 1).to(torch.float32)
+    H = (whd[:, 1] - 1).to(torch.float32)
+    W = (whd[:, 2] - 1).to(torch.float32)
+    x = torch.clamp(pl[:, 0], 0.0, 1.0) * W
+    y = torch.clamp(pl[:, 1], 0.0, 1.0) * H
+    z = torch.clamp(pl[:, 2], 0.0, 1.0) * D
+    x0 = torch.minimum(torch.clamp(x.to(torch.int64), min=0), whd[:, 2] - 2)
+    y0 = torch.minimum(torch.clamp(y.to(torch.int64), min=0), whd[:, 1] - 2)
+    z0 = torch.minimum(torch.clamp(z.to(torch.int64), min=0), whd[:, 0] - 2)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    fz = (z - z0)[:, None]
+    _, Dm, Hm, Wm, _ = tex.vgrids.shape
+    flat = tex.vgrids.reshape(-1, 3)
+    base = ((vid * Dm + z0) * Hm + y0) * Wm + x0
+
+    def g(dz, dy, dx):
+        return flat[base + (dz * Hm + dy) * Wm + dx]
+
+    c00 = g(0, 0, 0) * (1 - fx) + g(0, 0, 1) * fx
+    c01 = g(0, 1, 0) * (1 - fx) + g(0, 1, 1) * fx
+    c10 = g(1, 0, 0) * (1 - fx) + g(1, 0, 1) * fx
+    c11 = g(1, 1, 0) * (1 - fx) + g(1, 1, 1) * fx
+    c0 = c00 * (1 - fy) + c01 * fy
+    c1 = c10 * (1 - fy) + c11 * fy
+    return c0 * (1 - fz) + c1 * fz

@@ -1,6 +1,7 @@
 """The gradient slice's modules against the JAX package on identical
-inputs, on the CPU: parameter traversal, the bio score term, one bounce's
-VJP, the splat adjoint, the stored path pool and the replay walk.
+inputs, on the CPU: parameter leaves, the bio score term, one bounce's
+VJP, the splat adjoint, the stored path pool and the replay walk
+(parameter traversal: tests/test_torch_grad_keys.py).
 
 Tolerances.  Per-lane values run the same fp32 formulas in both packages
 (rtol 1e-5, an ulp of XLA's and PyTorch's log/exp apart).  A bounce's VJP
@@ -34,7 +35,6 @@ from liverrenderer_tpu_torch.integrators import regen as tregen
 from liverrenderer_tpu_torch.integrators import volpath as tvp
 from liverrenderer_tpu_torch.media import dispatch as tmed
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
-from liverrenderer_tpu_torch.util import SceneParameters
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -67,32 +67,6 @@ def _port_state(jst):
     kw["sampler"] = TSampler(seed=_t(js.seed), dim=_t(js.dim),
                              samp=_t(js.samp), pix=_t(js.pix))
     return tvp.VolpathState(**kw)
-
-
-def test_traverse_and_apply_params_keys(scenes):
-    _, ts = scenes
-    sp = lrt.traverse(ts)
-    assert set(sp.keys()) == {"media.params", "bsdfs.params",
-                              "emitters.params", "textures.data",
-                              "textures.bitmaps", "media.grids",
-                              "volprims.opacity", "volprims.sh",
-                              "vertices"}
-    new = torch.full_like(ts.media.params, 0.5).requires_grad_()
-    sc = lrt.apply_params(ts, {"media.params": new})
-    # replaced without a copy, everything else shared
-    assert sc.media.params is new and sc.tri_buf is ts.tri_buf
-    assert sc.bsdfs is ts.bsdfs and ts.media.params is not new
-    sp2 = SceneParameters(ts, ["bsdfs.params"])
-    sp2["bsdfs.params"] = np.full(tuple(ts.bsdfs.params.shape), 2.0)
-    assert float(sp2.update().bsdfs.params[0, 0]) == 2.0
-    # the vertices traverse, and render_grad returns their gradient
-    V = lrt.traverse(ts, ["vertices"])["vertices"]
-    assert V is ts.vertices
-    _, g, _ = lrt.render_grad(ts, {"vertices": V}, torch.mean, spp=1)
-    assert g["vertices"].shape == V.shape
-    assert torch.isfinite(g["vertices"]).all()
-    with pytest.raises(KeyError):
-        lrt.apply_params(ts, {"sensor.fov": 1.0})
 
 
 def test_params_from_numpy_matches_jax_leaves(scenes):

@@ -1,9 +1,9 @@
 """Shape gradients of the port against the JAX package on identical inputs
 (made with numpy from a seed): the vertex refresh, the edge table, the
 film projection, the silhouette weights, the primary boundary term per
-sample, both boundary terms with and without guiding on
-tests/test_projective.py's occluder, rough-mirror and two-mirror scenes,
-and render_grad of the vertices.
+sample on tests/test_projective.py's occluder, rough-mirror and
+two-mirror scenes, and render_grad of the vertices (both boundary terms
+with and without guiding: tests/test_torch_projective_terms.py).
 
 The port runs on scenes bridged from the JAX-built ones (the same BVH
 leaf order, so the same packed rows).  Tolerances are stated per test:
@@ -166,60 +166,6 @@ def test_boundary_samples_match(shape_scenes, name):
     assert both.sum() > 100
     np.testing.assert_allclose(tm[both], jm[both], rtol=1e-4)
     assert ((jm > 0) != (tm > 0)).mean() <= 1e-3
-
-
-_TERMS = [("primary", "none", 1), ("primary", "edges", 1),
-          ("indirect", "none", 1), ("indirect", "octree", 1),
-          ("indirect", "none", 2)]
-
-
-@pytest.mark.parametrize("term,guiding,depth", _TERMS)
-@pytest.mark.parametrize("name", list(SCENES))
-def test_boundary_gradient_matches(shape_scenes, name, term, guiding,
-                                   depth):
-    """Both terms, each guiding, 4,096 samples: within 1e-4 of the largest
-    |entry|."""
-    js, ts = shape_scenes[name]
-    delta = _delta(js.film_h, js.film_w)
-    kw = dict(seed=3, n_samples=1 << 12, guiding=guiding)
-    if term == "primary":
-        jfn, tfn = jproj.boundary_gradient, tproj.boundary_gradient
-    else:
-        jfn, tfn = (jproj.indirect_boundary_gradient,
-                    tproj.indirect_boundary_gradient)
-        kw["depth_max"] = depth
-    j = jfn(js, {"vertices": js.vertices}, jnp.asarray(delta), **kw)
-    t = tfn(ts, {"vertices": ts.vertices}, torch.from_numpy(delta), **kw)
-    assert torch.isfinite(t).all()
-    _grad_close(t, j, f"{name} {term} {guiding} {depth}")
-
-
-def test_boundary_terms_mirror_the_jax_scope():
-    """The boundary term is mesh-only (a sphere occluder contributes no
-    silhouette), and the indirect term is zero where z_d's BSDF is a delta
-    lobe (a smooth mirror), in both packages."""
-    d = occluder_dict(12)
-    d["occ"] = {"type": "sphere", "radius": 0.4,
-                "bsdf": {"type": "diffuse"}}
-    js, ts = _scenes(d)
-    delta = _delta(12, 12)
-    prm = {"vertices": ts.vertices}
-    g = tproj.boundary_gradient(ts, prm, torch.from_numpy(delta),
-                                n_samples=1 << 12)
-    jgr = jproj.boundary_gradient(js, {"vertices": js.vertices},
-                                  jnp.asarray(delta), n_samples=1 << 12)
-    # only the background rectangle's rim: outside the film, no samples
-    assert float(g.abs().max()) == 0.0 == float(jnp.abs(jgr).max())
-    d = mirror_dict(12)
-    d["mirror"]["bsdf"] = {"type": "conductor", "material": "Al"}
-    js, ts = _scenes(d)
-    g = tproj.indirect_boundary_gradient(
-        ts, {"vertices": ts.vertices}, torch.from_numpy(delta),
-        n_samples=1 << 12, guiding="none")
-    jgr = jproj.indirect_boundary_gradient(
-        js, {"vertices": js.vertices}, jnp.asarray(delta),
-        n_samples=1 << 12, guiding="none")
-    assert float(g.abs().max()) == 0.0 == float(jnp.abs(jgr).max())
 
 
 def test_render_grad_vertices_matches():

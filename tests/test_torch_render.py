@@ -117,9 +117,8 @@ def test_tent_filter_matches_jax():
 
 def test_nee_scenes_raise():
     """Next-event estimation is ported: the liver under stock volpath in a
-    fog (medium NEE through the ratio-tracked shadow walk) renders.  An
-    NEE scene whose emitter the port does not carry yet (the sunsky)
-    still raises, naming its ROADMAP item."""
+    fog (medium NEE through the ratio-tracked shadow walk) renders, with
+    a directional sun and a sunsky added."""
     d = liver_proxy_dict(4, 4, 1, 0)
     d["integrator"]["type"] = "volpath"
     d["fog"] = {"type": "homogeneous", "sigma_t": 0.5}
@@ -131,6 +130,8 @@ def test_nee_scenes_raise():
     d["sun"] = {"type": "directional", "direction": [0, -1, 0]}
     assert torch.isfinite(lrt.render(lrt.load_dict(d, device="cpu"),
                                      spp=1)).all()
+    # and a sunsky (ported since), its baked envmap sampled by NEE
     d["sky"] = {"type": "sunsky"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*M10"):
-        lrt.load_dict(d, device="cpu")
+    ts = lrt.load_dict(d, device="cpu")
+    assert ts.emitters.env_index >= 0
+    assert torch.isfinite(lrt.render(ts, spp=1)).all()

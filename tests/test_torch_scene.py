@@ -122,7 +122,7 @@ def test_pack_tris_equal(np_rng, T, with_perm):
 
 
 def test_unported_plugins_raise(tmp_path):
-    # principled, principledthin and measured load; hair still raises
+    # principled, principledthin, measured, hair and the sunsky load
     mfile = str(tmp_path / "m.bsdf")
     write_tensor_file(mfile, synthetic_measured())
     for bsdf, code in (("principled", ir.BSDF_PRINCIPLED),
@@ -131,17 +131,16 @@ def test_unported_plugins_raise(tmp_path):
         d = liver_proxy_dict(4, 4, 1, 0)
         d["liver"]["bsdf"] = {"type": bsdf, "filename": mfile}
         assert code in lrt.load_dict(d, device="cpu").bsdfs.types_present
+    # hair and the sunsky load (the M10 item's last plugins)
     d = liver_proxy_dict(4, 4, 1, 0)
     d["liver"]["bsdf"] = {"type": "hair"}
-    with pytest.raises(NotImplementedError, match="M10"):
-        lrt.load_dict(d, device="cpu")
+    assert ir.BSDF_HAIR in lrt.load_dict(d, device="cpu").bsdfs.types_present
     d = liver_proxy_dict(4, 4, 1, 0)
     # the spectral variant loads
     assert lrt.load_dict(d, device="cpu", variant="spectral").spectral
     d = liver_proxy_dict(4, 4, 1, 0)
     d["env"] = {"type": "sunsky"}
-    with pytest.raises(NotImplementedError, match="M10"):
-        lrt.load_dict(d, device="cpu")
+    assert lrt.load_dict(d, device="cpu").emitters.env_index >= 0
     d = liver_proxy_dict(4, 4, 1, 0)
     d["sensor"]["sampler"]["type"] = "halton"
     with pytest.raises(ValueError, match="unknown plugin"):
@@ -260,16 +259,16 @@ def test_every_raise_names_an_open_roadmap_item():
     closed."""
     items = set(tbuilder._OTHER_TYPES.values()) | _source_items()
     labels = _roadmap_labels()
-    assert "M9" in labels and "M10" in labels \
-        and not {"M2", "M3", "M5", "M8"} & labels
+    assert "M9" in labels \
+        and not {"M2", "M3", "M5", "M8", "M10"} & labels
     for item in items:
         m = re.fullmatch(r"Queue (\d) (.+)", item)
         assert m, item
         for part in m.group(2).split("/") if m.group(2).startswith("M") \
                 else [m.group(2)]:
             assert part in labels, (item, sorted(labels))
-        assert not re.search(r"bumpmap|directional|_bvh_tris|M[23578]\b",
-                             item), item
+        assert not re.search(r"bumpmap|directional|_bvh_tris|M[23578]\b"
+                             r"|M10", item), item
     # the plugins the slices ported load; names they did not still raise
     for t in ("bumpmap", "normalmap", "bitmap", "checkerboard", "envmap",
               "biovolpath06", "prbvolpath", "glissonCapsule", "glisson",
@@ -284,13 +283,20 @@ def test_every_raise_names_an_open_roadmap_item():
               "radiancemeter", "irradiancemeter", "batch", "aov", "depth",
               "moment", "ptracer", "stokes", "volprim_rf_basic",
               "ellipsoids", "ellipsoidsmesh", "polarizer", "retarder",
-              "circular", "principled", "principledthin", "measured"):
+              "circular", "principled", "principledthin", "measured",
+              "sunsky", "sun", "sky", "timed_sunsky", "hair", "linearcurve",
+              "bsplinecurve", "sdfgrid", "instance", "shapegroup",
+              "mesh_attribute", "volume", "gridvolume"):
         assert t not in tbuilder._OTHER_TYPES, t
-    # the phase plugins load; a gridvolume is a medium's sigma_t, and as a
-    # 3-D texture it still raises (M10)
+    # the phase plugins load; a gridvolume is a medium's sigma_t and, since
+    # the M10 item, a 3-D texture too
     for phase in ("rayleigh", "blendphase", "tabphase", "sggx"):
         assert f'"{phase}"' in pathlib.Path(tbuilder.__file__).read_text()
-    assert tbuilder._OTHER_TYPES["gridvolume"] == "Queue 1 M10"
+    d = liver_proxy_dict(4, 4, 1, 0)
+    d["liver"]["bsdf"] = {"type": "diffuse", "reflectance": {
+        "type": "gridvolume", "data": np.ones((2, 2, 2), np.float32)}}
+    assert ir.TEX_VOLUME in lrt.load_dict(
+        d, device="cpu").textures.types_present
     with pytest.raises(ValueError, match="unknown plugin"):
         lrt.load_dict({"type": "scene",
                        "s": {"type": "rectangle",

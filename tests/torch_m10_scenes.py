@@ -342,3 +342,287 @@ def principled_cornell(cornell):
                               "spec_trans": 0.3, "diff_trans": 0.4,
                               "base_color": _rgb([0.5, 0.6, 0.7])}
     return d
+
+
+# ---------------------------------------------------------------------------
+# the rest of M10: the sunsky, mesh-attribute and volume textures,
+# instancing, SDF grids, curves and hair (tests/test_sunsky.py,
+# tests/test_components.py, tests/test_instancing.py, tests/test_sdfgrid.py,
+# tests/test_curves_hair.py)
+# ---------------------------------------------------------------------------
+
+def sunsky_proxy(d, **sunsky):
+    """A liver proxy dict (scene/liver_proxy.liver_proxy_dict) lit by a
+    Preetham sunsky (baked to a 256 x 128 envmap) instead of its own
+    environment."""
+    d = dict(d)
+    d["env"] = {"type": "sunsky", **sunsky}
+    return d
+
+
+def attr_quad_dict(res=16, max_depth=2):
+    """A quad whose diffuse reflectance is its interpolated vertex colour
+    (test_mesh_attribute_texture)."""
+    v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                 np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    col = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0]], np.float32)
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "sensor": _sensor(res, 50.0, [0, 0, 2.5], [0, 0, 0]),
+            "quad": {"type": "mesh", "vertices": v, "faces": f,
+                     "vertex_attrs": col,
+                     "bsdf": {"type": "diffuse",
+                              "reflectance": {"type": "mesh_attribute",
+                                              "name": "vertex_color",
+                                              "scale": 0.9}}},
+            "env": _white_env()}
+
+
+def volume_grid():
+    """test_volume_texture's 2^3 grid: red, its +x half yellow."""
+    g = np.zeros((2, 2, 2, 3), np.float32)
+    g[..., 0] = 1.0
+    g[:, :, 1, 1] = 1.0
+    return g
+
+
+def volume_wall_dict(res=16, max_depth=2, grid=None, scale=1.0):
+    """A wall over [0,1]^2 at z = 0 whose reflectance is a 3-D grid
+    texture read at the hit position (test_volume_texture)."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "sensor": _sensor(res, 25.0, [0.5, 0.5, 3.0], [0.5, 0.5, 0.0]),
+            "wall": {"type": "rectangle",
+                     "to_world": Transform().translate([0.5, 0.5, 0.0])
+                     .scale(0.5).matrix.copy(),
+                     "bsdf": {"type": "diffuse",
+                              "reflectance": {
+                                  "type": "volume", "scale": scale,
+                                  "data": volume_grid() if grid is None
+                                  else grid}}},
+            "env": _white_env()}
+
+
+def instancing_dict(n_inst=3, light="point", res=(48, 36), max_depth=4,
+                    group=None, cap_bsdf=None):
+    """test_instancing.py's scene: n_inst instances of a group (a box and
+    a cap, or `group`'s shapes) on a floor, lit by a point light or a
+    constant environment; cap_bsdf replaces the cap's diffuse BSDF.  Load
+    it with flatten_instances=True for the replicated twin."""
+    w, h = (res, res) if np.isscalar(res) else res
+    d = {"type": "scene",
+         "integrator": {"type": "path", "max_depth": max_depth},
+         "sensor": {"type": "perspective", "fov": 45,
+                    "to_world": Transform().look_at(
+                        [0, -6, 2], [0, 0, 0.3], [0, 0, 1]).matrix.copy(),
+                    "film": {"type": "hdrfilm", "width": w, "height": h,
+                             "rfilter": {"type": "box"}}},
+         "grp": group or {
+             "type": "shapegroup", "id": "grp",
+             "box": {"type": "cube",
+                     "to_world": Transform().scale(0.25).matrix.copy(),
+                     "bsdf": {"type": "diffuse",
+                              "reflectance": _rgb([0.7, 0.3, 0.2])}},
+             "cap": {"type": "rectangle",
+                     "to_world": Transform().translate([0, 0, 0.3])
+                     .scale(0.2).matrix.copy(),
+                     "bsdf": cap_bsdf or {
+                         "type": "diffuse",
+                         "reflectance": _rgb([0.2, 0.6, 0.3])}}},
+         "floor": {"type": "rectangle",
+                   "to_world": Transform().translate([0, 0, -0.3])
+                   .scale(8.0).matrix.copy(),
+                   "bsdf": {"type": "diffuse"}}}
+    if light == "point":
+        d["light"] = {"type": "point", "position": [2, -3, 4],
+                      "intensity": _rgb([60.0] * 3)}
+    else:
+        d["light"] = _white_env(0.8)
+    for i in range(n_inst):
+        ang = 360.0 * i / max(n_inst, 1)
+        d[f"inst{i}"] = {
+            "type": "instance", "grp_ref": {"type": "ref", "id": "grp"},
+            "to_world": Transform().translate([(i % 5) - 2.0,
+                                               (i // 5) - 1.0, 0.0])
+            .rotate([0, 0, 1], ang).matrix.copy()}
+    return d
+
+
+def liver_group(subdiv=4, seed=0, scale=0.45):
+    """A shapegroup holding the liver proxy's mesh (scene/liver_proxy),
+    scaled down, with a rough-plastic BSDF."""
+    from liverrenderer_tpu_torch.scene.liver_proxy import liver_mesh
+    v, f, n, uv = liver_mesh(subdiv, seed)
+    return {"type": "shapegroup", "id": "grp",
+            "liver": {"type": "mesh", "vertices": v, "faces": f,
+                      "normals": n, "uvs": uv,
+                      "to_world": Transform().translate([0, 0, 0.2])
+                      .scale(scale).matrix.copy(),
+                      "bsdf": {"type": "roughplastic", "alpha": 0.2,
+                               "diffuse_reflectance":
+                                   _rgb([0.55, 0.2, 0.15])}}}
+
+
+def sphere_sdf(res=32, r=0.3):
+    """A sphere's signed distances on a res^3 [0,1]^3 grid (z, y, x)."""
+    ax = (np.arange(res) + 0.5) / res
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    return (np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+            - r).astype(np.float32)
+
+
+def noisy_sphere_sdf(res=32, r=0.3, seed=0, amp=0.02):
+    """sphere_sdf with seeded smooth bumps added (a lumpy blob)."""
+    rng = np.random.default_rng(seed)
+    ax = (np.arange(res) + 0.5) / res
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    bump = np.zeros_like(x)
+    for _ in range(6):
+        k = rng.integers(1, 4, 3)
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        bump += np.sin(2 * np.pi * k[0] * x + ph[0]) \
+            * np.sin(2 * np.pi * k[1] * y + ph[1]) \
+            * np.sin(2 * np.pi * k[2] * z + ph[2])
+    return (sphere_sdf(res, r) + amp * bump / 6.0).astype(np.float32)
+
+
+def sdf_dict(grid, res=16, max_depth=3, to_world=None, light="env"):
+    """test_sdfgrid.py's scene: a green SDF over the unit cube under a
+    white environment (or a point light)."""
+    d = {"type": "scene",
+         "integrator": {"type": "path", "max_depth": max_depth},
+         "sensor": _sensor(res, 35.0, [0.5, 0.5, 2.5], [0.5, 0.5, 0.5]),
+         "sdf": {"type": "sdfgrid", "grid": grid,
+                 "bsdf": {"type": "diffuse",
+                          "reflectance": _rgb([0.1, 0.7, 0.1])}},
+         "env": _white_env()}
+    if to_world is not None:
+        d["sdf"]["to_world"] = to_world
+    if light == "point":
+        d["env"] = {"type": "point", "position": [1.5, 2.0, 2.5],
+                    "intensity": _rgb([8.0] * 3)}
+    return d
+
+
+def blobs_dict(res=16, max_depth=3):
+    """test_ellipsoids_instancing: two red ellipsoid meshes."""
+    rows = np.array([[0.0, 0, 0, 0.1, 0.1, 0.1, 0, 0, 0, 1],
+                     [0.5, 0, 0, 0.05, 0.2, 0.05, 0, 0, 0, 1]], np.float32)
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "sensor": _sensor(res, 45.0, [0.25, 0, 2.0], [0.25, 0, 0]),
+            "blobs": {"type": "ellipsoidsmesh", "data": rows, "extent": 1.0,
+                      "bsdf": {"type": "diffuse",
+                               "reflectance": _rgb([0.7, 0.1, 0.1])}},
+            "env": _white_env()}
+
+
+def curve_dict(shape, res=24, max_depth=4):
+    """test_curves_hair.py's scene: a curve shape seen from z = 3 under a
+    white environment."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "sensor": _sensor(res, 40.0, [0, 0, 3], [0, 0, 0]),
+            "curve": shape, "env": _white_env()}
+
+
+def straight_fiber(bsdf, radius=0.3):
+    return {"type": "linearcurve", "points": [[0, -1, 0], [0, 1, 0]],
+            "radius": radius, "bsdf": bsdf}
+
+
+def write_bspline_strand(path, n=8):
+    """test_bsplinecurve_from_file's control points as a curve file."""
+    pts = np.stack([np.linspace(-1, 1, n), np.zeros(n),
+                    0.3 * np.sin(np.linspace(0, np.pi, n))], -1)
+    with open(path, "w") as f:
+        f.write("\n".join(f"{p[0]} {p[1]} {p[2]} 0.1" for p in pts) + "\n")
+
+
+def write_hair_tuft(path, n_strands, seed=0, n_ctrl=12, length=1.6,
+                    radius=0.006):
+    """A seeded tuft of B-spline strands hanging from a scalp patch as a
+    curve file (blank lines between strands)."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(n_strands):
+        root = np.array([rng.uniform(-0.5, 0.5), 0.8,
+                         rng.uniform(-0.3, 0.3)])
+        drift = rng.normal(0, 0.08, 3)
+        curl = rng.uniform(0.02, 0.08)
+        ph = rng.uniform(0, 2 * np.pi)
+        s = np.linspace(0.0, 1.0, n_ctrl)
+        pts = root[None] + np.stack([
+            drift[0] * s + curl * np.cos(ph + 9 * s),
+            -length * s,
+            drift[2] * s + curl * np.sin(ph + 9 * s)], -1)
+        r = radius * (1.0 - 0.6 * s)
+        lines += [f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {q:.6f}"
+                  for p, q in zip(pts, r)] + [""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+HAIR = {"type": "hair", "eumelanin": 1.3, "pheomelanin": 0.2,
+        "beta_m": 0.3, "beta_n": 0.3}
+
+
+def hair_tuft_dict(path, res=256, spp=16, max_depth=8):
+    """A hair tuft from a curve file (bsplinecurve, 6-sided tubes) with
+    the hair BSDF, under a white environment and a point light."""
+    return {"type": "scene",
+            "integrator": {"type": "path", "max_depth": max_depth},
+            "sensor": dict(_sensor(res, 40.0, [0, 0, 3], [0, 0, 0]),
+                           sampler={"type": "independent",
+                                    "sample_count": spp}),
+            "tuft": {"type": "bsplinecurve", "filename": path, "subdiv": 4,
+                     "sides": 6, "bsdf": dict(HAIR)},
+            "light": {"type": "point", "position": [1.5, 2.0, 3.0],
+                      "intensity": _rgb([10.0] * 3)},
+            "env": _white_env(0.5)}
+
+
+def textured_cornell(cornell, grid_res=8, seed=0):
+    """A Cornell box dict (`cornell`, e.g. scene/cornell.cornell_box) with
+    a block whose reflectance is its vertex colours (mesh_attribute) and a
+    block textured by a seeded res^3 colour grid (volume)."""
+    from liverrenderer_tpu_torch.scene import geometry as geo
+    d = cornell()
+    cube = geo.cube()
+    rng = np.random.default_rng(seed)
+    col = rng.uniform(0.1, 0.9, (len(cube.vertices), 3)).astype(np.float32)
+    d["attr_block"] = {
+        "type": "mesh", "vertices": cube.vertices, "faces": cube.faces,
+        "vertex_attrs": col,
+        "to_world": Transform().translate([-0.4, -0.7, 0.2])
+        .scale(0.28).matrix.copy(),
+        "bsdf": {"type": "diffuse",
+                 "reflectance": {"type": "mesh_attribute",
+                                 "name": "vertex_color"}}}
+    grid = rng.uniform(0.1, 0.9, (grid_res, grid_res, grid_res, 3)) \
+        .astype(np.float32)
+    # the grid spans the block's world box [0.15, 0.65] x [-1, -0.4] x
+    # [-0.5, 0]
+    to_grid = Transform().translate([0.15, -1.0, -0.5]).scale(
+        [0.5, 0.6, 0.5]).matrix.copy()
+    d["vol_block"] = {
+        "type": "cube",
+        "to_world": Transform().translate([0.4, -0.7, -0.25])
+        .scale([0.25, 0.3, 0.25]).matrix.copy(),
+        "bsdf": {"type": "diffuse",
+                 "reflectance": {"type": "volume", "data": grid,
+                                 "to_world": to_grid}}}
+    return d
+
+
+def sdf_cornell(cornell, res=64, seed=0):
+    """A Cornell box dict with a seeded lumpy res^3 SDF sphere on the
+    floor."""
+    d = cornell()
+    d["sdf"] = {"type": "sdfgrid", "grid": noisy_sphere_sdf(res, 0.4, seed),
+                "to_world": Transform().translate([-0.45, -1.0, -0.45])
+                .scale(0.9).matrix.copy(),
+                "bsdf": {"type": "diffuse",
+                         "reflectance": _rgb([0.2, 0.5, 0.8])}}
+    return d
