@@ -386,6 +386,30 @@ result line):
                    8, gaussian: seconds, ms per query on its own rays (CUDA
                    events) beside the bound from 16,384 of them, the
                    kernels against the plain version on those
+  apps_small       the progressive viewer (ema, accum with an orbit,
+                   denoise) and the scripted interactive loop on a 16x16
+                   Cornell box, card against CPU frame by frame, the final
+                   blit (each channel within one 8-bit level) and the
+                   cameras (equal)
+  viewer_render    run_viewer on the main path (the bumped, sky-lit proxy
+                   at 428x240, depth 12), 8 ema frames and 4 denoise frames
+                   at 1 spp: seconds per frame, the phase report's stages,
+                   each ema frame's mean error against the 64 spp render
+                   (falling), sweeps and merges per frame
+  interactive_render  run_interactive on the main path's scene at 160x88
+                   and 428x240 with scripted keys and the blit on: ms per
+                   render, host copy and blit, accumulation restarts
+  sharded_small    parallel/mesh.py as an NCCL world of one on the card
+                   (the proxy at 16x12, 4 spp): render_sharded,
+                   render_tiled (both layouts), render_regen_sharded and
+                   render_grad_replay_sharded against the unsharded
+                   functions, one make_train_step SGD step against the
+                   scan adjoint, each call's collectives and bytes
+  sharded_render   two ranks on the one card over gloo (a worker script in
+                   subprocesses): the main path's 16 spp
+                   render_regen_sharded and render_grad_replay_sharded
+                   against one rank's, per-rank seconds, launches and
+                   collectives, measure_scaling's proxy (host overlap)
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -404,7 +428,9 @@ result line):
                    and volprim renders and the volprim gradient + the
                    shape and principled phases' runs + the rest of
                    M10's: m10b_small, the sunsky render and gradient, the
-                   textured, instanced, SDF and hair renders; the hair
+                   textured, instanced, SDF and hair renders + the
+                   viewer's and the interactive loop's frames and the
+                   sharded renders and gradients (every rank); the hair
                    tuft's query in K2's regime beside its bound),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
@@ -412,6 +438,7 @@ non-zero before it.  Without a CUDA device the script exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -422,6 +449,15 @@ import time
 import warnings
 
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
+# the spp of the main path's comparison renders in later phases (file
+# against dict in deterministic mode, the CLI and its in-process twin,
+# RenderControl against the plain render, the pipeline driver against the
+# render by hand and its evaluation, spectral against RGB, the sunsky
+# against the envmap): cut from SPP for the script's time (PR 17: the
+# script took 1,331 s of its 1,200 s limit on an H100 whose host ran the
+# earlier phases ~1.3x slower than PR 16's slowest); the render and
+# bump_env_render phases keep bench.py's 64
+CMP_SPP = 16
 KERNEL_SPP = 8                 # render_kernel phase
 GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
 TRACE_SPP = 2                  # render_grad_trace phase
@@ -465,9 +501,10 @@ WIDE_BLOCK = 1 << 18
 # homogeneous fog and the media.grids gradient all at that size.  Its
 # depth is cut from the fog box's 16 to 8: at 16 the phase took ~128 s of
 # a script run that passed 850 s on an H100 with the spectral phases;
-# every lane runs to the 4 * depth iteration cap, and at 8 it took 46 s.
+# every lane runs to the 4 * depth iteration cap, and at 8 it took 46 s
+# (80 s on PR 17's slower host, where the script passed its limit): 4
 GRID_RES, GRID_SPP, GRID_GRAD_SPP, GRID_N = 256, 1, 1, 256
-GRID_DEPTH = 8
+GRID_DEPTH = 4
 # volpathmis on test_volpathmis.py's chromatic fog, in turns with volpath,
 # at 540^2 (cut from 1080^2: volpath's two host-bound regen renders took
 # 24-42 s); the per-pixel variance over VAR_SEEDS seeds at VAR_RES^2,
@@ -511,7 +548,9 @@ PIPE_DEPTH = 12
 PIPE_SMALL = (16, 12, 4)
 GOLDEN_SCALE, GOLDEN_SPP, GOLDEN_SEED = 4, 4, 9
 EVAL_SSS = (64, 48, 16)
-INV_TARGET_SPP, INV_STEPS, INV_LR, INV_KEEP, INV_RESUME = 64, 4, 1e-2, 3, 2
+# inverse_render: 3 steps keeping 2 (4 keeping 3, and a 64 spp target,
+# before PR 17's cuts for the script's time), resumed from step 2
+INV_TARGET_SPP, INV_STEPS, INV_LR, INV_KEEP, INV_RESUME = 16, 3, 1e-2, 2, 2
 INV_SEED = 100
 INV_RESUME_RTOL = 1e-5
 LARGESTEPS_SUBDIVS = (4, 8)
@@ -567,10 +606,12 @@ VP_KEYS = ("volprims.opacity", "volprims.sh")
 # M10's phases came (69 s; the whole script 1,034 s on an H100, its
 # other phases 8 % slower than the run before on a slower host):
 # shape_small from 8 to 4 spp and from 65,536 to 32,768 boundary samples
-# (its CPU side was ~63 of its 72 s), shape_grad from 3 timed runs to 2
-SHAPE_SMALL_SPP = 4
-SHAPE_SMALL_SAMPLES = 1 << 15
-SHAPE_GRAD_REPS = 2
+# (its CPU side was ~63 of its 72 s), shape_grad from 3 timed runs to 2;
+# and for the apps and multi-GPU phases (PR 17, on a slower host where
+# shape_small took 89 s): 2 spp and 16,384 samples, one timed run
+SHAPE_SMALL_SPP = 2
+SHAPE_SMALL_SAMPLES = 1 << 14
+SHAPE_GRAD_REPS = 1
 SHAPE_LANE_MIN = 0.999
 FD_SPP, FD_SEED, FD_GRAD_SEED = 512, 11, 5
 OCC_FD = (24, 128, 0.05, 0.2)      # film, render_grad spp, eps, rtol
@@ -582,7 +623,7 @@ SHAPE_LOSS_SEED = 77
 # Cornell box (CORNELL_RES, CORNELL_SPP, depth 8, gaussian: one fixed pass)
 PRINCIPLED_SMALL = (32, 16)
 # the rest of M10 (m10b_phases): m10b_small's spp (one scene per step at
-# test size); sunsky_render is the main path (BUMP, 428x240, SPP,
+# test size); sunsky_render is the main path (BUMP, 428x240, CMP_SPP,
 # biovolpath depth 12) under a Preetham sunsky at SUNSKY_HOUR, against the
 # synthetic sky; texture_render and sdf_render are BASELINE's Cornell box
 # (CORNELL_RES, gaussian: one fixed pass) with the textured blocks, and
@@ -609,8 +650,9 @@ LIVER_INST, LIVER_INST_RES, LIVER_INST_SPP = 16, 128, 4
 HAIR_STRANDS, HAIR_SPP, HAIR_SUB_RAYS = 400, 16, 16384
 # sensors_small's Cornell box film: every sensor scene at 16x12 or less
 SENSOR_CORNELL_FILM = (16, 12)
-# media_small: film, spp; the point light of its grid cubes
-MEDIA_SMALL = (16, 2)
+# media_small: film, spp (2 before PR 17's cuts: its CPU side took most
+# of its 57 s); the point light of its grid cubes
+MEDIA_SMALL = (16, 1)
 MEDIA_POINT = {"type": "point", "position": [0.5, 2.2, 1.6],
                "intensity": {"type": "rgb", "value": [8.0] * 3}}
 MEDIA_PHASES = {
@@ -641,6 +683,24 @@ BSDF_PLANES = {
                         "material": "Cu"}},
     "mask": {"type": "mask", "opacity": 0.7, "bsdf": {"type": "plastic"}},
 }
+
+# the apps and multi-GPU (PR 17): apps_small's Cornell box (path depth 3,
+# box filter, the camera turned 1.3 degrees off the box's diagonals, where
+# two walls tie); viewer_render's ema and denoise frames at 1 spp on the
+# main path; the scripted keys of interactive_render and apps_small (w, a,
+# LEFT move the camera, + doubles the spp, r restarts, q quits: 7 frames,
+# 4 restarts) at JAX main's 160x88 and at the main path's film; the
+# sharded renders' spp, their two ranks on the card, and the spp of
+# measure_scaling's fixed workload (one rep after a warm-up of each side)
+APPS_RES, APPS_DEPTH = 16, 3
+APPS_TURN = ([0.3, 1.0, 0.1], 1.3)
+VIEWER_FRAMES, VIEWER_DENOISE_FRAMES = 8, 4
+APP_KEYS = ["w", "a", "LEFT", "+", "r", None, None, "q"]
+APP_FRAMES, APP_RESTARTS = 7, 4
+INTERACTIVE_FILMS = ((160, 88), (WIDTH, HEIGHT))
+SHARDED_SMALL_SPP = 4
+SHARDED_SPP, SHARDED_RANKS, SCALING_SPP = 16, 2, 8
+SHARDED_TIMEOUT = 600
 
 # tolerances: the kernel computes t with the plain version's fp32
 # operations in the same order (bit-identical), but contracts p, u and v to
@@ -1492,7 +1552,8 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
     for k in ("fwd_launches", "fwd_merge_launches", "replay_launches",
               "replay_merge_launches"):
         check(grad_counts[k] > 0, f"bumped render_grad: {k} is 0")
-    return dict(counts=counts, grad_counts=grad_counts)
+    return dict(counts=counts, grad_counts=grad_counts, scene=bumped,
+                image=img)
 
 
 def _first_queries(torch, lrt, ci, scene, spp):
@@ -1667,7 +1728,7 @@ def cornell_phases(torch, np, lrt, ci, treplay, smi):
     regen_counts = launch_counts(ci)
     regen_peak = torch.cuda.max_memory_allocated()
     fixed_reps, regen_reps = [fixed_s], [regen_s]
-    for _ in range(2):
+    for _ in range(1):          # 2 before PR 17's cuts for the time
         fixed_reps.append(timed_render(torch, lrt, scene_g, CORNELL_SPP)[0])
         regen_reps.append(timed_render(torch, lrt, scene_b, CORNELL_SPP)[0])
     traces = {}
@@ -1888,7 +1949,7 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
         warnings.simplefilter("ignore")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            det = {w: lrt.render(scenes[w], spp=SPP, seed=SEED)
+            det = {w: lrt.render(scenes[w], spp=CMP_SPP, seed=SEED)
                    for w in ("file", "dict")}
             torch.cuda.synchronize()
         finally:
@@ -1910,8 +1971,6 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
          bit_identical_deterministic=identical,
          file_vs_dict_max_abs=float((imgs["file"][0] - imgs["dict"][0])
                                     .abs().max()),
-         deterministic_vs_default_max_abs=float((det["file"] - img)
-                                                .abs().max()),
          finite=finite,
          mean=float(img.mean()), launches=counts["file"][0],
          merge_launches=counts["file"][1],
@@ -2675,15 +2734,15 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
 
     # ---- 13b. the command-line renderer on the main path from files
     piz_xml, sizes = xf.write_proxy_files(
-        os.path.join(workdir, "cli"), WIDTH, HEIGHT, SPP, SUBDIV, SEED,
-        bump_res=BUMP[0], sky_file=sky)
+        os.path.join(workdir, "cli"), WIDTH, HEIGHT, CMP_SPP, SUBDIV,
+        SEED, bump_res=BUMP[0], sky_file=sky)
     zip_xml, _ = xf.write_proxy_files(
-        os.path.join(workdir, "cli_zip"), WIDTH, HEIGHT, SPP, SUBDIV, SEED,
-        bump_res=BUMP[0], sky=SKY)
+        os.path.join(workdir, "cli_zip"), WIDTH, HEIGHT, CMP_SPP, SUBDIV,
+        SEED, bump_res=BUMP[0], sky=SKY)
     base = os.path.dirname(piz_xml)
     out = os.path.join(base, "out.exr")
     cmd = [sys.executable, "-m", "liverrenderer_tpu_torch.cli", piz_xml,
-           "-o", out, "--spp", str(SPP), "--seed", str(SEED)]
+           "-o", out, "--spp", str(CMP_SPP), "--seed", str(SEED)]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
                        timeout=CLI_TIMEOUT)
@@ -2701,7 +2760,7 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
     # render (the kernels), its launches counted
     reset_counts(ci)
     scene = lrt.load_file(piz_xml)
-    secs, img = timed_render(torch, lrt, scene, SPP)
+    secs, img = timed_render(torch, lrt, scene, CMP_SPP)
     counts = launch_counts(ci)
     got = lrt.read_image(out)
     frac, mean_rel = ss.images_agree(got, img.cpu().numpy())
@@ -2724,13 +2783,13 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
         aovs[name] = dict(shape=list(a.shape), finite=bool(
             np.isfinite(a).all()), mean=float(a.mean()))
     emit("cli_render", card=smi, command=" ".join(["python3"] + cmd[1:]),
-         film=[WIDTH, HEIGHT], spp=SPP, bytes=sizes, outputs=files,
+         film=[WIDTH, HEIGHT], spp=CMP_SPP, bytes=sizes, outputs=files,
          subprocess_seconds=cli_s, time_txt=times,
          cli_load_seconds=closing["load_s"],
          cli_render_seconds=closing["render_s"],
          cli_paths_per_s=closing["paths_per_s"],
          in_process_render_seconds=secs,
-         in_process_paths_per_s=WIDTH * HEIGHT * SPP / secs,
+         in_process_paths_per_s=WIDTH * HEIGHT * CMP_SPP / secs,
          cli_vs_in_process_pixel_frac=frac,
          cli_vs_in_process_mean_rel=mean_rel, launches=counts[0],
          merge_launches=counts[1], shadow_launches=counts[2],
@@ -2745,8 +2804,8 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
               for a in aovs.values()), f"cli_render: AOVs {aovs}")
 
     # ---- 13c. RenderControl on the bumped, sky-lit proxy
-    bumped = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED,
-                                            bump=BUMP, sky=SKY))
+    bumped = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, CMP_SPP, SUBDIV,
+                                            SEED, bump=BUMP, sky=SKY))
     runs = {"plain": [], "control": []}
     ctl_img = plain_img = None
     ctl_counts = plain_counts = None
@@ -2754,7 +2813,7 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
         reset_counts(ci)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        im = lrt.render(bumped, spp=SPP, seed=SEED,
+        im = lrt.render(bumped, spp=CMP_SPP, seed=SEED,
                         control=lrt.RenderControl() if kind == "control"
                         else None)
         torch.cuda.synchronize()
@@ -2777,7 +2836,7 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
             if f >= 0.5:
                 ctl.cancel()
         ctl.on_progress = on_progress
-        part = lrt.render(bumped, spp=SPP, seed=SEED, control=ctl)
+        part = lrt.render(bumped, spp=CMP_SPP, seed=SEED, control=ctl)
         torch.cuda.synchronize()
     finally:
         tregen.TILE_PIX = tile
@@ -2792,7 +2851,7 @@ def cli_phases(torch, np, lrt, ci, smi, workdir):
     n_reached = sum(reached)
     partial_ok = 0 < n_reached < len(tiles) \
         and all(reached[:n_reached]) and all(black[n_reached:])
-    emit("render_control", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+    emit("render_control", card=smi, film=[WIDTH, HEIGHT], spp=CMP_SPP,
          plain_seconds=runs["plain"], control_seconds=runs["control"],
          control_over_plain=sum(runs["control"]) / sum(runs["plain"]),
          uncancelled_pixel_frac=frac_c, uncancelled_mean_rel=mean_rel_c,
@@ -2900,12 +2959,12 @@ def pipeline_phases(torch, np, lrt, ci, smi, workdir):
     medium_models.DATA_DIR = pin.write_tables(os.path.join(workdir, "data"))
     try:
         scenes = os.path.join(workdir, "scenes")
-        xml = pin.write_scenes(scenes, WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+        xml = pin.write_scenes(scenes, WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
                                bump_res=BUMP[0], sky=SKY,
                                max_depth=PIPE_DEPTH)
         settings = pin.write_settings(
             os.path.join(workdir, "RendererSettings.yml"), WIDTH, HEIGHT,
-            SPP, PIPE_DEPTH)
+            CMP_SPP, PIPE_DEPTH)
         logfile = os.path.join(workdir, "tools.log")
         pipe_counts, coeffs, rows = driver_phases(
             torch, np, lrt, ci, smi, workdir, xml, scenes, settings, logfile,
@@ -2950,17 +3009,17 @@ def driver_phases(torch, np, lrt, ci, smi, workdir, xml, scenes, settings,
     render_s = 60.0 * float(times["Render time"].split()[0])
     exr = lrt.read_image(os.path.join(out, "liver-singlemesh.exr"))
     by_hand, rows = _by_hand(torch, lrt.load_file(xml), coeffs)
-    _, ref = timed_render(torch, lrt, by_hand, SPP)
+    _, ref = timed_render(torch, lrt, by_hand, CMP_SPP)
     frac, mean_rel = ss.images_agree(exr, ref.cpu().numpy())
-    _, plain = timed_render(torch, lrt, lrt.load_file(xml), SPP)
+    _, plain = timed_render(torch, lrt, lrt.load_file(xml), CMP_SPP)
     plain = plain.cpu().numpy()
     changed = float(np.abs(exr - plain).mean() / np.abs(plain).mean())
-    emit("pipeline_render", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+    emit("pipeline_render", card=smi, film=[WIDTH, HEIGHT], spp=CMP_SPP,
          max_depth=PIPE_DEPTH, command="driver.main([settings, "
          "'--scenes-dir', D, '--out-dir', O])", returncode=rc,
          coefficients_seconds=coeff_s, main_seconds=main_s,
          time_txt=times, load_seconds=load_s, render_seconds=render_s,
-         paths_per_s=n_pix * SPP / render_s, liver_rows=rows,
+         paths_per_s=n_pix * CMP_SPP / render_s, liver_rows=rows,
          coefficients={k: coeffs[k] for k in (
              "sigma_collagen1_R", "sigma_elastin1_G", "sigma_blood",
              "sigma_bile", "sigma_lipid_water", "sigma_hepatocity")},
@@ -3053,7 +3112,7 @@ def evaluate_phase(torch, np, lrt, ci, smi, workdir, xml, scenes, logfile,
         return all(finite(v) for v in vals) if isinstance(
             x, (dict, list)) else isinstance(x, (bool, str)) or \
             bool(np.isfinite(x))
-    emit("evaluate_render", card=smi, film=[WIDTH, HEIGHT], spp=SPP,
+    emit("evaluate_render", card=smi, film=[WIDTH, HEIGHT], spp=CMP_SPP,
          golden=[GOLDEN_SCALE * WIDTH, GOLDEN_SCALE * HEIGHT],
          golden_spp=GOLDEN_SPP, golden_seconds=golden_s,
          evaluate_seconds=eval_s, row=row, launches=eval_counts[0],
@@ -3284,18 +3343,18 @@ def spectral_phases(torch, np, lrt, ci, treplay, smi):
 
     # ---- 15b. the main path in the spectral variant at full size, in
     # turns with RGB
-    d = liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP,
+    d = liver_proxy_dict(WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED, bump=BUMP,
                          sky=SKY)
     sp, rgb = lrt.load_dict(d, variant=SP), lrt.load_dict(d)
     check(sp.spectral and sp.device.type == "cuda" and not rgb.spectral,
           "spectral proxy: not spectral, or not on the card")
     for sc in (sp, rgb):
         lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
-    rgb_s, img_rgb = timed_render(torch, lrt, rgb, SPP)
+    rgb_s, img_rgb = timed_render(torch, lrt, rgb, CMP_SPP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ci)
-    secs, img = timed_render(torch, lrt, sp, SPP)
+    secs, img = timed_render(torch, lrt, sp, CMP_SPP)
     counts = launch_counts(ci)
     peak = torch.cuda.max_memory_allocated()
     # one timed render each (a second pair took ~27 s of the script's
@@ -3310,9 +3369,9 @@ def spectral_phases(torch, np, lrt, ci, treplay, smi):
     finite = bool(torch.isfinite(img).all())
     lum_sp = float(spec.luminance(img).mean())
     lum_rgb = float(spec.luminance(img_rgb).mean())
-    paths = WIDTH * HEIGHT * SPP
+    paths = WIDTH * HEIGHT * CMP_SPP
     t_sp, t_rgb = sp_s[0], rgb_s[0]
-    emit("spectral_render", film=[WIDTH, HEIGHT], spp=SPP,
+    emit("spectral_render", film=[WIDTH, HEIGHT], spp=CMP_SPP,
          max_depth=sp.max_depth, tris=sp.n_tris, n_spec=spec.N_SPEC,
          card=smi, seconds=round(secs, 3), paths_per_s=paths / secs,
          spectral_seconds_reps=sp_s, rgb_seconds_reps=rgb_s,
@@ -4172,8 +4231,8 @@ def m10b_phases(torch, np, lrt, ci, treplay, smi, workdir):
 
     # ---- 19b. the main path under a sunsky, against the synthetic sky
     sun = lrt.load_dict(ms.sunsky_proxy(liver_proxy_dict(
-        WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP), hour=SUNSKY_HOUR))
-    env = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED,
+        WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED, bump=BUMP), hour=SUNSKY_HOUR))
+    env = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
                                          bump=BUMP, sky=SKY))
     check(sun.emitters.env_index >= 0 and sun.has_heightmap,
           "sunsky proxy: no envmap or no bump map")
@@ -4181,18 +4240,18 @@ def m10b_phases(torch, np, lrt, ci, treplay, smi, workdir):
         lrt.render(sc, spp=1, seed=SEED + 1)                   # warm-up
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ci)
-    t_sun, img = timed_render(torch, lrt, sun, SPP)
+    t_sun, img = timed_render(torch, lrt, sun, CMP_SPP)
     counts["sunsky"] = launch_counts(ci)
     peak = torch.cuda.max_memory_allocated()
-    t_env, _ = timed_render(torch, lrt, env, SPP)
+    t_env, _ = timed_render(torch, lrt, env, CMP_SPP)
     g_s, g, _, g_counts = grad_run(torch, lrt, ci, treplay, sun, GRAD_SPP)
     counts["sunsky_grad"] = (
         g_counts["fwd_launches"] + g_counts["replay_launches"],
         g_counts["fwd_merge_launches"] + g_counts["replay_merge_launches"],
         0, 0)
-    paths = WIDTH * HEIGHT * SPP
+    paths = WIDTH * HEIGHT * CMP_SPP
     fin = bool(torch.isfinite(img).all())
-    emit("sunsky_render", film=[WIDTH, HEIGHT], spp=SPP,
+    emit("sunsky_render", film=[WIDTH, HEIGHT], spp=CMP_SPP,
          max_depth=sun.max_depth, hour=SUNSKY_HOUR, card=smi,
          seconds=t_sun, paths_per_s=paths / t_sun, envmap_seconds=t_env,
          sunsky_over_envmap=t_sun / t_env, finite=fin,
@@ -4386,6 +4445,441 @@ def m10b_phases(torch, np, lrt, ci, treplay, smi, workdir):
     return counts, dict(ms=med, bound_ms=full["bound_ms"],
                         share=full["bound_ms"] / med, tris=hair.n_tris,
                         sweep_ms=res["sweep_ms"], plain_ms=res["plain_ms"])
+
+
+def _apps_cornell(res):
+    """apps_small's scene: the Cornell box, path depth APPS_DEPTH, a box
+    filter, the camera turned off the box's diagonals."""
+    from liverrenderer_tpu_torch.scene.cornell import cornell_box
+    from liverrenderer_tpu_torch.scene.transform import Transform
+    d = cornell_box()
+    d["integrator"] = {"type": "path", "max_depth": APPS_DEPTH}
+    d["sensor"]["film"] = {"type": "hdrfilm", "width": res, "height": res,
+                           "rfilter": {"type": "box"}}
+    d["sensor"]["to_world"] = d["sensor"]["to_world"].matrix \
+        @ Transform().rotate(*APPS_TURN).matrix
+    return d
+
+
+def _blit_levels(np, s):
+    """The 8-bit colour levels of a blit_ansi string, in order."""
+    import re
+    return np.array([int(x) for x in re.findall(r"\d+", s)], np.int64)
+
+
+def _app_run(np, tint, scene, keys, display=False):
+    """run_interactive on scripted keys -> (host frames, camera positions,
+    final accumulation, frames rendered, stats)."""
+    frames, cams, stats = [], [], {}
+    acc, n = tint.run_interactive(
+        scene, spp=1, keys=keys, display=display, stats=stats,
+        frame_callback=lambda f, a, c: (frames.append(np.array(a)),
+                                        cams.append(c.pos.copy())))
+    return frames, cams, acc, n, stats
+
+
+@contextlib.contextmanager
+def _log_at_warn():
+    """The port's log at WARN for a block (the frames' phase reports and
+    the loop's HUD lines), restored after it."""
+    from liverrenderer_tpu_torch import log as tlog
+    level = tlog._level
+    tlog.set_log_level(tlog.WARN)
+    try:
+        yield
+    finally:
+        tlog.set_log_level(level)
+
+
+def apps_phases(torch, np, lrt, ci, smi, bumped, ref_img):
+    """Phases apps_small, viewer_render and interactive_render (the
+    progressive viewer and the interactive loop) -> the launch counts the
+    kernels line reports.  bumped: the main path's scene on the card;
+    ref_img: its 64 spp render (bump_env_render's)."""
+    from liverrenderer_tpu_torch import interactive as tint
+    from liverrenderer_tpu_torch import log as tlog
+    from liverrenderer_tpu_torch import viewer as tviewer
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict)
+    # ---- apps_small: the viewer's modes and the scripted loop, card vs CPU
+    d = _apps_cornell(APPS_RES)
+    modes = (("ema", dict(n_frames=4, spp=2, ema_alpha=0.3)),
+             ("accum", dict(n_frames=3, spp=2, camera_orbit_deg=40.0)),
+             ("denoise", dict(n_frames=2, spp=2)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sc = lrt.load_dict(d, device=dev)
+        out = {}
+        for mode, kw in modes:
+            fr = []
+            last = tviewer.run_viewer(sc, mode=mode, frame_callback=lambda
+                                      i, im: fr.append(np.array(im)), **kw)
+            check(last.device.type == dev,
+                  f"apps_small: {mode} frame left the scene's device")
+            out[mode] = fr
+        out["interactive"] = _app_run(np, tint, sc, APP_KEYS)
+        runs[dev] = out
+    agree = {}
+    for mode, _ in modes:
+        pairs = [arrays_agree(np, a, b) for a, b in
+                 zip(runs["cuda"][mode], runs["cpu"][mode])]
+        agree[mode] = dict(frames=len(pairs),
+                           pixel_frac=min(p[0] for p in pairs),
+                           mean_rel=max(p[1] for p in pairs))
+    gf, gc, gacc, gn, gst = runs["cuda"]["interactive"]
+    cf, cc, cacc, cn, _ = runs["cpu"]["interactive"]
+    pairs = [arrays_agree(np, a, b) for a, b in zip(gf, cf)]
+    agree["interactive"] = dict(frames=gn, pixel_frac=min(p[0] for p in pairs),
+                                mean_rel=max(p[1] for p in pairs))
+    blit_g, blit_c = tint.blit_ansi(gacc), tint.blit_ansi(cacc)
+    lv_g, lv_c = _blit_levels(np, blit_g), _blit_levels(np, blit_c)
+    blit_diff = int(np.abs(lv_g - lv_c).max()) if lv_g.shape == lv_c.shape \
+        else -1
+    cams_equal = all(np.array_equal(a, b) for a, b in zip(gc, cc))
+    emit("apps_small", film=[APPS_RES, APPS_RES], max_depth=APPS_DEPTH,
+         keys=APP_KEYS, agree=agree, frames=gn, restarts=gst["restarts"],
+         blit_equal=blit_g == blit_c, blit_max_level_diff=blit_diff,
+         blit_chars=len(blit_g), cameras_equal=cams_equal,
+         final_position=[float(x) for x in gc[-1]])
+    for mode, a in agree.items():
+        check(a["pixel_frac"] >= PIX_FRAC_MIN and a["mean_rel"] <= MEAN_RTOL,
+              f"apps_small: the card's {mode} frames disagree with the CPU's")
+    check(gn == cn == APP_FRAMES and gst["restarts"] == APP_RESTARTS,
+          f"apps_small: {gn} frames, {gst['restarts']} restarts")
+    check(cams_equal, "apps_small: the cameras differ between card and CPU")
+    # the blit quantises each channel to 8 bits: a card pixel an ulp off
+    # the CPU's may round to the next level, never further
+    check(0 <= blit_diff <= 1, "apps_small: the blitted frames differ")
+
+    # ---- viewer_render: the main path at full width
+    ref = ref_img.cpu().numpy()
+    tlog.reset_phases()
+    errs = []
+    torch.cuda.synchronize()
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    last = tviewer.run_viewer(
+        bumped, n_frames=VIEWER_FRAMES, spp=1, mode="ema",
+        frame_callback=lambda i, im: errs.append(
+            float(np.abs(im - ref).mean())))
+    torch.cuda.synchronize()
+    ema_s = time.perf_counter() - t0
+    ema_counts = launch_counts(ci)
+    ema_stages = dict(tlog._phase_totals)
+    ema_finite = bool(torch.isfinite(last).all())
+    tlog.reset_phases()
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    dn = tviewer.run_viewer(bumped, n_frames=VIEWER_DENOISE_FRAMES, spp=1,
+                            mode="denoise")
+    torch.cuda.synchronize()
+    dn_s = time.perf_counter() - t0
+    dn_counts = launch_counts(ci)
+    dn_stages = dict(tlog._phase_totals)
+    dn_finite = bool(torch.isfinite(dn).all())
+    emit("viewer_render", film=[WIDTH, HEIGHT], spp_per_frame=1,
+         max_depth=bumped.max_depth, card=smi, ema_frames=VIEWER_FRAMES,
+         ema_seconds=ema_s, ema_seconds_per_frame=ema_s / VIEWER_FRAMES,
+         ema_stages_s=ema_stages, ema_error_vs_64spp=errs,
+         denoise_frames=VIEWER_DENOISE_FRAMES, denoise_seconds=dn_s,
+         denoise_seconds_per_frame=dn_s / VIEWER_DENOISE_FRAMES,
+         denoise_stages_s=dn_stages,
+         ema_launches=ema_counts[0], ema_merge_launches=ema_counts[1],
+         ema_launches_per_frame=ema_counts[0] / VIEWER_FRAMES,
+         ema_merge_launches_per_frame=ema_counts[1] / VIEWER_FRAMES,
+         denoise_launches=dn_counts[0], denoise_merge_launches=dn_counts[1],
+         denoise_launches_per_frame=dn_counts[0] / VIEWER_DENOISE_FRAMES,
+         denoise_merge_launches_per_frame=dn_counts[1]
+         / VIEWER_DENOISE_FRAMES)
+    check(ema_finite and dn_finite, "viewer_render: non-finite frame")
+    check(len(errs) == VIEWER_FRAMES and errs[-1] < errs[0],
+          "viewer_render: the EMA frames did not approach the 64 spp render")
+    for name, c in (("ema", ema_counts), ("denoise", dn_counts)):
+        check(c[0] > 0 and c[1] > 0,
+              f"viewer_render: the {name} frames did not launch the sweep "
+              "and merge kernels")
+
+    # ---- interactive_render: the scripted loop with the blit
+    films, inter_counts = {}, {}
+    for w, h in INTERACTIVE_FILMS:
+        sc = bumped if (w, h) == (WIDTH, HEIGHT) else lrt.load_dict(
+            liver_proxy_dict(w, h, SPP, SUBDIV, SEED, bump=BUMP, sky=SKY))
+        torch.cuda.synchronize()
+        reset_counts(ci)
+        t0 = time.perf_counter()
+        frames, _, acc, n, st = _app_run(np, tint, sc, APP_KEYS,
+                                         display=True)
+        secs = time.perf_counter() - t0
+        c = launch_counts(ci)
+        inter_counts[f"{w}x{h}"] = c
+        films[f"{w}x{h}"] = dict(
+            seconds=secs, frames=n, restarts=st["restarts"],
+            render_ms_per_frame=st["render_s"] / st["renders"] * 1e3,
+            copy_ms_per_frame=st["copy_s"] / st["renders"] * 1e3,
+            blit_ms_per_frame=st["blit_s"] / st["blits"] * 1e3,
+            launches=c[0], merge_launches=c[1],
+            finite=bool(torch.isfinite(acc).all()))
+        check(n == APP_FRAMES and st["restarts"] == APP_RESTARTS
+              and st["blits"] == APP_FRAMES,
+              f"interactive_render {w}x{h}: {n} frames, {st['restarts']} "
+              "restarts")
+        check(films[f"{w}x{h}"]["finite"],
+              f"interactive_render {w}x{h}: non-finite frame")
+        check(c[0] > 0, f"interactive_render {w}x{h}: no sweep launch")
+    emit("interactive_render", keys=APP_KEYS, max_depth=bumped.max_depth,
+         card=smi, films=films)
+    return {"viewer_ema": ema_counts, "viewer_denoise": dn_counts,
+            **{f"interactive_{k}": c for k, c in inter_counts.items()}}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _vec_agree(a, b):
+    """(cosine, relative difference of the norms) of two tensors."""
+    a, b = a.detach().cpu().double().reshape(-1), \
+        b.detach().cpu().double().reshape(-1)
+    return (float((a * b).sum() / (a.norm() * b.norm())),
+            abs(float(a.norm() / b.norm()) - 1.0))
+
+
+_SHARD_WORKER = r"""
+import json, pickle, sys, time
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+import liverrenderer_tpu_torch as lrt
+from liverrenderer_tpu_torch.accel import cuda_intersect as ci
+from liverrenderer_tpu_torch.parallel import mesh as tmesh
+rank, port, out, _, scene_pkl = sys.argv[1:6]
+rank = int(rank)
+SEED, SHARDED_SPP, SCALING_SPP, N = map(int, sys.argv[6:])
+DEV = "cuda:0"
+ci.build_kernel()
+# two ranks on one card: NCCL refuses them, gloo all-reduces CUDA tensors
+tmesh.init_distributed(f"127.0.0.1:{port}", num_processes=N,
+                       process_id=rank, device=DEV, backend="gloo")
+mesh = tmesh.make_mesh(device=DEV)
+assert (mesh.rank, mesh.size) == (rank, N) and mesh.group is not None
+with open(scene_pkl, "rb") as f:
+    sc = lrt.load_dict(pickle.load(f), device=DEV)
+
+def timed(fn):
+    torch.cuda.synchronize()
+    ci.LAUNCHES = ci.MERGE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, res, (ci.LAUNCHES, ci.MERGE_LAUNCHES)
+
+t_r, acc, c_r = timed(lambda: tmesh.render_regen_sharded(
+    sc, mesh, spp=SHARDED_SPP, seed=SEED))
+box = {}
+def grad():
+    box["out"] = tmesh.render_grad_replay_sharded(
+        sc, mesh, {"media.params": sc.media.params}, lambda im: im.mean(),
+        spp=SHARDED_SPP, seed=SEED)
+t_g, stats, c_g = timed(lambda: tmesh.collective_stats(grad))
+loss, g, img = box["out"]
+scaling = tmesh.measure_scaling(sc, spp=SCALING_SPP, reps=1,
+                                renderer="regen")
+torch.save({"acc": acc.cpu(), "grad": g["media.params"].cpu(),
+            "loss": float(loss), "image": img.cpu()}, out)
+print("SHARD_RESULT " + json.dumps(dict(
+    rank=rank, render_seconds=t_r, render_launches=c_r, grad_seconds=t_g,
+    grad_launches=c_g, grad_collectives=stats, scaling=scaling)), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def sharded_phases(torch, np, lrt, ci, smi, workdir, small_d, main_d,
+                   bumped):
+    """Phases sharded_small (a world of one over NCCL on the card) and
+    sharded_render (two ranks on the card over gloo, the main path) -> the
+    launch counts the kernels line reports.  small_d: the main path's
+    scene dict at test size; main_d: at full size, and bumped: the scene
+    load_dict built from it on the card."""
+    import pickle
+    import torch.distributed as dist
+    from liverrenderer_tpu_torch import film as tfilm
+    from liverrenderer_tpu_torch.integrators import regen as tregen
+    from liverrenderer_tpu_torch.integrators.common import render_pass
+    from liverrenderer_tpu_torch.parallel import mesh as tmesh
+
+    # ---- sharded_small: NCCL as a world of one, against the unsharded
+    # functions on the card
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_mesh(device="cuda")
+        check(mesh.group is not None and mesh.size == 1
+              and dist.get_backend() == "nccl",
+              "sharded_small: not an NCCL world of one")
+        sc = lrt.load_dict(small_d)
+        spp = SHARDED_SMALL_SPP
+        key = "media.params"
+        stats, res = {}, {}
+        reset_counts(ci)
+
+        def run(name, fn):
+            box = {}
+            stats[name] = tmesh.collective_stats(
+                lambda: box.update(out=fn()))
+            return box["out"]
+
+        plain = tfilm.develop(render_pass(sc, SEED, spp, 0)).cpu().numpy()
+        got = run("render_sharded", lambda: tmesh.render_sharded(
+            sc, mesh, spp=spp, seed=SEED)).cpu().numpy()
+        res["render_sharded"] = arrays_agree(np, got, plain)[:2]
+        for il in (True, False):
+            got = run(f"render_tiled_{'interleaved' if il else 'contiguous'}",
+                      lambda: tmesh.render_tiled(sc, mesh, spp=spp, seed=SEED,
+                                                 interleave=il))
+            res[f"render_tiled_{'interleaved' if il else 'contiguous'}"] = \
+                arrays_agree(np, got.cpu().numpy(), plain)[:2]
+        acc = run("render_regen_sharded", lambda: tmesh.render_regen_sharded(
+            sc, mesh, spp=spp, seed=SEED))
+        ref = tregen.render_regen(sc, SEED, spp)
+        res["render_regen_sharded"] = arrays_agree(
+            np, acc.cpu().numpy(), ref.cpu().numpy())[:2]
+        loss, g, _ = run("render_grad_replay_sharded",
+                         lambda: tmesh.render_grad_replay_sharded(
+                             sc, mesh, {key: sc.media.params},
+                             lambda im: im.mean(), spp=spp, seed=SEED))
+        _, g_ref, _ = lrt.render_grad(sc, {key: sc.media.params},
+                                      lambda im: im.mean(), spp=spp,
+                                      seed=SEED)
+        grad_agree = _vec_agree(g[key], g_ref[key])
+        # one SGD step (lr 1) of a loss linear in the image, against the
+        # scan adjoint's gradient of the same fixed pass
+        p0 = sc.media.params.detach().clone()
+        leaf = p0.clone().requires_grad_()
+        step = tmesh.make_train_step(sc, mesh, lambda im, t: (im - t).mean(),
+                                     torch.optim.SGD([leaf], lr=1.0),
+                                     spp=spp)
+        run("make_train_step",
+            lambda: step({key: leaf}, None,
+                         torch.zeros(sc.film_h, sc.film_w, 3,
+                                     device="cuda"), SEED))
+        _, g_scan, _ = lrt.render_grad(sc, {key: p0}, lambda im: im.mean(),
+                                       spp=spp, seed=SEED, replay=False)
+        step_agree = _vec_agree(p0 - leaf.detach(), g_scan[key])
+        counts = launch_counts(ci)
+    finally:
+        dist.destroy_process_group()
+    film_bytes = sc.film_w * sc.film_h * 4 * 4
+    param_bytes = p0.numel() * 4
+    st = stats["make_train_step"].get("all-reduce", {"ops": 0, "bytes": 0})
+    emit("sharded_small", film=[sc.film_w, sc.film_h], spp=spp,
+         backend="nccl", world=1, agree=res, grad_cosine=grad_agree[0],
+         grad_norm_rel=grad_agree[1], sgd_step_cosine=step_agree[0],
+         sgd_step_norm_rel=step_agree[1], collectives=stats,
+         film_bytes=film_bytes, param_bytes=param_bytes,
+         launches=counts[0], merge_launches=counts[1])
+    for name, (frac, mean_rel) in res.items():
+        check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+              f"sharded_small: {name} disagrees with the unsharded render")
+    check(grad_agree[0] >= GRAD_COS_MIN and grad_agree[1] <= GRAD_NORM_RTOL,
+          "sharded_small: the sharded gradient disagrees with render_grad")
+    check(step_agree[0] >= GRAD_COS_MIN and step_agree[1] <= GRAD_NORM_RTOL,
+          "sharded_small: the SGD step disagrees with the scan adjoint")
+    check(st["ops"] >= 2 and st["bytes"] >= film_bytes + param_bytes,
+          f"sharded_small: the train step's collectives {stats}")
+    check(counts[0] > 0, "sharded_small: no sweep launch")
+
+    # ---- sharded_render: two ranks on the card over gloo, the main path
+    torch.cuda.synchronize()
+    reset_counts(ci)
+    one = tmesh.make_mesh(1, device="cuda")
+    t0 = time.perf_counter()
+    acc1 = tmesh.render_regen_sharded(bumped, one, spp=SHARDED_SPP,
+                                      seed=SEED)
+    torch.cuda.synchronize()
+    t_render1 = time.perf_counter() - t0
+    c_render1 = launch_counts(ci)
+    reset_counts(ci)
+    t0 = time.perf_counter()
+    loss1, g1, _ = tmesh.render_grad_replay_sharded(
+        bumped, one, {"media.params": bumped.media.params},
+        lambda im: im.mean(), spp=SHARDED_SPP, seed=SEED)
+    torch.cuda.synchronize()
+    t_grad1 = time.perf_counter() - t0
+    c_grad1 = launch_counts(ci)
+
+    script = os.path.join(workdir, "shard_worker.py")
+    with open(script, "w") as f:
+        f.write(_SHARD_WORKER)
+    scene_pkl = os.path.join(workdir, "scene.pkl")
+    with open(scene_pkl, "wb") as f:
+        pickle.dump(main_d, f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    outs = [os.path.join(workdir, f"rank{r}.pt")
+            for r in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, str(r), str(port), outs[r], repo,
+         scene_pkl, *map(str, (SEED, SHARDED_SPP, SCALING_SPP,
+                               SHARDED_RANKS))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=workdir) for r in range(SHARDED_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARDED_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"sharded_render: rank {r} failed "
+              f"(exit {p.returncode}):\n{log[-3000:]}")
+    ranks = [json.loads(next(ln for ln in log.splitlines()
+                             if ln.startswith("SHARD_RESULT "))[13:])
+             for log in logs]
+    got = [torch.load(o) for o in outs]
+    img1 = tfilm.develop(acc1).cpu().numpy()
+    img_agree = [arrays_agree(np, tfilm.develop(x["acc"]).numpy(), img1)[:2]
+                 for x in got]
+    g_agree = [_vec_agree(x["grad"], g1["media.params"]) for x in got]
+    loss_rel = [abs(x["loss"] - float(loss1)) / abs(float(loss1))
+                for x in got]
+    emit("sharded_render", film=[WIDTH, HEIGHT], spp=SHARDED_SPP,
+         max_depth=bumped.max_depth, backend="gloo", ranks=SHARDED_RANKS,
+         device="cuda:0 (both ranks)", card=smi, wall_seconds=wall,
+         single_rank=dict(render_seconds=t_render1,
+                          render_launches=c_render1[:2],
+                          grad_seconds=t_grad1, grad_launches=c_grad1[:2]),
+         per_rank=ranks, image_agree=img_agree, grad_agree=g_agree,
+         loss_rel=loss_rel,
+         scaling_note="both ranks share one card and its host: "
+         "efficiency_proxy reads host overlap, not scaling")
+    for r, ((frac, mean_rel), (cos, norm_rel)) in enumerate(
+            zip(img_agree, g_agree)):
+        check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+              f"sharded_render: rank {r}'s image disagrees with one rank's")
+        check(cos >= GRAD_COS_MIN and norm_rel <= GRAD_NORM_RTOL,
+              f"sharded_render: rank {r}'s gradient disagrees with one "
+              "rank's")
+    for x in ranks:
+        check(x["render_launches"][0] > 0 and x["grad_launches"][0] > 0,
+              f"sharded_render: rank {x['rank']} launched no sweep")
+        check(x["grad_collectives"]["all-reduce"]["ops"] == 2,
+              f"sharded_render: collectives {x['grad_collectives']}")
+    sweeps = c_render1[0] + c_grad1[0] + sum(
+        x["render_launches"][0] + x["grad_launches"][0] for x in ranks)
+    merges = c_render1[1] + c_grad1[1] + sum(
+        x["render_launches"][1] + x["grad_launches"][1] for x in ranks)
+    return {"sharded_small": counts,
+            "sharded_render": (sweeps, merges, 0, 0)}
 
 
 def main() -> int:
@@ -4604,11 +5098,12 @@ def main() -> int:
     check(counts["replay_launches"] > 0,
           "grad_small: the replay walk did not launch the sweep kernel")
 
-    # ---- 5b. the gradient path at full width (bench.py's render_grad)
-    grad_run(torch, lrt, ci, treplay, scene, GRAD_SPP)         # warm-up
+    # ---- 5b. the gradient path at full width (bench.py's render_grad):
+    # a warm-up and one timed run, held to each other (a median of 3 after
+    # the warm-up before PR 17's cuts for the script's time)
+    runs = [grad_run(torch, lrt, ci, treplay, scene, GRAD_SPP)]  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    runs = [grad_run(torch, lrt, ci, treplay, scene, GRAD_SPP)
-            for _ in range(3)]
+    runs.append(grad_run(torch, lrt, ci, treplay, scene, GRAD_SPP))
     peak = torch.cuda.max_memory_allocated()
     grad_counts = runs[0][3]
     check(all(r[3] == grad_counts for r in runs),
@@ -4617,16 +5112,9 @@ def main() -> int:
     check(all(bool(torch.equal(r[1], g)) or
               float((r[1] - g).abs().max()) <= 1e-4 * float(g.abs().max())
               for r in runs), "gradient differs between reps")
-    lrt.render(scene, spp=GRAD_SPP, seed=SEED)                 # warm-up
-    primal = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lrt.render(scene, spp=GRAD_SPP, seed=SEED)
-        torch.cuda.synchronize()
-        primal.append(time.perf_counter() - t0)
-    t_grad = sorted(r[0] for r in runs)[1]
-    t_primal = sorted(primal)[1]
+    primal = [timed_render(torch, lrt, scene, GRAD_SPP)[0]]
+    t_grad = runs[1][0]
+    t_primal = primal[0]
     grad_paths = WIDTH * HEIGHT * GRAD_SPP
     finite_g = bool(torch.isfinite(g).all())
     emit("render_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
@@ -4733,6 +5221,24 @@ def main() -> int:
                                     workdir)
     m10b_sweeps = sum(c[0] for c in m10b.values())
     m10b_merges = sum(c[1] for c in m10b.values())
+
+    # ---- 20. the apps: the progressive viewer and the interactive loop;
+    # ---- 21. multi-GPU: the sharded renders, gradient and training step
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, SKY
+    with _log_at_warn():
+        apps = apps_phases(torch, np, lrt, ci, smi, bump["scene"],
+                           bump["image"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as workdir:
+        shard = sharded_phases(
+            torch, np, lrt, ci, smi, workdir,
+            liver_proxy_dict(16, 12, SHARDED_SMALL_SPP, 2, SEED,
+                             bump=BUMP_SMALL, sky=SKY_SMALL),
+            liver_proxy_dict(WIDTH, HEIGHT, SPP, SUBDIV, SEED, bump=BUMP,
+                             sky=SKY), bump["scene"])
+    del bump["scene"], bump["image"]
+    s17 = {**apps, **shard}
+    s17_sweeps = sum(c[0] for c in s17.values())
+    s17_merges = sum(c[1] for c in s17.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -4761,7 +5267,8 @@ def main() -> int:
              + cli["control"][0] + cli["plain"][0] + cli["thinlens"][0]
              + pipe_sweeps + spc["counts"][0] + spc_grad["fwd_launches"]
              + spc_grad["replay_launches"] + spc["film"][0]
-             + spc["box"][0] + m10_sweeps + s15_sweeps + m10b_sweeps,
+             + spc["box"][0] + m10_sweeps + s15_sweeps + m10b_sweeps
+             + s17_sweeps,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -4799,6 +5306,8 @@ def main() -> int:
              shape_principled_launches={k: split_counts(c)
                                         for k, c in s15.items()},
              m10b_launches={k: split_counts(c) for k, c in m10b.items()},
+             apps_sharded_launches={k: split_counts(c)
+                                    for k, c in s17.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -4856,7 +5365,8 @@ def main() -> int:
              + cli["thinlens"][1] + pipe_merges + spc["counts"][1]
              + spc_grad["fwd_merge_launches"]
              + spc_grad["replay_merge_launches"] + spc["film"][1]
-             + spc["box"][1] + m10_merges + s15_merges + m10b_merges,
+             + spc["box"][1] + m10_merges + s15_merges + m10b_merges
+             + s17_merges,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
@@ -4873,6 +5383,7 @@ def main() -> int:
              shape_grad_launches=shape["shape_grad"][1],
              shape_optimize_launches=shape["shape_optimize"][1],
              m10b_launches={k: c[1] for k, c in m10b.items()},
+             apps_sharded_launches={k: c[1] for k, c in s17.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

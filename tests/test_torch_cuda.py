@@ -955,3 +955,124 @@ def test_instance_pass_and_sdf_march_on_the_card_match_cpu(case, tmp_path):
     assert same.float().mean() >= 0.999
     torch.testing.assert_close(tg[same & hit], tc[same & hit], rtol=1e-5,
                                atol=0)
+
+
+def _apps_cornell(res=16):
+    """The Cornell box (path depth 3, box filter), its camera turned 1.3
+    degrees off the box's diagonals, where two walls tie."""
+    from liverrenderer_tpu_torch.scene.cornell import cornell_box
+    from liverrenderer_tpu_torch.scene.transform import Transform
+    d = cornell_box()
+    d["integrator"] = {"type": "path", "max_depth": 3}
+    d["sensor"]["film"] = {"type": "hdrfilm", "width": res, "height": res,
+                           "rfilter": {"type": "box"}}
+    d["sensor"]["to_world"] = d["sensor"]["to_world"].matrix @ Transform() \
+        .rotate([0.3, 1.0, 0.1], 1.3).matrix
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, kw", [
+    ("ema", dict(n_frames=3, spp=2, ema_alpha=0.3)),
+    ("accum", dict(n_frames=2, spp=2, camera_orbit_deg=40.0)),
+    ("denoise", dict(n_frames=2, spp=2))])
+def test_viewer_on_the_card_matches_cpu(mode, kw):
+    """run_viewer's frames on the card against the CPU's, frame by frame;
+    the accumulation stays on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch import viewer
+    d = _apps_cornell()
+    frames, last = {}, {}
+    before = tci.LAUNCHES
+    for dev in ("cpu", "cuda"):
+        fr = []
+        last[dev] = viewer.run_viewer(
+            lrt.load_dict(d, device=dev), mode=mode,
+            frame_callback=lambda i, im: fr.append(np.array(im)), **kw)
+        frames[dev] = fr
+    assert last["cuda"].device.type == "cuda" and tci.LAUNCHES > before
+    assert len(frames["cuda"]) == kw["n_frames"]
+    for a, b in zip(frames["cuda"], frames["cpu"]):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_interactive_loop_on_the_card_matches_cpu():
+    """The scripted loop (moves, a look key, the spp keys, a reset) on the
+    card against the CPU: frames, camera positions and the final blit
+    (each channel within one 8-bit level: a pixel an ulp off may round to
+    the next level)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import re
+    from liverrenderer_tpu_torch import interactive
+    d = _apps_cornell()
+    keys = ["w", None, "LEFT", "+", "r", "a", None]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        frames, cams = [], []
+        acc, n = interactive.run_interactive(
+            lrt.load_dict(d, device=dev), spp=1, keys=keys, display=False,
+            max_frames=len(keys),
+            frame_callback=lambda f, a, c: (frames.append(np.array(a)),
+                                            cams.append(c.pos.copy())))
+        runs[dev] = (frames, cams, acc, n)
+    (gf, gc, gacc, gn), (cf, cc, cacc, cn) = runs["cuda"], runs["cpu"]
+    assert gn == cn == len(keys) and gacc.device.type == "cuda"
+    for a, b in zip(gf, cf):
+        _close(a, b)
+    for a, b in zip(gc, cc):
+        np.testing.assert_array_equal(a, b)
+
+    def levels(s):
+        return np.array([int(x) for x in re.findall(r"\d+", s)])
+
+    lg = levels(interactive.blit_ansi(gacc))
+    lc = levels(interactive.blit_ansi(cacc))
+    assert lg.shape == lc.shape and np.abs(lg - lc).max() <= 1
+
+
+@pytest.mark.cuda
+def test_sharded_world_of_one_over_nccl_matches_unsharded():
+    """An NCCL world of one on the card: render_sharded, render_tiled (both
+    layouts) and render_regen_sharded equal the unsharded renders, the
+    sharded replay gradient equals render_grad's, and the collectives are
+    issued (film all-reduces, the tiled film's all-gather)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+    import torch.distributed as dist
+    from liverrenderer_tpu_torch import film
+    from liverrenderer_tpu_torch.integrators import regen
+    from liverrenderer_tpu_torch.integrators.common import render_pass
+    from liverrenderer_tpu_torch.parallel import mesh as tmesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_mesh(device="cuda")
+        assert mesh.group is not None and mesh.size == 1
+        sc = lrt.load_dict(liver_proxy_dict(16, 12, 4, 2, 0,
+                                            bump=(32, 0.05), sky=(64, 32)))
+        plain = film.develop(render_pass(sc, 0, 4, 0)).cpu().numpy()
+        st = tmesh.collective_stats(tmesh.render_sharded, sc, mesh, spp=4)
+        assert st["all-reduce"]["ops"] == 1
+        _close(tmesh.render_sharded(sc, mesh, spp=4).cpu().numpy(), plain)
+        for il in (True, False):
+            _close(tmesh.render_tiled(sc, mesh, spp=4, interleave=il)
+                   .cpu().numpy(), plain)
+        _close(tmesh.render_regen_sharded(sc, mesh, spp=4).cpu().numpy(),
+               regen.render_regen(sc, 0, 4).cpu().numpy())
+        p = {"media.params": sc.media.params}
+        _, g, _ = tmesh.render_grad_replay_sharded(
+            sc, mesh, p, lambda im: im.mean(), spp=4)
+        _, g_ref, _ = lrt.render_grad(sc, p, lambda im: im.mean(), spp=4)
+        a = g["media.params"].double().cpu().reshape(-1)
+        b = g_ref["media.params"].double().cpu().reshape(-1)
+        assert float((a * b).sum() / (a.norm() * b.norm())) >= 0.999
+        assert abs(float(a.norm() / b.norm()) - 1.0) <= 1e-2
+    finally:
+        dist.destroy_process_group()
