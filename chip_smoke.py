@@ -410,6 +410,19 @@ result line):
                    render_regen_sharded and render_grad_replay_sharded
                    against one rank's, per-rank seconds, launches and
                    collectives, measure_scaling's proxy (host overlap)
+  m9_decode        the committed DWAA sky and JPEG height map decoded on
+                   the card's host, in turns with the PIZ sky and the PNG
+                   height map (dwa_over_piz, jpeg_over_png), held to them
+                   within the lossy bounds, and the plain decode loops
+                   against the C++ ones
+  m9_obj           the liver proxy at 327,680 triangles written as OBJ:
+                   the C++ parse against its plain version (bit for bit),
+                   both times
+  m9_small         bench.py's workload path from XML with a 32^2 JPEG height
+                   map and the DWAA sky at 16x12, 4 spp: card against CPU
+  m9_render        the same at 428x240, 16 spp, in turns with its PNG +
+                   PIZ twin (m9_over_png_piz), launches
+  m9_phases        the seconds the m9 phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -430,7 +443,8 @@ result line):
                    M10's: m10b_small, the sunsky render and gradient, the
                    textured, instanced, SDF and hair renders + the
                    viewer's and the interactive loop's frames and the
-                   sharded renders and gradients (every rank); the hair
+                   sharded renders and gradients (every rank) + the
+                   m9 render and its PNG + PIZ twin; the hair
                    tuft's query in K2's regime beside its bound),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
@@ -701,6 +715,22 @@ INTERACTIVE_FILMS = ((160, 88), (WIDTH, HEIGHT))
 SHARDED_SMALL_SPP = 4
 SHARDED_SPP, SHARDED_RANKS, SCALING_SPP = 16, 2, 8
 SHARDED_TIMEOUT = 600
+
+# the rest of the loader (m9_phases): the committed DWAA sky
+# (liver_proxy's 1,024 x 512 sky at DWA level 45) against the committed
+# PIZ sky, within the lossy bound the CPU tests measured on OpenEXR's own
+# decode (max 1.0178e-2, mean 6.98e-4 relative); the committed JPEG of
+# the 1,024^2 height map (PIL, quality 75) against the 8-bit codes of its
+# PNG (measured max 3, mean 0.41); decodes timed M9_REPS times each, in
+# turns; the OBJ parse's mesh, the liver proxy at subdivision OBJ_SUBDIV
+# (327,680 triangles); m9_render is the main path from those files at
+# CMP_SPP, two renders in turns with its PNG + PIZ twin, their means
+# within M9_TWIN_RTOL
+DWA_SKY_MAX_REL, DWA_SKY_MEAN_REL = 0.0102, 7.0e-4
+JPEG_HEIGHT_MAX, JPEG_HEIGHT_MEAN = 3, 0.5
+M9_REPS = 3
+OBJ_SUBDIV = 7
+M9_TWIN_RTOL = 0.05
 
 # tolerances: the kernel computes t with the plain version's fp32
 # operations in the same order (bit-identical), but contracts p, u and v to
@@ -4632,6 +4662,201 @@ def apps_phases(torch, np, lrt, ci, smi, bumped, ref_img):
             **{f"interactive_{k}": c for k, c in inter_counts.items()}}
 
 
+def _obj_text(v, f, n, uv) -> str:
+    """A mesh as OBJ text: vertices, uvs and normals, 1-based v/vt/vn
+    corners (each float written as its shortest repr, so it parses back
+    to the same float32)."""
+    out = ["v %r %r %r\n" % tuple(r) for r in v.tolist()]
+    out += ["vt %r %r\n" % tuple(r) for r in uv.tolist()]
+    out += ["vn %r %r %r\n" % tuple(r) for r in n.tolist()]
+    out += ["f %d/%d/%d %d/%d/%d %d/%d/%d\n" % (a, a, a, b, b, b, c, c, c)
+            for a, b, c in (f + 1).tolist()]
+    return "".join(out)
+
+
+def m9_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9_decode, m9_obj, m9_small, m9_render and m9_phases (the
+    rest of the loader): the committed DWAA sky and JPEG height map
+    decoded on the card's host against their lossless twins and the plain
+    loops; the C++ OBJ parse against its plain version; bench.py's
+    workload path from those files, card against CPU at test size, and at
+    full size in turns with its PNG + PIZ twin -> {name: launch counts}."""
+    from liverrenderer_tpu_torch.io import exr as texr
+    from liverrenderer_tpu_torch.io import jpeg as tjpeg
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene import meshio
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, height_map,
+                                                           liver_mesh)
+    xf = _tests_module("torch_xml_files")
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    dwa = os.path.join(data, "torch_sky_dwaa.exr")
+    piz = os.path.join(data, "torch_sky_piz.exr")
+    jpg = os.path.join(data, "torch_height.jpg")
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 22a. the decoders on the card's host, in turns with their twins
+    t0 = time.perf_counter()
+    tjpeg.library()
+    jpeg_build_s = time.perf_counter() - t0
+    readers = {"dwa": lambda: texr.read_exr_any(dwa),
+               "piz": lambda: texr.read_exr_any(piz),
+               "jpeg": lambda: lrt.read_image(jpg, False),
+               "png": lambda: lrt.read_image(png, False)}
+    dec = {k: [] for k in readers}
+    out = {}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            out[kind] = fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    rel = np.abs(out["dwa"] - out["piz"]) \
+        / np.maximum(np.abs(out["piz"]), 1e-6)
+    with open(jpg, "rb") as fh:
+        jpeg_bytes = fh.read()
+    jcodes = tjpeg.read_jpeg(jpeg_bytes)
+    jerr = np.abs(jcodes[..., 0].astype(np.int64) - codes)
+    # the plain loops in the C++ ones' place: the DWA sky's AC Huffman
+    # stream, and the JPEG entropy decode of a crop of the height map
+    native = texr._huf_decode_native
+    texr._huf_decode_native = texr._huf_decode_plain
+    try:
+        t0 = time.perf_counter()
+        dwa_plain = texr.read_exr_any(dwa)
+        dwa_plain_s = time.perf_counter() - t0
+    finally:
+        texr._huf_decode_native = native
+    crop = tjpeg.encode_jpeg(jcodes[:64, :96, 0])
+    t0 = time.perf_counter()
+    crop_plain = tjpeg.read_jpeg(crop, tjpeg._scan_plain)
+    crop_plain_s = time.perf_counter() - t0
+    plain_equal = {"dwa": bool(np.array_equal(dwa_plain, out["dwa"])),
+                   "jpeg": bool(np.array_equal(crop_plain,
+                                               tjpeg.read_jpeg(crop)))}
+    emit("m9_decode", files={"dwa": "tests/data/torch_sky_dwaa.exr",
+                             "piz": "tests/data/torch_sky_piz.exr",
+                             "jpeg": "tests/data/torch_height.jpg"},
+         bytes={"dwa": os.path.getsize(dwa), "piz": os.path.getsize(piz),
+                "jpeg": len(jpeg_bytes), "png": os.path.getsize(png)},
+         reps=M9_REPS, decode_seconds=med, decode_seconds_reps=dec,
+         dwa_over_piz=med["dwa"] / med["piz"],
+         jpeg_over_png=med["jpeg"] / med["png"],
+         jpeg_build_seconds=jpeg_build_s,
+         dwa_vs_piz_max_rel=float(rel.max()),
+         dwa_vs_piz_mean_rel=float(rel.mean()),
+         dwa_bound=[DWA_SKY_MAX_REL, DWA_SKY_MEAN_REL],
+         jpeg_vs_png_max_abs=int(jerr.max()),
+         jpeg_vs_png_mean_abs=float(jerr.mean()),
+         dwa_plain_huffman_seconds=dwa_plain_s,
+         jpeg_plain_crop_seconds=crop_plain_s, plain_equal=plain_equal)
+    check(out["dwa"].shape == (512, 1024, 3)
+          and bool(np.isfinite(out["dwa"]).all())
+          and rel.max() <= DWA_SKY_MAX_REL
+          and rel.mean() <= DWA_SKY_MEAN_REL,
+          "m9_decode: the DWA sky is not the PIZ sky within its lossy bound")
+    check(jcodes.shape == (1024, 1024, 3) and jerr.max() <= JPEG_HEIGHT_MAX
+          and jerr.mean() <= JPEG_HEIGHT_MEAN,
+          "m9_decode: the JPEG height map is not its PNG within its bound")
+    check(all(plain_equal.values()), "m9_decode: a plain decode loop "
+          f"disagrees with its C++ version: {plain_equal}")
+
+    # ---- 22b. the C++ OBJ parse against its plain version
+    v, f, n, uv = liver_mesh(OBJ_SUBDIV, SEED)
+    obj = os.path.join(workdir, "liver.obj")
+    t0 = time.perf_counter()
+    with open(obj, "w") as fh:
+        fh.write(_obj_text(v, f, n, uv))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meshio.obj_library()
+    obj_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_native = meshio.load_mesh(obj)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_plain = meshio._load_obj(obj)
+    plain_s = time.perf_counter() - t0
+    equal = all(getattr(m_native, k).dtype == getattr(m_plain, k).dtype
+                and np.array_equal(getattr(m_native, k), getattr(m_plain, k))
+                for k in ("vertices", "faces", "normals", "uvs"))
+    emit("m9_obj", subdiv=OBJ_SUBDIV, tris=int(len(m_native.faces)),
+         vertices=int(len(m_native.vertices)),
+         bytes=os.path.getsize(obj), write_seconds=write_s,
+         build_seconds=obj_build_s, native_seconds=native_s,
+         plain_seconds=plain_s, plain_over_native=plain_s / native_s,
+         bit_identical=equal)
+    check(equal and len(m_native.faces) >= 300_000, "m9_obj: the C++ OBJ "
+          "parse differs from its plain version")
+
+    # ---- 22c. the main path from a JPEG height map and the DWAA sky at
+    # test size: the height map at BUMP_SMALL (at 16x12 the 1,024^2 map's
+    # bump frame jumps between texels, and an ulp of hit uv flips paths:
+    # card = CPU on 94-96 % of pixels, PNG or JPEG alike), JPEG-coded by
+    # the port's encoder (PIL's bytes)
+    jpg_small = os.path.join(workdir, "height_small.jpg")
+    with open(jpg_small, "wb") as fh:
+        fh.write(tjpeg.encode_jpeg(np.round(
+            height_map(BUMP_SMALL[0], SEED) * 255.0).astype(np.uint8)))
+    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
+                                    4, 2, SEED, sky_file=dwa,
+                                    height_file=jpg_small)
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
+    emit("m9_small", film=[16, 12], spp=4, pixel_frac=frac,
+         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "m9_small: the card's render disagrees with the CPU's")
+
+    # ---- 22d. at full size, in turns with its PNG + PIZ twin
+    m9_xml, sizes = xf.write_proxy_files(
+        os.path.join(workdir, "m9"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        sky_file=dwa, height_file=jpg)
+    twin_xml, twin_sizes = xf.write_proxy_files(
+        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], sky_file=piz)
+    loads, scenes = {}, {}
+    for which, path in (("m9", m9_xml), ("twin", twin_xml)):
+        loads[which], scenes[which] = timed_load(
+            torch, lambda: lrt.load_file(path))
+    secs = {"m9": [], "twin": []}
+    counts, imgs = {}, {}
+    for which in ("m9", "twin", "twin", "m9"):
+        reset_counts(ci)
+        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
+        counts.setdefault(which, launch_counts(ci))
+        imgs.setdefault(which, img)
+        secs[which].append(t)
+    img = imgs["m9"]
+    twin_rel = abs(float(img.mean()) - float(imgs["twin"].mean())) \
+        / float(imgs["twin"].mean())
+    emit("m9_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
+         bytes=sizes, twin_bytes=twin_sizes, load_file_seconds=loads,
+         render_seconds=secs,
+         m9_over_png_piz=statistics.median(secs["m9"])
+         / statistics.median(secs["twin"]),
+         paths_per_s=WIDTH * HEIGHT * CMP_SPP / statistics.median(secs["m9"]),
+         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
+         twin_mean=float(imgs["twin"].mean()), mean_rel_vs_twin=twin_rel,
+         launches=counts["m9"][0], merge_launches=counts["m9"][1],
+         twin_launches=counts["twin"][0],
+         twin_merge_launches=counts["twin"][1])
+    check(scenes["m9"].device.type == "cuda" and scenes["m9"].has_heightmap
+          and scenes["m9"].emitters.env_index >= 0,
+          "m9_render: load_file did not build the bumped, sky-lit proxy "
+          "on the card")
+    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
+          and twin_rel <= M9_TWIN_RTOL,
+          "m9_render: image not finite, its mean out of range or far from "
+          "its PNG + PIZ twin's")
+    check(counts["m9"][0] > 0 and counts["m9"][1] > 0,
+          "m9_render: the render launched no sweep or merge kernel")
+    emit("m9_phases", seconds=time.perf_counter() - t_start)
+    return {"m9_render": counts["m9"], "m9_twin": counts["twin"]}
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -5239,6 +5464,13 @@ def main() -> int:
     s17 = {**apps, **shard}
     s17_sweeps = sum(c[0] for c in s17.values())
     s17_merges = sum(c[1] for c in s17.values())
+
+    # ---- 22. the rest of the loader (M9): the DWAA sky and the JPEG
+    # height map on the main path, the C++ OBJ reader
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9_") as workdir:
+        m9 = m9_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps = sum(c[0] for c in m9.values())
+    m9_merges = sum(c[1] for c in m9.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -5268,7 +5500,7 @@ def main() -> int:
              + pipe_sweeps + spc["counts"][0] + spc_grad["fwd_launches"]
              + spc_grad["replay_launches"] + spc["film"][0]
              + spc["box"][0] + m10_sweeps + s15_sweeps + m10b_sweeps
-             + s17_sweeps,
+             + s17_sweeps + m9_sweeps,
              render_launches=launches,
              render_grad_launches=grad_counts,
              fog_render_launches=split_counts(fog_counts),
@@ -5308,6 +5540,7 @@ def main() -> int:
              m10b_launches={k: split_counts(c) for k, c in m10b.items()},
              apps_sharded_launches={k: split_counts(c)
                                     for k, c in s17.items()},
+             m9_launches={k: split_counts(c) for k, c in m9.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -5366,7 +5599,7 @@ def main() -> int:
              + spc_grad["fwd_merge_launches"]
              + spc_grad["replay_merge_launches"] + spc["film"][1]
              + spc["box"][1] + m10_merges + s15_merges + m10b_merges
-             + s17_merges,
+             + s17_merges + m9_merges,
              render_launches=merge_launches,
              bump_env_render_launches=bump_counts[1],
              xml_render_launches=xml_counts[1],
@@ -5384,6 +5617,7 @@ def main() -> int:
              shape_optimize_launches=shape["shape_optimize"][1],
              m10b_launches={k: c[1] for k, c in m10b.items()},
              apps_sharded_launches={k: c[1] for k, c in s17.items()},
+             m9_launches={k: c[1] for k, c in m9.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

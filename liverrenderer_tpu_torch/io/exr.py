@@ -7,11 +7,15 @@ Read: scanline and tiled files (one level, and level 0 of a mip- or
 ripmap), single- or multi-part (part 0, as `Imf::InputFile` reads it), of
 half, float and uint channels, with no, RLE, ZIPS, ZIP, PIZ, PXR24, B44 or
 B44A compression, written from the OpenEXR file-format specification in
-numpy.  PIZ's Huffman decode loop runs in C++ (csrc/exr_huf.cpp, built at
-first use; its plain Python version `_huf_decode_plain` is the reference
-the tests hold it to); the rest of each codec is vectorised numpy.  Deep
-files and DWA compression raise (ROADMAP M9).  Channels with x or y
-subsampling raise as well: no file the port reads has them.
+numpy, and DWAA/DWAB (lossy 8 x 8 DCT channels in the operation order of
+OpenEXR's AVX decoder, with its to-linear table; run-length and zlib
+channels), bit for bit as OpenEXR 3.1 decodes them.  PIZ's (and DWAA's AC)
+Huffman decode loop runs in C++ (csrc/exr_huf.cpp, built at first use;
+its plain Python version `_huf_decode_plain` is the reference the tests
+hold it to); the rest of each codec is vectorised numpy.  A deep scanline
+part is flattened as Imf::InputFile's compositor flattens it (`_read_deep`);
+deep tiled parts, and channels with x or y subsampling, raise OSError, as
+the JAX package's native reader does.
 
 `read_exr` returns R, G, B (alpha dropped), as the JAX package's pure
 reader does; `read_exr_any` keeps alpha and orders the channels R, G, B(,
@@ -28,7 +32,6 @@ from pathlib import Path
 
 import numpy as np
 
-from ..errors import not_ported
 
 MAGIC = 20000630
 
@@ -36,11 +39,12 @@ _PIX_UINT, _PIX_HALF, _PIX_FLOAT = 0, 1, 2
 _PIX_SIZE = {_PIX_UINT: 4, _PIX_HALF: 2, _PIX_FLOAT: 4}
 _PIX_NP = {_PIX_UINT: np.dtype("<u4"), _PIX_HALF: np.dtype("<f2"),
            _PIX_FLOAT: np.dtype("<f4")}
-_NONE, _RLE, _ZIPS, _ZIP, _PIZ, _PXR24, _B44, _B44A = range(8)
-_COMPRESSION = {8: "DWAA", 9: "DWAB"}
+_NONE, _RLE, _ZIPS, _ZIP, _PIZ, _PXR24, _B44, _B44A, _DWAA, _DWAB = \
+    range(10)
+_COMPRESSION = {_DWAA: "DWAA", _DWAB: "DWAB"}
 # scan lines per chunk of a scanline file
 _LINES = {_NONE: 1, _RLE: 1, _ZIPS: 1, _ZIP: 16, _PIZ: 32, _PXR24: 16,
-          _B44: 32, _B44A: 32}
+          _B44: 32, _B44A: 32, _DWAA: 32, _DWAB: 256}
 # version flags
 _TILED, _DEEP, _MULTIPART = 0x200, 0x800, 0x1000
 
@@ -120,7 +124,7 @@ def _parse_header(buf, off):
                                                             coff)
                 coff += 16
                 if (xs, ys) != (1, 1):
-                    raise not_ported("subsampled EXR channels", "Queue 1 M9")
+                    hdr["subsampled"] = cname
                 if ptype not in _PIX_SIZE:
                     raise ValueError(f"EXR pixel type {ptype}")
                 hdr["channels"].append((cname, ptype, bool(plinear)))
@@ -140,25 +144,26 @@ def _chunks(buf, path):
     magic, version = struct.unpack_from("<ii", buf, 0)
     if magic != MAGIC:
         raise ValueError(f"not an EXR file: {path}")
-    if version & _DEEP:
-        raise not_ported("deep EXR files", "Queue 1 M9")
     hdr, off = _parse_header(buf, 8)
     multipart = bool(version & _MULTIPART)
     if multipart:       # the other parts' headers, then an empty one
         while buf[off] != 0:
             _, off = _parse_header(buf, off)
         off += 1
+    if version & _DEEP and "type" not in hdr:
+        raise OSError(f"EXR: a deep file without a type attribute: {path}")
     kind = hdr.get("type", "tiledimage" if version & _TILED
                    else "scanlineimage")
-    if kind.startswith("deep"):
-        raise not_ported("deep EXR files", "Queue 1 M9")
+    hdr["kind"] = kind
+    if kind not in ("scanlineimage", "tiledimage", "deepscanline"):
+        # Imf::InputFile reads a deep scanline part through its compositor
+        # and refuses the other part types
+        raise OSError(f"EXR: cannot read parts of type {kind}: {path}")
     if "dw" not in hdr:
         raise ValueError(f"EXR file without a dataWindow: {path}")
     comp = hdr["compression"]
     if comp not in _LINES:
-        raise not_ported(
-            f"{_COMPRESSION.get(comp, comp)}-compressed EXR files",
-            "Queue 1 M9")
+        raise OSError(f"EXR: unknown compression {comp}: {path}")
     xmin, ymin, xmax, ymax = hdr["dw"]
     w, h = xmax - xmin + 1, ymax - ymin + 1
     if kind == "tiledimage":
@@ -178,6 +183,15 @@ def _chunks(buf, path):
                                  f"0's offset table: {path}")
             x0, y0 = dx * tx, dy * ty
             nx, ny, c = min(tx, w - x0), min(ty, h - y0), c + 20
+        elif kind == "deepscanline":
+            # the packed sample-count table and pixel data, then the
+            # data's unpacked size
+            y, n_tab, n_dat, n_raw = struct.unpack_from("<iqqq", buf, c)
+            c += 28
+            chunks.append((0, y - ymin, w, min(_LINES[comp], h - y + ymin),
+                           (buf[c:c + n_tab], buf[c + n_tab:c + n_tab + n_dat],
+                            n_raw)))
+            continue
         else:
             y, size = struct.unpack_from("<ii", buf, c)
             x0, y0 = 0, y - ymin
@@ -585,6 +599,254 @@ def _piz(raw: bytes, chans, nx, ny):
     return out
 
 
+# ---- DWAA / DWAB -------------------------------------------------------------
+# a chunk's header: 11 little-endian uint64 (the stream sizes and counts)
+(_DWA_VERSION, _DWA_UNKNOWN_RAW, _DWA_UNKNOWN_PACKED, _DWA_AC_PACKED,
+ _DWA_DC_PACKED, _DWA_RLE_PACKED, _DWA_RLE_RAW, _DWA_RLE_OUT, _DWA_AC_COUNT,
+ _DWA_DC_COUNT, _DWA_AC_CODEC) = range(11)
+_DWA_UNKNOWN, _DWA_LOSSY, _DWA_RLE_SCHEME = 0, 1, 2
+# the inverse DCT's constants, as OpenEXR's SIMD decoders store them:
+# a = .5 cos(pi/4), b, d, e, g = .5 cos(k pi/16) for k = 1, 3, 5, 7,
+# c, f = .5 cos(k pi/8) for k = 1, 3 (decimal literals rounded to float32)
+_DWA_IDCT = np.array([3.535536e-01, 4.903927e-01, 4.619398e-01,
+                      4.157349e-01, 2.777855e-01, 1.913422e-01, 9.754573e-02],
+                     np.float32)
+# each row pass output j is sum_k x_{2k} M1[k][j] (+/-) sum_k x_{2k+1}
+# M2[k][j]
+_A, _B, _C, _D, _E, _F, _G = _DWA_IDCT
+_DWA_M1 = np.array([[_A, _A, _A, _A], [_C, _F, -_F, -_C], [_A, -_A, -_A, _A],
+                    [_F, -_C, _C, -_F]], np.float32)
+_DWA_M2 = np.array([[_B, _D, _E, _G], [_D, -_G, -_B, -_E], [_E, -_B, _G, _D],
+                    [_G, -_E, _D, -_B]], np.float32)
+_DWA_DC_ONLY = np.float32(3.535536e-01)
+_TO_LINEAR = None
+
+
+def dwa_to_linear_table() -> np.ndarray:
+    """OpenEXR's dwaCompressorToLinear for every half bit pattern: |h| <= 1
+    -> sign * |h|^2.2, else sign * (e^2.2)^(|h| - 1), in float32 rounded to
+    half; 0 for zero, infinities and NaNs."""
+    global _TO_LINEAR
+    if _TO_LINEAR is None:
+        bits = np.arange(1 << 16, dtype=np.uint32)
+        h = bits.astype(np.uint16).view(np.float16).astype(np.float32)
+        with np.errstate(all="ignore"):
+            a = np.abs(h).astype(np.float64)
+            log_base = np.float64(np.float32(2.7182818 ** 2.2))
+            lin = np.where(a <= 1.0, a ** np.float64(np.float32(2.2)),
+                           log_base ** (a - 1.0).astype(np.float32)
+                           .astype(np.float64)).astype(np.float32)
+            v = np.where(h < 0, -lin, lin).astype(np.float16) \
+                .view(np.uint16)
+        v[(bits & 0x7C00) == 0x7C00] = 0
+        v[0] = 0
+        _TO_LINEAR = v
+    return _TO_LINEAR
+
+
+# the rules of chunks before version 2, which carry none: (suffix,
+# case-insensitive, scheme, csc index, pixel type)
+_DWA_LEGACY_RULES = [
+    (suf, True, _DWA_LOSSY, csc, t)
+    for suf, csc in (("r", 0), ("red", 0), ("g", 1), ("grn", 1),
+                     ("green", 1), ("b", 2), ("blu", 2), ("blue", 2),
+                     ("y", -1), ("by", -1), ("ry", -1))
+    for t in (_PIX_HALF, _PIX_FLOAT)] + [
+    ("a", True, _DWA_RLE_SCHEME, -1, t)
+    for t in (_PIX_UINT, _PIX_HALF, _PIX_FLOAT)]
+
+
+def _dwa_rules(raw: bytes, off: int):
+    """Version 2's channel rules -> ([(suffix, case-insensitive, scheme,
+    csc index, pixel type)], offset past them)."""
+    size = struct.unpack_from("<H", raw, off)[0]
+    end, off = off + size, off + 2
+    rules = []
+    while off < end:
+        suffix, off = _read_cstr(raw, off)
+        val, ptype = raw[off], raw[off + 1]
+        off += 2
+        rules.append((suffix, bool(val & 1), (val >> 2) & 3, (val >> 4) - 1,
+                      ptype))
+    return rules, end
+
+
+def _dwa_classify(chans, rules):
+    """Each channel's scheme (the last rule matching its suffix and type)
+    and the sets of R, G, B channels (csc 0, 1, 2) sharing a prefix, in
+    prefix order -> (schemes, [(r, g, b) channel indices])."""
+    schemes, sets = [], {}
+    for i, (name, t, _) in enumerate(chans):
+        prefix, _, suffix = name.rpartition(".")
+        sets.setdefault(prefix, [-1, -1, -1])
+        scheme = _DWA_UNKNOWN
+        for suf, nocase, sch, csc, rt in rules:
+            if rt == t and (suffix.lower() if nocase else suffix) == suf:
+                scheme = sch
+                if csc >= 0:
+                    sets[prefix][csc] = i
+        schemes.append(scheme)
+    return schemes, [tuple(v) for _, v in sorted(sets.items())
+                     if min(v) >= 0]
+
+
+def _dwa_unpack_ac(ac: np.ndarray, n_blocks: int):
+    """The AC stream (0xff00 ends a block, 0xffNN skips NN zeros, any other
+    value is the next zig-zag coefficient) -> ((n_blocks, 64) uint16 half
+    bits, coefficient 0 left zero, and each block's last position written
+    (0: none))."""
+    hi = ac >> 8
+    adv = np.where(hi != 0xFF, 1, ac & 0xFF).astype(np.int64)
+    adv[ac == 0xFF00] = 64
+    csum = np.concatenate([[0], np.cumsum(adv)])
+    starts = np.empty(n_blocks + 1, np.int64)
+    s = 0
+    for b in range(n_blocks):    # a block ends once 63 positions are filled
+        starts[b] = s
+        e = int(np.searchsorted(csum, csum[s] + 63, "left"))
+        if e > len(ac):
+            raise ValueError("EXR DWA: the AC stream ends inside a block")
+        s = e
+    starts[n_blocks] = s
+    used = s
+    blk = np.repeat(np.arange(n_blocks), np.diff(starts))
+    idx = np.arange(used)
+    pos = 1 + csum[idx] - csum[starts[blk]]
+    lit = (hi[:used] != 0xFF) & (pos < 64)
+    out = np.zeros((n_blocks, 64), np.uint16)
+    out[blk[lit], pos[lit]] = ac[:used][lit]
+    last = np.zeros(n_blocks, np.int64)
+    np.maximum.at(last, blk[lit], pos[lit])
+    return out, last, used
+
+
+def _dwa_idct(x: np.ndarray) -> np.ndarray:
+    """OpenEXR's 8 x 8 float inverse DCT over (N, 8, 8) float32 blocks, in
+    the operation order of its AVX decoder (each operation rounded to
+    float32): rows as a 4 x 4 matrix product on the even and on the odd
+    coefficients (pairwise sums), then columns by the even/odd butterfly."""
+    def pairs(t):
+        return (t[0] + t[1]) + (t[2] + t[3])
+
+    ev = pairs([x[:, :, 2 * k, None] * _DWA_M1[k] for k in range(4)])
+    od = pairs([x[:, :, 2 * k + 1, None] * _DWA_M2[k] for k in range(4)])
+    rows = np.concatenate([ev + od, (ev - od)[..., ::-1]], -1)
+    v = [rows[:, k, :] for k in range(8)]
+    a, b, c, d, e, f, g = _DWA_IDCT
+    th0, th3 = a * v[0] + a * v[4], a * v[0] - a * v[4]
+    th1, th2 = c * v[2] + f * v[6], f * v[2] - c * v[6]
+    ga0, ga3, ga1, ga2 = th0 + th1, th0 - th1, th3 + th2, th3 - th2
+    be0 = (b * v[1] + d * v[3]) + (e * v[5] + g * v[7])
+    be1 = (d * v[1] - (g * v[3] + b * v[5])) - e * v[7]
+    be2 = ((e * v[1] - b * v[3]) + g * v[5]) + d * v[7]
+    be3 = (g * v[1] + d * v[5]) - (e * v[3] + b * v[7])
+    return np.stack([ga0 + be0, ga1 + be1, ga2 + be2, ga3 + be3,
+                     ga3 - be3, ga2 - be2, ga1 - be1, ga0 - be0], 1)
+
+
+def _dwa_lossy(dc: np.ndarray, ac: np.ndarray, last: np.ndarray, n: int,
+               nx: int, ny: int) -> list:
+    """One decoder's n components: (n * nb,) DC half bits (plane after
+    plane), (nb * n, 64) AC half bits (block after block, its components in
+    turn) -> n (ny, nx) planes of float32 still to be colour-converted."""
+    bx, by = -(-nx // 8), -(-ny // 8)
+    nb = bx * by
+    zz = np.zeros((nb, n, 64), np.uint16)
+    zz[:] = ac.reshape(nb, n, 64)
+    zz[:, :, 0] = dc.reshape(n, nb).T
+    coef = zz.view(np.float16).astype(np.float32)
+    from .jpeg import ZIGZAG
+    nat = np.empty_like(coef)
+    nat[..., ZIGZAG] = coef
+    out = _dwa_idct(nat.reshape(-1, 8, 8)).reshape(nb, n, 64)
+    # a block with no AC value: every sample is DC * c * c
+    dc_only = last.reshape(nb, n) == 0
+    flat = coef[..., 0] * _DWA_DC_ONLY * _DWA_DC_ONLY
+    out = np.where(dc_only[..., None], flat[..., None], out)
+    return [out[:, k].reshape(by, bx, 8, 8).transpose(0, 2, 1, 3)
+            .reshape(8 * by, 8 * bx)[:ny, :nx] for k in range(n)]
+
+
+def _dwa(raw: bytes, chans, nx, ny):
+    """DWAA and DWAB: lossy 8 x 8 DCT channels (R, G, B sets through
+    Y'CbCr), run-length (RLE) channels and zlib (UNKNOWN) channels, each
+    stream as the chunk header sizes it."""
+    hdr = struct.unpack_from("<11Q", raw, 0)
+    if hdr[_DWA_VERSION] > 2:
+        raise OSError(f"EXR DWA: chunk version {hdr[_DWA_VERSION]}")
+    if hdr[_DWA_VERSION] == 2:
+        rules, off = _dwa_rules(raw, 88)
+    else:
+        rules, off = _DWA_LEGACY_RULES, 88
+    sizes = [hdr[_DWA_UNKNOWN_PACKED], hdr[_DWA_AC_PACKED],
+             hdr[_DWA_DC_PACKED], hdr[_DWA_RLE_PACKED]]
+    bounds = np.cumsum([off] + sizes)
+    unknown, ac_raw, dc_raw, rle_raw = (raw[bounds[i]:bounds[i + 1]]
+                                        for i in range(4))
+    schemes, sets = _dwa_classify(chans, rules)
+    out = {}
+    # the run-length channels: zlib, the signed-count RLE, then each
+    # channel's byte planes in turn
+    if hdr[_DWA_RLE_OUT]:
+        planes = np.frombuffer(_rle(zlib.decompress(rle_raw)), np.uint8)
+        pos = 0
+        for (c, t, _), sch in zip(chans, schemes):
+            if sch != _DWA_RLE_SCHEME:
+                continue
+            k = _PIX_SIZE[t]
+            bytes_ = planes[pos:pos + k * nx * ny].reshape(k, ny, nx)
+            pos += k * nx * ny
+            out[c] = np.ascontiguousarray(bytes_.transpose(1, 2, 0)) \
+                .view(_PIX_NP[t])[..., 0]
+    # the UNKNOWN channels: zlib, each channel's lines in turn
+    if hdr[_DWA_UNKNOWN_PACKED]:
+        data = zlib.decompress(unknown)
+        pos = 0
+        for (c, t, _), sch in zip(chans, schemes):
+            if sch == _DWA_UNKNOWN:
+                n = _PIX_SIZE[t] * nx * ny
+                out[c] = np.frombuffer(data, _PIX_NP[t], nx * ny, pos) \
+                    .reshape(ny, nx)
+                pos += n
+    # the lossy channels: the R, G, B sets first, then the rest in order
+    groups = [list(st) for st in sets]
+    in_sets = {i for st in sets for i in st}
+    groups += [[i] for i, sch in enumerate(schemes)
+               if sch == _DWA_LOSSY and i not in in_sets]
+    if not groups:
+        return out
+    nb = -(-nx // 8) * -(-ny // 8)
+    n_ac = hdr[_DWA_AC_COUNT]
+    if hdr[_DWA_AC_CODEC] == 0:
+        ac = huf_uncompress(ac_raw, n_ac) if n_ac else \
+            np.zeros(0, np.uint16)
+    else:
+        ac = np.frombuffer(zlib.decompress(ac_raw), "<u2")
+    dc = np.frombuffer(_reorder_unpredict(zlib.decompress(dc_raw)), "<u2")
+    total = sum(len(gr) for gr in groups) * nb
+    ac_blocks, last, _ = _dwa_unpack_ac(ac, total)
+    lut = dwa_to_linear_table()
+    pos = 0
+    for gr in groups:
+        n = len(gr)
+        planes = _dwa_lossy(dc[pos:pos + n * nb], ac_blocks[pos:pos + n * nb],
+                            last[pos:pos + n * nb], n, nx, ny)
+        pos += n * nb
+        if n == 3:       # Rec. 709 Y'CbCr -> R'G'B'
+            y, cb, cr = planes
+            planes = [y + np.float32(1.5747) * cr,
+                      y - np.float32(0.1873) * cb - np.float32(0.4682) * cr,
+                      y + np.float32(1.8556) * cb]
+        for i, pl in zip(gr, planes):
+            c, t, linear = chans[i]
+            bits = pl.astype(np.float16).view(np.uint16)
+            if n == 3 or not linear:
+                bits = lut[bits]
+            half = bits.view(np.float16)
+            out[c] = half if t == _PIX_HALF else half.astype(np.float32)
+    return out
+
+
 def _decode(comp, raw: bytes, chans, nx, ny):
     """One chunk -> {channel: (ny, nx) pixels}.  A chunk no smaller than
     its pixels is stored raw, whatever the file's compression."""
@@ -600,7 +862,67 @@ def _decode(comp, raw: bytes, chans, nx, ny):
         return _piz(raw, chans, nx, ny)
     if comp == _PXR24:
         return _pxr24(zlib.decompress(raw), chans, nx, ny)
+    if comp in (_DWAA, _DWAB):
+        return _dwa(raw, chans, nx, ny)
     return _b44(raw, chans, nx, ny)
+
+
+def _unpack_bytes(comp, raw: bytes, n: int) -> bytes:
+    """A deep chunk's table or data: n bytes, stored raw unless packing
+    made them smaller (none, RLE, ZIPS and ZIP are a deep part's codecs)."""
+    if comp == _NONE or len(raw) >= n:
+        return raw[:n]
+    if comp == _RLE:
+        return _reorder_unpredict(_rle(raw))
+    if comp in (_ZIPS, _ZIP):
+        return _reorder_unpredict(zlib.decompress(raw))
+    raise OSError(f"EXR: compression {comp} in a deep part")
+
+
+def _read_deep(hdr, chunks, chans, w, h):
+    """A deep scanline part flattened as Imf::InputFile's compositor does
+    it (CompositeDeepScanLine, one source): each pixel's samples in the
+    order stored, every channel (Z too) summed as out += (1 - alpha) *
+    sample in float32, alpha the composited A before the sample, until
+    alpha reaches 1.  It needs Z and A channels."""
+    names = [c for c, _, _ in chans]
+    for need, what in (("Z", "a Z channel"), ("A", "an alpha channel")):
+        if need not in names:
+            raise OSError(f"Deep data provided to CompositeDeepScanLine is "
+                          f"missing {what}")
+    comp = hdr["compression"]
+    out = {c: np.zeros((h, w), np.float32) for c in names}
+    for _, y0, nx, ny, (tab, dat, n_raw) in chunks:
+        cum = np.frombuffer(_unpack_bytes(comp, tab, 4 * nx * ny), "<i4") \
+            .reshape(ny, nx).astype(np.int64)
+        counts = np.diff(np.concatenate([np.zeros((ny, 1), np.int64), cum],
+                                        1), axis=1)
+        data = _unpack_bytes(comp, dat, n_raw)
+        pos = 0
+        samples = {c: [] for c in names}
+        # each line holds every channel's samples, pixel by pixel
+        for line in range(ny):
+            n = int(cum[line, -1]) if nx else 0
+            for c, t, _ in chans:
+                samples[c].append(np.frombuffer(data, _PIX_NP[t], n, pos)
+                                  .astype(np.float32))
+                pos += n * _PIX_SIZE[t]
+        vals = {c: np.concatenate(v) if v else np.zeros(0, np.float32)
+                for c, v in samples.items()}
+        cnt = counts.reshape(-1)
+        first = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        acc = {c: np.zeros(nx * ny, np.float32) for c in names}
+        done = np.zeros(nx * ny, bool)
+        for k in range(int(cnt.max()) if cnt.size else 0):
+            alpha = acc["A"].copy()
+            done |= alpha >= np.float32(1)
+            live = (k < cnt) & ~done
+            idx = first[live] + k
+            for c in names:
+                acc[c][live] += (np.float32(1) - alpha[live]) * vals[c][idx]
+        for c in names:
+            out[c][y0:y0 + ny] = acc[c].reshape(ny, nx)
+    return out
 
 
 def read_channels(path: str):
@@ -608,10 +930,17 @@ def read_channels(path: str):
     with open(path, "rb") as f:
         buf = f.read()
     hdr, chunks = _chunks(buf, path)
+    if "subsampled" in hdr:
+        # Imf::InputFile refuses the 1 x 1 float frame buffer for it
+        raise OSError(f"EXR: the x and/or y subsampling factors of channel "
+                      f"{hdr['subsampled']!r} of {path} are not 1")
     xmin, ymin, xmax, ymax = hdr["dw"]
     w, h = xmax - xmin + 1, ymax - ymin + 1
     # a line holds every channel in name order
     chans = sorted(hdr["channels"])
+    if hdr["kind"] == "deepscanline":
+        return ([c for c, _, _ in hdr["channels"]],
+                _read_deep(hdr, chunks, chans, w, h))
     out = {c: np.zeros((h, w), np.float32) for c, _, _ in chans}
     for x0, y0, nx, ny, raw in chunks:
         for c, pix in _decode(hdr["compression"], raw, chans, nx,

@@ -1,10 +1,17 @@
-"""Image IO (counterpart of liverrenderer_tpu/io/image.py): EXR, PFM and
-PNG files through the port's own codecs, with no PIL.
+"""Image IO (counterpart of liverrenderer_tpu/io/image.py): EXR, PFM, PNG,
+JPEG, PPM/PGM/PBM, BMP and TGA files through the port's own codecs, with
+no PIL.
 
-PNG pixels are read as the JAX package reads them through PIL
-(`convert("RGB")`, / 255, then the sRGB curve unless `srgb_to_linear` is
-false); EXR files as it reads them with its native library built
-(R, G, B(, A), alpha kept).  JPEG and other formats raise (ROADMAP M9).
+8-bit images are read as the JAX package reads them through PIL (the
+format found from the file's first bytes, as PIL finds it, TGA from its
+extension; `convert("RGB")`, / 255, then the sRGB curve unless
+`srgb_to_linear` is false); EXR files as it reads them with its native
+library built (R, G, B(, A), alpha kept).  A file PIL cannot identify,
+such as an RGBE `.hdr`, raises OSError as PIL's UnidentifiedImageError
+does; the other formats PIL reads (GIF, TIFF, WebP, ...) raise (ROADMAP
+M9).  Written files: EXR, PFM, and after an ordered dither to 8 bits PNG,
+JPEG (PIL's defaults: quality 75, 4:2:0), PPM, BMP and TGA, byte for byte
+as the JAX package writes them through PIL.
 """
 from __future__ import annotations
 
@@ -14,8 +21,21 @@ import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
+from . import raster
 from .exr import read_exr_any, write_exr
+from .jpeg import encode_jpeg, read_jpeg
 from .png import read_png, write_png
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# formats PIL reads and the port does not: their first bytes
+_OTHER_PIL = (b"GIF87a", b"GIF89a", b"II*\x00", b"MM\x00*", b"RIFF",
+              b"\x00\x00\x01\x00", b"8BPS", b"\x8aMNG", b"DDS ", b"qoif",
+              b"\x00\x00\x00\x0cjP  ", b"\xffO\xffQ", b"icns")
+# writers of 8-bit files by extension (PIL's registry)
+_WRITERS = {".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg", ".jfif": "jpeg",
+            ".ppm": "ppm", ".pgm": "ppm", ".pbm": "ppm", ".pnm": "ppm",
+            ".bmp": "bmp", ".tga": "tga", ".icb": "tga", ".vda": "tga",
+            ".vst": "tga"}
 
 # the 4 x 4 ordered-dither thresholds of an 8-bit write
 _BAYER = np.array([[0, 8, 2, 10], [12, 4, 14, 6],
@@ -29,14 +49,34 @@ def read_image(path: str, srgb_to_linear: bool = True) -> np.ndarray:
         return read_exr_any(path)
     if ext == ".pfm":
         return _read_pfm(path)
-    if ext != ".png":
-        raise not_ported(f"{ext or 'extension-less'} image files",
-                         "Queue 1 M9")
-    img = read_png(path).astype(np.float32) / 255.0
+    img = read_8bit(path).astype(np.float32) / 255.0
     if srgb_to_linear:
         img = np.where(img <= 0.04045, img / 12.92,
                        ((img + 0.055) / 1.055) ** 2.4).astype(np.float32)
     return img
+
+
+def read_8bit(path: str) -> np.ndarray:
+    """A PNG, JPEG, PPM/PGM/PBM, BMP or TGA file -> (H, W, 3) uint8, as
+    PIL's `Image.open(path).convert("RGB")` returns it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIG):
+        return read_png(path)
+    if data.startswith(b"\xff\xd8\xff"):
+        return read_jpeg(data)
+    if data.startswith(b"BM"):
+        return raster.read_bmp(data)
+    if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"123456" \
+            and data[2:3] in b" \t\n\r\x0b\x0c":
+        return raster.read_ppm(data)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".tga", ".icb", ".vda", ".vst"):
+        return raster.read_tga(data)
+    if data.startswith(_OTHER_PIL):
+        raise not_ported(f"{ext or 'extension-less'} image files",
+                         "Queue 1 M9")
+    raise OSError(f"cannot identify image file {path!r}")
 
 
 def write_image(path: str, img: np.ndarray):
@@ -50,7 +90,8 @@ def write_image(path: str, img: np.ndarray):
     if ext == ".pfm":
         _write_pfm(path, img)
         return
-    if ext != ".png":
+    kind = "png" if ext == ".png" else _WRITERS.get(ext)
+    if kind is None:
         raise not_ported(f"writing {ext or 'extension-less'} image files",
                          "Queue 1 M9")
     ldr = np.clip(linear_to_srgb_np(np.clip(img, 0, None)), 0, 1)
@@ -58,7 +99,16 @@ def write_image(path: str, img: np.ndarray):
     thresh = np.tile(_BAYER, ((h + 3) // 4, (w + 3) // 4))[:h, :w]
     if ldr.ndim == 3:
         thresh = thresh[..., None]
-    write_png(path, (ldr * 255 + thresh).astype(np.uint8))
+    px = (ldr * 255 + thresh).astype(np.uint8)
+    if kind == "png":
+        write_png(path, px)
+        return
+    if kind == "jpeg" and px.ndim == 3 and px.shape[2] == 4:
+        raise OSError("cannot write mode RGBA as JPEG")
+    data = {"jpeg": encode_jpeg, "ppm": raster.encode_ppm,
+            "bmp": raster.encode_bmp, "tga": raster.encode_tga}[kind](px)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _read_pfm(path: str) -> np.ndarray:

@@ -2,13 +2,18 @@
 `.serialized` (counterpart of liverrenderer_tpu/scene/meshio.py), host
 numpy.
 
-The OBJ reader returns what the JAX package returns with its native
-library built (native/mesh_load.cpp), which the port does not load: a
-corner without a texture index gets uv (0, 0) (the JAX package's Python
-reader gives (0, 1)), and zero normals are replaced by the computed vertex
-normals.
+OBJ files go through the port's C++ reader (csrc/mesh_load.cpp, its copy
+of the JAX package's native/mesh_load.cpp, built at first use by
+host_build.compile_shared; a failed build raises) and return what the JAX
+package returns with its native library built: a corner without a texture
+index gets uv (0, 0) (the JAX package's Python reader gives (0, 1)), and
+zero normals are replaced by the computed vertex normals.  `_load_obj` is
+the reader's plain Python version, which the tests hold it to.
 """
 from __future__ import annotations
+
+import ctypes
+from pathlib import Path
 
 import numpy as np
 
@@ -23,6 +28,9 @@ _PLY_T = {"float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
 _S_NORMALS, _S_UVS, _S_COLORS, _S_FACE_NORMALS, _S_DOUBLE = \
     0x0001, 0x0002, 0x0008, 0x0010, 0x2000
 
+_OBJ_SRC = Path(__file__).resolve().parent.parent / "csrc" / "mesh_load.cpp"
+_OBJ_LIB = None
+
 
 def load_mesh(path: str, face_normals: bool = False,
               shape_index: int = 0) -> geo.MeshData:
@@ -32,7 +40,7 @@ def load_mesh(path: str, face_normals: bool = False,
     if low.endswith(".serialized"):
         mesh = _load_serialized(path, shape_index)
     elif low.endswith(".obj"):
-        mesh = _load_obj(path)
+        mesh = load_obj_native(path)
     elif low.endswith(".ply"):
         mesh = _load_ply(path)
     else:
@@ -58,6 +66,56 @@ def _float3(toks, k):
         except ValueError:
             out.append(np.float32(0.0))
     return out + [np.float32(0.0)] * (k - len(out))
+
+
+def obj_library():
+    """Build (once per source hash) and load csrc/mesh_load.cpp; raises if
+    the compiler fails."""
+    global _OBJ_LIB
+    if _OBJ_LIB is None:
+        from ..host_build import BUILD_DIR, compile_shared
+        info = compile_shared(_OBJ_SRC, BUILD_DIR, "OBJ reader")
+        lib = ctypes.CDLL(info["path"])
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.lrt_obj_load.argtypes = [ctypes.c_char_p, i64p, i64p, i64p, i32p,
+                                     i32p]
+        lib.lrt_obj_load.restype = ctypes.c_int
+        p = ctypes.c_void_p
+        lib.lrt_obj_fetch.argtypes = [ctypes.c_int64, p, p, p, p]
+        lib.lrt_obj_fetch.restype = ctypes.c_int
+        _OBJ_LIB = lib
+    return _OBJ_LIB
+
+
+def load_obj_native(path: str) -> geo.MeshData:
+    """An OBJ file through the C++ reader, zero normals repaired."""
+    lib = obj_library()
+    handle, nv, nt = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    has_uv, has_n = ctypes.c_int32(), ctypes.c_int32()
+    if lib.lrt_obj_load(str(path).encode(), ctypes.byref(handle),
+                        ctypes.byref(nv), ctypes.byref(nt),
+                        ctypes.byref(has_uv), ctypes.byref(has_n)) != 0:
+        raise OSError(f"OBJ load failed: {path}")
+    verts = np.empty((nv.value, 3), np.float32)
+    faces = np.empty((nt.value, 3), np.int32)
+    nrms = np.empty((nv.value, 3), np.float32) if has_n.value else None
+    uvs = np.empty((nv.value, 2), np.float32) if has_uv.value else None
+    lib.lrt_obj_fetch(handle.value, verts.ctypes.data, faces.ctypes.data,
+                      None if nrms is None else nrms.ctypes.data,
+                      None if uvs is None else uvs.ctypes.data)
+    return geo.MeshData(verts, faces, _repair_normals(verts, faces, nrms),
+                        uvs)
+
+
+def _repair_normals(verts, faces, nrms):
+    """Zero normals (a corner without a normal index) -> the computed
+    vertex normals, as the JAX package repairs its native reader's."""
+    if nrms is not None:
+        bad = np.linalg.norm(nrms, axis=-1) < 1e-8
+        if bad.any():
+            nrms[bad] = geo.compute_vertex_normals(verts, faces)[bad]
+    return nrms
 
 
 def _load_obj(path: str) -> geo.MeshData:
@@ -118,11 +176,8 @@ def _load_obj(path: str) -> geo.MeshData:
     faces = np.asarray(faces, np.int32).reshape(-1, 3)
     uvs = np.asarray(uvs, np.float32) if has_uv else None
     nrms = np.asarray(nrms, np.float32) if has_n else None
-    if nrms is not None:
-        bad = np.linalg.norm(nrms, axis=-1) < 1e-8
-        if bad.any():
-            nrms[bad] = geo.compute_vertex_normals(verts, faces)[bad]
-    return geo.MeshData(verts, faces, nrms, uvs)
+    return geo.MeshData(verts, faces, _repair_normals(verts, faces, nrms),
+                        uvs)
 
 
 def _load_serialized(path: str, shape_index: int = 0) -> geo.MeshData:

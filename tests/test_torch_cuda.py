@@ -1076,3 +1076,93 @@ def test_sharded_world_of_one_over_nccl_matches_unsharded():
         assert abs(float(a.norm() / b.norm()) - 1.0) <= 1e-2
     finally:
         dist.destroy_process_group()
+
+
+# ---- the rest of the loader (M9): the host decoders on the card's machine
+# (its compiler builds the C++ loops) and the scene from those files
+def _data(name):
+    from pathlib import Path
+    return str(Path(__file__).resolve().parent / "data" / name)
+
+
+@pytest.mark.cuda
+def test_jpeg_decode_on_the_card_host_matches_plain():
+    """The committed JPEG height map: the C++ entropy loop against its
+    plain version on a crop, and the full decode against the PNG codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import jpeg
+    from liverrenderer_tpu_torch.scene.liver_proxy import height_map
+    with open(_data("torch_height.jpg"), "rb") as fh:
+        full = jpeg.read_jpeg(fh.read())
+    codes = np.round(height_map(1024, 0) * 255.0).astype(np.uint8)
+    assert np.abs(full[..., 0].astype(int) - codes).max() <= 3
+    crop = jpeg.encode_jpeg(full[:64, :96, 0])
+    np.testing.assert_array_equal(jpeg.read_jpeg(crop, jpeg._scan_plain),
+                                  jpeg.read_jpeg(crop))
+
+
+@pytest.mark.cuda
+def test_dwa_decode_on_the_card_host_matches_plain(monkeypatch):
+    """The committed DWAA sky through the C++ Huffman loop and its plain
+    version, and within the lossy bound of the PIZ sky."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import exr as texr
+    native = texr.read_exr_any(_data("torch_sky_dwaa.exr"))
+    piz = texr.read_exr_any(_data("torch_sky_piz.exr"))
+    rel = np.abs(native - piz) / np.maximum(np.abs(piz), 1e-6)
+    assert rel.max() <= 0.0102 and rel.mean() <= 7.0e-4
+    monkeypatch.setattr(texr, "_huf_decode_native", texr._huf_decode_plain)
+    np.testing.assert_array_equal(texr.read_exr_any(
+        _data("torch_sky_dwaa.exr")), native)
+
+
+@pytest.mark.cuda
+def test_obj_parse_on_the_card_host_matches_plain(tmp_path):
+    """The liver proxy (subdivision 5) as OBJ: the C++ parse and its plain
+    version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene import meshio
+    from liverrenderer_tpu_torch.scene.liver_proxy import liver_mesh
+    v, f, n, uv = liver_mesh(5, 0)
+    lines = [f"v {a!r} {b!r} {c!r}" for a, b, c in v.tolist()]
+    lines += [f"vt {a!r} {b!r}" for a, b in uv.tolist()]
+    lines += [f"vn {a!r} {b!r} {c!r}" for a, b, c in n.tolist()]
+    lines += ["f " + " ".join(f"{i + 1}/{i + 1}/{i + 1}" for i in tri)
+              for tri in f.tolist()]
+    p = tmp_path / "liver.obj"
+    p.write_text("\n".join(lines) + "\n")
+    a, b = meshio.load_mesh(str(p)), meshio._load_obj(str(p))
+    for k in ("vertices", "faces", "normals", "uvs"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+
+
+@pytest.mark.cuda
+def test_m9_scene_on_the_card_matches_cpu(tmp_path):
+    """bench.py's workload path from XML with a 32^2 JPEG height map (the
+    port's encoder) and the committed DWAA sky at 16x12, 4 spp: the
+    card's render against the CPU's.  (The committed 1,024^2 height map
+    at 16x12 puts texel edges inside pixels, where an ulp of hit uv bends
+    a path: card = CPU on only ~95 % of pixels, PNG or JPEG alike.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import jpeg
+    from liverrenderer_tpu_torch.scene.liver_proxy import height_map
+    from torch_xml_files import write_proxy_files
+    jpg = tmp_path / "h.jpg"
+    jpg.write_bytes(jpeg.encode_jpeg(
+        np.round(height_map(32, 0) * 255.0).astype(np.uint8)))
+    path, _ = write_proxy_files(str(tmp_path / "scene"), 16, 12, 4,
+                                subdiv=2, height_file=str(jpg),
+                                sky_file=_data("torch_sky_dwaa.exr"))
+    ref = lrt.render(lrt.load_file(path, device="cpu"), spp=4).numpy()
+    scene = lrt.load_file(path)
+    assert scene.device.type == "cuda" and scene.has_heightmap
+    before = tci.LAUNCHES
+    img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())

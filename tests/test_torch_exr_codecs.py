@@ -57,17 +57,20 @@ def exr_writer(tmp_path_factory):
 
 
 def write_with_openexr(exe, path, channels, compression, layout="scanline",
-                       origin=(0, 0), linear=()):
+                       origin=(0, 0), linear=(), counts=None):
     """channels: {name: (h, w) float16, float32 or uint32 array}; linear:
-    the names flagged pLinear."""
+    the names flagged pLinear; a deep layout takes the (h, w) sample
+    `counts` and each channel's samples as a flat array."""
     path = Path(path)
-    h, w = next(iter(channels.values())).shape
+    h, w = (counts if counts is not None
+            else next(iter(channels.values()))).shape
     man = path.with_suffix(".manifest")
     data = path.with_suffix(".raw")
     man.write_text("".join(f"{n} {_TYPE[a.dtype]} {int(n in linear)}\n"
                            for n, a in channels.items()))
-    data.write_bytes(b"".join(np.ascontiguousarray(a).tobytes()
-                              for a in channels.values()))
+    head = b"" if counts is None else counts.astype(np.uint32).tobytes()
+    data.write_bytes(head + b"".join(np.ascontiguousarray(a).tobytes()
+                                     for a in channels.values()))
     subprocess.run([str(exe), str(path), compression, layout,
                     str(origin[0]), str(origin[1]), str(w), str(h), str(man),
                     str(data)], check=True, capture_output=True)
@@ -184,18 +187,23 @@ def test_y_and_other_channel_sets(exr_writer, tmp_path):
 
 
 def test_dwa_and_deep_still_raise(exr_writer, tmp_path):
-    """DWA compression and deep files raise, naming Queue 1 M9."""
+    """DWA compression now decodes as the native reader decodes it
+    (tests/test_torch_exr_dwa.py has the codec's cases); a file whose
+    version claims deep data without a deep part type still raises
+    OSError, as the native reader's does."""
+    _native_available()
     chans = {"R": np.ones((H, W), np.float16)}
     path = tmp_path / "dwaa.exr"
     write_with_openexr(exr_writer, path, chans, "dwaa")
-    with pytest.raises(NotImplementedError, match="Queue 1 M9"):
-        texr.read_exr_any(str(path))
+    _nan_equal(texr.read_exr_any(str(path)), jimage.read_exr_any(str(path)))
     deep = tmp_path / "deep.exr"
     write_with_openexr(exr_writer, deep, chans, "zip")
     buf = bytearray(deep.read_bytes())
     buf[5] |= 0x08                  # the version's deep flag
     deep.write_bytes(bytes(buf))
-    with pytest.raises(NotImplementedError, match="Queue 1 M9"):
+    with pytest.raises(OSError):
+        jimage.read_exr_any(str(deep))
+    with pytest.raises(OSError, match="deep"):
         texr.read_exr_any(str(deep))
 
 

@@ -85,8 +85,11 @@ def test_exr_writer_float_round_trip(tmp_path, np_rng):
 
 @pytest.mark.parametrize("what", ["DWAA", "DWAB", "deep", "subsampled"])
 def test_exr_codecs_it_lacks_raise(tmp_path, np_rng, what):
-    """What the reader still lacks raises, naming Queue 1 M9 (the other
-    codecs and layouts: tests/test_torch_exr_codecs.py)."""
+    """Files forged to claim DWA compression, deep data or a subsampled
+    channel (which the reader no longer lacks: tests/test_torch_exr_dwa.py
+    has the real ones) are read, or refused with OSError, as the JAX
+    package's native reader reads or refuses them."""
+    _need_native()
     p = str(tmp_path / "c.exr")
     jexr.write_exr(p, _hdr_image(np_rng, 4, 4, 3))
     buf = bytearray(open(p, "rb").read())
@@ -99,8 +102,13 @@ def test_exr_codecs_it_lacks_raise(tmp_path, np_rng, what):
         at = buf.index(b"compression\x00compression\x00") + 28
         buf[at] = {"DWAA": 8, "DWAB": 9}[what]
     open(p, "wb").write(bytes(buf))
-    with pytest.raises(NotImplementedError, match=f"{what}.*M9"):
-        lrt.read_image(p)
+    try:
+        ref = jimage.read_image(p)
+    except OSError:
+        with pytest.raises(OSError):
+            lrt.read_image(p)
+    else:
+        np.testing.assert_array_equal(lrt.read_image(p), ref)
 
 
 # ---------------------------------------------------------------- PFM ----
@@ -225,9 +233,10 @@ def test_write_image_png_matches_jax(tmp_path, np_rng, shape):
 
 
 def test_png_and_image_files_it_lacks_raise(tmp_path, np_rng):
-    """JPEG and the other PIL-only formats still raise (Queue 1 M9); a
-    16-bit grey and an interlaced PNG, which raised before, read as the
-    JAX package reads them (tests/test_torch_png_more.py has the rest)."""
+    """A JPEG (which raised before this reader had its decoder), a 16-bit
+    grey and an interlaced PNG read as the JAX package reads them
+    (tests/test_torch_png_more.py and tests/test_torch_jpeg.py have the
+    rest)."""
     p16 = str(tmp_path / "g16.png")
     Image.fromarray(np_rng.integers(0, 65535, (4, 4)).astype(np.uint16)) \
         .save(p16)
@@ -241,9 +250,10 @@ def test_png_and_image_files_it_lacks_raise(tmp_path, np_rng):
     np.testing.assert_array_equal(lrt.read_image(pint),
                                   jimage.read_image(pint))
     pjpg = str(tmp_path / "a.jpg")
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(pjpg)
-    with pytest.raises(NotImplementedError, match="jpg.*M9"):
-        lrt.read_image(pjpg)
+    Image.fromarray(np_rng.integers(0, 256, (4, 4, 3)).astype(np.uint8)) \
+        .save(pjpg)
+    np.testing.assert_array_equal(lrt.read_image(pjpg),
+                                  jimage.read_image(pjpg))
 
 
 # ------------------------------------------------------------- meshes ----

@@ -10,15 +10,20 @@
 //
 //   exr_writer OUT COMPRESSION LAYOUT XMIN YMIN W H MANIFEST DATA
 //
-// COMPRESSION: none rle zips zip piz pxr24 b44 b44a dwaa.
+// COMPRESSION: none rle zips zip piz pxr24 b44 b44a dwaa dwab, the DWA
+// codecs optionally with their level as "dwaa:45" (dwaCompressionLevel).
 // LAYOUT: scanline, tiled (one level), mipmap_down, mipmap_up, ripmap_down,
-// ripmap_up (16 x 8 tiles), or multipart (part 0 a scanline image of the
-// data, part 1 a tiled image of the same channels).
+// ripmap_up (16 x 8 tiles), multipart (part 0 a scanline image of the
+// data, part 1 a tiled image of the same channels), yc (an RgbaOutputFile
+// in luminance/chroma mode: Y, RY and BY, the chroma subsampled 2 x 2, of
+// half R, G, B(, A) channels), deep_scanline or deep_tiled (a deep part).
 // MANIFEST: one line per channel, "NAME TYPE PLINEAR" with TYPE one of
 // uint, half, float.  DATA: each channel's W*H values in that type, row
 // major, channel after channel in manifest order.  The data window starts
 // at (XMIN, YMIN); the levels of a mip- or ripmap above level 0 take the
-// top-left corner of the same data.
+// top-left corner of the same data.  A deep layout's DATA begins with the
+// W*H uint32 sample counts, row major; each channel's data then holds one
+// value per sample, pixel after pixel.
 //
 // The committed fixture tests/data/torch_sky_piz.exr was made with it:
 // liver_proxy.sky_map(1024, 512) as half R, G, B channels, PIZ, scanline,
@@ -26,12 +31,16 @@
 // `write_with_openexr(path, {"R": .., "G": .., "B": ..}, "piz")`).
 
 #include <ImfChannelList.h>
+#include <ImfDeepFrameBuffer.h>
+#include <ImfDeepScanLineOutputFile.h>
+#include <ImfDeepTiledOutputFile.h>
 #include <ImfFrameBuffer.h>
 #include <ImfHeader.h>
 #include <ImfMultiPartOutputFile.h>
 #include <ImfOutputFile.h>
 #include <ImfOutputPart.h>
 #include <ImfPartType.h>
+#include <ImfRgbaFile.h>
 #include <ImfTiledOutputFile.h>
 #include <ImfTiledOutputPart.h>
 #include <ImathBox.h>
@@ -62,8 +71,8 @@ Imf::Compression compression(const std::string& s) {
         {"zips", Imf::ZIPS_COMPRESSION}, {"zip", Imf::ZIP_COMPRESSION},
         {"piz", Imf::PIZ_COMPRESSION},   {"pxr24", Imf::PXR24_COMPRESSION},
         {"b44", Imf::B44_COMPRESSION},   {"b44a", Imf::B44A_COMPRESSION},
-        {"dwaa", Imf::DWAA_COMPRESSION}};
-    return m.at(s);
+        {"dwaa", Imf::DWAA_COMPRESSION}, {"dwab", Imf::DWAB_COMPRESSION}};
+    return m.at(s.substr(0, s.find(':')));
 }
 
 // the frame buffer of channel data whose (xmin, ymin) pixel is data[0]
@@ -104,6 +113,71 @@ void write_levels(File& out, int mode_levels_x, int mode_levels_y,
                            lx, ly);
 }
 
+// a deep part: the sample counts, then per channel one value per sample
+void write_deep(const std::string& out, const std::string& layout,
+                Imf::Header hdr, std::vector<Chan>& chans,
+                std::vector<unsigned>& counts, int xmin, int ymin, int w,
+                int h) {
+    const long long off = static_cast<long long>(ymin) * w + xmin;
+    Imf::DeepFrameBuffer fb;
+    fb.insertSampleCountSlice(Imf::Slice(
+        Imf::UINT, reinterpret_cast<char*>(counts.data() - off),
+        sizeof(unsigned), sizeof(unsigned) * w));
+    // per channel, each pixel's pointer to its first sample
+    std::vector<std::vector<char*>> ptrs(chans.size());
+    for (size_t i = 0; i < chans.size(); ++i) {
+        const size_t ts = type_size(chans[i].type);
+        ptrs[i].resize(counts.size());
+        size_t pos = 0;
+        for (size_t p = 0; p < counts.size(); ++p) {
+            ptrs[i][p] = chans[i].data.data() + pos * ts;
+            pos += counts[p];
+        }
+        fb.insert(chans[i].name,
+                  Imf::DeepSlice(chans[i].type,
+                                 reinterpret_cast<char*>(ptrs[i].data() - off),
+                                 sizeof(char*), sizeof(char*) * w, ts));
+    }
+    if (layout == "deep_scanline") {
+        hdr.setType(Imf::DEEPSCANLINE);
+        Imf::DeepScanLineOutputFile file(out.c_str(), hdr);
+        file.setFrameBuffer(fb);
+        file.writePixels(h);
+    } else {
+        hdr.setType(Imf::DEEPTILE);
+        hdr.setTileDescription(Imf::TileDescription(16, 8, Imf::ONE_LEVEL));
+        Imf::DeepTiledOutputFile file(out.c_str(), hdr);
+        file.setFrameBuffer(fb);
+        file.writeTiles(0, file.numXTiles() - 1, 0, file.numYTiles() - 1);
+    }
+}
+
+// half R, G, B(, A) channels through an RgbaOutputFile in YC mode
+void write_yc(const std::string& out, const Imf::Header& hdr,
+              const std::vector<Chan>& chans, int xmin, int ymin, int w,
+              int h) {
+    std::vector<Imf::Rgba> px(static_cast<size_t>(w) * h,
+                              Imf::Rgba(0, 0, 0, 1));
+    bool alpha = false;
+    for (const auto& c : chans) {
+        const half* v = reinterpret_cast<const half*>(c.data.data());
+        for (size_t i = 0; i < px.size(); ++i) {
+            if (c.name == "R") px[i].r = v[i];
+            if (c.name == "G") px[i].g = v[i];
+            if (c.name == "B") px[i].b = v[i];
+            if (c.name == "A") px[i].a = v[i];
+        }
+        alpha = alpha || c.name == "A";
+    }
+    Imf::Header yc(hdr.displayWindow(), hdr.dataWindow());
+    yc.compression() = hdr.compression();
+    Imf::RgbaOutputFile file(out.c_str(), yc,
+                             alpha ? Imf::WRITE_YCA : Imf::WRITE_YC);
+    file.setFrameBuffer(px.data() - (static_cast<long long>(ymin) * w + xmin),
+                        1, w);
+    file.writePixels(h);
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
@@ -114,13 +188,24 @@ int main(int argc, char** argv) {
     }
     try {
         const std::string out = argv[1], layout = argv[3];
-        const Imf::Compression comp = compression(argv[2]);
+        const std::string comp_name = argv[2];
+        const Imf::Compression comp = compression(comp_name);
         const int xmin = std::stoi(argv[4]), ymin = std::stoi(argv[5]);
         const int w = std::stoi(argv[6]), h = std::stoi(argv[7]);
         std::vector<Chan> chans;
         std::ifstream man(argv[8]);
         std::ifstream data(argv[9], std::ios::binary);
         std::string line;
+        const bool deep = layout.rfind("deep", 0) == 0;
+        std::vector<unsigned> counts;
+        size_t samples = static_cast<size_t>(w) * h;
+        if (deep) {
+            counts.resize(samples);
+            data.read(reinterpret_cast<char*>(counts.data()),
+                      counts.size() * sizeof(unsigned));
+            samples = 0;
+            for (unsigned n : counts) samples += n;
+        }
         while (std::getline(man, line)) {
             std::istringstream ls(line);
             std::string name, type;
@@ -130,12 +215,23 @@ int main(int argc, char** argv) {
                    type == "half" ? Imf::HALF
                    : type == "float" ? Imf::FLOAT : Imf::UINT,
                    linear != 0, {}};
-            c.data.resize(type_size(c.type) * w * h);
+            c.data.resize(type_size(c.type) * samples);
             data.read(c.data.data(), c.data.size());
             if (!data) throw std::runtime_error("short DATA file");
             chans.push_back(std::move(c));
         }
         Imf::Header hdr = header(chans, xmin, ymin, w, h, comp);
+        if (comp_name.find(':') != std::string::npos)
+            hdr.dwaCompressionLevel() =
+                std::stof(comp_name.substr(comp_name.find(':') + 1));
+        if (deep) {
+            write_deep(out, layout, hdr, chans, counts, xmin, ymin, w, h);
+            return 0;
+        }
+        if (layout == "yc") {
+            write_yc(out, hdr, chans, xmin, ymin, w, h);
+            return 0;
+        }
         Imf::FrameBuffer fb = frame(chans, xmin, ymin, w);
         if (layout == "scanline") {
             Imf::OutputFile file(out.c_str(), hdr);

@@ -79,11 +79,11 @@ def _liver_medium_xml(spectra=True):
 
 
 def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
-              bump_scale=0.05):
+              bump_scale=0.05, height_file="height.png"):
     """bench.py's workload path on the proxy as a Mitsuba XML scene: film,
     spp, depth and integrator are <default>s; the liver's dielectric is a
     named bsdf that a bumpmap refs; the mesh, height map and sky are the
-    files liver.ply, height.png (raw) and sky.exr."""
+    files liver.ply, `height_file` (raw) and sky.exr."""
     return f"""<scene version="3.0.0">
   <default name="res_width" value="{width}"/>
   <default name="res_height" value="{height}"/>
@@ -117,7 +117,7 @@ def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
     <bsdf type="bumpmap">
       <float name="scale" value="{bump_scale!r}"/>
       <texture type="bitmap">
-        <string name="filename" value="height.png"/>
+        <string name="filename" value="{height_file}"/>
         <boolean name="raw" value="true"/>
       </texture>
       <ref id="liver_dielectric"/>
@@ -133,27 +133,36 @@ def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
 
 def write_proxy_files(dirpath, width, height, spp, subdiv=4, seed=0,
                       bump_res=1024, sky=(1024, 512), max_depth=12,
-                      sky_file=None):
-    """scene.xml, liver.ply, height.png and sky.exr in dirpath -> (path of
-    scene.xml, {file name: bytes}).  sky.exr is sky_map(*sky) as a ZIP
-    half EXR, or a copy of `sky_file` (tests/data/torch_sky_piz.exr: the
-    same sky written by OpenEXR with PIZ compression)."""
+                      sky_file=None, height_file=None):
+    """scene.xml, liver.ply, the height map and sky.exr in dirpath ->
+    (path of scene.xml, {file name: bytes}).  The height map is
+    height_map(bump_res) as an 8-bit grey height.png, or a copy of
+    `height_file` under its extension (tests/data/torch_height.jpg: the
+    1,024^2 map as a JPEG).  sky.exr is sky_map(*sky) as a ZIP half EXR, or
+    a copy of `sky_file` (tests/data/torch_sky_piz.exr and
+    torch_sky_dwaa.exr: the same sky written by OpenEXR with PIZ and DWAA
+    compression)."""
     os.makedirs(dirpath, exist_ok=True)
     v, f, n, uv = liver_mesh(subdiv, seed)
     write_ply(os.path.join(dirpath, "liver.ply"), v, f, n, uv)
-    h = height_map(bump_res, seed)
-    write_png(os.path.join(dirpath, "height.png"),
-              np.round(h * 255.0).astype(np.uint8))
+    if height_file is None:
+        hname = "height.png"
+        h = height_map(bump_res, seed)
+        write_png(os.path.join(dirpath, hname),
+                  np.round(h * 255.0).astype(np.uint8))
+    else:
+        hname = "height" + os.path.splitext(str(height_file))[1]
+        shutil.copyfile(height_file, os.path.join(dirpath, hname))
     if sky_file is None:
         write_exr(os.path.join(dirpath, "sky.exr"), sky_map(*sky))
     else:
         shutil.copyfile(sky_file, os.path.join(dirpath, "sky.exr"))
     xml = os.path.join(dirpath, "scene.xml")
     with open(xml, "w") as fh:
-        fh.write(proxy_xml(width, height, spp, max_depth))
+        fh.write(proxy_xml(width, height, spp, max_depth,
+                           height_file=hname))
     return xml, {name: os.path.getsize(os.path.join(dirpath, name))
-                 for name in ("scene.xml", "liver.ply", "height.png",
-                              "sky.exr")}
+                 for name in ("scene.xml", "liver.ply", hname, "sky.exr")}
 
 
 def inline_files(d, base_dir, read_image, load_mesh):
