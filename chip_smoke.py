@@ -4,7 +4,10 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases, one JSON line each (then the kernels line, the card line and the
-result line):
+result line).  The sample counts below are the ones each phase was
+written with; the constants CMP_SPP (the main path's comparison renders)
+and GRAD_SPP (its gradients) and the other *_SPP constants set the
+current ones, and each line reports the spp it ran:
   device           card name and power limit (nvidia-smi), torch and CUDA,
                    and the published peaks the bounds below are taken from
   build            nvcc build of csrc/intersect.cu: seconds, ptxas report
@@ -420,9 +423,22 @@ result line):
                    both times
   m9_small         bench.py's workload path from XML with a 32^2 JPEG height
                    map and the DWAA sky at 16x12, 4 spp: card against CPU
-  m9_render        the same at 428x240, 16 spp, in turns with its PNG +
+  m9_render        the same at 428x240, CMP_SPP, in turns with its PNG +
                    PIZ twin (m9_over_png_piz), launches
   m9_phases        the seconds the m9 phases took
+  m9b_decode       the committed LZW TIFF height map and GIF floor decoded
+                   on the card's host in turns with the PNG height map
+                   (tiff_over_png_decode), the TIFF equal to the map's
+                   8-bit codes, and the plain LZW loops against the C++
+                   ones
+  m9b_small        bench.py's workload path from XML with a 32^2 TIFF
+                   height map and a GIF-textured floor at 16x12, 4 spp:
+                   card against CPU
+  m9b_render       the same at 428x240, CMP_SPP, from the committed files,
+                   in turns with its PNG twin (tiff_over_png), launches
+  m9b_write        write_image of that render to .tif and .qoi, read back
+                   equal to the dithered 8-bit pixels
+  m9b_phases       the seconds the m9b phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -467,13 +483,21 @@ WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
 # against dict in deterministic mode, the CLI and its in-process twin,
 # RenderControl against the plain render, the pipeline driver against the
 # render by hand and its evaluation, spectral against RGB, the sunsky
-# against the envmap): cut from SPP for the script's time (PR 17: the
-# script took 1,331 s of its 1,200 s limit on an H100 whose host ran the
-# earlier phases ~1.3x slower than PR 16's slowest); the render and
-# bump_env_render phases keep bench.py's 64
-CMP_SPP = 16
+# against the envmap, the m9 and m9b files against their twins): cut from
+# SPP for the script's time (64 -> 16 when the script took 1,331 s of its
+# 1,200 s limit on an H100 whose host ran ~1.3x slower than the fastest
+# seen; 16 -> 4 when it took 1,133-1,199 s on such hosts with the m9b
+# phases); their gates compare equal computations or means over ~10^5
+# pixels and hold at any spp; the render and bump_env_render phases keep
+# bench.py's 64
+CMP_SPP = 4
 KERNEL_SPP = 8                 # render_kernel phase
-GRAD_SPP = 16                  # render_grad phase (bench.py's gradient spp)
+# the gradients' spp: bench.py's 16, cut to 8 with CMP_SPP (the phases'
+# gates compare equal computations, finiteness and launches); the shape
+# phases keep 16 (their gates need the silhouette's boundary samples and
+# a falling loss)
+GRAD_SPP = 8
+SHAPE_SPP = 16
 TRACE_SPP = 2                  # render_grad_trace phase
 TIE_T, TIE_R = 40_000, 16_384  # ties regime
 # the fog Cornell box: BASELINE's depth 16, 2 spp for the primal and 1
@@ -495,7 +519,7 @@ BUMP_TRACE_SPP = 2             # bump_env_render's profiles
 # filter (one fixed pass of 4,194,304 lanes), against bench.py's box-filter
 # variant on the regen wavefront; the gradients at 16 spp
 CORNELL_RES, CORNELL_SPP, CORNELL_DEPTH = 256, 64, 8
-CORNELL_GRAD_SPP = 16
+CORNELL_GRAD_SPP = 8            # both adjoints on the same samples
 CORNELL_TRACE_SPP = 8          # the regen variant's profile
 CORNELL_SMALL = (32, 4)        # cornell_small: film, spp
 BSDF_SMALL = (12, 8)           # bsdf_small: film, spp
@@ -534,7 +558,7 @@ BVH_SUBDIV, BVH_CMP_SUBDIV, BVH_RAYS = 9, 8, 65536
 # sky) at 428x240: the primal, its plain twin and the dipole at SSS_SPP,
 # the scan-adjoint gradient at SSS_GRAD_SPP, a profile at SSS_TRACE_SPP;
 # sss_small: film, spp; SSS_EVENT_LANES lanes of one event card vs CPU
-SSS_SPP, SSS_GRAD_SPP, SSS_TRACE_SPP = 16, 4, 2
+SSS_SPP, SSS_GRAD_SPP, SSS_TRACE_SPP = 8, 4, 2
 SSS_SMALL = (16, 4)
 SSS_EVENT_LANES = 4096
 # the command-line renderer (cli_phases): decode reps of the PIZ sky, the
@@ -713,7 +737,7 @@ APP_KEYS = ["w", "a", "LEFT", "+", "r", None, None, "q"]
 APP_FRAMES, APP_RESTARTS = 7, 4
 INTERACTIVE_FILMS = ((160, 88), (WIDTH, HEIGHT))
 SHARDED_SMALL_SPP = 4
-SHARDED_SPP, SHARDED_RANKS, SCALING_SPP = 16, 2, 8
+SHARDED_SPP, SHARDED_RANKS, SCALING_SPP = 8, 2, 4
 SHARDED_TIMEOUT = 600
 
 # the rest of the loader (m9_phases): the committed DWAA sky
@@ -3909,7 +3933,7 @@ def shape_phases(torch, np, lrt, ci, smi):
     # ---- 17c. the slice's path at full width: the vertex gradient of the
     # bumped, sky-lit proxy, split into the replay adjoint and the two
     # boundary terms, in turns with the media.params gradient
-    d = liver_proxy_dict(WIDTH, HEIGHT, GRAD_SPP, SUBDIV, SEED, bump=BUMP,
+    d = liver_proxy_dict(WIDTH, HEIGHT, SHAPE_SPP, SUBDIV, SEED, bump=BUMP,
                          sky=SKY)
     scene = lrt.load_dict(d)
     rounds, parts = [], {}
@@ -3942,13 +3966,13 @@ def shape_phases(torch, np, lrt, ci, smi):
         parts.clear()
         reset_counts(ci)
         secs, (_, g, img) = timed_call(
-            torch, lambda: _vertex_grad(lrt, scene, GRAD_SPP))
+            torch, lambda: _vertex_grad(lrt, scene, SHAPE_SPP))
         return secs, g, img, launch_counts(ci), list(rounds), dict(parts)
 
     def media_run():
         return timed_call(torch, lambda: lrt.render_grad(
             scene, {"media.params": scene.media.params},
-            lambda im: im.mean(), spp=GRAD_SPP, seed=SEED))[0]
+            lambda im: im.mean(), spp=SHAPE_SPP, seed=SEED))[0]
 
     for k in orig:
         setattr(proj, k, counted(k))
@@ -3977,7 +4001,7 @@ def shape_phases(torch, np, lrt, ci, smi):
     nz_sil = float((g_sil.abs().sum(-1) > 0).float().mean())
     prim_s = prt.get("boundary_gradient", 0.0)
     ind_s = prt.get("indirect_boundary_gradient", 0.0)
-    emit("shape_grad", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+    emit("shape_grad", film=[WIDTH, HEIGHT], spp=SHAPE_SPP,
          max_depth=scene.max_depth, tris=scene.n_tris,
          vertices=int(scene.vertices.shape[0]), bump=list(BUMP),
          sky=list(SKY), card=smi, seconds=secs,
@@ -4009,14 +4033,14 @@ def shape_phases(torch, np, lrt, ci, smi):
     c0 = V0.mean(0, keepdim=True)
     V_t = c0 + SHAPE_SCALE * (V0 - c0)
     target = lrt.render(lrt.apply_params(scene, {"vertices": V_t}),
-                        spp=GRAD_SPP, seed=SHAPE_LOSS_SEED + 1)
+                        spp=SHAPE_SPP, seed=SHAPE_LOSS_SEED + 1)
 
     def loss_fn(im):
         return ((im - target) ** 2).mean()
 
     def eval_loss(V):
         img = lrt.render(lrt.apply_params(scene, {"vertices": V}),
-                         spp=GRAD_SPP, seed=SHAPE_LOSS_SEED)
+                         spp=SHAPE_SPP, seed=SHAPE_LOSS_SEED)
         return float(loss_fn(img))
 
     ls = lrt.LargeSteps(int(V0.shape[0]), scene.faces.cpu().numpy(),
@@ -4031,7 +4055,7 @@ def shape_phases(torch, np, lrt, ci, smi):
         t0 = time.perf_counter()
         opt.zero_grad()
         V = ls.from_differential(u)
-        loss, gv, _ = _vertex_grad(lrt, scene, GRAD_SPP, loss_fn,
+        loss, gv, _ = _vertex_grad(lrt, scene, SHAPE_SPP, loss_fn,
                                    seed=SEED + 1 + k, V=V.detach())
         V.backward(gv)
         opt.step()
@@ -4043,7 +4067,7 @@ def shape_phases(torch, np, lrt, ci, smi):
           > 0, "shape_optimize did not launch the sweep and merge kernels")
     V1 = ls.from_differential(u).detach()
     loss1, dist1 = eval_loss(V1), float((V1 - V_t).norm(dim=-1).mean())
-    emit("shape_optimize", film=[WIDTH, HEIGHT], spp=GRAD_SPP,
+    emit("shape_optimize", film=[WIDTH, HEIGHT], spp=SHAPE_SPP,
          steps=SHAPE_STEPS, lr=SHAPE_LR, lambda_=SHAPE_LAMBDA,
          target_scale=SHAPE_SCALE, card=smi, seconds_per_step=step_s,
          step_losses=losses, loss_before=loss0, loss_after=loss1,
@@ -4857,6 +4881,183 @@ def m9_phases(torch, np, lrt, ci, smi, workdir):
     return {"m9_render": counts["m9"], "m9_twin": counts["twin"]}
 
 
+def m9b_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9b_decode, m9b_small, m9b_render, m9b_write and m9b_phases
+    (the raster formats the JAX package opens through Pillow): the
+    committed LZW TIFF height map and GIF floor decoded on the card's
+    host in turns with the PNG height map, and through the plain LZW
+    loops; bench.py's workload path from XML with a TIFF height map and a
+    GIF-textured floor, card against CPU at test size, and at full size
+    in turns with its PNG twin; write_image to .tif and .qoi read back ->
+    {name: launch counts}."""
+    from liverrenderer_tpu_torch.io import gif as tgif
+    from liverrenderer_tpu_torch.io import legacy, lzw
+    from liverrenderer_tpu_torch.io import tiff as ttiff
+    from liverrenderer_tpu_torch.io.image import dither_8bit, encode_8bit
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    xf = _tests_module("torch_xml_files")
+    rf = _tests_module("torch_raster_files")
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    tif = os.path.join(data, "torch_height.tif")
+    gif = os.path.join(data, "torch_floor.gif")
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 23a. the decoders on the card's host, in turns with the PNG
+    t0 = time.perf_counter()
+    lzw.library()
+    build_s = time.perf_counter() - t0
+    readers = {"tiff": lambda: lrt.read_image(tif, False),
+               "gif": lambda: lrt.read_image(gif),
+               "png": lambda: lrt.read_image(png, False)}
+    dec = {k: [] for k in readers}
+    out = {}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            out[kind] = fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    with open(tif, "rb") as fh:
+        tif_bytes = fh.read()
+    with open(gif, "rb") as fh:
+        gif_bytes = fh.read()
+    native = {"tiff": ttiff.read_tiff(tif_bytes),
+              "gif": tgif.read_gif(gif_bytes)}
+    loops = (lzw.lzw_tiff, lzw.lzw_gif)
+    lzw.lzw_tiff, lzw.lzw_gif = lzw._lzw_tiff_plain, lzw._lzw_gif_plain
+    try:
+        t0 = time.perf_counter()
+        plain_tiff = ttiff.read_tiff(tif_bytes)
+        plain_tiff_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain_gif = tgif.read_gif(gif_bytes)
+        plain_gif_s = time.perf_counter() - t0
+    finally:
+        lzw.lzw_tiff, lzw.lzw_gif = loops
+    plain_equal = {"tiff": bool(np.array_equal(plain_tiff, native["tiff"])),
+                   "gif": bool(np.array_equal(plain_gif, native["gif"]))}
+    tiff_exact = bool(np.array_equal(native["tiff"][..., 0], codes)
+                      and np.array_equal(out["tiff"], out["png"]))
+    emit("m9b_decode", files={"tiff": "tests/data/torch_height.tif",
+                              "gif": "tests/data/torch_floor.gif"},
+         bytes={"tiff": len(tif_bytes), "gif": len(gif_bytes),
+                "png": os.path.getsize(png)},
+         reps=M9_REPS, decode_seconds=med, decode_seconds_reps=dec,
+         tiff_over_png_decode=med["tiff"] / med["png"],
+         lzw_build_seconds=build_s, plain_tiff_seconds=plain_tiff_s,
+         plain_gif_seconds=plain_gif_s, plain_equal=plain_equal,
+         tiff_equals_png_codes=tiff_exact,
+         gif_shape=list(out["gif"].shape))
+    check(tiff_exact, "m9b_decode: the TIFF height map is not its 8-bit "
+          "codes")
+    check(out["gif"].shape == (64, 64, 3)
+          and bool(np.isfinite(out["gif"]).all()),
+          "m9b_decode: the GIF floor did not decode to 64 x 64 RGB")
+    check(all(plain_equal.values()), "m9b_decode: a plain LZW loop "
+          f"disagrees with its C++ version: {plain_equal}")
+
+    # ---- 23b. the main path from a TIFF height map and a GIF floor at
+    # test size: the 32^2 height map (see m9_small), LZW with predictor 2
+    # by the test writer (no Pillow on this machine)
+    tif_small = os.path.join(workdir, "height_small.tif")
+    with open(tif_small, "wb") as fh:
+        fh.write(rf.write_tiff(np.round(height_map(BUMP_SMALL[0], SEED)
+                                        * 255.0).astype(np.uint8), 1,
+                               compression=5, predictor=2,
+                               rows_per_strip=8))
+    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
+                                    4, 2, SEED, bump_res=BUMP_SMALL[0],
+                                    sky=SKY_SMALL, height_file=tif_small,
+                                    floor_file=gif)
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
+    emit("m9b_small", film=[16, 12], spp=4, pixel_frac=frac,
+         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "m9b_small: the card's render disagrees with the CPU's")
+
+    # ---- 23c. at full size, in turns with its PNG twin (the same height
+    # codes and floor pixels as PNG files)
+    floor_png = os.path.join(workdir, "floor.png")
+    write_png(floor_png, native["gif"])
+    m9b_xml, sizes = xf.write_proxy_files(
+        os.path.join(workdir, "m9b"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        height_file=tif, floor_file=gif)
+    twin_xml, twin_sizes = xf.write_proxy_files(
+        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], floor_file=floor_png)
+    loads, scenes = {}, {}
+    for which, path in (("m9b", m9b_xml), ("twin", twin_xml)):
+        loads[which], scenes[which] = timed_load(
+            torch, lambda: lrt.load_file(path))
+    secs = {"m9b": [], "twin": []}
+    counts, imgs = {}, {}
+    for which in ("m9b", "twin", "twin", "m9b"):
+        reset_counts(ci)
+        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
+        counts.setdefault(which, launch_counts(ci))
+        imgs.setdefault(which, img)
+        secs[which].append(t)
+    img = imgs["m9b"]
+    twin_rel = abs(float(img.mean()) - float(imgs["twin"].mean())) \
+        / float(imgs["twin"].mean())
+    emit("m9b_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
+         bytes=sizes, twin_bytes=twin_sizes, load_file_seconds=loads,
+         render_seconds=secs,
+         tiff_over_png=statistics.median(secs["m9b"])
+         / statistics.median(secs["twin"]),
+         paths_per_s=WIDTH * HEIGHT * CMP_SPP
+         / statistics.median(secs["m9b"]),
+         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
+         twin_mean=float(imgs["twin"].mean()), mean_rel_vs_twin=twin_rel,
+         bit_identical_to_twin=bool(torch.equal(img, imgs["twin"])),
+         launches=counts["m9b"][0], merge_launches=counts["m9b"][1],
+         twin_launches=counts["twin"][0],
+         twin_merge_launches=counts["twin"][1])
+    check(scenes["m9b"].device.type == "cuda"
+          and scenes["m9b"].has_heightmap
+          and scenes["m9b"].emitters.env_index >= 0,
+          "m9b_render: load_file did not build the bumped, sky-lit proxy "
+          "on the card")
+    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
+          and twin_rel <= M9_TWIN_RTOL,
+          "m9b_render: image not finite, its mean out of range or far from "
+          "its PNG twin's")
+    check(counts["m9b"][0] > 0 and counts["m9b"][1] > 0,
+          "m9b_render: the render launched no sweep or merge kernel")
+
+    # ---- 23d. write_image to .tif and .qoi, read back: the dithered
+    # 8-bit pixels write_image computes
+    host = img.cpu().numpy()
+    px = dither_8bit(host)
+    writes = {}
+    for ext in (".tif", ".qoi"):
+        path = os.path.join(workdir, "render" + ext)
+        t0 = time.perf_counter()
+        lrt.write_image(path, host)
+        w_s = time.perf_counter() - t0
+        with open(path, "rb") as fh:
+            body = fh.read()
+        t0 = time.perf_counter()
+        back = ttiff.read_tiff(body) if ext == ".tif" else \
+            legacy.open_qoi(body)()
+        r_s = time.perf_counter() - t0
+        writes[ext] = {"bytes": len(body), "write_seconds": w_s,
+                       "read_seconds": r_s,
+                       "equal": bool(np.array_equal(back, px)),
+                       "encoder_equal": body == encode_8bit(
+                           px, "TIFF" if ext == ".tif" else "QOI")}
+    emit("m9b_write", film=[WIDTH, HEIGHT], files=writes)
+    check(all(v["equal"] and v["encoder_equal"] for v in writes.values()),
+          f"m9b_write: a written file does not read back: {writes}")
+    emit("m9b_phases", seconds=time.perf_counter() - t_start)
+    return {"m9b_render": counts["m9b"], "m9b_twin": counts["twin"]}
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -5471,6 +5672,13 @@ def main() -> int:
         m9 = m9_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps = sum(c[0] for c in m9.values())
     m9_merges = sum(c[1] for c in m9.values())
+
+    # ---- 23. the raster formats Pillow opens: TIFF and GIF on the main
+    # path, the TIFF and QOI writers
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9b_") as workdir:
+        m9b = m9b_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9b.values())
+    m9_merges += sum(c[1] for c in m9b.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -5541,6 +5749,7 @@ def main() -> int:
              apps_sharded_launches={k: split_counts(c)
                                     for k, c in s17.items()},
              m9_launches={k: split_counts(c) for k, c in m9.items()},
+             m9b_launches={k: split_counts(c) for k, c in m9b.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -5618,6 +5827,7 @@ def main() -> int:
              m10b_launches={k: c[1] for k, c in m10b.items()},
              apps_sharded_launches={k: c[1] for k, c in s17.items()},
              m9_launches={k: c[1] for k, c in m9.items()},
+             m9b_launches={k: c[1] for k, c in m9b.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

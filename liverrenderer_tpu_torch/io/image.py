@@ -1,45 +1,53 @@
-"""Image IO (counterpart of liverrenderer_tpu/io/image.py): EXR, PFM, PNG,
-JPEG, PPM/PGM/PBM, BMP and TGA files through the port's own codecs, with
-no PIL.
+"""Image IO (counterpart of liverrenderer_tpu/io/image.py) through the port's
+own codecs, with no PIL.
 
-8-bit images are read as the JAX package reads them through PIL (the
-format found from the file's first bytes, as PIL finds it, TGA from its
-extension; `convert("RGB")`, / 255, then the sRGB curve unless
+8-bit images are read as the JAX package reads them through Pillow 12.1
+(`Image.open(path).convert("RGB")`, / 255, then the sRGB curve unless
 `srgb_to_linear` is false); EXR files as it reads them with its native
-library built (R, G, B(, A), alpha kept).  A file PIL cannot identify,
-such as an RGBE `.hdr`, raises OSError as PIL's UnidentifiedImageError
-does; the other formats PIL reads (GIF, TIFF, WebP, ...) raise (ROADMAP
-M9).  Written files: EXR, PFM, and after an ordered dither to 8 bits PNG,
-JPEG (PIL's defaults: quality 75, 4:2:0), PPM, BMP and TGA, byte for byte
-as the JAX package writes them through PIL.
+library built (R, G, B(, A), alpha kept), and PFM by extension.  The
+format is found as Image.open finds it: Pillow's plugins in their
+registry order (`_OPEN`, Pillow's Image.ID), each one's test of the
+file's first 16 bytes, and the plugins without one (IM, IMT, IPTC, PCD,
+SPIDER, TGA) tried on the file itself; a plugin that gives the file up
+(SyntaxError and its kin in Pillow) passes it on.  Of the plugins the
+port does not decode, those with a weak prefix test (GBR, FLI, WMF) and
+those without one are checked as far as Pillow's plugin checks the
+header; the rest are taken to open every file their test accepts.  The
+port decodes PNG, JPEG, PPM/PGM/PBM, BMP, DIB, GIF, TIFF, PCX, DCX, SGI,
+IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD and TGA; a file
+another Pillow plugin opens raises NotImplementedError (ROADMAP Queue 1
+M9); a file no plugin opens (an RGBE `.hdr`, say) raises OSError as
+Pillow's UnidentifiedImageError does.
+
+Written files: EXR and PFM as float; otherwise an ordered dither to 8
+bits, then the format of the extension as Pillow's registry names it:
+PNG (as io/png.py writes it), JPEG (quality 75, 4:2:0), PPM, BMP, DIB,
+TGA, TIFF, PCX, SGI, IM and QOI, the last nine byte for byte as Pillow
+saves them.  Where Pillow refuses, the port raises the same exception
+(an unknown extension ValueError, a format with no writer KeyError, XBM
+/ MSP / Palm OSError for an RGB image); the writers Pillow has and the
+port does not yet (GIF, WebP, ICO, ...) raise NotImplementedError
+(ROADMAP M9).
 """
 from __future__ import annotations
 
 import os
+import re
+import struct
 
 import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
-from . import raster
+from . import gif, ico, legacy, psd, raster, tiff
 from .exr import read_exr_any, write_exr
 from .jpeg import encode_jpeg, read_jpeg
-from .png import read_png, write_png
-
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
-# formats PIL reads and the port does not: their first bytes
-_OTHER_PIL = (b"GIF87a", b"GIF89a", b"II*\x00", b"MM\x00*", b"RIFF",
-              b"\x00\x00\x01\x00", b"8BPS", b"\x8aMNG", b"DDS ", b"qoif",
-              b"\x00\x00\x00\x0cjP  ", b"\xffO\xffQ", b"icns")
-# writers of 8-bit files by extension (PIL's registry)
-_WRITERS = {".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg", ".jfif": "jpeg",
-            ".ppm": "ppm", ".pgm": "ppm", ".pbm": "ppm", ".pnm": "ppm",
-            ".bmp": "bmp", ".tga": "tga", ".icb": "tga", ".vda": "tga",
-            ".vst": "tga"}
+from .png import decode_png, write_png
 
 # the 4 x 4 ordered-dither thresholds of an 8-bit write
 _BAYER = np.array([[0, 8, 2, 10], [12, 4, 14, 6],
                    [3, 11, 1, 9], [15, 7, 13, 5]], np.float32) / 16.0
+_WS = b" \t\n\r\x0b\x0c"
 
 
 def read_image(path: str, srgb_to_linear: bool = True) -> np.ndarray:
@@ -57,31 +65,286 @@ def read_image(path: str, srgb_to_linear: bool = True) -> np.ndarray:
 
 
 def read_8bit(path: str) -> np.ndarray:
-    """A PNG, JPEG, PPM/PGM/PBM, BMP or TGA file -> (H, W, 3) uint8, as
-    PIL's `Image.open(path).convert("RGB")` returns it."""
+    """Any file Pillow opens -> (H, W, 3) uint8, as Pillow's
+    `Image.open(path).convert("RGB")` returns it (or the raise above)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_PNG_SIG):
-        return read_png(path)
-    if data.startswith(b"\xff\xd8\xff"):
-        return read_jpeg(data)
-    if data.startswith(b"BM"):
-        return raster.read_bmp(data)
-    if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"123456" \
-            and data[2:3] in b" \t\n\r\x0b\x0c":
-        return raster.read_ppm(data)
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".tga", ".icb", ".vda", ".vst"):
-        return raster.read_tga(data)
-    if data.startswith(_OTHER_PIL):
-        raise not_ported(f"{ext or 'extension-less'} image files",
-                         "Queue 1 M9")
-    raise OSError(f"cannot identify image file {path!r}")
+    return identify(data, path)()
+
+
+def identify(data: bytes, name: str = ""):
+    """Image.open's walk over Pillow's plugins -> a function that decodes
+    the file."""
+    prefix = data[:16]
+    for fmt, accept, opener in _OPEN:
+        try:
+            if accept is not None and not accept(prefix):
+                continue
+        except (IndexError, struct.error):
+            continue
+        if opener is None:
+            raise not_ported(f"{fmt} image files", "Queue 1 M9")
+        try:
+            return opener(data)
+        except SyntaxError:
+            continue
+    raise OSError(f"cannot identify image file {name!r}")
+
+
+# ---------------------------------------------------- the open registry ----
+def _u32(p, e="<"):
+    return struct.unpack_from(e + "I", p)[0]
+
+
+def _u16(p, o=0, e="<"):
+    return struct.unpack_from(e + "H", p, o)[0]
+
+
+_PPM_MAGICS = {b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"P0CMYK", b"Pf",
+               b"PyP", b"PyRGBA", b"PyCMYK"}
+
+
+def _open_ppm(data):
+    magic = b""
+    for c in data[:6]:
+        if bytes([c]) in _WS:
+            break
+        magic += bytes([c])
+    if magic not in _PPM_MAGICS:
+        raise SyntaxError("not a PPM file")
+    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        raise not_ported(f"{magic.decode()} PPM files", "Queue 1 M9")
+    return lambda: raster.read_ppm(data)
+
+
+def _open_tga(data):
+    """TgaImageFile._open's tests (the plugin has no prefix test)."""
+    s = data[:18]
+    if len(s) < 18:
+        raise SyntaxError("not a TGA file")                # an IndexError
+    w, h = _u16(s, 12), _u16(s, 14)
+    if s[1] not in (0, 1) or w <= 0 or h <= 0 \
+            or s[16] not in (1, 8, 16, 24, 32):
+        raise SyntaxError("not a TGA file")
+    if s[2] not in (1, 2, 3, 9, 10, 11):
+        raise SyntaxError("unknown TGA mode")
+    if s[1] and s[7] not in (16, 24, 32):
+        raise SyntaxError("unknown TGA map depth")
+    return lambda: raster.read_tga(data)
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+def _open_imt(data):
+    """ImtImageFile._open: the port does not decode IMT; this only says
+    whether Pillow would open the file."""
+    if b"\n" not in data[:100]:
+        raise SyntaxError("not an IM file")
+    w = h = 0
+    mode = None
+    for line in data.split(b"\n"):
+        if line[:1] == b"\x0c" or len(line) > 100 or not line:
+            break
+        if line[:1] == b"*":
+            continue
+        m = _IMT_FIELD.match(line)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        if k in (b"width", b"height"):
+            try:
+                w, h = (int(v), h) if k == b"width" else (w, int(v))
+            except ValueError:
+                raise ValueError(f"bad IMT {k!r}") from None
+        elif k == b"pixel" and v == b"n8":
+            mode = "L"
+    if not mode or w <= 0 or h <= 0:
+        raise SyntaxError("an empty image")
+    raise not_ported("IMT image files", "Queue 1 M9")
+
+
+def _open_iptc(data):
+    s = data[:5]
+    if not s.strip(b"\x00") or s[0] != 0x1C \
+            or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        raise SyntaxError("invalid IPTC/NAA file")
+    raise not_ported("IPTC image files", "Queue 1 M9")
+
+
+def _open_pcd(data):
+    if not data[2048:2052] == b"PCD_":
+        raise SyntaxError("not a PCD file")
+    raise not_ported("PCD image files", "Queue 1 M9")
+
+
+def _spider_header(t) -> int:
+    h = (99,) + t
+
+    def is_int(f):
+        try:
+            return f - int(f) == 0
+        except (ValueError, OverflowError):
+            return False
+
+    if not all(is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+        return 0
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+        return 0
+    labbyt = int(h[22])
+    return labbyt if labbyt == int(h[13]) * int(h[23]) else 0
+
+
+def _open_spider(data):
+    f = data[:108]
+    if len(f) < 108:
+        raise SyntaxError("not a valid Spider file")
+    for e in (">", "<"):
+        t = struct.unpack(e + "27f", f)
+        if _spider_header(t):
+            break
+    else:
+        raise SyntaxError("not a valid Spider file")
+    h = (99,) + t
+    if int(h[5]) != 1:
+        raise SyntaxError("not a Spider 2D image")
+    istack, imgnumber = int(h[24]), int(h[27])
+    if istack < 0 or imgnumber < 0 or (istack > 0 and imgnumber > 0):
+        raise SyntaxError("inconsistent stack header values")
+    if int(h[12]) <= 0 or int(h[2]) <= 0:
+        raise SyntaxError("an empty image")
+    raise not_ported("SPIDER image files", "Queue 1 M9")
+
+
+def _open_gbr(data):
+    """GbrImageFile._open's tests: its prefix test (two big-endian words)
+    also accepts other formats' headers (QOI's, for a 1- or 2-pixel-wide
+    image), which the plugin then gives up."""
+    try:
+        size, version, w, h, depth = struct.unpack_from(">5I", data)
+    except struct.error:
+        raise SyntaxError("not a GIMP brush") from None
+    if size < 20 or version not in (1, 2) or not w or not h \
+            or depth not in (1, 4) \
+            or (version == 2 and data[20:24] != b"GIMP"):
+        raise SyntaxError("not a GIMP brush")
+    raise not_ported("GBR image files", "Queue 1 M9")
+
+
+def _open_fli(data):
+    if data[20:22] != b"\x00\x00":
+        raise SyntaxError("not an FLI/FLC file")
+    raise not_ported("FLI image files", "Queue 1 M9")
+
+
+def _open_wmf(data):
+    if not data.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") \
+            and data[40:44] != b" EMF":
+        raise SyntaxError("Unsupported file format")
+    raise not_ported("WMF image files", "Queue 1 M9")
+
+
+def _pfx(*magics):
+    return lambda p: p.startswith(magics)
+
+
+# Pillow 12.1's Image.ID after preinit() and init(), each format's prefix
+# test (None: tried on every file) and the port's opener (None: Pillow
+# opens it, the port does not yet)
+_OPEN = (
+    ("BMP", _pfx(b"BM"), lambda d: (lambda: raster.read_bmp(d))),
+    ("DIB", lambda p: _u32(p) in (12, 40, 52, 56, 64, 108, 124),
+     lambda d: (lambda: raster.read_dib(d))),
+    ("GIF", gif._accept, gif.open_gif),
+    ("JPEG", _pfx(b"\xff\xd8\xff"), lambda d: (lambda: read_jpeg(d))),
+    ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy",
+     _open_ppm),
+    ("PNG", _pfx(b"\x89PNG\r\n\x1a\n"), lambda d: (lambda: decode_png(d))),
+    ("AVIF", lambda p: p[4:8] == b"ftyp"
+     and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("BLP", _pfx(b"BLP1", b"BLP2"), None),
+    ("BUFR", _pfx(b"BUFR", b"ZCZC"), None),
+    ("CUR", _pfx(b"\0\0\2\0"), ico.open_cur),
+    ("PCX", legacy._pcx_accept, legacy.open_pcx),
+    ("DCX", lambda p: len(p) >= 4 and _u32(p) == 0x3ADE68B1, legacy.open_dcx),
+    ("DDS", _pfx(b"DDS "), None),
+    ("EPS", lambda p: p.startswith(b"%!PS")
+     or (len(p) >= 4 and _u32(p) == 0xC6D3D0C5), None),
+    ("FITS", _pfx(b"SIMPLE"), None),
+    ("FLI", lambda p: len(p) >= 16 and _u16(p, 4) in (0xAF11, 0xAF12)
+     and _u16(p, 14) in (0, 3), _open_fli),
+    ("FTEX", _pfx(b"FTEX"), None),
+    ("GBR", lambda p: len(p) >= 8 and _u32(p, ">") >= 20
+     and _u32(p[4:], ">") in (1, 2), _open_gbr),
+    ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
+     None),
+    ("HDF5", _pfx(b"\x89HDF\r\n\x1a\n"), None),
+    ("JPEG2000", _pfx(b"\xff\x4f\xff\x51",
+                      b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
+    ("ICNS", _pfx(b"icns"), None),
+    ("ICO", _pfx(b"\0\0\1\0"), ico.open_ico),
+    ("IM", None, legacy.open_im),
+    ("IMT", None, _open_imt),
+    ("IPTC", None, _open_iptc),
+    ("MCIDAS", _pfx(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None),
+    ("MPEG", _pfx(b"\x00\x00\x01\xb3"), None),
+    ("TIFF", _pfx(*tiff.PREFIXES), tiff.open_tiff),
+    ("MSP", _pfx(b"DanM", b"LinS"), legacy.open_msp),
+    ("PCD", None, _open_pcd),
+    ("PIXAR", _pfx(b"\200\350\000\000"), None),
+    ("PSD", _pfx(b"8BPS"), psd.open_psd),
+    ("QOI", _pfx(b"qoif"), legacy.open_qoi),
+    ("SGI", lambda p: len(p) >= 2 and _u16(p, 0, ">") == 474,
+     legacy.open_sgi),
+    ("SPIDER", None, _open_spider),
+    ("SUN", lambda p: len(p) >= 4 and _u32(p, ">") == 0x59A66A95,
+     legacy.open_sun),
+    ("TGA", None, _open_tga),
+    ("WEBP", lambda p: p.startswith(b"RIFF") and p[8:12] == b"WEBP"
+     and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), None),
+    ("WMF", _pfx(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"),
+     _open_wmf),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), legacy.open_xbm),
+    ("XPM", _pfx(b"/* XPM */"), legacy.open_xpm),
+    ("XVTHUMB", _pfx(b"P7 332"), None),
+)
+
+
+# ---------------------------------------------------- the save registry ----
+# Pillow 12.1's Image.EXTENSION -> format
+EXTENSION = {
+    ".avif": "AVIF", ".avifs": "AVIF", ".blp": "BLP", ".bmp": "BMP",
+    ".dib": "DIB", ".bufr": "BUFR", ".cur": "CUR", ".pcx": "PCX",
+    ".dcx": "DCX", ".dds": "DDS", ".ps": "EPS", ".eps": "EPS",
+    ".fit": "FITS", ".fits": "FITS", ".fli": "FLI", ".flc": "FLI",
+    ".ftc": "FTEX", ".ftu": "FTEX", ".gbr": "GBR", ".gif": "GIF",
+    ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5", ".png": "PNG",
+    ".apng": "PNG", ".jp2": "JPEG2000", ".j2k": "JPEG2000",
+    ".jpc": "JPEG2000", ".jpf": "JPEG2000", ".jpx": "JPEG2000",
+    ".j2c": "JPEG2000", ".icns": "ICNS", ".ico": "ICO", ".im": "IM",
+    ".iim": "IPTC", ".jfif": "JPEG", ".jpe": "JPEG", ".jpg": "JPEG",
+    ".jpeg": "JPEG", ".mpg": "MPEG", ".mpeg": "MPEG", ".tif": "TIFF",
+    ".tiff": "TIFF", ".mpo": "MPO", ".msp": "MSP", ".palm": "PALM",
+    ".pcd": "PCD", ".pdf": "PDF", ".pxr": "PIXAR", ".pbm": "PPM",
+    ".pgm": "PPM", ".ppm": "PPM", ".pnm": "PPM", ".pfm": "PPM",
+    ".psd": "PSD", ".qoi": "QOI", ".bw": "SGI", ".rgb": "SGI",
+    ".rgba": "SGI", ".sgi": "SGI", ".ras": "SUN", ".tga": "TGA",
+    ".icb": "TGA", ".vda": "TGA", ".vst": "TGA", ".webp": "WEBP",
+    ".wmf": "WMF", ".emf": "WMF", ".xbm": "XBM", ".xpm": "XPM"}
+# the formats with a writer in Pillow (Image.SAVE)
+SAVE = {"AVIF", "BLP", "BMP", "BUFR", "DDS", "DIB", "EPS", "GIF", "GRIB",
+        "HDF5", "ICNS", "ICO", "IM", "JPEG", "JPEG2000", "MPO", "MSP",
+        "PALM", "PCX", "PDF", "PNG", "PPM", "QOI", "SGI", "SPIDER", "TGA",
+        "TIFF", "WEBP", "WMF", "XBM"}
+# Pillow's writers that take only mode "1" (OSError), only "P" (BLP), or
+# are stubs without a handler
+_MODE_1_ONLY = {"MSP": "MSP", "PALM": "Palm", "XBM": "XBM"}
+_STUBS = {"BUFR", "GRIB", "HDF5", "WMF"}
 
 
 def write_image(path: str, img: np.ndarray):
-    """Write a linear RGB float image: PNG sRGB-encoded with an ordered
-    dither before the 8-bit quantisation, EXR as float, PFM as float."""
+    """Write a linear RGB float image: EXR and PFM as float, the 8-bit
+    formats sRGB-encoded with an ordered dither before the quantisation."""
     img = np.asarray(img, np.float32)
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
@@ -90,25 +353,56 @@ def write_image(path: str, img: np.ndarray):
     if ext == ".pfm":
         _write_pfm(path, img)
         return
-    kind = "png" if ext == ".png" else _WRITERS.get(ext)
-    if kind is None:
-        raise not_ported(f"writing {ext or 'extension-less'} image files",
-                         "Queue 1 M9")
+    if ext not in EXTENSION:
+        raise ValueError(f"unknown file extension: {ext}")
+    fmt = EXTENSION[ext]
+    if fmt not in SAVE:
+        raise KeyError(fmt)
+    px = dither_8bit(img)
+    if fmt == "PNG":
+        write_png(path, px)
+        return
+    data = encode_8bit(px, fmt, path)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def dither_8bit(img: np.ndarray) -> np.ndarray:
+    """A linear float image -> the sRGB-encoded uint8 pixels an 8-bit
+    write stores (the 4 x 4 ordered dither before the quantisation)."""
     ldr = np.clip(linear_to_srgb_np(np.clip(img, 0, None)), 0, 1)
     h, w = ldr.shape[:2]
     thresh = np.tile(_BAYER, ((h + 3) // 4, (w + 3) // 4))[:h, :w]
     if ldr.ndim == 3:
         thresh = thresh[..., None]
-    px = (ldr * 255 + thresh).astype(np.uint8)
-    if kind == "png":
-        write_png(path, px)
-        return
-    if kind == "jpeg" and px.ndim == 3 and px.shape[2] == 4:
-        raise OSError("cannot write mode RGBA as JPEG")
-    data = {"jpeg": encode_jpeg, "ppm": raster.encode_ppm,
-            "bmp": raster.encode_bmp, "tga": raster.encode_tga}[kind](px)
-    with open(path, "wb") as f:
-        f.write(data)
+    return (ldr * 255 + thresh).astype(np.uint8)
+
+
+def encode_8bit(px: np.ndarray, fmt: str, path: str = "") -> bytes:
+    """(H, W), (H, W, 3) or (H, W, 4) uint8 -> the bytes Pillow's `fmt`
+    writer saves for Image.fromarray(px) (mode L, RGB or RGBA; PNG goes
+    through io/png.write_png)."""
+    mode = "L" if px.ndim == 2 else {3: "RGB", 4: "RGBA"}[px.shape[2]]
+    if fmt in _MODE_1_ONLY:
+        raise OSError(f"cannot write mode {mode} as {_MODE_1_ONLY[fmt]}")
+    if fmt in _STUBS:
+        raise OSError(f"{fmt} save handler not installed")
+    if fmt == "BLP":
+        raise ValueError("Unsupported BLP image mode")
+    if fmt == "JPEG":
+        if mode == "RGBA":
+            raise OSError("cannot write mode RGBA as JPEG")
+        return encode_jpeg(px)
+    writers = {"PPM": raster.encode_ppm, "BMP": raster.encode_bmp,
+               "DIB": lambda a: raster.encode_bmp(a)[14:],
+               "TGA": raster.encode_tga, "TIFF": tiff.encode_tiff,
+               "PCX": legacy.encode_pcx,
+               "SGI": lambda a: legacy.encode_sgi(a, path),
+               "IM": lambda a: legacy.encode_im(a, path),
+               "QOI": legacy.encode_qoi}
+    if fmt not in writers:
+        raise not_ported(f"writing {fmt} image files", "Queue 1 M9")
+    return writers[fmt](px)
 
 
 def _read_pfm(path: str) -> np.ndarray:

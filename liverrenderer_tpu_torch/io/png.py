@@ -118,7 +118,11 @@ def _samples(data: bytes, w: int, h: int, nch: int, depth: int):
 def read_png(path: str) -> np.ndarray:
     """(H, W, 3) uint8, as PIL's convert("RGB")."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_png(f.read())
+
+
+def decode_png(buf: bytes) -> np.ndarray:
+    """PNG file bytes -> (H, W, 3) uint8, as PIL's convert("RGB")."""
     idat, palette, hdr = [], None, None
     for kind, body in _chunks(buf):
         if kind == b"IHDR":

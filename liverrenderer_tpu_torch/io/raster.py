@@ -173,9 +173,19 @@ def read_bmp(data: bytes) -> np.ndarray:
     """A Windows or OS/2 bitmap -> (H, W, 3) uint8."""
     if data[:2] != b"BM":
         raise OSError("Not a BMP file")
-    offset = int.from_bytes(data[10:14], "little")
-    hsize = int.from_bytes(data[14:18], "little")
-    hd = data[18:14 + hsize]
+    return read_dib(data, 14, int.from_bytes(data[10:14], "little"))
+
+
+def read_dib(data: bytes, base: int = 0, offset: int = 0,
+             halve: bool = False) -> np.ndarray:
+    """A bitmap without its file header (DIB, or an ICO / CUR entry) whose
+    info header starts at `base` -> (H, W, 3) uint8, as Pillow's
+    BmpImageFile._bitmap reads it.  `offset` is the pixels' position (0:
+    right after the header, masks and palette); `halve` takes the first
+    half of the rows, as the icon plugins do (the AND mask only touches
+    alpha, which convert("RGB") drops)."""
+    hsize = int.from_bytes(data[base:base + 4], "little")
+    hd = data[base + 4:base + hsize]
 
     def u32(o):
         return int.from_bytes(hd[o:o + 4], "little")
@@ -183,7 +193,7 @@ def read_bmp(data: bytes) -> np.ndarray:
     def u16(o):
         return int.from_bytes(hd[o:o + 2], "little")
 
-    pal_pos = 14 + hsize
+    pal_pos = base + hsize
     masks = None
     if hsize == 12:
         w, h, bits, comp, colors, pad = u16(0), u16(2), u16(6), 0, 0, 3
@@ -205,9 +215,13 @@ def read_bmp(data: bytes) -> np.ndarray:
                 pal_pos += 12
     else:
         raise OSError(f"Unsupported BMP header type ({hsize})")
+    if halve:
+        h //= 2
     colors = colors or (1 << bits)
-    if offset == 14 + hsize and bits <= 8:
+    if offset and offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
+    if not offset:               # Pillow's fp.tell() after the palette
+        offset = pal_pos + (pad * colors if bits <= 8 else 0)
     if bits not in (1, 4, 8, 16, 24, 32):
         raise OSError(f"Unsupported BMP pixel depth ({bits})")
     if comp == 3:

@@ -1166,3 +1166,52 @@ def test_m9_scene_on_the_card_matches_cpu(tmp_path):
     close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
     assert close.all(-1).mean() >= 0.99
     assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+def test_tiff_and_gif_decode_on_the_card_host_match_plain(monkeypatch):
+    """The committed LZW TIFF height map and GIF floor through the C++ LZW
+    loops and their plain versions, the height map equal to its 8-bit
+    codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import gif, lzw, tiff
+    from liverrenderer_tpu_torch.scene.liver_proxy import height_map
+    with open(_data("torch_height.tif"), "rb") as fh:
+        tif = fh.read()
+    with open(_data("torch_floor.gif"), "rb") as fh:
+        gf = fh.read()
+    height, floor = tiff.read_tiff(tif), gif.read_gif(gf)
+    codes = np.round(height_map(1024, 0) * 255.0).astype(np.uint8)
+    np.testing.assert_array_equal(height[..., 0], codes)
+    monkeypatch.setattr(lzw, "lzw_tiff", lzw._lzw_tiff_plain)
+    monkeypatch.setattr(lzw, "lzw_gif", lzw._lzw_gif_plain)
+    np.testing.assert_array_equal(tiff.read_tiff(tif), height)
+    np.testing.assert_array_equal(gif.read_gif(gf), floor)
+
+
+@pytest.mark.cuda
+def test_m9b_scene_on_the_card_matches_cpu(tmp_path):
+    """bench.py's workload path from XML with a 32^2 LZW TIFF height map
+    (tests/torch_raster_files' writer) and the committed GIF floor at
+    16x12, 4 spp: the card's render against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.scene.liver_proxy import height_map
+    from torch_raster_files import write_tiff
+    from torch_xml_files import write_proxy_files
+    tif = tmp_path / "h.tif"
+    tif.write_bytes(write_tiff(np.round(height_map(32, 0) * 255.0).astype(
+        np.uint8), 1, compression=5, predictor=2, rows_per_strip=8))
+    path, _ = write_proxy_files(str(tmp_path / "scene"), 16, 12, 4,
+                                subdiv=2, height_file=str(tif),
+                                floor_file=_data("torch_floor.gif"))
+    ref = lrt.render(lrt.load_file(path, device="cpu"), spp=4).numpy()
+    scene = lrt.load_file(path)
+    assert scene.device.type == "cuda" and scene.has_heightmap
+    before = tci.LAUNCHES
+    img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())

@@ -78,12 +78,43 @@ def _liver_medium_xml(spectra=True):
     return "\n".join("  " + ln for ln in lines)
 
 
+def floor_texture(n=64, seed=0):
+    """(n, n, 3) uint8: an 8-pixel checker of two seeded colours under a
+    left-to-right ramp, the floor's bitmap (tests/data/torch_floor.gif is
+    Pillow's GIF of floor_texture())."""
+    y, x = np.mgrid[0:n, 0:n]
+    base = np.random.default_rng(seed).uniform(0.2, 0.9, (2, 3))
+    tex = base[(x // 8 + y // 8) % 2] * (0.6 + 0.4 * x[..., None] / (n - 1))
+    return np.round(tex * 255).astype(np.uint8)
+
+
+def _floor_xml(floor_file):
+    """A diffuse 6 x 6 floor under the liver, its reflectance the bitmap
+    `floor_file` (sRGB)."""
+    if floor_file is None:
+        return ""
+    return f"""  <shape type="rectangle">
+    <transform name="to_world">
+      <scale value="3"/>
+      <rotate x="1" angle="-90"/>
+      <translate y="-1.1"/>
+    </transform>
+    <bsdf type="diffuse">
+      <texture type="bitmap" name="reflectance">
+        <string name="filename" value="{floor_file}"/>
+      </texture>
+    </bsdf>
+  </shape>
+"""
+
+
 def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
-              bump_scale=0.05, height_file="height.png"):
+              bump_scale=0.05, height_file="height.png", floor_file=None):
     """bench.py's workload path on the proxy as a Mitsuba XML scene: film,
     spp, depth and integrator are <default>s; the liver's dielectric is a
     named bsdf that a bumpmap refs; the mesh, height map and sky are the
-    files liver.ply, `height_file` (raw) and sky.exr."""
+    files liver.ply, `height_file` (raw) and sky.exr; `floor_file` adds a
+    floor textured with that bitmap."""
     return f"""<scene version="3.0.0">
   <default name="res_width" value="{width}"/>
   <default name="res_height" value="{height}"/>
@@ -124,7 +155,7 @@ def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
     </bsdf>
     <ref name="interior" id="liver_med"/>
   </shape>
-  <emitter type="envmap">
+{_floor_xml(floor_file)}  <emitter type="envmap">
     <string name="filename" value="sky.exr"/>
   </emitter>
 </scene>
@@ -133,7 +164,7 @@ def proxy_xml(width, height, spp, max_depth=12, integrator="biovolpath",
 
 def write_proxy_files(dirpath, width, height, spp, subdiv=4, seed=0,
                       bump_res=1024, sky=(1024, 512), max_depth=12,
-                      sky_file=None, height_file=None):
+                      sky_file=None, height_file=None, floor_file=None):
     """scene.xml, liver.ply, the height map and sky.exr in dirpath ->
     (path of scene.xml, {file name: bytes}).  The height map is
     height_map(bump_res) as an 8-bit grey height.png, or a copy of
@@ -141,7 +172,8 @@ def write_proxy_files(dirpath, width, height, spp, subdiv=4, seed=0,
     1,024^2 map as a JPEG).  sky.exr is sky_map(*sky) as a ZIP half EXR, or
     a copy of `sky_file` (tests/data/torch_sky_piz.exr and
     torch_sky_dwaa.exr: the same sky written by OpenEXR with PIZ and DWAA
-    compression)."""
+    compression).  `floor_file` is copied in as floor.<ext> and textures a
+    floor under the liver (tests/data/torch_floor.gif)."""
     os.makedirs(dirpath, exist_ok=True)
     v, f, n, uv = liver_mesh(subdiv, seed)
     write_ply(os.path.join(dirpath, "liver.ply"), v, f, n, uv)
@@ -157,12 +189,18 @@ def write_proxy_files(dirpath, width, height, spp, subdiv=4, seed=0,
         write_exr(os.path.join(dirpath, "sky.exr"), sky_map(*sky))
     else:
         shutil.copyfile(sky_file, os.path.join(dirpath, "sky.exr"))
+    names = ["scene.xml", "liver.ply", hname, "sky.exr"]
+    fname = None
+    if floor_file is not None:
+        fname = "floor" + os.path.splitext(str(floor_file))[1]
+        shutil.copyfile(floor_file, os.path.join(dirpath, fname))
+        names.append(fname)
     xml = os.path.join(dirpath, "scene.xml")
     with open(xml, "w") as fh:
         fh.write(proxy_xml(width, height, spp, max_depth,
-                           height_file=hname))
+                           height_file=hname, floor_file=fname))
     return xml, {name: os.path.getsize(os.path.join(dirpath, name))
-                 for name in ("scene.xml", "liver.ply", hname, "sky.exr")}
+                 for name in names}
 
 
 def inline_files(d, base_dir, read_image, load_mesh):
