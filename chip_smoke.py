@@ -439,6 +439,22 @@ current ones, and each line reports the spp it ran:
   m9b_write        write_image of that render to .tif and .qoi, read back
                    equal to the dithered 8-bit pixels
   m9b_phases       the seconds the m9b phases took
+  m9c_decode       the committed lossy WebP height map, BC7 DDS floor,
+                   lossless RGBA WebP and animated WebP decoded on the
+                   card's host in turns with the PNG height map
+                   (webp_over_png_decode), the WebP height within its
+                   bound of the PNG's codes, the DDS floor equal to its
+                   committed PNG twin, and the plain VP8 / VP8L / BC7
+                   loops against the C++ ones (on the 64^2 files, a 256^2
+                   crop of the height map and 16 rows of the floor)
+  m9c_small        bench.py's workload path from XML with a 32^2 WebP
+                   height map and the DDS floor at 16x12, 4 spp: card
+                   against CPU
+  m9c_render       the same at 428x240, CMP_SPP, from the committed files,
+                   in turns with its PNG twin (webp_dds_over_png), launches
+  m9c_write        write_image of that render to .dds, read back equal to
+                   the dithered 8-bit pixels
+  m9c_phases       the seconds the m9c phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -460,7 +476,8 @@ current ones, and each line reports the spp it ran:
                    textured, instanced, SDF and hair renders + the
                    viewer's and the interactive loop's frames and the
                    sharded renders and gradients (every rank) + the
-                   m9 render and its PNG + PIZ twin; the hair
+                   m9 render and its PNG + PIZ twin + the m9b and m9c
+                   renders and their PNG twins; the hair
                    tuft's query in K2's regime beside its bound),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
@@ -5058,6 +5075,177 @@ def m9b_phases(torch, np, lrt, ci, smi, workdir):
     return {"m9b_render": counts["m9b"], "m9b_twin": counts["twin"]}
 
 
+# the WebP height map's distance from the PNG's 8-bit codes (max and mean
+# over the red channel, in codes), measured on the CPU against Pillow's
+# decode (tests/test_torch_m9c_slice.py: max 8, mean 0.6917)
+M9C_HEIGHT_MAX, M9C_HEIGHT_MEAN = 8, 0.70
+
+
+def m9c_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9c_decode, m9c_small, m9c_render, m9c_write and m9c_phases
+    (WebP and the BCn family): the committed WebP and DDS files decoded on
+    the card's host in turns with the PNG height map, and through the
+    plain loops; bench.py's workload path from XML with a lossy WebP
+    height map and a BC7-textured floor, card against CPU at test size,
+    and at full size in turns with its PNG twin; write_image to .dds read
+    back -> {name: launch counts}."""
+    from liverrenderer_tpu_torch.io import bcn, dds, vp8l, webp
+    from liverrenderer_tpu_torch.io.image import (dither_8bit, encode_8bit,
+                                                  read_8bit)
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    xf = _tests_module("torch_xml_files")
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    files = {k: os.path.join(data, v) for k, v in (
+        ("webp", "torch_height.webp"), ("webp32", "torch_height32.webp"),
+        ("crop", "torch_height_crop.webp"), ("alpha", "torch_alpha64.webp"),
+        ("anim", "torch_anim.webp"), ("dds", "torch_floor_bc7.dds"),
+        ("floor_png", "torch_floor_bc7.png"))}
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 24a. the decoders on the card's host, in turns with the PNG
+    t0 = time.perf_counter()
+    vp8l.library()
+    bcn.library()
+    build_s = time.perf_counter() - t0
+    readers = {k: (lambda p=files[k]: lrt.read_image(p, False))
+               for k in ("webp", "dds", "alpha", "anim")}
+    readers["png"] = lambda: lrt.read_image(png, False)
+    dec = {k: [] for k in readers}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    height = read_8bit(files["webp"])[..., 0].astype(np.int64)
+    diff = np.abs(height - codes)
+    floor = read_8bit(files["dds"])
+    floor_exact = bool(np.array_equal(floor, read_8bit(files["floor_png"])))
+    plain_s, plain_equal = {}, {}
+    for kind in ("alpha", "anim", "crop"):
+        with open(files[kind], "rb") as fh:
+            body = fh.read()
+        cw, ch, frame = webp.demux(body)
+        fast = webp.first_frame(body, cw, ch, frame)
+        t0 = time.perf_counter()
+        slow = webp.first_frame(body, cw, ch, frame, plain=True)
+        plain_s[kind] = time.perf_counter() - t0
+        plain_equal[kind] = bool(np.array_equal(fast, slow))
+    with open(files["dds"], "rb") as fh:
+        blocks = fh.read()[148:]
+    t0 = time.perf_counter()
+    slow = bcn.decode(blocks[:16 * 64 * 4], 256, 16, 7, "BC7", plain=True)
+    plain_s["bc7_rows16"] = time.perf_counter() - t0
+    plain_equal["bc7_rows16"] = bool(np.array_equal(
+        bcn.decode(blocks, 256, 256, 7, "BC7")[:16], slow))
+    sizes = {k: os.path.getsize(v) for k, v in files.items()}
+    sizes["png"] = os.path.getsize(png)
+    emit("m9c_decode", files={k: os.path.relpath(v, os.path.dirname(data))
+                              for k, v in files.items()},
+         bytes=sizes, reps=M9_REPS, decode_seconds=med,
+         decode_seconds_reps=dec,
+         webp_over_png_decode=med["webp"] / med["png"],
+         dds_over_png_decode=med["dds"] / med["png"],
+         build_seconds=build_s, plain_seconds=plain_s,
+         plain_equal=plain_equal, height_max_codes=int(diff.max()),
+         height_mean_codes=float(diff.mean()),
+         height_gates=[M9C_HEIGHT_MAX, M9C_HEIGHT_MEAN],
+         floor_equals_png=floor_exact, floor_shape=list(floor.shape))
+    check(diff.max() <= M9C_HEIGHT_MAX and diff.mean() <= M9C_HEIGHT_MEAN,
+          "m9c_decode: the WebP height map is past its bound of the codes")
+    check(floor_exact and floor.shape == (256, 256, 3),
+          "m9c_decode: the BC7 floor is not its committed pixels")
+    check(all(plain_equal.values()), "m9c_decode: a plain loop disagrees "
+          f"with its C++ version: {plain_equal}")
+
+    # ---- 24b. the main path from a WebP height map and a DDS floor at
+    # test size: the committed 32^2 map (see m9_small)
+    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
+                                    4, 2, SEED, bump_res=BUMP_SMALL[0],
+                                    sky=SKY_SMALL,
+                                    height_file=files["webp32"],
+                                    floor_file=files["dds"])
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
+    emit("m9c_small", film=[16, 12], spp=4, pixel_frac=frac,
+         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          "m9c_small: the card's render disagrees with the CPU's")
+
+    # ---- 24c. at full size, in turns with its PNG twin (the PNG height
+    # codes and the floor's decoded pixels as PNG)
+    m9c_xml, fsizes = xf.write_proxy_files(
+        os.path.join(workdir, "m9c"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        height_file=files["webp"], floor_file=files["dds"])
+    twin_xml, twin_sizes = xf.write_proxy_files(
+        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], floor_file=files["floor_png"])
+    loads, scenes = {}, {}
+    for which, path in (("m9c", m9c_xml), ("twin", twin_xml)):
+        loads[which], scenes[which] = timed_load(
+            torch, lambda: lrt.load_file(path))
+    secs = {"m9c": [], "twin": []}
+    counts, imgs = {}, {}
+    for which in ("m9c", "twin", "twin", "m9c"):
+        reset_counts(ci)
+        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
+        counts.setdefault(which, launch_counts(ci))
+        imgs.setdefault(which, img)
+        secs[which].append(t)
+    img = imgs["m9c"]
+    twin_rel = abs(float(img.mean()) - float(imgs["twin"].mean())) \
+        / float(imgs["twin"].mean())
+    emit("m9c_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
+         bytes=fsizes, twin_bytes=twin_sizes, load_file_seconds=loads,
+         render_seconds=secs,
+         webp_dds_over_png=statistics.median(secs["m9c"])
+         / statistics.median(secs["twin"]),
+         paths_per_s=WIDTH * HEIGHT * CMP_SPP
+         / statistics.median(secs["m9c"]),
+         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
+         twin_mean=float(imgs["twin"].mean()), mean_rel_vs_twin=twin_rel,
+         launches=counts["m9c"][0], merge_launches=counts["m9c"][1],
+         twin_launches=counts["twin"][0],
+         twin_merge_launches=counts["twin"][1])
+    check(scenes["m9c"].device.type == "cuda"
+          and scenes["m9c"].has_heightmap
+          and scenes["m9c"].emitters.env_index >= 0,
+          "m9c_render: load_file did not build the bumped, sky-lit proxy "
+          "on the card")
+    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
+          and twin_rel <= M9_TWIN_RTOL,
+          "m9c_render: image not finite, its mean out of range or far from "
+          "its PNG twin's")
+    check(counts["m9c"][0] > 0 and counts["m9c"][1] > 0,
+          "m9c_render: the render launched no sweep or merge kernel")
+
+    # ---- 24d. write_image to .dds, read back: the dithered 8-bit pixels
+    host = img.cpu().numpy()
+    px = dither_8bit(host)
+    path = os.path.join(workdir, "render.dds")
+    t0 = time.perf_counter()
+    lrt.write_image(path, host)
+    w_s = time.perf_counter() - t0
+    with open(path, "rb") as fh:
+        body = fh.read()
+    t0 = time.perf_counter()
+    back = dds.open_dds(body)()
+    r_s = time.perf_counter() - t0
+    writes = {".dds": {"bytes": len(body), "write_seconds": w_s,
+                       "read_seconds": r_s,
+                       "equal": bool(np.array_equal(back, px)),
+                       "encoder_equal": body == encode_8bit(px, "DDS")}}
+    emit("m9c_write", film=[WIDTH, HEIGHT], files=writes)
+    check(all(v["equal"] and v["encoder_equal"] for v in writes.values()),
+          f"m9c_write: the written file does not read back: {writes}")
+    emit("m9c_phases", seconds=time.perf_counter() - t_start)
+    return {"m9c_render": counts["m9c"], "m9c_twin": counts["twin"]}
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -5679,6 +5867,13 @@ def main() -> int:
         m9b = m9b_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps += sum(c[0] for c in m9b.values())
     m9_merges += sum(c[1] for c in m9b.values())
+
+    # ---- 24. WebP and the BCn family (DDS): the lossy WebP height map and
+    # a BC7 floor on the main path, the DDS writer
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9c_") as workdir:
+        m9c = m9c_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9c.values())
+    m9_merges += sum(c[1] for c in m9c.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -5750,6 +5945,7 @@ def main() -> int:
                                     for k, c in s17.items()},
              m9_launches={k: split_counts(c) for k, c in m9.items()},
              m9b_launches={k: split_counts(c) for k, c in m9b.items()},
+             m9c_launches={k: split_counts(c) for k, c in m9c.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -5828,6 +6024,7 @@ def main() -> int:
              apps_sharded_launches={k: c[1] for k, c in s17.items()},
              m9_launches={k: c[1] for k, c in m9.items()},
              m9b_launches={k: c[1] for k, c in m9b.items()},
+             m9c_launches={k: c[1] for k, c in m9c.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

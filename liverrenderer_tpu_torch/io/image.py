@@ -14,7 +14,8 @@ port does not decode, those with a weak prefix test (GBR, FLI, WMF) and
 those without one are checked as far as Pillow's plugin checks the
 header; the rest are taken to open every file their test accepts.  The
 port decodes PNG, JPEG, PPM/PGM/PBM, BMP, DIB, GIF, TIFF, PCX, DCX, SGI,
-IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD and TGA; a file
+IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD, TGA, WebP (io/webp.py),
+DDS (io/dds.py), BLP (io/blp.py) and FTEX (io/ftex.py); a file
 another Pillow plugin opens raises NotImplementedError (ROADMAP Queue 1
 M9); a file no plugin opens (an RGBE `.hdr`, say) raises OSError as
 Pillow's UnidentifiedImageError does.
@@ -22,10 +23,11 @@ Pillow's UnidentifiedImageError does.
 Written files: EXR and PFM as float; otherwise an ordered dither to 8
 bits, then the format of the extension as Pillow's registry names it:
 PNG (as io/png.py writes it), JPEG (quality 75, 4:2:0), PPM, BMP, DIB,
-TGA, TIFF, PCX, SGI, IM and QOI, the last nine byte for byte as Pillow
-saves them.  Where Pillow refuses, the port raises the same exception
-(an unknown extension ValueError, a format with no writer KeyError, XBM
-/ MSP / Palm OSError for an RGB image); the writers Pillow has and the
+TGA, TIFF, PCX, SGI, IM, QOI and DDS (raw, as Pillow saves it with no
+pixel format), the last ten byte for byte as Pillow saves them.  Where
+Pillow refuses, the port raises the same exception (an unknown extension
+ValueError, a format with no writer KeyError, XBM / MSP / Palm OSError
+for an RGB image); the writers Pillow has and the
 port does not yet (GIF, WebP, ICO, ...) raise NotImplementedError
 (ROADMAP M9).
 """
@@ -39,7 +41,7 @@ import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
-from . import gif, ico, legacy, psd, raster, tiff
+from . import blp, dds, ftex, gif, ico, legacy, psd, raster, tiff, webp
 from .exr import read_exr_any, write_exr
 from .jpeg import encode_jpeg, read_jpeg
 from .png import decode_png, write_png
@@ -262,18 +264,18 @@ _OPEN = (
     ("PNG", _pfx(b"\x89PNG\r\n\x1a\n"), lambda d: (lambda: decode_png(d))),
     ("AVIF", lambda p: p[4:8] == b"ftyp"
      and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
-    ("BLP", _pfx(b"BLP1", b"BLP2"), None),
+    ("BLP", _pfx(b"BLP1", b"BLP2"), blp.open_blp),
     ("BUFR", _pfx(b"BUFR", b"ZCZC"), None),
     ("CUR", _pfx(b"\0\0\2\0"), ico.open_cur),
     ("PCX", legacy._pcx_accept, legacy.open_pcx),
     ("DCX", lambda p: len(p) >= 4 and _u32(p) == 0x3ADE68B1, legacy.open_dcx),
-    ("DDS", _pfx(b"DDS "), None),
+    ("DDS", _pfx(b"DDS "), dds.open_dds),
     ("EPS", lambda p: p.startswith(b"%!PS")
      or (len(p) >= 4 and _u32(p) == 0xC6D3D0C5), None),
     ("FITS", _pfx(b"SIMPLE"), None),
     ("FLI", lambda p: len(p) >= 16 and _u16(p, 4) in (0xAF11, 0xAF12)
      and _u16(p, 14) in (0, 3), _open_fli),
-    ("FTEX", _pfx(b"FTEX"), None),
+    ("FTEX", _pfx(b"FTEX"), ftex.open_ftex),
     ("GBR", lambda p: len(p) >= 8 and _u32(p, ">") >= 20
      and _u32(p[4:], ">") in (1, 2), _open_gbr),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
@@ -301,7 +303,7 @@ _OPEN = (
      legacy.open_sun),
     ("TGA", None, _open_tga),
     ("WEBP", lambda p: p.startswith(b"RIFF") and p[8:12] == b"WEBP"
-     and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), None),
+     and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), webp.open_webp),
     ("WMF", _pfx(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"),
      _open_wmf),
     ("XBM", lambda p: p.lstrip().startswith(b"#define"), legacy.open_xbm),
@@ -399,7 +401,7 @@ def encode_8bit(px: np.ndarray, fmt: str, path: str = "") -> bytes:
                "PCX": legacy.encode_pcx,
                "SGI": lambda a: legacy.encode_sgi(a, path),
                "IM": lambda a: legacy.encode_im(a, path),
-               "QOI": legacy.encode_qoi}
+               "QOI": legacy.encode_qoi, "DDS": dds.encode_dds}
     if fmt not in writers:
         raise not_ported(f"writing {fmt} image files", "Queue 1 M9")
     return writers[fmt](px)

@@ -1215,3 +1215,48 @@ def test_m9b_scene_on_the_card_matches_cpu(tmp_path):
     close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
     assert close.all(-1).mean() >= 0.99
     assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+def test_m9c_scene_on_the_card_matches_cpu(tmp_path):
+    """bench.py's workload path from XML with the committed 32^2 lossy
+    WebP height map and BC7 DDS floor at 16x12, 4 spp: the card's render
+    against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_xml_files import write_proxy_files
+    path, _ = write_proxy_files(str(tmp_path / "scene"), 16, 12, 4,
+                                subdiv=2,
+                                height_file=_data("torch_height32.webp"),
+                                floor_file=_data("torch_floor_bc7.dds"))
+    ref = lrt.render(lrt.load_file(path, device="cpu"), spp=4).numpy()
+    scene = lrt.load_file(path)
+    assert scene.device.type == "cuda" and scene.has_heightmap
+    before = tci.LAUNCHES
+    img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+def test_m9c_decoders_on_the_cards_host():
+    """The committed WebP and DDS files decode on the card's machine (no
+    Pillow there) to the pixels the CPU tests hold to Pillow's: the C++
+    loops against the plain ones, the BC7 floor against its PNG twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import image as timage
+    from liverrenderer_tpu_torch.io import webp
+    for name in ("torch_alpha64.webp", "torch_anim.webp",
+                 "torch_height_crop.webp"):
+        with open(_data(name), "rb") as fh:
+            data = fh.read()
+        cw, ch, frame = webp.demux(data)
+        np.testing.assert_array_equal(
+            webp.first_frame(data, cw, ch, frame),
+            webp.first_frame(data, cw, ch, frame, plain=True))
+    np.testing.assert_array_equal(
+        timage.read_8bit(_data("torch_floor_bc7.dds")),
+        timage.read_8bit(_data("torch_floor_bc7.png")))

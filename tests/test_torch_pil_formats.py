@@ -364,7 +364,7 @@ def test_pillows_refusals(tmp_path, ext):
 
 
 @pytest.mark.parametrize("ext", [".gif", ".webp", ".ico", ".jp2", ".avif",
-                                 ".eps", ".pdf", ".dds", ".icns", ".mpo"])
+                                 ".eps", ".pdf", ".icns", ".mpo"])
 def test_writers_still_to_port(tmp_path, ext):
     with pytest.raises(NotImplementedError, match="Queue 1 M9"):
         lrt.write_image(str(tmp_path / f"t{ext}"),
