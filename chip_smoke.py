@@ -455,6 +455,21 @@ current ones, and each line reports the spp it ran:
   m9c_write        write_image of that render to .dds, read back equal to
                    the dithered 8-bit pixels
   m9c_phases       the seconds the m9c phases took
+  m9d_decode       the committed arithmetic-coded 1,024^2 height map, CMYK
+                   JPEG and YCbCr JPEG-in-TIFF floor decoded on the card's
+                   host in turns with the PNG height map
+                   (arith_over_png_decode), the height within its bound of
+                   the PNG's codes, the CMYK file and the floor equal to
+                   their committed PNG twins, and the plain arithmetic
+                   loop against the C++ one (on a 128^2 crop and the 32^2
+                   map)
+  m9d_small        bench.py's workload path from XML with the 32^2
+                   arithmetic height map and the TIFF floor at 16x12,
+                   4 spp: card against CPU
+  m9d_render       the same at 428x240, CMP_SPP, from the committed files,
+                   in turns with its PNG twin (arith_tiff_over_png),
+                   launches
+  m9d_phases       the seconds the m9d phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -476,8 +491,8 @@ current ones, and each line reports the spp it ran:
                    textured, instanced, SDF and hair renders + the
                    viewer's and the interactive loop's frames and the
                    sharded renders and gradients (every rank) + the
-                   m9 render and its PNG + PIZ twin + the m9b and m9c
-                   renders and their PNG twins; the hair
+                   m9 render and its PNG + PIZ twin + the m9b, m9c and
+                   m9d renders and their PNG twins; the hair
                    tuft's query in K2's regime beside its bound),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
@@ -497,16 +512,18 @@ import warnings
 
 WIDTH, HEIGHT, SPP, SUBDIV, SEED = 428, 240, 64, 4, 0
 # the spp of the main path's comparison renders in later phases (file
-# against dict in deterministic mode, the CLI and its in-process twin,
-# RenderControl against the plain render, the pipeline driver against the
-# render by hand and its evaluation, spectral against RGB, the sunsky
-# against the envmap, the m9 and m9b files against their twins): cut from
+# against dict, timed and in deterministic mode, the CLI and its
+# in-process twin, RenderControl against the plain render, the pipeline
+# driver against the render by hand and its evaluation, spectral against
+# RGB, the sunsky against the envmap, the m9 to m9d files against their
+# twins): cut from
 # SPP for the script's time (64 -> 16 when the script took 1,331 s of its
 # 1,200 s limit on an H100 whose host ran ~1.3x slower than the fastest
 # seen; 16 -> 4 when it took 1,133-1,199 s on such hosts with the m9b
-# phases); their gates compare equal computations or means over ~10^5
-# pixels and hold at any spp; the render and bump_env_render phases keep
-# bench.py's 64
+# phases; xml_render's timed pair 64 -> 4 when the m9d phases brought the
+# script to 1,043 s on such a host); their gates compare equal
+# computations or means over ~10^5 pixels and hold at any spp; the render
+# and bump_env_render phases keep bench.py's 64
 CMP_SPP = 4
 KERNEL_SPP = 8                 # render_kernel phase
 # the gradients' spp: bench.py's 16, cut to 8 with CMP_SPP (the phases'
@@ -1999,7 +2016,7 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
             torch, lambda: lrt.load_file(path) if which == "file"
             else lrt.load_dict(d_back))
         reset_counts(ci)
-        secs, img = timed_render(torch, lrt, scenes[which], SPP)
+        secs, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
         counts.setdefault(which, launch_counts(ci))
         imgs[which].append(img)
         runs[which].append(dict(load_seconds=load_s, render_seconds=secs))
@@ -2028,13 +2045,13 @@ def xml_phases(torch, np, lrt, ci, treplay, smi, workdir):
     identical = bool(torch.equal(det["file"], det["dict"]))
     t_f = runs["file"][0]["render_seconds"]
     t_d = runs["dict"][0]["render_seconds"]
-    paths = WIDTH * HEIGHT * SPP
+    paths = WIDTH * HEIGHT * CMP_SPP
     # ---- 9d. its gradient (one run after a warm-up) against a primal
     grad_run(torch, lrt, ci, treplay, scene_f, TRACE_SPP)        # warm-up
     g_s, g, _, grad_counts = grad_run(torch, lrt, ci, treplay, scene_f,
                                       GRAD_SPP)
     p_s, _ = timed_render(torch, lrt, scene_f, GRAD_SPP)
-    emit("xml_render", film=[WIDTH, HEIGHT], spp=SPP, card=smi,
+    emit("xml_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
          tris=scene_f.n_tris, seconds=runs["file"][0]["render_seconds"],
          paths_per_s=paths / runs["file"][0]["render_seconds"],
          file_runs=runs["file"], dict_runs=runs["dict"],
@@ -4715,6 +4732,70 @@ def _obj_text(v, f, n, uv) -> str:
     return "".join(out)
 
 
+def _twin_phases(torch, np, lrt, ci, smi, workdir, tag, ratio, small, full,
+                 twin):
+    """Phases <tag>_small and <tag>_render: bench.py's workload path from
+    XML whose textures are files (write_proxy_files' keywords: `small` at
+    test size, `full` at full size), card against CPU at test size, and at
+    full size in turns with its twin (`twin`: the same pixels from other
+    files, the height map's codes at BUMP); `ratio` names the file
+    render's time over the twin's -> (the file render's launch counts,
+    the twin's, the file render's image)."""
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP
+    xf = _tests_module("torch_xml_files")
+    path, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
+                                   4, 2, SEED, **small)
+    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, path, 4)
+    emit(f"{tag}_small", film=[16, 12], spp=4, pixel_frac=frac,
+         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
+    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
+          f"{tag}_small: the card's render disagrees with the CPU's")
+    xml, sizes = xf.write_proxy_files(
+        os.path.join(workdir, tag), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        **full)
+    twin_xml, twin_sizes = xf.write_proxy_files(
+        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
+        bump_res=BUMP[0], **twin)
+    loads, scenes = {}, {}
+    for which, p in ((tag, xml), ("twin", twin_xml)):
+        loads[which], scenes[which] = timed_load(
+            torch, lambda: lrt.load_file(p))
+    secs = {tag: [], "twin": []}
+    counts, imgs = {}, {}
+    for which in (tag, "twin", "twin", tag):
+        reset_counts(ci)
+        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
+        counts.setdefault(which, launch_counts(ci))
+        imgs.setdefault(which, img)
+        secs[which].append(t)
+    img, twin_img = imgs[tag], imgs["twin"]
+    twin_rel = abs(float(img.mean()) - float(twin_img.mean())) \
+        / float(twin_img.mean())
+    med = statistics.median(secs[tag])
+    emit(f"{tag}_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
+         bytes=sizes, twin_bytes=twin_sizes, load_file_seconds=loads,
+         render_seconds=secs,
+         **{ratio: med / statistics.median(secs["twin"])},
+         paths_per_s=WIDTH * HEIGHT * CMP_SPP / med,
+         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
+         twin_mean=float(twin_img.mean()), mean_rel_vs_twin=twin_rel,
+         bit_identical_to_twin=bool(torch.equal(img, twin_img)),
+         launches=counts[tag][0], merge_launches=counts[tag][1],
+         twin_launches=counts["twin"][0],
+         twin_merge_launches=counts["twin"][1])
+    check(scenes[tag].device.type == "cuda" and scenes[tag].has_heightmap
+          and scenes[tag].emitters.env_index >= 0,
+          f"{tag}_render: load_file did not build the bumped, sky-lit proxy "
+          "on the card")
+    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
+          and twin_rel <= M9_TWIN_RTOL,
+          f"{tag}_render: image not finite, its mean out of range or far "
+          "from its twin's")
+    check(counts[tag][0] > 0 and counts[tag][1] > 0,
+          f"{tag}_render: the render launched no sweep or merge kernel")
+    return counts[tag], counts["twin"], img
+
+
 def m9_phases(torch, np, lrt, ci, smi, workdir):
     """Phases m9_decode, m9_obj, m9_small, m9_render and m9_phases (the
     rest of the loader): the committed DWAA sky and JPEG height map
@@ -4728,7 +4809,6 @@ def m9_phases(torch, np, lrt, ci, smi, workdir):
     from liverrenderer_tpu_torch.scene import meshio
     from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, height_map,
                                                            liver_mesh)
-    xf = _tests_module("torch_xml_files")
     t_start = time.perf_counter()
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "data")
@@ -4833,69 +4913,22 @@ def m9_phases(torch, np, lrt, ci, smi, workdir):
     check(equal and len(m_native.faces) >= 300_000, "m9_obj: the C++ OBJ "
           "parse differs from its plain version")
 
-    # ---- 22c. the main path from a JPEG height map and the DWAA sky at
-    # test size: the height map at BUMP_SMALL (at 16x12 the 1,024^2 map's
-    # bump frame jumps between texels, and an ulp of hit uv flips paths:
-    # card = CPU on 94-96 % of pixels, PNG or JPEG alike), JPEG-coded by
-    # the port's encoder (PIL's bytes)
+    # ---- 22c, 22d. the main path from a JPEG height map and the DWAA sky
+    # at test size: the height map at BUMP_SMALL (at 16x12 the 1,024^2
+    # map's bump frame jumps between texels, and an ulp of hit uv flips
+    # paths: card = CPU on 94-96 % of pixels, PNG or JPEG alike), JPEG-coded
+    # by the port's encoder (PIL's bytes); at full size, in turns with its
+    # PNG + PIZ twin
     jpg_small = os.path.join(workdir, "height_small.jpg")
     with open(jpg_small, "wb") as fh:
         fh.write(tjpeg.encode_jpeg(np.round(
             height_map(BUMP_SMALL[0], SEED) * 255.0).astype(np.uint8)))
-    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
-                                    4, 2, SEED, sky_file=dwa,
-                                    height_file=jpg_small)
-    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
-    emit("m9_small", film=[16, 12], spp=4, pixel_frac=frac,
-         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
-    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
-          "m9_small: the card's render disagrees with the CPU's")
-
-    # ---- 22d. at full size, in turns with its PNG + PIZ twin
-    m9_xml, sizes = xf.write_proxy_files(
-        os.path.join(workdir, "m9"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
-        sky_file=dwa, height_file=jpg)
-    twin_xml, twin_sizes = xf.write_proxy_files(
-        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
-        bump_res=BUMP[0], sky_file=piz)
-    loads, scenes = {}, {}
-    for which, path in (("m9", m9_xml), ("twin", twin_xml)):
-        loads[which], scenes[which] = timed_load(
-            torch, lambda: lrt.load_file(path))
-    secs = {"m9": [], "twin": []}
-    counts, imgs = {}, {}
-    for which in ("m9", "twin", "twin", "m9"):
-        reset_counts(ci)
-        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
-        counts.setdefault(which, launch_counts(ci))
-        imgs.setdefault(which, img)
-        secs[which].append(t)
-    img = imgs["m9"]
-    twin_rel = abs(float(img.mean()) - float(imgs["twin"].mean())) \
-        / float(imgs["twin"].mean())
-    emit("m9_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
-         bytes=sizes, twin_bytes=twin_sizes, load_file_seconds=loads,
-         render_seconds=secs,
-         m9_over_png_piz=statistics.median(secs["m9"])
-         / statistics.median(secs["twin"]),
-         paths_per_s=WIDTH * HEIGHT * CMP_SPP / statistics.median(secs["m9"]),
-         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
-         twin_mean=float(imgs["twin"].mean()), mean_rel_vs_twin=twin_rel,
-         launches=counts["m9"][0], merge_launches=counts["m9"][1],
-         twin_launches=counts["twin"][0],
-         twin_merge_launches=counts["twin"][1])
-    check(scenes["m9"].device.type == "cuda" and scenes["m9"].has_heightmap
-          and scenes["m9"].emitters.env_index >= 0,
-          "m9_render: load_file did not build the bumped, sky-lit proxy "
-          "on the card")
-    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
-          and twin_rel <= M9_TWIN_RTOL,
-          "m9_render: image not finite, its mean out of range or far from "
-          "its PNG + PIZ twin's")
-    check(counts["m9"][0] > 0 and counts["m9"][1] > 0,
-          "m9_render: the render launched no sweep or merge kernel")
+    counts, twin_counts, _ = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9", "m9_over_png_piz",
+        dict(sky_file=dwa, height_file=jpg_small),
+        dict(sky_file=dwa, height_file=jpg), dict(sky_file=piz))
     emit("m9_phases", seconds=time.perf_counter() - t_start)
-    return {"m9_render": counts["m9"], "m9_twin": counts["twin"]}
+    return {"m9_render": counts, "m9_twin": twin_counts}
 
 
 def m9b_phases(torch, np, lrt, ci, smi, workdir):
@@ -4913,7 +4946,6 @@ def m9b_phases(torch, np, lrt, ci, smi, workdir):
     from liverrenderer_tpu_torch.io.image import dither_8bit, encode_8bit
     from liverrenderer_tpu_torch.io.png import write_png
     from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
-    xf = _tests_module("torch_xml_files")
     rf = _tests_module("torch_raster_files")
     t_start = time.perf_counter()
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -4978,74 +5010,24 @@ def m9b_phases(torch, np, lrt, ci, smi, workdir):
     check(all(plain_equal.values()), "m9b_decode: a plain LZW loop "
           f"disagrees with its C++ version: {plain_equal}")
 
-    # ---- 23b. the main path from a TIFF height map and a GIF floor at
-    # test size: the 32^2 height map (see m9_small), LZW with predictor 2
-    # by the test writer (no Pillow on this machine)
+    # ---- 23b, 23c. the main path from a TIFF height map and a GIF floor
+    # at test size: the 32^2 height map (see m9_small), LZW with predictor
+    # 2 by the test writer (no Pillow on this machine); at full size, in
+    # turns with its PNG twin (the same height codes and floor pixels as
+    # PNG files)
     tif_small = os.path.join(workdir, "height_small.tif")
     with open(tif_small, "wb") as fh:
         fh.write(rf.write_tiff(np.round(height_map(BUMP_SMALL[0], SEED)
                                         * 255.0).astype(np.uint8), 1,
                                compression=5, predictor=2,
                                rows_per_strip=8))
-    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
-                                    4, 2, SEED, bump_res=BUMP_SMALL[0],
-                                    sky=SKY_SMALL, height_file=tif_small,
-                                    floor_file=gif)
-    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
-    emit("m9b_small", film=[16, 12], spp=4, pixel_frac=frac,
-         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
-    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
-          "m9b_small: the card's render disagrees with the CPU's")
-
-    # ---- 23c. at full size, in turns with its PNG twin (the same height
-    # codes and floor pixels as PNG files)
     floor_png = os.path.join(workdir, "floor.png")
     write_png(floor_png, native["gif"])
-    m9b_xml, sizes = xf.write_proxy_files(
-        os.path.join(workdir, "m9b"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
-        height_file=tif, floor_file=gif)
-    twin_xml, twin_sizes = xf.write_proxy_files(
-        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
-        bump_res=BUMP[0], floor_file=floor_png)
-    loads, scenes = {}, {}
-    for which, path in (("m9b", m9b_xml), ("twin", twin_xml)):
-        loads[which], scenes[which] = timed_load(
-            torch, lambda: lrt.load_file(path))
-    secs = {"m9b": [], "twin": []}
-    counts, imgs = {}, {}
-    for which in ("m9b", "twin", "twin", "m9b"):
-        reset_counts(ci)
-        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
-        counts.setdefault(which, launch_counts(ci))
-        imgs.setdefault(which, img)
-        secs[which].append(t)
-    img = imgs["m9b"]
-    twin_rel = abs(float(img.mean()) - float(imgs["twin"].mean())) \
-        / float(imgs["twin"].mean())
-    emit("m9b_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
-         bytes=sizes, twin_bytes=twin_sizes, load_file_seconds=loads,
-         render_seconds=secs,
-         tiff_over_png=statistics.median(secs["m9b"])
-         / statistics.median(secs["twin"]),
-         paths_per_s=WIDTH * HEIGHT * CMP_SPP
-         / statistics.median(secs["m9b"]),
-         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
-         twin_mean=float(imgs["twin"].mean()), mean_rel_vs_twin=twin_rel,
-         bit_identical_to_twin=bool(torch.equal(img, imgs["twin"])),
-         launches=counts["m9b"][0], merge_launches=counts["m9b"][1],
-         twin_launches=counts["twin"][0],
-         twin_merge_launches=counts["twin"][1])
-    check(scenes["m9b"].device.type == "cuda"
-          and scenes["m9b"].has_heightmap
-          and scenes["m9b"].emitters.env_index >= 0,
-          "m9b_render: load_file did not build the bumped, sky-lit proxy "
-          "on the card")
-    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
-          and twin_rel <= M9_TWIN_RTOL,
-          "m9b_render: image not finite, its mean out of range or far from "
-          "its PNG twin's")
-    check(counts["m9b"][0] > 0 and counts["m9b"][1] > 0,
-          "m9b_render: the render launched no sweep or merge kernel")
+    counts, twin_counts, img = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9b", "tiff_over_png",
+        dict(bump_res=BUMP_SMALL[0], sky=SKY_SMALL, height_file=tif_small,
+             floor_file=gif),
+        dict(height_file=tif, floor_file=gif), dict(floor_file=floor_png))
 
     # ---- 23d. write_image to .tif and .qoi, read back: the dithered
     # 8-bit pixels write_image computes
@@ -5072,7 +5054,7 @@ def m9b_phases(torch, np, lrt, ci, smi, workdir):
     check(all(v["equal"] and v["encoder_equal"] for v in writes.values()),
           f"m9b_write: a written file does not read back: {writes}")
     emit("m9b_phases", seconds=time.perf_counter() - t_start)
-    return {"m9b_render": counts["m9b"], "m9b_twin": counts["twin"]}
+    return {"m9b_render": counts, "m9b_twin": twin_counts}
 
 
 # the WebP height map's distance from the PNG's 8-bit codes (max and mean
@@ -5094,7 +5076,6 @@ def m9c_phases(torch, np, lrt, ci, smi, workdir):
                                                   read_8bit)
     from liverrenderer_tpu_torch.io.png import write_png
     from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
-    xf = _tests_module("torch_xml_files")
     t_start = time.perf_counter()
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "data")
@@ -5163,65 +5144,16 @@ def m9c_phases(torch, np, lrt, ci, smi, workdir):
     check(all(plain_equal.values()), "m9c_decode: a plain loop disagrees "
           f"with its C++ version: {plain_equal}")
 
-    # ---- 24b. the main path from a WebP height map and a DDS floor at
-    # test size: the committed 32^2 map (see m9_small)
-    small, _ = xf.write_proxy_files(os.path.join(workdir, "small"), 16, 12,
-                                    4, 2, SEED, bump_res=BUMP_SMALL[0],
-                                    sky=SKY_SMALL,
-                                    height_file=files["webp32"],
-                                    floor_file=files["dds"])
-    frac, mean_rel, mean, exact = image_vs_cpu(np, lrt, small, 4)
-    emit("m9c_small", film=[16, 12], spp=4, pixel_frac=frac,
-         pixel_exact=exact, mean_rel=mean_rel, mean=mean)
-    check(frac >= PIX_FRAC_MIN and mean_rel <= MEAN_RTOL,
-          "m9c_small: the card's render disagrees with the CPU's")
-
-    # ---- 24c. at full size, in turns with its PNG twin (the PNG height
-    # codes and the floor's decoded pixels as PNG)
-    m9c_xml, fsizes = xf.write_proxy_files(
-        os.path.join(workdir, "m9c"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
-        height_file=files["webp"], floor_file=files["dds"])
-    twin_xml, twin_sizes = xf.write_proxy_files(
-        os.path.join(workdir, "twin"), WIDTH, HEIGHT, CMP_SPP, SUBDIV, SEED,
-        bump_res=BUMP[0], floor_file=files["floor_png"])
-    loads, scenes = {}, {}
-    for which, path in (("m9c", m9c_xml), ("twin", twin_xml)):
-        loads[which], scenes[which] = timed_load(
-            torch, lambda: lrt.load_file(path))
-    secs = {"m9c": [], "twin": []}
-    counts, imgs = {}, {}
-    for which in ("m9c", "twin", "twin", "m9c"):
-        reset_counts(ci)
-        t, img = timed_render(torch, lrt, scenes[which], CMP_SPP)
-        counts.setdefault(which, launch_counts(ci))
-        imgs.setdefault(which, img)
-        secs[which].append(t)
-    img = imgs["m9c"]
-    twin_rel = abs(float(img.mean()) - float(imgs["twin"].mean())) \
-        / float(imgs["twin"].mean())
-    emit("m9c_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
-         bytes=fsizes, twin_bytes=twin_sizes, load_file_seconds=loads,
-         render_seconds=secs,
-         webp_dds_over_png=statistics.median(secs["m9c"])
-         / statistics.median(secs["twin"]),
-         paths_per_s=WIDTH * HEIGHT * CMP_SPP
-         / statistics.median(secs["m9c"]),
-         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
-         twin_mean=float(imgs["twin"].mean()), mean_rel_vs_twin=twin_rel,
-         launches=counts["m9c"][0], merge_launches=counts["m9c"][1],
-         twin_launches=counts["twin"][0],
-         twin_merge_launches=counts["twin"][1])
-    check(scenes["m9c"].device.type == "cuda"
-          and scenes["m9c"].has_heightmap
-          and scenes["m9c"].emitters.env_index >= 0,
-          "m9c_render: load_file did not build the bumped, sky-lit proxy "
-          "on the card")
-    check(bool(torch.isfinite(img).all()) and 0.05 < float(img.mean()) < 5.0
-          and twin_rel <= M9_TWIN_RTOL,
-          "m9c_render: image not finite, its mean out of range or far from "
-          "its PNG twin's")
-    check(counts["m9c"][0] > 0 and counts["m9c"][1] > 0,
-          "m9c_render: the render launched no sweep or merge kernel")
+    # ---- 24b, 24c. the main path from a WebP height map and a DDS floor
+    # at test size: the committed 32^2 map (see m9_small); at full size, in
+    # turns with its PNG twin (the PNG height codes and the floor's decoded
+    # pixels as PNG)
+    counts, twin_counts, img = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9c", "webp_dds_over_png",
+        dict(bump_res=BUMP_SMALL[0], sky=SKY_SMALL,
+             height_file=files["webp32"], floor_file=files["dds"]),
+        dict(height_file=files["webp"], floor_file=files["dds"]),
+        dict(floor_file=files["floor_png"]))
 
     # ---- 24d. write_image to .dds, read back: the dithered 8-bit pixels
     host = img.cpu().numpy()
@@ -5243,7 +5175,110 @@ def m9c_phases(torch, np, lrt, ci, smi, workdir):
     check(all(v["equal"] and v["encoder_equal"] for v in writes.values()),
           f"m9c_write: the written file does not read back: {writes}")
     emit("m9c_phases", seconds=time.perf_counter() - t_start)
-    return {"m9c_render": counts["m9c"], "m9c_twin": counts["twin"]}
+    return {"m9c_render": counts, "m9c_twin": twin_counts}
+
+
+# the arithmetic-coded height map's distance from the PNG's 8-bit codes
+# (max and mean over the red channel, in codes), measured on the CPU
+# against Pillow's decode (tests/test_torch_jpeg_kinds.py: max 2, mean
+# 0.1829)
+M9D_HEIGHT_MAX, M9D_HEIGHT_MEAN = 2, 0.19
+
+
+def m9d_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9d_decode, m9d_small, m9d_render and m9d_phases (the JPEG
+    kinds and JPEG-in-TIFF): the committed arithmetic-coded height map,
+    CMYK JPEG and YCbCr JPEG-in-TIFF floor decoded on the card's host in
+    turns with the PNG height map, the C++ arithmetic loop against its
+    plain version on a crop; bench.py's workload path from XML with the
+    arithmetic height map and the TIFF floor, card against CPU at test
+    size, and at full size in turns with its PNG twin -> {name: launch
+    counts}."""
+    from liverrenderer_tpu_torch.io import jpeg, jpeg_arith
+    from liverrenderer_tpu_torch.io.image import read_8bit
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    files = {k: os.path.join(data, v) for k, v in (
+        ("arith", "torch_height_arith.jpg"),
+        ("arith32", "torch_height32_arith.jpg"),
+        ("crop", "torch_height_arith_crop.jpg"),
+        ("cmyk", "torch_cmyk.jpg"), ("cmyk_png", "torch_cmyk.png"),
+        ("tiff", "torch_floor_ycc.tif"), ("tiff_png", "torch_floor_ycc.png"))}
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 25a. the decoders on the card's host, in turns with the PNG
+    t0 = time.perf_counter()
+    jpeg_arith.library()
+    jpeg.library()
+    build_s = time.perf_counter() - t0
+    readers = {k: (lambda p=files[k]: lrt.read_image(p, False))
+               for k in ("arith", "cmyk", "tiff")}
+    readers["png"] = lambda: lrt.read_image(png, False)
+    dec = {k: [] for k in readers}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    height = read_8bit(files["arith"])[..., 0].astype(np.int64)
+    diff = np.abs(height - codes)
+    twins = {k: bool(np.array_equal(read_8bit(files[k]),
+                                    read_8bit(files[k + "_png"])))
+             for k in ("cmyk", "tiff")}
+    plain_s, plain_equal = {}, {}
+    for kind in ("crop", "arith32"):
+        with open(files[kind], "rb") as fh:
+            body = fh.read()
+        coefs = {}
+        for which, fn in (("cpp", jpeg_arith._scan_native),
+                          ("plain", jpeg_arith._scan_plain)):
+            st = jpeg._new_state()
+            t0 = time.perf_counter()
+            jpeg._parse(body, st, None, fn)
+            if which == "plain":
+                plain_s[kind] = time.perf_counter() - t0
+            coefs[which] = st["coefs"]
+        plain_equal[kind] = all(bool(np.array_equal(a, b)) for a, b in
+                                zip(coefs["cpp"], coefs["plain"]))
+    sizes = {k: os.path.getsize(v) for k, v in files.items()}
+    sizes["png"] = os.path.getsize(png)
+    emit("m9d_decode", files={k: os.path.relpath(v, os.path.dirname(data))
+                              for k, v in files.items()},
+         bytes=sizes, reps=M9_REPS, decode_seconds=med,
+         decode_seconds_reps=dec,
+         arith_over_png_decode=med["arith"] / med["png"],
+         tiff_over_png_decode=med["tiff"] / med["png"],
+         build_seconds=build_s, plain_seconds=plain_s,
+         plain_equal=plain_equal, height_max_codes=int(diff.max()),
+         height_mean_codes=float(diff.mean()),
+         height_gates=[M9D_HEIGHT_MAX, M9D_HEIGHT_MEAN],
+         equals_png_twin=twins)
+    check(diff.max() <= M9D_HEIGHT_MAX and diff.mean() <= M9D_HEIGHT_MEAN,
+          "m9d_decode: the arithmetic height map is past its bound of the "
+          "codes")
+    check(all(twins.values()), "m9d_decode: the CMYK JPEG or the TIFF "
+          f"floor is not its PNG twin's pixels: {twins}")
+    check(all(plain_equal.values()), "m9d_decode: the plain arithmetic "
+          f"loop disagrees with its C++ version: {plain_equal}")
+
+    # ---- 25b, 25c. the main path from an arithmetic-coded height map and
+    # a JPEG-in-TIFF floor at test size: the committed 32^2 map (see
+    # m9_small); at full size, in turns with its PNG twin (the PNG height
+    # codes and the floor's decoded pixels as PNG)
+    counts, twin_counts, _ = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9d", "arith_tiff_over_png",
+        dict(bump_res=BUMP_SMALL[0], sky=SKY_SMALL,
+             height_file=files["arith32"], floor_file=files["tiff"]),
+        dict(height_file=files["arith"], floor_file=files["tiff"]),
+        dict(floor_file=files["tiff_png"]))
+    emit("m9d_phases", seconds=time.perf_counter() - t_start)
+    return {"m9d_render": counts, "m9d_twin": twin_counts}
 
 
 def _free_port():
@@ -5874,6 +5909,13 @@ def main() -> int:
         m9c = m9c_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps += sum(c[0] for c in m9c.values())
     m9_merges += sum(c[1] for c in m9c.values())
+
+    # ---- 25. the JPEG kinds and JPEG-in-TIFF: an arithmetic-coded height
+    # map and a YCbCr JPEG-in-TIFF floor on the main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9d_") as workdir:
+        m9d = m9d_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9d.values())
+    m9_merges += sum(c[1] for c in m9d.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -5946,6 +5988,7 @@ def main() -> int:
              m9_launches={k: split_counts(c) for k, c in m9.items()},
              m9b_launches={k: split_counts(c) for k, c in m9b.items()},
              m9c_launches={k: split_counts(c) for k, c in m9c.items()},
+             m9d_launches={k: split_counts(c) for k, c in m9d.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -6025,6 +6068,7 @@ def main() -> int:
              m9_launches={k: c[1] for k, c in m9.items()},
              m9b_launches={k: c[1] for k, c in m9b.items()},
              m9c_launches={k: c[1] for k, c in m9c.items()},
+             m9d_launches={k: c[1] for k, c in m9d.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

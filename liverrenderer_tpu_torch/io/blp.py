@@ -1,9 +1,11 @@
 """Blizzard Mipmap (BLP1, BLP2) files, as Pillow 12.1's BlpImagePlugin
 opens them (no PIL): the first mipmap.
 
-BLP1: JPEG (the shared header before the mipmap's bytes, decoded by
-io/jpeg.py, then the plugin's "BGR" raw read that swaps red and blue; a
-JPEG kind io/jpeg.py refuses raises its NotImplementedError) and palette
+BLP1: JPEG (the shared header before the mipmap's bytes, opened with the
+JPEG plugin's header checks, whose SyntaxError here reaches the caller,
+decoded by io/jpeg.py, a four-component stream with libjpeg told that it
+is CMYK (the plugin's "CMYK" jpegmode: a YCCK stream is not converted),
+then the plugin's "BGR" raw read that swaps red and blue) and palette
 (encodings 4 and 5, the indices right after the palette).  BLP2: palette
 and DXT1/3/5 at the mipmap's offset, through the plugin's own Python
 decode_dxt1/3/5 (`dxt1`, `dxt3`, `dxt5` here, vectorised): 5:6:5 colours
@@ -97,7 +99,7 @@ def _blp1(data, w, h, compression, encoding, alpha):
         (size,) = struct.unpack("<I", r.read(4))
         header = r.read(size)
         r.read(offsets[0] - r.pos)
-        rgb = read_jpeg(header + r.read(lengths[0]))
+        rgb = read_jpeg(header + r.read(lengths[0]), as_cmyk=True)
         return np.ascontiguousarray(rgb[..., ::-1])      # read as "BGR"
     if compression == 1:
         if encoding not in (4, 5):

@@ -43,7 +43,7 @@ from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
 from . import blp, dds, ftex, gif, ico, legacy, psd, raster, tiff, webp
 from .exr import read_exr_any, write_exr
-from .jpeg import encode_jpeg, read_jpeg
+from .jpeg import encode_jpeg, open_jpeg
 from .png import decode_png, write_png
 
 # the 4 x 4 ordered-dither thresholds of an 8-bit write
@@ -258,7 +258,7 @@ _OPEN = (
     ("DIB", lambda p: _u32(p) in (12, 40, 52, 56, 64, 108, 124),
      lambda d: (lambda: raster.read_dib(d))),
     ("GIF", gif._accept, gif.open_gif),
-    ("JPEG", _pfx(b"\xff\xd8\xff"), lambda d: (lambda: read_jpeg(d))),
+    ("JPEG", _pfx(b"\xff\xd8\xff"), open_jpeg),
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy",
      _open_ppm),
     ("PNG", _pfx(b"\x89PNG\r\n\x1a\n"), lambda d: (lambda: decode_png(d))),

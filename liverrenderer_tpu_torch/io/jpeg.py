@@ -1,13 +1,16 @@
 """A JPEG decoder (the JAX package reads JPEG files through PIL, whose
-libjpeg-turbo decodes them): baseline, extended and progressive
-Huffman-coded files of 8-bit precision, grey or three components (YCbCr,
-or RGB by an Adobe marker or the component ids), any integral sampling
-factors, restart intervals, custom Huffman tables and odd sizes ->
-(H, W, 3) uint8 as PIL's `Image.open(path).convert("RGB")` returns it.
+libjpeg-turbo decodes them): baseline, extended and progressive files,
+Huffman- or arithmetic-coded (io/jpeg_arith.py), and lossless ones
+(io/jpeg_lossless.py), of 8-bit precision, with one, three (YCbCr, or RGB
+by an Adobe marker or the component ids) or four components (CMYK, or
+YCCK under an Adobe marker), any integral sampling factors, restart
+intervals, custom Huffman tables and odd sizes -> (H, W, 3) uint8 as
+PIL's `Image.open(path).convert("RGB")` returns it.
 
 The decoder computes what libjpeg-turbo computes with its defaults, from
 its documented algorithms: the `islow` integer inverse DCT (CONST_BITS 13,
-PASS1_BITS 2, its range limit), "fancy" triangle upsampling for 2h1v, 1h2v
+PASS1_BITS 2) with the 16-bit wraps and saturation of its AVX2 version,
+"fancy" triangle upsampling for 2h1v, 1h2v
 and 2h2v chroma (replication past the component's edges, and for other
 integral factors), and the fixed-point YCbCr -> RGB of its rounding
 tables.  The entropy decoder runs in C++ (csrc/jpeg_huf.cpp, built at first
@@ -15,9 +18,14 @@ use by host_build.compile_shared; a failed build raises); `_scan_plain` is
 its plain Python version.  The inverse DCT, upsampling and colour
 conversion are vectorised numpy over all blocks.
 
-Arithmetic coding, 12-bit and lossless files, CMYK/YCCK (four
-components), and progressive files whose scans stop short of the last bit
-(libjpeg's block smoothing then applies) raise (ROADMAP M9).
+A progressive file whose scans leave coefficients inexact is smoothed as
+libjpeg-turbo 2.1+ smooths it (jdcoefct.c's 5 x 5 DC neighbourhood).
+What Pillow refuses is refused with its exception class: at the header
+(`check_header`, Pillow's opener) a precision other than 8 bits or a
+component count other than 1, 3 or 4 (SyntaxError: the file is passed on
+and ends as "cannot identify"); at the decode, hierarchical frames and
+arithmetic-coded lossless ones, which libjpeg-turbo does not decode
+(OSError "broken data stream").
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..errors import not_ported
+from . import jpeg_arith
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "jpeg_huf.cpp"
 _LIB = None
@@ -283,48 +291,64 @@ def _descale(x, n):
     return (x + (1 << (n - 1))) >> n
 
 
+def _w16(x):
+    """Two's-complement wrap to 16 bits (an SSE/AVX word operation)."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _w32(x):
+    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
 def _idct_1d(d0, d1, d2, d3, d4, d5, d6, d7, first: bool):
-    """One islow pass over columns (first) or rows; int64 arrays."""
+    """One islow pass over columns (first) or rows, as libjpeg-turbo's
+    AVX2 jsimd_idct_islow computes it on x86-64 (Pillow's build): int16
+    inputs, the sums in0 +- in4, in7 + in3 and in5 + in1 wrapped to 16
+    bits, the products and the rest in 32 bits, descaled and saturated to
+    16 bits.  On data that does not overflow this is jidctint.c's result."""
     C = _C
-    z1 = (d2 + d6) * C["0_541196100"]
-    tmp2 = z1 + d6 * -C["1_847759065"]
-    tmp3 = z1 + d2 * C["0_765366865"]
-    tmp0 = (d0 + d4) << CONST_BITS
-    tmp1 = (d0 - d4) << CONST_BITS
+    tmp3 = d2 * (C["0_541196100"] + C["0_765366865"]) + d6 * C["0_541196100"]
+    tmp2 = d2 * C["0_541196100"] + d6 * (C["0_541196100"] - C["1_847759065"])
+    tmp0 = _w16(d0 + d4) << CONST_BITS
+    tmp1 = _w16(d0 - d4) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = d7, d5, d3, d1
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * C["1_175875602"]
-    t0 = t0 * C["0_298631336"]
-    t1 = t1 * C["2_053119869"]
-    t2 = t2 * C["3_072711026"]
-    t3 = t3 * C["1_501321110"]
-    z1 = z1 * -C["0_899976223"]
-    z2 = z2 * -C["2_562915447"]
-    z3 = z3 * -C["1_961570560"] + z5
-    z4 = z4 * -C["0_390180644"] + z5
-    t0 = t0 + z1 + z3
-    t1 = t1 + z2 + z4
-    t2 = t2 + z2 + z3
-    t3 = t3 + z1 + z4
+    z3, z4 = _w16(d7 + d3), _w16(d5 + d1)
+    z3, z4 = (z3 * (C["1_175875602"] - C["1_961570560"])
+              + z4 * C["1_175875602"],
+              z3 * C["1_175875602"]
+              + z4 * (C["1_175875602"] - C["0_390180644"]))
+    t0 = d7 * (C["0_298631336"] - C["0_899976223"]) \
+        - d1 * C["0_899976223"] + z3
+    t1 = d5 * (C["2_053119869"] - C["2_562915447"]) \
+        - d3 * C["2_562915447"] + z4
+    t2 = -d5 * C["2_562915447"] \
+        + d3 * (C["3_072711026"] - C["2_562915447"]) + z3
+    t3 = -d7 * C["0_899976223"] \
+        + d1 * (C["1_501321110"] - C["0_899976223"]) + z4
     n = CONST_BITS - PASS1_BITS if first else CONST_BITS + PASS1_BITS + 3
-    return [_descale(v, n) for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1,
-                                     tmp13 + t0, tmp13 - t0, tmp12 - t1,
-                                     tmp11 - t2, tmp10 - t3)]
+    return [np.clip(_w32(v + (1 << (n - 1))) >> n, -0x8000, 0x7FFF)
+            for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                      tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
 
 
 def idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """libjpeg's jpeg_idct_islow over blocks: (N, 64) zig-zag int16
-    coefficients, (64,) zig-zag quantizers -> (N, 8, 8) uint8 samples."""
+    """libjpeg-turbo's islow inverse DCT over blocks, as its AVX2 version
+    runs it: (N, 64) zig-zag int16 coefficients, (64,) zig-zag quantizers
+    -> (N, 8, 8) uint8 samples.  The dequantized coefficients are 16-bit
+    products; a block whose rows 1..7 are all zero takes the column pass's
+    shortcut (row 0 << PASS1_BITS in 16 bits); the result saturates to
+    -128..127 before the +128."""
     nat = np.zeros((len(coef), 64), np.int64)
-    nat[:, ZIGZAG] = coef.astype(np.int64) * q.astype(np.int64)
+    nat[:, ZIGZAG] = _w16(coef.astype(np.int64) * q.astype(np.int64))
     blk = nat.reshape(-1, 8, 8)
     # pass 1: columns (the result keeps PASS1_BITS of extra precision)
     ws = np.stack(_idct_1d(*[blk[:, r, :] for r in range(8)], True), 1)
-    # pass 2: rows, descaled by another 3 bits, then the range limit
+    flat = ~blk[:, 1:, :].any((1, 2))
+    ws[flat] = _w16(blk[flat, :1, :] << PASS1_BITS)
+    # pass 2: rows, descaled by another 3 bits, then saturated to a byte
     out = np.stack(_idct_1d(*[ws[:, :, c] for c in range(8)], False), 2)
-    return np.clip(((out + 512) & 1023) - 512 + 128, 0, 255).astype(np.uint8)
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 # ---------------------------------------------------------- upsampling ----
@@ -411,6 +435,95 @@ def ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 # --------------------------------------------------------- the decoder ----
+BROKEN = "broken data stream when reading image file"
+
+# Pillow's JpegImagePlugin.MARKER: the markers its opener knows, those
+# whose segment it reads, and its SOF handler's markers
+_PIL_SEGMENT = set(range(0xC0, 0xD0)) - {0xC8} | set(range(0xDA, 0xF0)) \
+    | {0xFE}
+_PIL_BARE = {0xC8} | set(range(0xD0, 0xDA)) | set(range(0xF0, 0xFE))
+_PIL_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC} | {0xDE}
+# libjpeg-turbo's frame kinds: SOF marker -> (entropy coding, progressive,
+# lossless); the other SOFs (hierarchical 5-7 and 13-15, JPG) it refuses
+_SOF_KINDS = {0xC0: ("huffman", False, False),
+              0xC1: ("huffman", False, False),
+              0xC2: ("huffman", True, False), 0xC3: ("huffman", False, True),
+              0xC9: ("arith", False, False), 0xCA: ("arith", True, False),
+              0xCB: ("arith", False, True)}
+_SOF_REFUSED = {0xC5, 0xC6, 0xC7, 0xC8, 0xCD, 0xCE, 0xCF}
+
+
+def check_header(data: bytes):
+    """JpegImageFile._open: Pillow's walk over the markers up to the first
+    SOS.  SyntaxError where its opener gives
+    the file up (Image.open then tries the next format: a precision other
+    than 8, a component count other than 1, 3 or 4, no frame, an empty
+    size, a short table), OSError where a segment runs past the end."""
+    if not data.startswith(b"\xff\xd8\xff"):
+        raise SyntaxError("not a JPEG file")
+    n, pos, s = len(data), 3, 0xFF
+    info = {}
+    while True:
+        if s != 0xFF:                     # junk before a marker
+            if pos >= n:
+                raise SyntaxError("no marker found")
+            s, pos = data[pos], pos + 1
+            continue
+        if pos >= n:
+            raise SyntaxError("no marker found")
+        m, pos = data[pos], pos + 1
+        if m in _PIL_SEGMENT:
+            if pos + 2 > n:
+                raise SyntaxError("a short segment length")
+            size = ((data[pos] << 8) | data[pos + 1]) - 2
+            pos += 2
+            if size > n - pos:
+                raise OSError("Truncated File Read")
+            seg = data[pos:pos + max(size, 0)]
+            pos += max(size, 0)
+            _pil_segment(m, seg, info)
+            if m == 0xDA:
+                break
+        elif m == 0xFF:                   # a fill byte: the next is read
+            continue                      # as a marker again
+        elif m == 0x00:                   # an escaped 0xFF: skipped
+            pass
+        elif m not in _PIL_BARE:
+            raise SyntaxError("no marker found")
+        if pos >= n:
+            raise SyntaxError("no marker found")
+        s, pos = data[pos], pos + 1
+    if "layers" not in info or min(info["size"]) <= 0:
+        raise SyntaxError("no frame, or an empty image")
+
+
+def _pil_segment(m: int, seg: bytes, info: dict):
+    """The checks of Pillow's SOF, DQT and APP handlers that give a file
+    up (their struct.error and IndexError become SyntaxError)."""
+    if m in _PIL_SOF:
+        if len(seg) < 5:
+            raise SyntaxError("a short frame header")
+        info["size"] = struct.unpack_from(">HH", seg, 1)[::-1]
+        if seg[0] != 8:
+            raise SyntaxError(f"cannot handle {seg[0]}-bit layers")
+        if len(seg) < 6:
+            raise SyntaxError("a short frame header")
+        if seg[5] not in (1, 3, 4):
+            raise SyntaxError(f"cannot handle {seg[5]}-layer images")
+        if (len(seg) - 6) % 3:
+            raise SyntaxError("a short component list")
+        info["layers"] = seg[5]
+    elif m == 0xDB:
+        while seg:
+            qt_length = 1 + 64 * (1 if seg[0] // 16 == 0 else 2)
+            if len(seg) < qt_length:
+                raise SyntaxError("bad quantization table marker")
+            seg = seg[qt_length:]
+    elif (m == 0xE0 and seg.startswith(b"JFIF")
+          or m == 0xEE and seg.startswith(b"Adobe")) and len(seg) < 7:
+        raise SyntaxError("a short APP segment")
+
+
 def _segment_end(data: bytes, pos: int) -> int:
     """The offset of the marker that ends the entropy-coded data starting
     at pos (RSTn markers and stuffed bytes belong to the data)."""
@@ -421,25 +534,44 @@ def _segment_end(data: bytes, pos: int) -> int:
     return int(stop[0]) if len(stop) else len(data)
 
 
-def read_jpeg(data: bytes, scan_fn=None) -> np.ndarray:
-    """A JPEG file's bytes -> (H, W, 3) uint8.  scan_fn: the entropy
-    decoder (default the C++ one; the tests pass `_scan_plain`)."""
-    scan_fn = scan_fn or _scan_native
-    if data[:2] != b"\xff\xd8":
-        raise OSError("not a JPEG file")
-    pos = 2
-    qt = {}
-    tables = np.zeros((8, 272), np.int32)
-    restart = 0
-    frame = None
-    jfif = adobe = False
-    transform = None
-    coefs, latched = [], {}
-    coef_bits = None
+def _new_state() -> dict:
+    """What libjpeg keeps across the streams of one decompression: the
+    quantization and Huffman tables (a JPEG-in-TIFF's JPEGTables stream
+    defines them for its strips), and the frame with its coefficients."""
+    return {"qt": {}, "tables": np.zeros((8, 272), np.int32), "frame": None,
+            "coefs": [], "latched": {}, "coef_bits": None, "samples": [],
+            "restart": 0, "jfif": False, "adobe": False, "transform": None,
+            "cond": _DAC_DEFAULT.copy(), "avail": None}
+
+
+# Pillow's read block (ImageFile.MAXBLOCK): its JPEG decoder gets the file
+# 64 KiB at a time, and libjpeg's arithmetic decoder cannot wait for more
+PIL_BLOCK = 65536
+
+
+def _need(st: dict, end: int):
+    """libjpeg needs the file up to `end`: where it may suspend (markers,
+    Huffman data), Pillow reads another block until it has it."""
+    if st["avail"] is not None:
+        while st["avail"] < end:
+            st["avail"] += PIL_BLOCK
+
+
+# T.81's DAC defaults per table: L = 0, U = 1 (DC), Kx = 5 (AC)
+_DAC_DEFAULT = np.tile(np.array([[0, 1, 5]], np.int32), (16, 1))
+
+
+def _parse(data: bytes, st: dict, scan_fn, arith_fn):
+    """libjpeg's marker reader over one stream, each scan decoded as it
+    comes.  An SOI resets what T.81 resets there (restart interval, DAC
+    conditioning, the JFIF and Adobe markers)."""
+    pos = 0
     while pos < len(data):
         if data[pos] != 0xFF:
             pos += 1                   # libjpeg skips garbage to a marker
             continue
+        if pos + 1 >= len(data):
+            break
         marker = data[pos + 1]
         pos += 2
         if marker == 0xFF:
@@ -447,117 +579,353 @@ def read_jpeg(data: bytes, scan_fn=None) -> np.ndarray:
             continue
         if marker == 0xD9:             # EOI
             break
-        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+        if marker == 0xD8:             # SOI
+            st.update(restart=0, jfif=False, adobe=False, transform=None,
+                      cond=_DAC_DEFAULT.copy())
             continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7 or marker == 0x00:
+            continue
+        if marker in _SOF_REFUSED:
+            raise OSError(BROKEN)
         seg_len = struct.unpack_from(">H", data, pos)[0]
         seg = data[pos + 2:pos + seg_len]
         pos += seg_len
-        if marker == 0xE0 and seg[:5] == b"JFIF\x00":
-            jfif = True
+        _need(st, pos)
+        if marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:
+            st["jfif"] = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            adobe, transform = True, seg[11]
+            st["adobe"], st["transform"] = True, seg[11]
         elif marker == 0xDB:           # DQT
             o = 0
             while o < len(seg):
                 pq, tq = seg[o] >> 4, seg[o] & 15
                 dt = ">u2" if pq else "u1"
-                qt[tq] = np.frombuffer(seg, dt, 64, o + 1).astype(np.int64)
+                st["qt"][tq] = np.frombuffer(seg, dt, 64, o + 1) \
+                    .astype(np.int64)
                 o += 1 + 64 * (2 if pq else 1)
         elif marker == 0xC4:           # DHT
             o = 0
             while o < len(seg):
                 tc, th = seg[o] >> 4, seg[o] & 15
                 counts = np.frombuffer(seg, np.uint8, 16, o + 1)
-                n = int(counts.sum())
-                row = tables[4 * tc + th]
+                k = int(counts.sum())
+                row = st["tables"][4 * tc + th]
                 row[:] = 0
                 row[:16] = counts
-                row[16:16 + n] = np.frombuffer(seg, np.uint8, n, o + 17)
-                o += 17 + n
-        elif marker == 0xDD:           # DRI
-            restart = struct.unpack_from(">H", seg, 0)[0]
-        elif marker in (0xC0, 0xC1, 0xC2):
-            prec, h, w, nc = struct.unpack_from(">BHHB", seg, 0)
-            if prec != 8:
-                raise not_ported(f"{prec}-bit JPEG files", "Queue 1 M9")
-            if nc not in (1, 3):
-                raise not_ported(f"{nc}-component (CMYK, YCCK) JPEG files",
-                                 "Queue 1 M9")
-            comps = []
-            for i in range(nc):
-                cid, hv, tq = struct.unpack_from("BBB", seg, 6 + 3 * i)
-                comps.append({"id": cid, "h": hv >> 4, "v": hv & 15,
-                              "tq": tq})
-            hmax = max(c["h"] for c in comps)
-            vmax = max(c["v"] for c in comps)
-            mcux = -(-w // (8 * hmax))
-            mcuy = -(-h // (8 * vmax))
-            for c in comps:
-                c["w"] = -(-w * c["h"] // hmax)
-                c["hgt"] = -(-h * c["v"] // vmax)
-                c["bw"], c["bh"] = -(-c["w"] // 8), -(-c["hgt"] // 8)
-                c["stride"] = mcux * c["h"]
-                coefs.append(np.zeros((mcuy * c["v"], c["stride"], 64),
-                                      np.int16))
-            frame = {"w": w, "h": h, "comps": comps, "hmax": hmax,
-                     "vmax": vmax, "mcux": mcux, "mcuy": mcuy,
-                     "progressive": marker == 0xC2}
-            coef_bits = np.full((nc, 64), -1)
-        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise not_ported("arithmetic-coded, lossless or hierarchical "
-                             "JPEG files", "Queue 1 M9")
-        elif marker == 0xDA:           # SOS
-            if frame is None:
-                raise ValueError("JPEG: a scan before the frame header")
-            ns = seg[0]
-            ids = {c["id"]: i for i, c in enumerate(frame["comps"])}
-            sc_comp, dc, ac = [], [], []
-            for i in range(ns):
-                cid, td = seg[1 + 2 * i], seg[2 + 2 * i]
-                ci = ids[cid]
-                c = frame["comps"][ci]
-                latched.setdefault(ci, qt[c["tq"]])
-                sc_comp.append((c["stride"], c["bw"], c["bh"], c["h"], c["v"],
-                                ci))
-                dc.append(td >> 4)
-                ac.append(td & 15)
-            ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-            scan = {"comp": sc_comp, "dc": dc, "ac": ac,
-                    "mcux": frame["mcux"], "mcuy": frame["mcuy"],
-                    "ss": ss, "se": se, "ah": ahal >> 4, "al": ahal & 15,
-                    "progressive": frame["progressive"], "restart": restart}
-            end = _segment_end(data, pos)
-            scan_fn(data[pos:end], scan, coefs, tables)
-            pos = end
-            for *_, ci in sc_comp:
-                if frame["progressive"]:
-                    coef_bits[ci, ss:se + 1] = ahal & 15
+                row[16:16 + k] = np.frombuffer(seg, np.uint8, k, o + 17)
+                o += 17 + k
+        elif marker == 0xCC:           # DAC
+            for o in range(0, len(seg) - 1, 2):
+                idx, val = seg[o], seg[o + 1]
+                if idx >= 32:
+                    raise OSError(BROKEN)
+                if idx >= 16:
+                    st["cond"][idx - 16, 2] = val
                 else:
-                    coef_bits[ci, :] = 0
+                    if (val & 15) > (val >> 4):
+                        raise OSError(BROKEN)
+                    st["cond"][idx, :2] = (val & 15, val >> 4)
+        elif marker == 0xDD:           # DRI
+            st["restart"] = struct.unpack_from(">H", seg, 0)[0]
+        elif marker in _SOF_KINDS:
+            if st["frame"] is not None:
+                raise OSError(BROKEN)  # JERR_SOF_DUPLICATE
+            st["frame"] = _frame(marker, seg, st)
+        elif marker == 0xDA:           # SOS
+            pos = _sos(data, pos, seg, st, scan_fn, arith_fn)
+
+
+def _frame(marker: int, seg: bytes, st: dict) -> dict:
+    coding, progressive, lossless = _SOF_KINDS[marker]
+    prec, h, w, nc = struct.unpack_from(">BHHB", seg, 0)
+    comps = []
+    for i in range(nc):
+        cid, hv, tq = struct.unpack_from("BBB", seg, 6 + 3 * i)
+        comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
+    if any(not 1 <= c["h"] <= 4 or not 1 <= c["v"] <= 4 for c in comps):
+        raise OSError(BROKEN)          # JERR_BAD_SAMPLING
+    frame = {"w": w, "h": h, "comps": comps, "coding": coding,
+             "progressive": progressive, "lossless": lossless,
+             "hmax": max(c["h"] for c in comps),
+             "vmax": max(c["v"] for c in comps), "precision": prec}
+    if lossless:
+        if coding == "arith":          # libjpeg-turbo has no lossless
+            raise OSError(BROKEN)      # arithmetic decoder
+        from . import jpeg_lossless
+        jpeg_lossless.geometry(frame)
+        st["samples"] = [None] * nc
+        return frame
+    frame["mcux"] = -(-w // (8 * frame["hmax"]))
+    frame["mcuy"] = -(-h // (8 * frame["vmax"]))
+    for c in comps:
+        c["w"] = -(-w * c["h"] // frame["hmax"])
+        c["hgt"] = -(-h * c["v"] // frame["vmax"])
+        c["bw"], c["bh"] = -(-c["w"] // 8), -(-c["hgt"] // 8)
+        c["stride"] = frame["mcux"] * c["h"]
+        st["coefs"].append(np.zeros((frame["mcuy"] * c["v"], c["stride"],
+                                     64), np.int16))
+    st["coef_bits"] = np.full((nc, 64), -1)
+    return frame
+
+
+def _sos(data: bytes, pos: int, seg: bytes, st: dict, scan_fn, arith_fn):
+    """One scan: its header, then its entropy-coded data -> the offset of
+    the marker that ends it."""
+    frame = st["frame"]
+    if frame is None:
+        raise ValueError("JPEG: a scan before the frame header")
+    ns = seg[0]
+    ids = {c["id"]: i for i, c in enumerate(frame["comps"])}
+    sc_comp, dc, ac = [], [], []
+    for i in range(ns):
+        cid, td = seg[1 + 2 * i], seg[2 + 2 * i]
+        if cid not in ids:
+            raise OSError(BROKEN)      # JERR_BAD_COMPONENT_ID
+        ci = ids[cid]
+        c = frame["comps"][ci]
+        if not frame["lossless"]:
+            st["latched"].setdefault(ci, st["qt"][c["tq"]])
+        sc_comp.append((c["stride"], c["bw"], c["bh"], c["h"], c["v"], ci))
+        dc.append(td >> 4)
+        ac.append(td & 15)
+    ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
+    scan = {"comp": sc_comp, "dc": dc, "ac": ac, "mcux": frame["mcux"],
+            "mcuy": frame["mcuy"], "ss": ss, "se": se, "ah": ah, "al": al,
+            "progressive": frame["progressive"], "restart": st["restart"]}
+    end = _segment_end(data, pos)
+    if frame["lossless"]:
+        from . import jpeg_lossless
+        jpeg_lossless.scan(data[pos:end], scan, frame, st["samples"],
+                           st["tables"])
+        _need(st, end)
+        return end
+    if frame["progressive"]:
+        bad = se != 0 if ss == 0 else (se < ss or se > 63 or ns != 1)
+        if bad or (ah != 0 and ah - 1 != al) or al > 13:
+            raise OSError(BROKEN)      # JERR_BAD_PROGRESSION
+    if frame["coding"] == "arith":     # the decoder reads the marker
+        used = (arith_fn or jpeg_arith._scan_native)(
+            data[pos:end + 2], scan, st["coefs"], st["cond"])
+        if st["avail"] is not None and pos + used > st["avail"]:
+            raise OSError(BROKEN)      # JERR_CANT_SUSPEND under Pillow
+    else:
+        (scan_fn or _scan_native)(data[pos:end], scan, st["coefs"],
+                                  st["tables"])
+        _need(st, end)
+    for *_, ci in sc_comp:
+        if frame["progressive"]:
+            st["coef_bits"][ci, ss:se + 1] = al
+        else:
+            st["coef_bits"][ci, :] = 0
+    return end
+
+
+# ------------------------------------------------------ block smoothing ----
+# jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later): per
+# zig-zag coefficient 1..9, its weights over the 5 x 5 DC neighbourhood
+# (rows of DC01..DC25) with DC interpolation, and without it
+_SMOOTH_DC = {
+    1: [-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3,
+        -3, 13, 0, -13, 3, -1, -1, 0, 1, 1],
+    2: [-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0,
+        1, -13, -38, -13, 1, 1, 3, 3, 3, 1],
+    3: [0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0,
+        0, 2, 7, 2, 0, 0, 0, 1, 0, 0],
+    4: [-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0,
+        0, -9, 0, 9, 0, 1, 0, 0, 0, -1],
+    5: [0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1,
+        0, 2, -5, 2, 0, 0, 0, 0, 0, 0],
+    6: [0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0,
+        0, 1, 0, -1, 0, 0, 0, 0, 0, 0],
+    7: [0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0,
+        0, -1, 3, -1, 0, 0, 0, 0, 0, 0],
+    8: [0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0,
+        0, 1, 0, -1, 0, 0, 0, 0, 0, 0],
+    9: [0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0,
+        0, -1, -2, -1, 0, 0, 0, 0, 0, 0],
+    0: [-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+        -6, 6, 42, 6, -6, -2, -6, -8, -6, -2]}
+_SMOOTH_AC = {
+    1: [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    2: [0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, -50, 0, 0, 0, 0, 7, 0, 0],
+    3: [0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0,
+        0, 0, 13, 0, 0, 0, 0, -1, 0, 0],
+    4: [0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0,
+        1, -10, 0, 10, -1, 0, 1, 0, -1, 0],
+    5: [0] * 10 + [-1, 13, -24, 13, -1] + [0] * 10}
+
+
+def _smooth(co: np.ndarray, c: dict, frame: dict, q: np.ndarray,
+            bits: np.ndarray) -> np.ndarray:
+    """decompress_smooth_data's coefficient estimates for one component:
+    a copy of its (rows, stride, 64) coefficients where each of the first
+    nine AC coefficients not known exactly (its coef_bits nonzero) and
+    still zero is predicted from the DCs around (and, when no AC
+    coefficient was ever sent, the DC too), with libjpeg's rows at the
+    picture's and the last iMCU row's edges."""
+    out = co.copy()
+    v, bw, bh = c["v"], c["bw"], c["bh"]
+    total = frame["mcuy"]
+    change_dc = bool((bits[1:10] == -1).all())
+    q = q.astype(np.int64)
+    kernels = _SMOOTH_DC if change_dc else _SMOOTH_AC
+    cols = np.arange(bw)
+    dc = co[..., 0].astype(np.int64)
+    for imcu in range(total):
+        last = imcu == total - 1
+        rows = (bh % v or v) if last else v
+        for br in range(rows):
+            r = imcu * v + br                     # the block row
+            ibr, ibrs = imcu * rows + br, rows * total
+            prev = r - 1 if ibr > 0 else r
+            pprev = r - 2 if ibr > 1 else prev
+            nxt = r + 1 if ibr < ibrs - 1 else r
+            nnxt = r + 2 if ibr < ibrs - 2 else nxt
+            win = np.stack([dc[rr][np.clip(cols[:, None] + np.arange(-2, 3),
+                                           0, bw - 1)]
+                            for rr in (pprev, prev, r, nxt, nnxt)], 1) \
+                .reshape(bw, 25)
+            blk = out[r, :bw]
+            for k, wts in kernels.items():
+                al = int(bits[k]) if k else 0
+                if k and (al == 0 or k > 9):
+                    continue
+                num = q[0] * (win @ np.asarray(wts, np.int64))
+                qk = q[k]
+                mag = ((qk << 7) + np.abs(num)) // (qk << 8)
+                if k and al > 0:
+                    mag = np.minimum(mag, (1 << al) - 1)
+                pred = np.where(num >= 0, mag, -mag)
+                if k:
+                    sel = blk[:, k] == 0
+                    blk[sel, k] = pred[sel]
+                else:
+                    blk[:, 0] = pred
+    return out
+
+
+def _smoothing_ok(st: dict) -> bool:
+    """jdcoefct.c smoothing_ok: a progressive frame whose every component
+    has some DC, with nonzero quantizers 0..9, and some coefficient 1..9
+    not known exactly."""
+    frame, bits = st["frame"], st["coef_bits"]
+    if not frame["progressive"] or (bits[:, 0] < 0).any():
+        return False
+    for ci, c in enumerate(frame["comps"]):
+        q = st["latched"].get(ci)
+        if q is None or (q[:10] == 0).any():
+            return False
+    return bool((bits[:, 1:10] != 0).any())
+
+
+# ------------------------------------------------------------- read out ----
+def decode_jpeg(data: bytes, scan_fn=None, arith_fn=None,
+                tables: bytes = b"", upsample: bool = True,
+                pillow_feed: bool = False) -> dict:
+    """A JPEG stream (after an optional table-spec stream `tables`, as
+    JPEG-in-TIFF's JPEGTables) -> {"planes": each component's samples,
+    cropped to its own size and upsampled to the frame's unless
+    `upsample` is false, "frame", "jfif", "adobe", "transform"}.  Raises
+    OSError where libjpeg stops with an error; `pillow_feed`: also where
+    an arithmetic-coded scan needs a byte past the blocks Pillow has fed
+    to libjpeg by then (libjpeg's arithmetic decoder cannot suspend)."""
+    st = _new_state()
+    if pillow_feed:
+        st["avail"] = PIL_BLOCK
+    if tables:
+        _parse(tables, st, scan_fn, arith_fn)
+    _parse(data, st, scan_fn, arith_fn)
+    frame = st["frame"]
     if frame is None:
         raise ValueError("JPEG: no frame header")
-    if frame["progressive"] and (coef_bits[:, 0] >= 0).all() \
-            and (coef_bits[:, 1:10] != 0).any():
-        raise not_ported("progressive JPEG files whose scans stop before "
-                         "the last bit (block smoothing)", "Queue 1 M9")
     planes = []
+    smooth = not frame["lossless"] and _smoothing_ok(st)
     for ci, c in enumerate(frame["comps"]):
-        co = coefs[ci]
-        rows, cols = co.shape[:2]
-        q = latched.get(ci, qt.get(c["tq"], np.ones(64, np.int64)))
-        px = idct_islow(co.reshape(-1, 64), q).reshape(rows, cols, 8, 8) \
-            .transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
-        p = px[:c["hgt"], :c["w"]]
-        up = _upsample(p, frame["hmax"] // c["h"], frame["vmax"] // c["v"])
-        planes.append(up[:frame["h"], :frame["w"]])
-    if len(planes) == 1:
-        return np.repeat(planes[0][..., None], 3, -1)
-    ids = tuple(c["id"] for c in frame["comps"])
-    rgb = (not jfif and adobe and transform == 0) or \
-        (not jfif and not adobe and ids == (82, 71, 66))
-    if rgb:
-        return np.stack(planes, -1)
-    return ycc_to_rgb(*planes)
+        if frame["lossless"]:
+            p = st["samples"][ci]
+            if p is None:
+                p = np.zeros((c["hgt"], c["w"]), np.uint8)
+        else:
+            co = st["coefs"][ci]
+            q = st["latched"].get(ci, st["qt"].get(c["tq"],
+                                                   np.ones(64, np.int64)))
+            if smooth:
+                co = _smooth(co, c, frame, q, st["coef_bits"][ci])
+            rows, cols = co.shape[:2]
+            px = idct_islow(co.reshape(-1, 64), q) \
+                .reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3) \
+                .reshape(rows * 8, cols * 8)
+            p = px[:c["hgt"], :c["w"]]
+        if upsample:
+            fh, fv = frame["hmax"] // c["h"], frame["vmax"] // c["v"]
+            if frame["lossless"]:        # no fancy upsampling: 1x1 units
+                p = np.repeat(np.repeat(p, fv, 0), fh, 1)
+            else:
+                p = _upsample(p, fh, fv)
+            p = p[:frame["h"], :frame["w"]]
+        planes.append(p)
+    return {"planes": planes, "frame": frame, "jfif": st["jfif"],
+            "adobe": st["adobe"], "transform": st["transform"]}
+
+
+def colour_space(d: dict) -> str:
+    """libjpeg's default jpeg_color_space (jdapimin.c): "grey", "rgb",
+    "ycc", "cmyk" or "ycck"."""
+    n = len(d["planes"])
+    if n == 1:
+        return "grey"
+    if n == 3:
+        if d["jfif"]:
+            return "ycc"
+        if d["adobe"]:
+            return "rgb" if d["transform"] == 0 else "ycc"
+        ids = tuple(c["id"] for c in d["frame"]["comps"])
+        if d["frame"]["lossless"] or ids == (82, 71, 66):
+            return "rgb"                 # libjpeg-turbo 3's lossless guess
+        return "ycc"
+    if n == 4:
+        return "ycck" if d["adobe"] and d["transform"] != 0 else "cmyk"
+    raise OSError(BROKEN)
+
+
+def open_jpeg(data: bytes):
+    """The JPEG entry of Image.open's registry: Pillow's header checks,
+    then a function that decodes the file."""
+    check_header(data)
+    return lambda: read_jpeg(data)
+
+
+def read_jpeg(data: bytes, scan_fn=None, arith_fn=None,
+              as_cmyk: bool = False) -> np.ndarray:
+    """A JPEG file's bytes -> (H, W, 3) uint8 as Pillow's
+    `Image.open(...).convert("RGB")`.  scan_fn / arith_fn: the Huffman and
+    arithmetic entropy decoders (default the C++ ones; the tests pass the
+    plain versions).  A four-component file is read as Pillow reads it,
+    "CMYK;I" (Adobe's inverted CMYK) through Pillow's cmyk2rgb; `as_cmyk`
+    tells libjpeg its colour space is CMYK whatever its Adobe marker says
+    (no YCCK conversion), as Pillow's BLP plugin does."""
+    check_header(data)
+    d = decode_jpeg(data, scan_fn, arith_fn, pillow_feed=True)
+    space = colour_space(d)
+    if d["frame"]["lossless"] and space in ("ycc", "ycck") and not as_cmyk:
+        raise OSError(BROKEN)            # no colour conversion in lossless
+    p = d["planes"]
+    if space == "grey":
+        return np.repeat(p[0][..., None], 3, -1)
+    if space == "rgb":
+        return np.stack(p, -1)
+    if space == "ycc":
+        return ycc_to_rgb(*p)
+    from .tiff import cmyk_to_rgb        # Pillow's cmyk2rgb
+    if space == "ycck" and not as_cmyk:  # jdcolor.c ycck_cmyk_convert
+        cmyk = np.concatenate([255 - ycc_to_rgb(*p[:3]), p[3][..., None]],
+                              -1)
+    else:
+        cmyk = np.stack(p, -1)
+    return cmyk_to_rgb(255 - cmyk)       # "CMYK;I": Adobe's inverted CMYK
 
 
 # ---------------------------------------------------------- the encoder ----

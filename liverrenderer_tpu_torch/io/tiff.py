@@ -17,8 +17,11 @@ through Pillow's cmyk2rgb.  Compressed files go through libtiff in
 Pillow, which hands samples over in the host's (little-endian) order:
 16-bit rawmodes are re-read natively, 32-bit ones are not (a big-endian
 compressed float or 32-bit integer file reads byte-swapped there, and
-here).  JPEG-in-TIFF, YCbCr, CIELab and the rarer codecs raise (ROADMAP
-M9).
+here).  JPEG-in-TIFF (compression 7, and 6 whose strips hold a whole
+JPEG stream) and YCbCr files are read by io/tiff_ycbcr.py as libtiff
+reads them for Pillow; an uncompressed YCbCr file goes through Pillow's
+raw "RGBX" unpacker as Pillow sends it.  CIELab and the rarer
+codecs raise (ROADMAP M9).
 
 `open_tiff` raises SyntaxError where Pillow's plugin gives the file up
 (the caller then tries the next format, as Image.open does), and
@@ -32,7 +35,7 @@ import zlib
 import numpy as np
 
 from ..errors import not_ported
-from . import lzw
+from . import lzw, tiff_ycbcr
 
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
             b"MM\x00\x2b", b"II\x2b\x00")
@@ -62,7 +65,7 @@ _COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                  34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                  50001: "webp"}
 _DECODED = {"raw", "tiff_lzw", "packbits", "tiff_adobe_deflate",
-            "tiff_deflate"}
+            "tiff_deflate", "jpeg", "tiff_jpeg"}
 
 
 def _open_info() -> dict:
@@ -370,18 +373,45 @@ def open_tiff(data: bytes):
             .astype(np.uint8)
     if kind not in _DECODED:
         raise not_ported(f"TIFF files with {kind} compression", "Queue 1 M9")
-    if photo in (6, 8):
-        raise not_ported("YCbCr and CIELab TIFF files", "Queue 1 M9")
+    if photo == 8:
+        raise not_ported("CIELab TIFF files", "Queue 1 M9")
     layout = dict(xsize=xsize, ysize=ysize, w=w, h=h, offsets=offsets,
                   counts=counts, tiled=tiled, planar=planar, bps=bps,
                   count=count, kind=kind, libtiff=libtiff, fill=fill,
                   predictor=tags.get(PREDICTOR, 1), order=tags.prefix,
                   rawmode=rawmode,
                   orientation=tags.get(ORIENTATION, 1))
+    # the C decoder reads the file's own photometric tag
+    file_photo = tags.get(PHOTOMETRIC)
+    if kind in ("jpeg", "tiff_jpeg"):
+        fn = tiff_ycbcr.jpeg_image if kind == "jpeg" \
+            else tiff_ycbcr.ojpeg_image
+        return lambda: _oriented(fn(data, tags, layout, file_photo),
+                                 layout["orientation"])
+    if file_photo == 6 and libtiff:
+        return lambda: _oriented(_rgba(data, tags, layout),
+                                 layout["orientation"])
+    if photo == 6 and rawmode == "RGBX":
+        # Pillow's raw decoder unpacks 4 bytes a pixel ("RGBX") from data
+        # laid out in 3-sample (or subsampled) units
+        layout["bps"] = (8,) * 4
 
     def load():
         return _load(data, mode, rawmode, palette, layout)
     return load
+
+
+def _rgba(data, tags, L) -> np.ndarray:
+    """A photometric YCbCr file under libtiff's LZW, Deflate or PackBits:
+    each strip or tile decompressed, then TIFFRGBAImage's conversion."""
+    def chunk(k, occ):
+        off = L["offsets"][k]
+        cnt = L["counts"][k] if k < len(L["counts"]) else 0
+        src = data[off:off + cnt]
+        if L["fill"] == 2:
+            src = _REVERSED[np.frombuffer(src, np.uint8)].tobytes()
+        return _decompress(L["kind"], src, occ)
+    return tiff_ycbcr.rgba_image(tags, L, chunk)
 
 
 def read_tiff(data: bytes) -> np.ndarray:

@@ -1260,3 +1260,60 @@ def test_m9c_decoders_on_the_cards_host():
     np.testing.assert_array_equal(
         timage.read_8bit(_data("torch_floor_bc7.dds")),
         timage.read_8bit(_data("torch_floor_bc7.png")))
+
+
+@pytest.mark.cuda
+def test_m9d_scene_on_the_card_matches_cpu(tmp_path):
+    """bench.py's workload path from XML with the committed 32^2
+    arithmetic-coded height map and the YCbCr JPEG-in-TIFF floor at
+    16x12, 4 spp: the card's render against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_xml_files import write_proxy_files
+    path, _ = write_proxy_files(str(tmp_path / "scene"), 16, 12, 4,
+                                subdiv=2,
+                                height_file=_data("torch_height32_arith.jpg"),
+                                floor_file=_data("torch_floor_ycc.tif"))
+    ref = lrt.render(lrt.load_file(path, device="cpu"), spp=4).numpy()
+    scene = lrt.load_file(path)
+    assert scene.device.type == "cuda" and scene.has_heightmap
+    before = tci.LAUNCHES
+    img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["torch_height_arith_crop.jpg",
+                                  "torch_height32_arith.jpg"])
+def test_m9d_arith_loop_on_the_cards_host_matches_plain(name):
+    """The C++ arithmetic loop built on the card's machine against its
+    plain version: the same coefficients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import jpeg, jpeg_arith
+    with open(_data(name), "rb") as fh:
+        data = fh.read()
+    coefs = []
+    for fn in (jpeg_arith._scan_native, jpeg_arith._scan_plain):
+        st = jpeg._new_state()
+        jpeg._parse(data, st, None, fn)
+        coefs.append(st["coefs"])
+    for a, b in zip(*coefs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["torch_floor_ycc", "torch_cmyk"])
+def test_m9d_decoders_on_the_cards_host(name):
+    """The committed YCbCr JPEG-in-TIFF floor and CMYK JPEG decode on the
+    card's machine (no Pillow there) to their PNG twins, the pixels
+    Pillow decodes from them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import image as timage
+    ext = ".tif" if name.endswith("ycc") else ".jpg"
+    np.testing.assert_array_equal(timage.read_8bit(_data(name + ext)),
+                                  timage.read_8bit(_data(name + ".png")))

@@ -231,10 +231,9 @@ def test_blp_refusals(tmp_path, kind):
         p = tmp_path / "c.blp"
         p.write_bytes(bf.blp1(W, H, jpg[200:], compression=0,
                               jpeg_header=jpg[:200]))
-        # Pillow decodes a 4-component JPEG; io/jpeg.py does not yet
-        jimage.read_image(str(p))
-        with pytest.raises(NotImplementedError, match="Queue 1 M9"):
-            lrt.read_image(str(p))
+        # Pillow decodes a 4-component JPEG, its BLP plugin as plain
+        # "CMYK" and then "BGR": the port reads it the same
+        assert _check(tmp_path, p.read_bytes(), "c.blp") is not None
         return
     data = {
         "blp2_jpeg": bf.blp2(W, H, _raw(40), compression=0, palette=pal),

@@ -10,8 +10,10 @@ and in rows, baseline and progressive), RGB with an Adobe marker, odd and
 tiny sizes; the port's encoder's files at the samplings PIL does not
 write (1h2v, 4h1v, 3h1v, mixed chroma factors); hand-edited bytes (fill
 0xFFs before markers, an APPn segment between scans).  The C++ entropy
-loop and its plain Python version give the same coefficients.  Arithmetic
-coding, 12-bit and four-component (CMYK) files raise (ROADMAP M9).
+loop and its plain Python version give the same coefficients.  An
+arithmetic-coded and a four-component (CMYK) file decode as the JAX
+package decodes them; a 12-bit file is refused as Pillow refuses it
+(tests/test_torch_jpeg_kinds.py holds the rest of those kinds).
 """
 import io
 
@@ -150,22 +152,33 @@ def test_plain_loop_is_the_native_loop_at_height_map_size():
 
 @pytest.mark.parametrize("what", ["arithmetic", "12-bit", "cmyk"])
 def test_what_it_lacks_raises(tmp_path, what):
+    """The kinds this decoder once refused: the SOF9-edited Huffman file
+    (libjpeg runs its arithmetic decoder on the Huffman bits) and
+    Pillow's CMYK file now decode as the JAX package decodes them; a
+    12-bit file is refused as Pillow refuses it, "cannot identify" (an
+    OSError), and its header check gives the file up (SyntaxError)."""
     data = bytearray(_pil_jpeg(_image(1)))
     if what == "cmyk":
         f = io.BytesIO()
         Image.fromarray(_image(1)).convert("CMYK").save(f, "JPEG")
         data = bytearray(f.getvalue())
-        match = "component"
     else:
         sof = data.index(b"\xff\xc0")
         if what == "arithmetic":
             data[sof + 1] = 0xC9
-            match = "arithmetic"
         else:
             data[sof + 4] = 12
-            match = "12-bit"
-    with pytest.raises(NotImplementedError, match=f"{match}.*M9"):
-        jpeg.read_jpeg(bytes(data))
+    if what == "12-bit":
+        p = tmp_path / "a.jpg"
+        p.write_bytes(bytes(data))
+        with pytest.raises(OSError, match="cannot identify"):
+            jimage.read_image(str(p))
+        with pytest.raises(OSError, match="cannot identify"):
+            lrt.read_image(str(p))
+        with pytest.raises(SyntaxError, match="12-bit"):
+            jpeg.read_jpeg(bytes(data))
+        return
+    _check(tmp_path, bytes(data), plain=False)
 
 
 # --------------------------------------------------------------- writing ----
