@@ -504,6 +504,7 @@ import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -5281,6 +5282,113 @@ def m9d_phases(torch, np, lrt, ci, smi, workdir):
     return {"m9d_render": counts, "m9d_twin": twin_counts}
 
 
+def m9e_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9e_decode, m9e_small, m9e_render and m9e_phases (the rest
+    of TIFF): the committed ZSTD and LZMA height maps (predictor 2, BUMP's
+    codes, libtiff's strips) and the Group 4 fax floor decoded on the
+    card's host in turns with the PNG height map, each held to the codes
+    or to its PNG twin, the C++ fax and Zstandard loops against their plain
+    versions on a strip; bench.py's workload path from XML with the ZSTD
+    height map and the G4 floor, card against CPU at test size, and at
+    full size in turns with its PNG twin -> {name: launch counts}."""
+    from liverrenderer_tpu_torch.io import tiff_fax, zstd
+    from liverrenderer_tpu_torch.io.image import read_8bit
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    files = {k: os.path.join(data, v) for k, v in (
+        ("zstd", "torch_height_zstd.tif"),
+        ("zstd32", "torch_height32_zstd.tif"),
+        ("lzma", "torch_height_lzma.tif"),
+        ("g4", "torch_floor_g4.tif"), ("g4_png", "torch_floor_g4.png"))}
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 26a. the decoders on the card's host, in turns with the PNG
+    t0 = time.perf_counter()
+    tiff_fax.library()
+    zstd.library()
+    build_s = time.perf_counter() - t0
+    readers = {k: (lambda p=files[k]: lrt.read_image(p, False))
+               for k in ("zstd", "lzma", "g4")}
+    readers["png"] = lambda: lrt.read_image(png, False)
+    dec = {k: [] for k in readers}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    exact = {k: bool(np.array_equal(read_8bit(files[k])[..., 0], codes))
+             for k in ("zstd", "lzma")}
+    exact["g4"] = bool(np.array_equal(read_8bit(files["g4"]),
+                                      read_8bit(files["g4_png"])))
+    # the plain loops against the C++ ones on a strip of each file
+    strips = {k: _tiff_strip(files[k]) for k in ("zstd", "g4")}
+    plain_s, zs = {}, {}
+    for which, fn in (("cpp", zstd.decode), ("plain", zstd._decode_plain)):
+        t0 = time.perf_counter()
+        zs[which] = fn(strips["zstd"], 64 * BUMP[0])
+        if which == "plain":
+            plain_s["zstd"] = time.perf_counter() - t0
+    plain_equal = {"zstd": zs["cpp"] is not None and zs["cpp"] == zs["plain"]
+                   and len(zs["cpp"]) == 64 * BUMP[0]}
+    fax = {}
+    for which, fn in (("cpp", tiff_fax.decode),
+                      ("plain", tiff_fax._decode_plain)):
+        runs = np.zeros(2 * tiff_fax.nruns(256, tiff_fax.G4), np.uint32)
+        strip = np.zeros(32 * 256, np.uint8)
+        t0 = time.perf_counter()
+        status = fn(strips["g4"], tiff_fax.G4, 256, 256, 32, False, False,
+                    runs, strip, np.zeros(1, np.int32))
+        if which == "plain":
+            plain_s["g4"] = time.perf_counter() - t0
+        fax[which] = (status, strip.tobytes(), runs.tobytes())
+    plain_equal["g4"] = fax["cpp"] == fax["plain"] and fax["cpp"][0] == 1
+    sizes = {k: os.path.getsize(v) for k, v in files.items()}
+    sizes["png"] = os.path.getsize(png)
+    emit("m9e_decode", files={k: os.path.relpath(v, os.path.dirname(data))
+                              for k, v in files.items()},
+         bytes=sizes, reps=M9_REPS, decode_seconds=med,
+         decode_seconds_reps=dec,
+         zstd_over_png_decode=med["zstd"] / med["png"],
+         lzma_over_png_decode=med["lzma"] / med["png"],
+         build_seconds=build_s, plain_seconds=plain_s,
+         plain_equal=plain_equal, equals_codes_or_twin=exact)
+    check(all(exact.values()), "m9e_decode: a height map is not the codes "
+          f"or the G4 floor not its PNG twin's pixels: {exact}")
+    check(all(plain_equal.values()), "m9e_decode: a plain loop disagrees "
+          f"with its C++ version: {plain_equal}")
+
+    # ---- 26b, 26c. the main path from a ZSTD height map and a G4 floor at
+    # test size (the committed 32^2 map, as m9_small); at full size, in
+    # turns with its PNG twin (the PNG height codes and the floor's pixels
+    # as PNG)
+    counts, twin_counts, _ = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9e", "zstd_g4_over_png",
+        dict(bump_res=BUMP_SMALL[0], sky=SKY_SMALL,
+             height_file=files["zstd32"], floor_file=files["g4"]),
+        dict(height_file=files["zstd"], floor_file=files["g4"]),
+        dict(floor_file=files["g4_png"]))
+    emit("m9e_phases", seconds=time.perf_counter() - t_start)
+    return {"m9e_render": counts, "m9e_twin": twin_counts}
+
+
+def _tiff_strip(path):
+    """The first strip of a little-endian TIFF's first IFD."""
+    with open(path, "rb") as fh:
+        d = fh.read()
+    ifd = struct.unpack_from("<I", d, 4)[0]
+    tags = {}
+    for i in range(struct.unpack_from("<H", d, ifd)[0]):
+        tag, typ, cnt, val = struct.unpack_from("<HHII", d, ifd + 2 + 12 * i)
+        tags[tag] = struct.unpack_from("<I", d, val)[0] if cnt > 1 else val
+    return d[tags[273]:tags[273] + tags[279]]
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -5916,6 +6024,13 @@ def main() -> int:
         m9d = m9d_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps += sum(c[0] for c in m9d.values())
     m9_merges += sum(c[1] for c in m9d.values())
+
+    # ---- 26. the rest of TIFF: a ZSTD height map and a Group 4 fax floor
+    # on the main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9e_") as workdir:
+        m9e = m9e_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9e.values())
+    m9_merges += sum(c[1] for c in m9e.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -5989,6 +6104,7 @@ def main() -> int:
              m9b_launches={k: split_counts(c) for k, c in m9b.items()},
              m9c_launches={k: split_counts(c) for k, c in m9c.items()},
              m9d_launches={k: split_counts(c) for k, c in m9d.items()},
+             m9e_launches={k: split_counts(c) for k, c in m9e.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -6069,6 +6185,7 @@ def main() -> int:
              m9b_launches={k: c[1] for k, c in m9b.items()},
              m9c_launches={k: c[1] for k, c in m9c.items()},
              m9d_launches={k: c[1] for k, c in m9d.items()},
+             m9e_launches={k: c[1] for k, c in m9e.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -5,10 +5,12 @@
 // host C++ compiler at first use (host_build.py) and called through
 // ctypes.
 //
-// lrt_lzw_tiff(src, n, dst, occ) -> bytes written, or -1 for a corrupt
-//   code table.  TIFF's LZW as libtiff decodes it: codes MSB-first, Clear
-//   256, EOI 257, 9 to 12 bits, the width growing one code early (when the
-//   next free code reaches 2^bits - 1).  Stops at EOI, at the end of the
+// lrt_lzw_tiff(src, n, dst, occ, compat) -> bytes written, or -1 for a
+//   corrupt code table.  TIFF's LZW as libtiff decodes it: codes MSB-first,
+//   Clear 256, EOI 257, 9 to 12 bits, the width growing one code early
+//   (when the next free code reaches 2^bits - 1); with `compat`, the old
+//   style of LZWDecodeCompat: codes LSB-first, the width growing when the
+//   next free code reaches 2^bits.  Stops at EOI, at the end of the
 //   data or when `occ` bytes are out; the caller holds a short result to
 //   be an error, as libtiff does.
 //
@@ -46,19 +48,28 @@ struct Entry {
 }  // namespace
 
 extern "C" int64_t lrt_lzw_tiff(const uint8_t* src, int64_t n, uint8_t* dst,
-                                int64_t occ) {
+                                int64_t occ, int32_t compat) {
     static thread_local Entry tab[kTiffCsize];
     for (int i = 0; i < 256; ++i) tab[i] = {-1, 1, uint8_t(i), uint8_t(i)};
     int64_t pos = 0, out = 0;
     uint64_t bitbuf = 0;
     int bitcount = 0, nbits = 9, free_ent = kTiffFirst, old = -1;
+    const int grow = compat ? 1 : 2;
     auto next_code = [&]() -> int {
         while (bitcount < nbits) {
             if (pos >= n) return kTiffEoi;
-            bitbuf = (bitbuf << 8) | src[pos++];
+            if (compat)
+                bitbuf |= uint64_t(src[pos++]) << bitcount;
+            else
+                bitbuf = (bitbuf << 8) | src[pos++];
             bitcount += 8;
         }
         bitcount -= nbits;
+        if (compat) {
+            const int code = int(bitbuf & ((1u << nbits) - 1));
+            bitbuf >>= nbits;
+            return code;
+        }
         return int((bitbuf >> bitcount) & ((1u << nbits) - 1));
     };
     auto emit = [&](int code) {
@@ -96,7 +107,7 @@ extern "C" int64_t lrt_lzw_tiff(const uint8_t* src, int64_t n, uint8_t* dst,
         e.first = tab[old].first;
         e.length = tab[old].length + 1;
         e.value = code < free_ent ? tab[code].first : tab[old].first;
-        if (++free_ent > (1 << nbits) - 2) {
+        if (++free_ent > (1 << nbits) - grow) {
             if (++nbits > 12) nbits = 12;
         }
         emit(code);

@@ -9,16 +9,18 @@ format is found as Image.open finds it: Pillow's plugins in their
 registry order (`_OPEN`, Pillow's Image.ID), each one's test of the
 file's first 16 bytes, and the plugins without one (IM, IMT, IPTC, PCD,
 SPIDER, TGA) tried on the file itself; a plugin that gives the file up
-(SyntaxError and its kin in Pillow) passes it on.  Of the plugins the
-port does not decode, those with a weak prefix test (GBR, FLI, WMF) and
-those without one are checked as far as Pillow's plugin checks the
-header; the rest are taken to open every file their test accepts.  The
+(SyntaxError and its kin in Pillow) passes it on.  The plugins the port
+does not decode are checked as far as Pillow's plugin checks the header
+(io/pil_open.py): the stub formats (BUFR, GRIB, HDF5, WMF) raise
+Pillow's "cannot find loader" OSError, MPEG "cannot load this image", and
+EPS Pillow's Ghostscript error (or goes through `gs`); a file another
+Pillow plugin opens and decodes raises NotImplementedError (ROADMAP
+Queue 1 M9), AVIF on its prefix alone (Pillow's opener is libavif).  The
 port decodes PNG, JPEG, PPM/PGM/PBM, BMP, DIB, GIF, TIFF, PCX, DCX, SGI,
 IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD, TGA, WebP (io/webp.py),
-DDS (io/dds.py), BLP (io/blp.py) and FTEX (io/ftex.py); a file
-another Pillow plugin opens raises NotImplementedError (ROADMAP Queue 1
-M9); a file no plugin opens (an RGBE `.hdr`, say) raises OSError as
-Pillow's UnidentifiedImageError does.
+DDS (io/dds.py), BLP (io/blp.py) and FTEX (io/ftex.py); a file no plugin
+opens (an RGBE `.hdr`, say) raises OSError as Pillow's
+UnidentifiedImageError does.
 
 Written files: EXR and PFM as float; otherwise an ordered dither to 8
 bits, then the format of the extension as Pillow's registry names it:
@@ -34,14 +36,14 @@ port does not yet (GIF, WebP, ICO, ...) raise NotImplementedError
 from __future__ import annotations
 
 import os
-import re
 import struct
 
 import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
-from . import blp, dds, ftex, gif, ico, legacy, psd, raster, tiff, webp
+from . import (blp, dds, ftex, gif, ico, legacy, pil_open, psd, raster,
+               tiff, webp)
 from .exr import read_exr_any, write_exr
 from .jpeg import encode_jpeg, open_jpeg
 from .png import decode_png, write_png
@@ -135,117 +137,6 @@ def _open_tga(data):
     return lambda: raster.read_tga(data)
 
 
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-
-
-def _open_imt(data):
-    """ImtImageFile._open: the port does not decode IMT; this only says
-    whether Pillow would open the file."""
-    if b"\n" not in data[:100]:
-        raise SyntaxError("not an IM file")
-    w = h = 0
-    mode = None
-    for line in data.split(b"\n"):
-        if line[:1] == b"\x0c" or len(line) > 100 or not line:
-            break
-        if line[:1] == b"*":
-            continue
-        m = _IMT_FIELD.match(line)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        if k in (b"width", b"height"):
-            try:
-                w, h = (int(v), h) if k == b"width" else (w, int(v))
-            except ValueError:
-                raise ValueError(f"bad IMT {k!r}") from None
-        elif k == b"pixel" and v == b"n8":
-            mode = "L"
-    if not mode or w <= 0 or h <= 0:
-        raise SyntaxError("an empty image")
-    raise not_ported("IMT image files", "Queue 1 M9")
-
-
-def _open_iptc(data):
-    s = data[:5]
-    if not s.strip(b"\x00") or s[0] != 0x1C \
-            or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-        raise SyntaxError("invalid IPTC/NAA file")
-    raise not_ported("IPTC image files", "Queue 1 M9")
-
-
-def _open_pcd(data):
-    if not data[2048:2052] == b"PCD_":
-        raise SyntaxError("not a PCD file")
-    raise not_ported("PCD image files", "Queue 1 M9")
-
-
-def _spider_header(t) -> int:
-    h = (99,) + t
-
-    def is_int(f):
-        try:
-            return f - int(f) == 0
-        except (ValueError, OverflowError):
-            return False
-
-    if not all(is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
-        return 0
-    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
-        return 0
-    labbyt = int(h[22])
-    return labbyt if labbyt == int(h[13]) * int(h[23]) else 0
-
-
-def _open_spider(data):
-    f = data[:108]
-    if len(f) < 108:
-        raise SyntaxError("not a valid Spider file")
-    for e in (">", "<"):
-        t = struct.unpack(e + "27f", f)
-        if _spider_header(t):
-            break
-    else:
-        raise SyntaxError("not a valid Spider file")
-    h = (99,) + t
-    if int(h[5]) != 1:
-        raise SyntaxError("not a Spider 2D image")
-    istack, imgnumber = int(h[24]), int(h[27])
-    if istack < 0 or imgnumber < 0 or (istack > 0 and imgnumber > 0):
-        raise SyntaxError("inconsistent stack header values")
-    if int(h[12]) <= 0 or int(h[2]) <= 0:
-        raise SyntaxError("an empty image")
-    raise not_ported("SPIDER image files", "Queue 1 M9")
-
-
-def _open_gbr(data):
-    """GbrImageFile._open's tests: its prefix test (two big-endian words)
-    also accepts other formats' headers (QOI's, for a 1- or 2-pixel-wide
-    image), which the plugin then gives up."""
-    try:
-        size, version, w, h, depth = struct.unpack_from(">5I", data)
-    except struct.error:
-        raise SyntaxError("not a GIMP brush") from None
-    if size < 20 or version not in (1, 2) or not w or not h \
-            or depth not in (1, 4) \
-            or (version == 2 and data[20:24] != b"GIMP"):
-        raise SyntaxError("not a GIMP brush")
-    raise not_ported("GBR image files", "Queue 1 M9")
-
-
-def _open_fli(data):
-    if data[20:22] != b"\x00\x00":
-        raise SyntaxError("not an FLI/FLC file")
-    raise not_ported("FLI image files", "Queue 1 M9")
-
-
-def _open_wmf(data):
-    if not data.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") \
-            and data[40:44] != b" EMF":
-        raise SyntaxError("Unsupported file format")
-    raise not_ported("WMF image files", "Queue 1 M9")
-
-
 def _pfx(*magics):
     return lambda p: p.startswith(magics)
 
@@ -265,50 +156,52 @@ _OPEN = (
     ("AVIF", lambda p: p[4:8] == b"ftyp"
      and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
     ("BLP", _pfx(b"BLP1", b"BLP2"), blp.open_blp),
-    ("BUFR", _pfx(b"BUFR", b"ZCZC"), None),
+    ("BUFR", _pfx(b"BUFR", b"ZCZC"), pil_open.open_bufr),
     ("CUR", _pfx(b"\0\0\2\0"), ico.open_cur),
     ("PCX", legacy._pcx_accept, legacy.open_pcx),
     ("DCX", lambda p: len(p) >= 4 and _u32(p) == 0x3ADE68B1, legacy.open_dcx),
     ("DDS", _pfx(b"DDS "), dds.open_dds),
     ("EPS", lambda p: p.startswith(b"%!PS")
-     or (len(p) >= 4 and _u32(p) == 0xC6D3D0C5), None),
-    ("FITS", _pfx(b"SIMPLE"), None),
+     or (len(p) >= 4 and _u32(p) == 0xC6D3D0C5), pil_open.open_eps),
+    ("FITS", _pfx(b"SIMPLE"), pil_open.open_fits),
     ("FLI", lambda p: len(p) >= 16 and _u16(p, 4) in (0xAF11, 0xAF12)
-     and _u16(p, 14) in (0, 3), _open_fli),
+     and _u16(p, 14) in (0, 3), pil_open.open_fli),
     ("FTEX", _pfx(b"FTEX"), ftex.open_ftex),
     ("GBR", lambda p: len(p) >= 8 and _u32(p, ">") >= 20
-     and _u32(p[4:], ">") in (1, 2), _open_gbr),
+     and _u32(p[4:], ">") in (1, 2), pil_open.open_gbr),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
-     None),
-    ("HDF5", _pfx(b"\x89HDF\r\n\x1a\n"), None),
+     pil_open.open_grib),
+    ("HDF5", _pfx(b"\x89HDF\r\n\x1a\n"), pil_open.open_hdf5),
     ("JPEG2000", _pfx(b"\xff\x4f\xff\x51",
-                      b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
-    ("ICNS", _pfx(b"icns"), None),
+                      b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
+     pil_open.open_jpeg2000),
+    ("ICNS", _pfx(b"icns"), pil_open.open_icns),
     ("ICO", _pfx(b"\0\0\1\0"), ico.open_ico),
     ("IM", None, legacy.open_im),
-    ("IMT", None, _open_imt),
-    ("IPTC", None, _open_iptc),
-    ("MCIDAS", _pfx(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None),
-    ("MPEG", _pfx(b"\x00\x00\x01\xb3"), None),
+    ("IMT", None, pil_open.open_imt),
+    ("IPTC", None, pil_open.open_iptc),
+    ("MCIDAS", _pfx(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+     pil_open.open_mcidas),
+    ("MPEG", _pfx(b"\x00\x00\x01\xb3"), pil_open.open_mpeg),
     ("TIFF", _pfx(*tiff.PREFIXES), tiff.open_tiff),
     ("MSP", _pfx(b"DanM", b"LinS"), legacy.open_msp),
-    ("PCD", None, _open_pcd),
-    ("PIXAR", _pfx(b"\200\350\000\000"), None),
+    ("PCD", None, pil_open.open_pcd),
+    ("PIXAR", _pfx(b"\200\350\000\000"), pil_open.open_pixar),
     ("PSD", _pfx(b"8BPS"), psd.open_psd),
     ("QOI", _pfx(b"qoif"), legacy.open_qoi),
     ("SGI", lambda p: len(p) >= 2 and _u16(p, 0, ">") == 474,
      legacy.open_sgi),
-    ("SPIDER", None, _open_spider),
+    ("SPIDER", None, pil_open.open_spider),
     ("SUN", lambda p: len(p) >= 4 and _u32(p, ">") == 0x59A66A95,
      legacy.open_sun),
     ("TGA", None, _open_tga),
     ("WEBP", lambda p: p.startswith(b"RIFF") and p[8:12] == b"WEBP"
      and p[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), webp.open_webp),
     ("WMF", _pfx(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"),
-     _open_wmf),
+     pil_open.open_wmf),
     ("XBM", lambda p: p.lstrip().startswith(b"#define"), legacy.open_xbm),
     ("XPM", _pfx(b"/* XPM */"), legacy.open_xpm),
-    ("XVTHUMB", _pfx(b"P7 332"), None),
+    ("XVTHUMB", _pfx(b"P7 332"), pil_open.open_xvthumb),
 )
 
 

@@ -607,8 +607,12 @@ def _parse(data: bytes, st: dict, scan_fn, arith_fn):
             o = 0
             while o < len(seg):
                 tc, th = seg[o] >> 4, seg[o] & 15
+                if th > 3 or o + 17 > len(seg):
+                    raise OSError(BROKEN)  # JERR_DHT_INDEX, a short table
                 counts = np.frombuffer(seg, np.uint8, 16, o + 1)
                 k = int(counts.sum())
+                if k > 256 or o + 17 + k > len(seg):
+                    raise OSError(BROKEN)  # JERR_BAD_HUFF_TABLE
                 row = st["tables"][4 * tc + th]
                 row[:] = 0
                 row[:16] = counts
@@ -693,6 +697,8 @@ def _sos(data: bytes, pos: int, seg: bytes, st: dict, scan_fn, arith_fn):
     scan = {"comp": sc_comp, "dc": dc, "ac": ac, "mcux": frame["mcux"],
             "mcuy": frame["mcuy"], "ss": ss, "se": se, "ah": ah, "al": al,
             "progressive": frame["progressive"], "restart": st["restart"]}
+    if frame["coding"] != "arith":
+        _check_huff_tables(st["tables"], frame, scan)
     end = _segment_end(data, pos)
     if frame["lossless"]:
         from . import jpeg_lossless
@@ -719,6 +725,39 @@ def _sos(data: bytes, pos: int, seg: bytes, st: dict, scan_fn, arith_fn):
         else:
             st["coef_bits"][ci, :] = 0
     return end
+
+
+def _check_huff_tables(tables, frame, scan):
+    """jpeg_make_d_derived_tbl on the Huffman tables the scan starts:
+    code lengths that overrun 256 symbols or leave no room for their codes
+    (a code of all ones), and DC symbols past 15 (16 in lossless), fail
+    as JERR_BAD_HUFF_TABLE."""
+    ss, ah = scan["ss"], scan["ah"]
+    use = []
+    if frame["lossless"] or not frame["progressive"] or (ss == 0
+                                                         and ah == 0):
+        use += [(0, t) for t in scan["dc"]]
+    if not frame["lossless"] and (not frame["progressive"] or ss > 0):
+        use += [(1, t) for t in scan["ac"]]
+    for tc, th in set(use):
+        row = tables[4 * tc + th]
+        counts = [int(c) for c in row[:16]]
+        n = sum(counts)
+        sizes = [length for length, c in enumerate(counts, 1)
+                 for _ in range(c)]
+        code, p = 0, 0
+        si = sizes[0] if sizes else 0
+        while p < n:
+            while p < n and sizes[p] == si:
+                code += 1
+                p += 1
+            if code >= 1 << si:
+                raise OSError(BROKEN)
+            code <<= 1
+            si += 1
+        if tc == 0 and any(int(v) > (16 if frame["lossless"] else 15)
+                           for v in row[16:16 + n]):
+            raise OSError(BROKEN)
 
 
 # ------------------------------------------------------ block smoothing ----

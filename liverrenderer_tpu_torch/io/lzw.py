@@ -4,11 +4,13 @@ failed build raises, and nothing falls back), and `_lzw_tiff_plain` and
 `_lzw_gif_plain` are their plain Python versions with the same contract.
 
 TIFF's LZW is libtiff's: codes MSB-first, 9 to 12 bits, the width growing
-one code early.  GIF's is Pillow's GifDecode.c with ImageFile.load's
-feeding around it: codes LSB-first in sub-blocks, a deferred clear past
-4,096 entries, the KwKwK case, and a stream that ends early (or an end
-code before the frame is full, with nothing more in the file) reported
-as a truncated file.
+one code early, or with `compat` its old style (LZWDecodeCompat): codes
+LSB-first, the width growing when the next free code reaches 2^bits.
+GIF's is Pillow's GifDecode.c with ImageFile.load's feeding around it:
+codes LSB-first in sub-blocks, a deferred clear past 4,096 entries, the
+KwKwK case, and a stream that ends early (or an end code before the
+frame is full, with nothing more in the file) reported as a truncated
+file.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def library():
         info = compile_shared(_SRC, BUILD_DIR, "LZW decode")
         lib = ctypes.CDLL(info["path"])
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.lrt_lzw_tiff.argtypes = [p, i64, p, i64]
+        lib.lrt_lzw_tiff.argtypes = [p, i64, p, i64, i32]
         lib.lrt_lzw_tiff.restype = i64
         lib.lrt_lzw_gif.argtypes = [p, i64, i32, i32, p, i32, i32, i64, p]
         lib.lrt_lzw_gif.restype = i64
@@ -46,19 +48,20 @@ def library():
 
 
 # ------------------------------------------------------------------ TIFF ----
-def lzw_tiff(src: bytes, occ: int) -> bytes:
+def lzw_tiff(src: bytes, occ: int, compat: bool = False) -> bytes:
     """A TIFF LZW strip or tile -> its first `occ` decoded bytes (fewer when
-    the data or an EOI ends it first; -1 -> ValueError)."""
+    the data or an EOI ends it first; -1 -> ValueError); `compat`: the old
+    style."""
     dst = np.zeros(max(occ, 1), np.uint8)
     buf = np.frombuffer(src, np.uint8) if src else np.zeros(1, np.uint8)
     n = library().lrt_lzw_tiff(buf.ctypes.data, len(src), dst.ctypes.data,
-                               occ)
+                               occ, int(bool(compat)))
     if n < 0:
         raise ValueError("LZW: a corrupt code table")
     return dst[:n].tobytes()
 
 
-def _lzw_tiff_plain(src: bytes, occ: int) -> bytes:
+def _lzw_tiff_plain(src: bytes, occ: int, compat: bool = False) -> bytes:
     """lzw_tiff's plain Python version."""
     # the 256 roots, then Clear and EOI's unused slots
     prev = [-1] * 258
@@ -69,16 +72,24 @@ def _lzw_tiff_plain(src: bytes, occ: int) -> bytes:
     pos = bitbuf = bitcount = 0
     nbits, free_ent, old = 9, 258, -1
     n = len(src)
+    grow = 1 if compat else 2
 
     def next_code():
         nonlocal pos, bitbuf, bitcount
         while bitcount < nbits:
             if pos >= n:
                 return 257
-            bitbuf = ((bitbuf << 8) | src[pos]) & 0xFFFFFFFF
+            if compat:
+                bitbuf |= src[pos] << bitcount
+            else:
+                bitbuf = ((bitbuf << 8) | src[pos]) & 0xFFFFFFFF
             pos += 1
             bitcount += 8
         bitcount -= nbits
+        if compat:
+            code = bitbuf & ((1 << nbits) - 1)
+            bitbuf >>= nbits
+            return code
         return (bitbuf >> bitcount) & ((1 << nbits) - 1)
 
     def string(code):
@@ -117,7 +128,7 @@ def _lzw_tiff_plain(src: bytes, occ: int) -> bytes:
             length.append(entry[2])
             value.append(entry[3])
         free_ent += 1
-        if free_ent > (1 << nbits) - 2:
+        if free_ent > (1 << nbits) - grow:
             nbits = min(nbits + 1, 12)
         out += string(code)
         old = code

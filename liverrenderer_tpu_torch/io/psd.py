@@ -14,6 +14,7 @@ import struct
 import numpy as np
 
 from ..errors import not_ported
+from . import cielab
 from .tiff import cmyk_to_rgb
 
 _MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
@@ -59,8 +60,6 @@ def open_psd(data: bytes):
             raise not_ported("PSD files of indexed mode without a table",
                              "Queue 1 M9")
         palette = np.frombuffer(cmap, np.uint8).reshape(3, 256).T
-    if mode == "LAB":
-        raise not_ported("CIELab PSD files", "Queue 1 M9")
     if w <= 0 or h <= 0:
         raise SyntaxError("an empty image")
 
@@ -127,4 +126,6 @@ def _load(data, pos, comp, mode, channels, w, h, palette):
     px = np.stack(planes, -1)
     if mode == "CMYK":
         return cmyk_to_rgb(255 - px)
+    if mode == "LAB":                  # a and b already offset by 128
+        return cielab.lab_to_rgb(np.ascontiguousarray(px[..., :3]))
     return np.ascontiguousarray(px[..., :3])

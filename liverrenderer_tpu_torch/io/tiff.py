@@ -1,27 +1,35 @@
 """TIFF images, read and written as the JAX package reads and writes them
 through Pillow (`Image.open(path).convert("RGB")`, `Image.fromarray(px)
-.save(path)`), with numpy, zlib and the LZW loop of io/lzw.py.
+.save(path)`), with numpy, zlib, lzma and the C++ loops of io/lzw.py,
+io/tiff_fax.py and io/zstd.py.
 
 Reading takes the first IFD, as Pillow does: II and MM byte order,
-classic TIFF and BigTIFF; strips and tiles (edge tiles padded);
-PlanarConfiguration 1 and 2; compression none, PackBits, LZW and
-Deflate (8 and 32946); predictor 2 at 8, 16 and 32 bits and predictor 3
-on floats; photometric min-is-white, min-is-black, RGB, palette and
-CMYK at 1, 2, 4, 8, 16 and 32 bits per sample; ExtraSamples (associated
-alpha is divided out as Pillow's "RGBa" unpacker does); FillOrder 2; the
-Orientation tag applied as Pillow's exif_transpose applies it.  Pillow's
-mode table (TiffImagePlugin.OPEN_INFO) decides which layouts open, and
-its conversions give the RGB bytes: 16-bit grey clips to 255, signed and
-32-bit integers clip to 0..255, floats truncate and clip, CMYK goes
-through Pillow's cmyk2rgb.  Compressed files go through libtiff in
-Pillow, which hands samples over in the host's (little-endian) order:
-16-bit rawmodes are re-read natively, 32-bit ones are not (a big-endian
-compressed float or 32-bit integer file reads byte-swapped there, and
-here).  JPEG-in-TIFF (compression 7, and 6 whose strips hold a whole
-JPEG stream) and YCbCr files are read by io/tiff_ycbcr.py as libtiff
-reads them for Pillow; an uncompressed YCbCr file goes through Pillow's
-raw "RGBX" unpacker as Pillow sends it.  CIELab and the rarer
-codecs raise (ROADMAP M9).
+classic TIFF and BigTIFF; strips and tiles (edge tiles padded, tiles that
+start inside a byte placed pixel by pixel); PlanarConfiguration 1 and 2;
+every compression of Pillow's COMPRESSION_INFO as its libtiff 4.7 reads
+it: none, PackBits, LZW (and libtiff's old style, chosen by the first
+strip), Deflate (8 and 32946), LZMA, ZSTD, CCITT fax (2, 3, 4, 32771),
+ThunderScan, JPEG (6, 7); SGILog and WebP fail at load as there.
+libtiff's predictors (2 at 8, 16 and 32 bits, 3 on floats; its
+PredictorSetup refuses the rest); photometric min-is-white, min-is-black,
+RGB, palette and CMYK at 1, 2, 4, 8, 12, 16 and 32 bits per sample;
+ExtraSamples (associated alpha is divided out as Pillow's "RGBa"
+unpacker does); FillOrder 2; the Orientation tag applied as Pillow's
+exif_transpose applies it.  Pillow's mode table (TiffImagePlugin.
+OPEN_INFO) decides which layouts open, and its conversions give the RGB
+bytes: 16-bit grey clips to 255, signed and 32-bit integers clip to
+0..255, floats truncate and clip, CMYK goes through Pillow's cmyk2rgb.
+Uncompressed files go through Pillow's raw decoder (its strides, its
+one-letter rawmodes for separate planes, the rawmodes it lacks);
+compressed files through libtiff in Pillow, which hands samples over in
+the host's (little-endian) order: 16-bit rawmodes are re-read natively,
+32-bit ones are not (a big-endian compressed float or 32-bit integer file
+reads byte-swapped there, and here), and TiffDecode.c's tile-size test
+refuses some narrow tiles.  JPEG-in-TIFF (compression 7 and 6) and YCbCr
+files are read by io/tiff_ycbcr.py as libtiff reads them for Pillow; an
+uncompressed YCbCr file goes through Pillow's raw "RGBX" unpacker as
+Pillow sends it.  CIELab (mode "LAB") is converted as Pillow converts it
+through LittleCMS (io/cielab.py).
 
 `open_tiff` raises SyntaxError where Pillow's plugin gives the file up
 (the caller then tries the next format, as Image.open does), and
@@ -29,13 +37,13 @@ OSError / ValueError where Pillow raises them.
 """
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 
 import numpy as np
 
-from ..errors import not_ported
-from . import lzw, tiff_ycbcr
+from . import cielab, lzw, tiff_fax, tiff_ycbcr, zstd
 
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
             b"MM\x00\x2b", b"II\x2b\x00")
@@ -45,7 +53,7 @@ WIDTH, LENGTH, BPS, COMPRESSION, PHOTOMETRIC, FILLORDER = \
     256, 257, 258, 259, 262, 266
 STRIP_OFFSETS, ORIENTATION, SPP, ROWS_PER_STRIP, STRIP_COUNTS = \
     273, 274, 277, 278, 279
-PLANAR, PREDICTOR, COLORMAP = 284, 317, 320
+PLANAR, T4OPTIONS, PREDICTOR, COLORMAP = 284, 292, 317, 320
 TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = 322, 323, 324, 325
 EXTRA, SAMPLE_FORMAT = 338, 339
 # tags whose value Pillow's tag_v2 returns as a scalar (TiffTags length 1)
@@ -64,8 +72,14 @@ _COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                  32946: "tiff_deflate", 34676: "tiff_sgilog",
                  34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                  50001: "webp"}
-_DECODED = {"raw", "tiff_lzw", "packbits", "tiff_adobe_deflate",
-            "tiff_deflate", "jpeg", "tiff_jpeg"}
+# what this libtiff cannot decode for any layout Pillow opens: SGILog needs
+# photometric LogL or LogLuv (Pillow's mode table has neither), and WebP
+# support is not configured
+_UNDECODABLE = {"tiff_sgilog", "tiff_sgilog24", "webp"}
+_FAX = {"tiff_ccitt": 2, "group3": 3, "group4": 4, "tiff_raw_16": 32771}
+# the codecs that run libtiff's predictors (TIFFPredictorInit)
+_PREDICTED = {"tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma",
+              "zstd"}
 
 
 def _open_info() -> dict:
@@ -236,27 +250,155 @@ def _packbits(src: bytes, occ: int) -> bytes:
     return bytes(out)
 
 
-def _decompress(kind: str, src: bytes, occ: int) -> bytes:
-    """One compressed strip or tile -> occ bytes, or OSError as Pillow's
-    libtiff decoder raises on a short or broken one."""
-    if kind == "tiff_lzw":
-        if len(src) >= 2 and src[0] == 0 and src[1] & 1:  # libtiff's test
-            raise not_ported("TIFF files in the old-style (LSB-first) LZW",
-                             "Queue 1 M9")
-        try:
-            out = lzw.lzw_tiff(src, occ)
-        except ValueError as err:
-            raise OSError("decoder error -2") from err
-    elif kind == "packbits":
-        out = _packbits(src, occ)
-    else:
-        try:
-            out = zlib.decompressobj().decompress(src, occ)
-        except zlib.error as err:
-            raise OSError("decoder error -2") from err
-    if len(out) < occ:
+class _Codec:
+    """libtiff's codec of one image as Pillow's strip or tile loop drives
+    it, with the state it keeps from one strip or tile to the next: LZW's
+    old style (LZWPreDecode decides it on the first strip or tile read, for
+    all of them), the fax run arrays and Pillow's strip buffer, which a
+    strip that ends early leaves as it was."""
+
+    def __init__(self, L, tags):
+        self.kind = L["kind"]
+        self.lzw_compat = None
+        self.fax = None
+        self.width = L["xsize"]
+        # Pillow's strip (tile) buffer, which a codec may leave partly
+        # unwritten
+        self.buffer = np.zeros((L["w"] * sum(L["bps"]) + 7) // 8 * L["h"],
+                               np.uint8)
+        if self.kind == "tiff_thunderscan" and L["bps"][0] != 4:
+            raise OSError("decoder error -2")     # ThunderSetupDecode
+        if self.kind in _FAX:
+            if L["bps"][0] != 1 or (len(L["bps"]) != 1 and L["planar"] == 1):
+                raise OSError("decoder error -2")     # Fax3SetupState
+            rowpixels = L["w"]
+            kind = tiff_fax.decoder_kind(_FAX[self.kind],
+                                         int((tags.get(T4OPTIONS) or (0,))[0]))
+            self.fax = dict(kind=kind, rowpixels=rowpixels,
+                            rowbytes=(rowpixels + 7) // 8,
+                            runs=np.zeros(2 * tiff_fax.nruns(rowpixels, kind),
+                                          np.uint32),
+                            flags=np.zeros(1, np.int32),
+                            lsb_first=L["fill"] == 2)
+
+    def __call__(self, src: bytes, occ: int, offset: int) -> bytes:
+        """One compressed strip or tile (at `offset` in the file) -> occ
+        bytes, or OSError as Pillow's libtiff decoder raises on a short or
+        broken one."""
+        kind = self.kind
+        if self.fax is not None:
+            f = self.fax
+            rows = occ // f["rowbytes"]
+            if tiff_fax.decode(src, f["kind"], rows, f["rowpixels"],
+                               f["rowbytes"], f["lsb_first"], offset & 1,
+                               f["runs"], self.buffer, f["flags"]) < 0:
+                raise OSError("decoder error -2")
+            return self.buffer[:occ].tobytes()
+        if kind == "tiff_thunderscan":
+            scan = (self.width * 4 + 7) // 8        # tif_scanlinesize
+            if occ % scan:
+                raise OSError("decoder error -2")
+            cp = 0
+            for row in range(occ // scan):
+                cp = _thunderscan_row(src, cp, self.buffer, row * scan,
+                                      self.width)
+            return self.buffer[:occ].tobytes()
+        if kind == "tiff_lzw":
+            if self.lzw_compat is None:                # libtiff's test
+                self.lzw_compat = len(src) >= 2 and src[0] == 0 \
+                    and bool(src[1] & 1)
+            try:
+                out = lzw.lzw_tiff(src, occ, self.lzw_compat)
+            except ValueError as err:
+                raise OSError("decoder error -2") from err
+        elif kind == "packbits":
+            out = _packbits(src, occ)
+        elif kind == "lzma":
+            try:
+                out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(src,
+                                                                       occ)
+            except lzma.LZMAError as err:
+                raise OSError("decoder error -2") from err
+        elif kind == "zstd":
+            out = zstd.decode_tiff(src, occ)
+        else:
+            try:
+                out = zlib.decompressobj().decompress(src, occ)
+            except zlib.error as err:
+                raise OSError("decoder error -2") from err
+        if len(out) < occ:
+            raise OSError("decoder error -2")
+        return out
+
+
+def _thunderscan_row(src: bytes, cp: int, out: np.ndarray, op: int,
+                     maxpixels: int) -> int:
+    """tif_thunder.c's ThunderDecode: one row of 4-bit pixels from src[cp:]
+    into out[op:] -> the next code's position, or OSError where the codes
+    do not give the row exactly `maxpixels` pixels."""
+    last = npixels = 0
+
+    def setpixel(v):
+        nonlocal last, npixels, op
+        last = v & 15
+        if npixels < maxpixels:
+            if npixels & 1:
+                out[op] |= last
+                op += 1
+            else:
+                out[op] = last << 4
+            npixels += 1
+
+    while cp < len(src) and npixels < maxpixels:
+        n = src[cp]
+        cp += 1
+        code = n & 0xC0
+        if code == 0x00:                     # a run of the last pixel
+            if npixels & 1:
+                out[op] |= last
+                last = int(out[op])
+                op += 1
+                npixels += 1
+                n -= 1
+            else:
+                last |= last << 4
+            npixels += n
+            if npixels <= maxpixels:
+                while n > 0:
+                    out[op] = last
+                    op += 1
+                    n -= 2
+            if n == -1:
+                op -= 1
+                out[op] &= 0xF0
+            last &= 15
+        elif code == 0x40:                   # three 2-bit deltas
+            for shift in (4, 2, 0):
+                d = (n >> shift) & 3
+                if d != 2:
+                    setpixel(last + (0, 1, 0, -1)[d])
+        elif code == 0x80:                   # two 3-bit deltas
+            for shift in (3, 0):
+                d = (n >> shift) & 7
+                if d != 4:
+                    setpixel(last + (0, 1, 2, 3, 0, -3, -2, -1)[d])
+        else:                                # a raw pixel
+            setpixel(n)
+    if npixels != maxpixels:
         raise OSError("decoder error -2")
-    return out
+    return cp
+
+
+def _predictor_setup(predictor: int, bps: int, sample_format: int) -> int:
+    """libtiff's PredictorSetup: the predictor, or OSError where it fails
+    (Pillow's decoder error)."""
+    if predictor == 1:
+        return 1
+    if predictor == 2 and bps in (8, 16, 32, 64):
+        return 2
+    if predictor == 3 and sample_format == 3 and bps in (16, 24, 32, 64):
+        return 3
+    raise OSError("decoder error -2")
 
 
 # each byte with its bits in reverse order (FillOrder 2)
@@ -270,18 +412,12 @@ def _predict(buf: bytes, predictor: int, rows: int, width: int, stride: int,
     `rows` rows of `width` pixels of `stride` samples: the result is in
     the host's (little-endian) byte order, as libtiff hands it over."""
     if predictor == 2:
-        if bps not in (8, 16, 32):
-            raise not_ported(f"TIFF predictor 2 on {bps}-bit samples",
-                             "Queue 1 M9")
         dt = {8: "u1", 16: "u2", 32: "u4"}[bps]
         src = np.frombuffer(buf, (">" if order == "MM" else "<") + dt)
         a = src.reshape(rows, width, stride).astype(np.uint64)
         a = np.cumsum(a, axis=1) & ((1 << bps) - 1)
         return a.astype("<" + dt).tobytes()
     if predictor == 3:
-        if bps not in (16, 32, 64):
-            raise not_ported(f"TIFF predictor 3 on {bps}-bit samples",
-                             "Queue 1 M9")
         nb = bps // 8
         # one running sum over the row's bytes (all byte planes) at the
         # pixel's sample stride
@@ -345,6 +481,10 @@ def open_tiff(data: bytes):
             mode, rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
         if rawmode == "I;16" or rawmode.endswith((";16B", ";16L")):
             rawmode = "I;16N" if rawmode == "I;16" else rawmode[:-1] + "N"
+        if planar == 2 and mode == "RGBA" and not extra:
+            # TiffDecode.c unpacks a separate-plane RGBA image with no
+            # ExtraSamples tag as associated alpha
+            rawmode = "RGBa" + rawmode[4:]
     if STRIP_OFFSETS in tags:
         offsets = tags.get(STRIP_OFFSETS)
         counts = tags.get(STRIP_COUNTS, ())
@@ -360,6 +500,10 @@ def open_tiff(data: bytes):
         tiled = True
     else:
         raise SyntaxError("unknown data organization")
+    if not libtiff and planar == 2 and offsets:
+        per_plane = (-(-xsize // w) if tiled else 1) * -(-ysize // h)
+        if (len(offsets) - 1) // per_plane >= len(rawmode):
+            raise SyntaxError("more planes than the raw mode has bands")
     palette = None
     if mode in ("P", "PA"):
         if COLORMAP not in tags:
@@ -371,15 +515,16 @@ def open_tiff(data: bytes):
         palette[:k] = np.stack(
             [cmap[:k], cmap[n:n + k], cmap[2 * n:2 * n + k]], -1) \
             .astype(np.uint8)
-    if kind not in _DECODED:
-        raise not_ported(f"TIFF files with {kind} compression", "Queue 1 M9")
-    if photo == 8:
-        raise not_ported("CIELab TIFF files", "Queue 1 M9")
+    if kind in _UNDECODABLE:
+        def fail():
+            raise OSError("decoder error -2")
+        return fail
     layout = dict(xsize=xsize, ysize=ysize, w=w, h=h, offsets=offsets,
                   counts=counts, tiled=tiled, planar=planar, bps=bps,
                   count=count, kind=kind, libtiff=libtiff, fill=fill,
                   predictor=tags.get(PREDICTOR, 1), order=tags.prefix,
-                  rawmode=rawmode,
+                  rawmode=rawmode, sample_format=fmt[0], tags=tags,
+                  stride_bits=sum(bps),
                   orientation=tags.get(ORIENTATION, 1))
     # the C decoder reads the file's own photometric tag
     file_photo = tags.get(PHOTOMETRIC)
@@ -391,7 +536,7 @@ def open_tiff(data: bytes):
     if file_photo == 6 and libtiff:
         return lambda: _oriented(_rgba(data, tags, layout),
                                  layout["orientation"])
-    if photo == 6 and rawmode == "RGBX":
+    if photo == 6 and rawmode == "RGBX" and planar == 1:
         # Pillow's raw decoder unpacks 4 bytes a pixel ("RGBX") from data
         # laid out in 3-sample (or subsampled) units
         layout["bps"] = (8,) * 4
@@ -404,13 +549,15 @@ def open_tiff(data: bytes):
 def _rgba(data, tags, L) -> np.ndarray:
     """A photometric YCbCr file under libtiff's LZW, Deflate or PackBits:
     each strip or tile decompressed, then TIFFRGBAImage's conversion."""
+    codec = _Codec(L, tags)
+
     def chunk(k, occ):
         off = L["offsets"][k]
         cnt = L["counts"][k] if k < len(L["counts"]) else 0
         src = data[off:off + cnt]
         if L["fill"] == 2:
             src = _REVERSED[np.frombuffer(src, np.uint8)].tobytes()
-        return _decompress(L["kind"], src, occ)
+        return codec(src, occ, off)
     return tiff_ycbcr.rgba_image(tags, L, chunk)
 
 
@@ -439,6 +586,16 @@ def _planes(data, L) -> list:
     offsets = list(L["offsets"])
     if not L["libtiff"] and w == xsize and h == ysize and planar != 2:
         offsets = offsets[-1:]
+    if L["libtiff"]:
+        if L["tiled"] and chunk_row * h > \
+                (h * sum(bps) // nplanes + 7) // 8 * w:
+            # TiffDecode.c's tile-size test (its row bits taken over the
+            # tile's length, times its width) refuses tiles whose rows end
+            # inside a byte
+            raise OSError("decoder error -2")
+        codec = _Codec(L, L["tags"])
+        pred = _predictor_setup(L["predictor"], bps[0], L["sample_format"]) \
+            if L["kind"] in _PREDICTED else 1
     out = [np.zeros((ysize, row), np.uint8) for _ in range(nplanes)]
     for k, off in enumerate(offsets):
         plane, idx = divmod(k, per_plane)
@@ -446,7 +603,7 @@ def _planes(data, L) -> list:
             break
         ty, tx = divmod(idx, across)
         y0, x0 = ty * h, tx * w
-        rows = min(h, ysize - y0)
+        rows, cols = min(h, ysize - y0), min(w, xsize - x0)
         if rows <= 0:
             continue
         if L["libtiff"]:
@@ -454,25 +611,40 @@ def _planes(data, L) -> list:
             occ = n_rows * chunk_row
             cnt = L["counts"][k] if k < len(L["counts"]) else 0
             src = data[off:off + cnt]
-            if L["fill"] == 2:           # libtiff reverses the coded bytes
+            if L["fill"] == 2 and L["kind"] not in _FAX:
+                # libtiff reverses the coded bytes (the fax decoder reads
+                # them in either order itself)
                 src = _REVERSED[np.frombuffer(src, np.uint8)].tobytes()
-            buf = _decompress(L["kind"], src, occ)
-            # libtiff's predictors belong to the LZW and Deflate codecs
-            pred = L["predictor"] if L["kind"] != "packbits" else 1
-            buf = _predict(buf, pred if pred in (2, 3) else 1, n_rows, w,
-                           stride, bps[0], L["order"])
+            buf = _predict(codec(src, occ, off), pred, n_rows, w, stride,
+                           bps[0], L["order"])
+            tile = np.frombuffer(buf, np.uint8, rows * chunk_row) \
+                .reshape(rows, chunk_row)
         else:
-            occ = rows * chunk_row
-            buf = data[off:off + occ]
-            if len(buf) < occ:
+            # Pillow's raw decoder: the extent's bytes a row, rows `pitch`
+            # apart (an edge tile's stride is its width's bytes, rounded
+            # down; less than a row's bytes is a configuration error)
+            nbytes = (cols * px_bits + 7) // 8
+            pitch = int(w * L["stride_bits"] / 8) \
+                if L["tiled"] and x0 + w > xsize else 0
+            pitch = pitch or nbytes                 # 0: the extent's bytes
+            if pitch < nbytes:
+                raise OSError("decoder error -8")
+            need = pitch * (rows - 1) + nbytes
+            buf = data[off:off + need]
+            if len(buf) < need:
                 raise OSError("image file is truncated")
-        tile = np.frombuffer(buf, np.uint8, rows * chunk_row) \
-            .reshape(rows, chunk_row)
+            tile = np.lib.stride_tricks.as_strided(
+                np.frombuffer(buf, np.uint8), (rows, nbytes), (pitch, 1))
         if x0 * px_bits % 8:
-            raise not_ported("TIFF tiles that start inside a byte",
-                             "Queue 1 M9")
+            # a tile that starts inside a byte: placed pixel by pixel
+            nbits = cols * px_bits
+            bits = np.unpackbits(out[plane][y0:y0 + rows], axis=1)
+            bits[:, x0 * px_bits:x0 * px_bits + nbits] = \
+                np.unpackbits(tile, axis=1)[:, :nbits]
+            out[plane][y0:y0 + rows] = np.packbits(bits, axis=1)[:, :row]
+            continue
         b0 = x0 * px_bits // 8
-        nb = min(chunk_row, row - b0)
+        nb = min(tile.shape[1], row - b0)
         out[plane][y0:y0 + rows, b0:b0 + nb] = tile[:, :nb]
     return out
 
@@ -507,50 +679,79 @@ def cmyk_to_rgb(c: np.ndarray) -> np.ndarray:
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
-def _raw_planar(data, mode, rawmode, L) -> np.ndarray:
+# the rawmodes of the mode table that Pillow's raw decoder has no unpacker
+# for (FillOrder 2 without libtiff)
+_NO_UNPACKER = {"L;IR", "P;1R", "P;2R", "P;4R"}
+# the one-letter rawmodes Pillow unpacks for each mode, and their bits
+_LETTERS = {"1": "1", "L": "L", "P": "P", "F": "F", "I": "I", "RGB": "RGB",
+            "RGBA": "RGBA", "CMYK": "CMYK", "LAB": "LAB"}
+_LETTER_BITS = {"1": 1, "F": 32, "I": 32}
+
+
+def _raw_planar(data, mode, rawmode, L) -> list:
     """Pillow's own decoder on an uncompressed PlanarConfiguration 2 file:
-    layer k's tiles unpack with the one-letter rawmode rawmode[k] (8 bits
-    a sample, whatever the file's depth) from rows `stride` bytes apart
-    (the tile's width, or on an edge tile its width times the pixel's
-    bytes over the band count) -> (H, W, layers) int64."""
+    layer k's tiles unpack with the one-letter rawmode rawmode[k] (1 bit
+    for "1", 32 for "F" and "I", else 8 bits a sample, whatever the file's
+    depth; no bit reversal, no inversion) from rows `stride` bytes apart
+    (the extent's bytes, or on an edge tile its width times the pixel's
+    bytes over the band count) -> per layer (H, W) samples."""
     xsize, ysize, w, h = L["xsize"], L["ysize"], L["w"], L["h"]
     bps = L["bps"]
-    if mode in ("LA", "PA") or (mode in ("RGB", "RGBA", "CMYK")
-                                and any(c not in mode
-                                        for c in rawmode[:len(bps)])):
+    letters = rawmode[:len(bps)]
+    if any(c not in _LETTERS.get(mode, "") for c in letters):
         raise ValueError("unknown raw mode for given image mode")
-    if mode not in ("RGB", "RGBA", "CMYK"):
-        raise not_ported(f"uncompressed planar TIFF files of mode {mode}",
-                         "Queue 1 M9")
     across = (xsize + w - 1) // w if L["tiled"] else 1
     per_plane = across * ((ysize + h - 1) // h)
-    out = np.zeros((ysize, xsize, len(bps)), np.int64)
+    out = [np.zeros((ysize, xsize), np.float32 if c == "F" else np.int64)
+           for c in letters]
     for k, off in enumerate(L["offsets"][:per_plane * len(bps)]):
         plane, idx = divmod(k, per_plane)
+        bits = _LETTER_BITS.get(letters[plane], 8)
         ty, tx = divmod(idx, across)
         y0, x0 = ty * h, tx * w
         rows, cols = min(h, ysize - y0), min(w, xsize - x0)
         if rows <= 0:
             continue
-        stride = int(w * sum(bps) / 8 / L["count"]) if x0 + w > xsize \
-            else cols
-        need = stride * (rows - 1) + cols
+        nbytes = (cols * bits + 7) // 8
+        stride = int(w * L["stride_bits"] / 8 / L["count"]) \
+            if x0 + w > xsize else 0
+        stride = stride or nbytes               # 0: the extent's bytes
+        if stride < nbytes:
+            raise OSError("decoder error -8")
+        need = stride * (rows - 1) + nbytes
         buf = data[off:off + need]
         if len(buf) < need:
             raise OSError("image file is truncated")
         tile = np.lib.stride_tricks.as_strided(
-            np.frombuffer(buf, np.uint8), (rows, cols), (stride, 1))
-        out[y0:y0 + rows, x0:x0 + cols, plane] = tile
+            np.frombuffer(buf, np.uint8), (rows, nbytes), (stride, 1))
+        if bits == 1:
+            v = np.unpackbits(tile, axis=1)[:, :cols].astype(np.int64) * 255
+        elif bits == 32:
+            v = np.ascontiguousarray(tile).view(
+                "<f4" if letters[plane] == "F" else "<i4")
+        else:
+            v = tile
+        out[plane][y0:y0 + rows, x0:x0 + cols] = v
     return out
 
 
 def _load(data, mode, rawmode, palette, L) -> np.ndarray:
     xsize, ysize, bps = L["xsize"], L["ysize"], L["bps"]
+    if not L["libtiff"] and L["planar"] == 1 and rawmode in _NO_UNPACKER:
+        raise ValueError("unknown raw mode for given image mode")
     if L["planar"] == 2 and not L["libtiff"]:
-        s = _raw_planar(data, mode, rawmode, L)
-        if L["fill"] == 2:
-            s = _REVERSED[s.astype(np.uint8)].astype(np.int64)
-        return _oriented(_to_rgb(s, mode, rawmode, palette, 8),
+        layers = _raw_planar(data, mode, rawmode, L)
+        if mode == "F":
+            grey = float_to_grey(layers[0])
+        elif mode in ("1", "L", "I"):
+            grey = np.clip(layers[0], 0, 255).astype(np.uint8)
+        elif mode == "LAB":              # band unpackers: a and b as read
+            return _oriented(cielab.lab_to_rgb(
+                np.stack(layers, -1).astype(np.uint8)), L["orientation"])
+        else:
+            return _oriented(_to_rgb(np.stack(layers, -1), mode, mode,
+                                     palette, 8), L["orientation"])
+        return _oriented(np.repeat(grey[..., None], 3, -1),
                          L["orientation"])
     planes = _planes(data, L)
     if L["fill"] == 2 and not L["libtiff"]:
@@ -577,6 +778,9 @@ def _load(data, mode, rawmode, palette, L) -> np.ndarray:
     if L["planar"] == 2:
         s = np.concatenate([_samples(p, xsize, bits, 1, "<u2" if bits == 16
                                      else np.uint8) for p in planes], -1)
+        if mode == "LAB":          # one band unpacker a plane: a, b as read
+            return _oriented(cielab.lab_to_rgb(s.astype(np.uint8)),
+                             L["orientation"])
     else:
         dt = ("<u2" if L["libtiff"] or rawmode.endswith("L") else ">u2") \
             if bits == 16 else np.uint8
@@ -603,6 +807,11 @@ def _to_rgb(s, mode, rawmode, palette, bits) -> np.ndarray:
         img = palette[s[..., 0]]
     elif mode == "CMYK":
         img = cmyk_to_rgb(s[..., :4])
+    elif mode == "LAB":
+        lab = s[..., :3].astype(np.uint8)
+        if rawmode == "LAB":            # Pillow's unpackLAB: signed a, b
+            lab[..., 1:] ^= 128
+        img = cielab.lab_to_rgb(lab)
     elif rawmode.startswith("RGBa"):
         a = s[..., 3:4]
         rgb = np.clip(s[..., :3] * 255 // np.maximum(a, 1), 0, 255)

@@ -17,19 +17,21 @@ TiffDecode.c drives libtiff 4.7 for them:
   YCbCrCoefficients and ReferenceBlackWhite in libtiff's float and
   fixed-point steps; the Orientation tag is left to Pillow's
   exif_transpose (the rows come out top-left first).
-- Compression 6 (old-style JPEG) whose stream (JPEGInterchangeFormat's
-  bytes, then the strips') is a whole JPEG stream: libtiff's tif_ojpeg.c
-  hands over the stream's raw
-  (not upsampled, not converted) component samples as YCbCr data units,
-  which TIFFRGBAImage converts as above (libtiff takes an RGB or missing
-  photometric tag of such a file for YCbCr); a grey stream is read as
-  is.
+- Compression 6 (old-style JPEG), as libtiff's tif_ojpeg.c reads it:
+  one stream (JPEGInterchangeFormat's bytes, then the strips'), or, where
+  the strips hold only entropy-coded data, the stream it builds from the
+  tables in tags 513-521; the stream's raw (not upsampled, not converted)
+  component samples as YCbCr data units, which TIFFRGBAImage converts as
+  above (libtiff takes an RGB or missing photometric tag of such a file
+  for YCbCr); a grey stream is read as is.  A stream of another width,
+  shorter than the image or of another component count, three samples
+  under another photometric, and chroma libtiff would desubsample itself
+  fail as there (a taller stream is read to the image's height).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..errors import not_ported
 from . import jpeg
 
 YCBCR_COEFFICIENTS, YCBCR_SUBSAMPLING, REFERENCE_BW = 529, 530, 532
@@ -101,16 +103,23 @@ def _subsampling(tags) -> tuple:
     return int(hs), int(vs)
 
 
-def units_to_planes(buf: bytes, rows: int, width: int, hs: int, vs: int):
+def units_to_planes(buf: bytes, rows: int, width: int, hs: int, vs: int,
+                    pitch: int | None = None):
     """libtiff's packed YCbCr data units (hs * vs luma, then Cb, Cr) of a
     strip or tile `rows` x `width` -> full-size Y, Cb, Cr planes, each
-    unit's chroma repeated over it (TIFFRGBAImage's put routines)."""
+    unit's chroma repeated over it (TIFFRGBAImage's put routines); a row
+    of units starts `pitch` bytes after the one before (its width's units
+    unless the caller says otherwise)."""
     bh, bw = -(-rows // vs), -(-width // hs)
-    n = bh * bw * (hs * vs + 2)
+    size = hs * vs + 2
+    pitch = bw * size if pitch is None else pitch
+    idx = (np.arange(bh)[:, None, None] * pitch
+           + np.arange(bw)[None, :, None] * size + np.arange(size))
     u = np.frombuffer(buf, np.uint8)
+    n = int(idx.max()) + 1 if idx.size else 0
     if len(u) < n:
         u = np.concatenate([u, np.zeros(n - len(u), np.uint8)])
-    u = u[:n].reshape(bh, bw, hs * vs + 2)
+    u = u[idx]
     y = u[..., :hs * vs].reshape(bh, bw, vs, hs).transpose(0, 2, 1, 3) \
         .reshape(bh * vs, bw * hs)[:rows, :width]
     cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1)[:rows, :width]
@@ -149,7 +158,8 @@ def rgba_image(tags, L, decode_chunk) -> np.ndarray:
         raise OSError(_BROKEN)
     # libtiff's predictors belong to the LZW and Deflate codecs
     predictor = L["predictor"] if L["kind"] in (
-        "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate") else 1
+        "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "lzma",
+        "zstd") else 1
     if predictor not in (1, 2):
         raise OSError(_BROKEN)
     tabs = ycbcr_tables(tags)
@@ -178,7 +188,16 @@ def rgba_image(tags, L, decode_chunk) -> np.ndarray:
                 if predictor == 2:
                     buf = _hor_acc8(buf, cols * 3 if L["tiled"]
                                     else units // vs, 3)
-                ycc = units_to_planes(buf, n_rows, cols, hs, vs)
+                # gtTileContig's put routine skips an edge tile's hidden
+                # units as (hidden pixels // hs), one unit short when that
+                # rounds down, and the 4 x 4 routine skips them as 10-byte
+                # (4 x 2) units
+                vis = min(cols, xsize - tx * w)
+                size = hs * vs + 2
+                skip = 10 if (hs, vs) == (4, 4) else size
+                ycc = units_to_planes(
+                    buf, n_rows, cols, hs, vs,
+                    -(-vis // hs) * size + (cols - vis) // hs * skip)
             x0 = tx * w
             nc = min(cols, xsize - x0)
             out[y0:y0 + rows, x0:x0 + nc] = \
@@ -265,9 +284,86 @@ def _jpeg_chunk(stream, tables, seg_w, seg_h, spp, bits, ycc, hs, vs,
 
 
 # ------------------------------------------------- compression 6 ----
+RESTART_INTERVAL, QTABLES, DCTABLES, ACTABLES = 515, 519, 520, 521
+
+
+def _ojpeg_stream(data, tags, L, spp) -> bytes:
+    """The JPEG stream tif_ojpeg.c builds for strips of entropy-coded data
+    alone: SOI, component m's quantisation table (64 bytes at
+    JPEGQTables[m]) and Huffman tables (16 counts and their values at
+    JPEGDCTables[m] and JPEGACTables[m]; an offset of 0 or the previous
+    component's shares that component's table), a baseline SOF of the
+    image's size (the first component sampled as YCbCrSubsampling says),
+    DRI (a strip's MCUs where there are several strips, else
+    JPEGRestartInterval; JPEGProc is not read), SOS, then the strips'
+    data with an RST marker between strips, and EOI.  A table that is
+    missing or runs past the file fails the load."""
+    if L["planar"] != 1:
+        raise OSError(_BROKEN)
+    out = bytearray(b"\xff\xd8")
+    sel = []                # per table kind, each component's table index
+    for kind, tag in enumerate((QTABLES, DCTABLES, ACTABLES)):
+        offs = list(tags.get(tag, ()))
+        if len(offs) > 3:
+            raise OSError(_BROKEN)            # the tag's count
+        offs = (offs + [0, 0, 0])[:3]
+        if offs[0] == 0:
+            raise OSError(_BROKEN)            # "Missing JPEG tables"
+        idx = []
+        for m in range(spp):
+            if offs[m] == 0 or (m and offs[m] == offs[m - 1]):
+                idx.append(idx[-1])           # the previous component's
+                continue
+            if offs[m] in offs[:max(m - 1, 0)]:
+                raise OSError(_BROKEN)        # a corrupt table tag
+            at = offs[m]
+            if kind == 0:
+                q = data[at:at + 64]
+                if len(q) < 64:
+                    raise OSError(_BROKEN)
+                out += b"\xff\xdb\x00\x43" + bytes([m]) + q
+            else:
+                counts = data[at:at + 16]
+                vals = data[at + 16:at + 16 + sum(counts)]
+                if len(counts) < 16 or len(vals) < sum(counts):
+                    raise OSError(_BROKEN)
+                seg = bytes([(kind - 1) << 4 | m]) + counts + vals
+                out += b"\xff\xc4" + (len(seg) + 2).to_bytes(2, "big") \
+                    + seg
+            idx.append(m)
+        sel.append(idx)
+    hs, vs = _subsampling(tags) if spp == 3 else (1, 1)
+    if len(L["offsets"]) > 1:
+        # OJPEGReadHeaderInfo: strips of whole MCU rows, a restart
+        # interval of a strip's MCUs
+        if L["h"] % (8 * vs):
+            raise OSError(_BROKEN)
+        ri = -(-L["xsize"] // (8 * hs)) * (L["h"] // (8 * vs))
+    else:                                  # one strip: JPEGRestartInterval
+        ri = tags.get(RESTART_INTERVAL, (0,))[0]
+    if ri:
+        out += b"\xff\xdd\x00\x04" + (ri & 0xFFFF).to_bytes(2, "big")
+    sof = bytes([8]) + L["ysize"].to_bytes(2, "big") \
+        + L["xsize"].to_bytes(2, "big") + bytes([spp])
+    for m in range(spp):
+        sof += bytes([m, (hs << 4 | vs) if m == 0 else 0x11, sel[0][m]])
+    out += b"\xff\xc0" + (len(sof) + 2).to_bytes(2, "big") + sof
+    sos = bytes([spp]) + b"".join(bytes([m, sel[1][m] << 4 | sel[2][m]])
+                                  for m in range(spp)) + b"\x00\x3f\x00"
+    out += b"\xff\xda" + (len(sos) + 2).to_bytes(2, "big") + sos
+    counts = list(L["counts"])
+    for k, o in enumerate(L["offsets"]):
+        if k:
+            out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        out += data[o:o + (counts[k] if k < len(counts) else 0)]
+    return bytes(out + b"\xff\xd9")
+
+
 def ojpeg_image(data, tags, L, photo: int) -> np.ndarray:
-    """Compression 6 whose stream starts with SOI, read as libtiff's
-    tif_ojpeg.c reads it -> (H, W, 3) uint8 before exif_transpose."""
+    """Compression 6, read as libtiff's tif_ojpeg.c reads it: a whole JPEG
+    stream (JPEGInterchangeFormat's bytes, then the strips'), or strips of
+    entropy-coded data with the tables in tags -> (H, W, 3) uint8 before
+    exif_transpose."""
     if photo in (None, 2):           # TIFFReadDirectory's OJPEG fix-up
         photo = 6
     # tif_ojpeg.c reads one stream: the JPEGInterchangeFormat bytes, then
@@ -279,38 +375,38 @@ def ojpeg_image(data, tags, L, photo: int) -> np.ndarray:
     counts = list(L["counts"])
     stream += b"".join(data[o:o + (counts[k] if k < len(counts) else 0)]
                        for k, o in enumerate(L["offsets"]))
-    if not stream.startswith(b"\xff\xd8"):
-        raise not_ported("old-style JPEG TIFF files with their tables in "
-                         "tags 519-521", "Queue 1 M9")
     spp = len(L["bps"])
+    if not stream.startswith(b"\xff\xd8"):
+        stream = _ojpeg_stream(data, tags, L, spp)
     try:
         d = jpeg.decode_jpeg(stream, upsample=False)
     except (OSError, ValueError) as err:   # decode_jpeg's refusals
         raise OSError(_BROKEN) from err
     fr = d["frame"]
-    if (fr["w"], fr["h"]) != (L["xsize"], L["ysize"]) \
+    # libtiff's checks of the stream against the tags; a stream taller
+    # than the image is read to the image's height
+    if fr["w"] != L["xsize"] or fr["h"] < L["ysize"] \
             or len(fr["comps"]) != spp or fr["lossless"] \
             or L["planar"] != 1:
-        raise not_ported("this form of old-style JPEG TIFF file",
-                         "Queue 1 M9")
+        raise OSError(_BROKEN)
     if spp == 1:
         if photo == 6:
             raise OSError(_BROKEN)
-        return np.repeat(d["planes"][0][..., None], 3, -1)
-    if photo != 6:
-        raise not_ported("old-style JPEG TIFF files of photometric "
-                         f"{photo}", "Queue 1 M9")
+        return np.repeat(d["planes"][0][:L["ysize"], :, None], 3, -1)
+    if photo != 6:            # TIFFRGBAImage: no three-sample form of it
+        raise OSError(_BROKEN)
     c0 = fr["comps"][0]
     hs, vs = c0["h"], c0["v"]
     if any(c["h"] != 1 or c["v"] != 1 for c in fr["comps"][1:]) \
             or (hs, vs) not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1),
-                                (4, 2), (4, 4)):
-        raise not_ported("old-style JPEG TIFF files that libtiff "
-                         "desubsamples itself", "Queue 1 M9")
+                                (4, 2)):
+        # chroma that libtiff would desubsample itself: refused, as are
+        # more than libjpeg's 10 blocks in an MCU
+        raise OSError(_BROKEN)
     y, cb, cr = d["planes"]
     H, W = fr["h"], fr["w"]
     Hp, Wp = -(-H // vs) * vs, -(-W // hs) * hs
     y = np.pad(y, ((0, Hp - y.shape[0]), (0, Wp - y.shape[1])), "edge")
     cb = np.repeat(np.repeat(cb, vs, 0), hs, 1)[:H, :W]
     cr = np.repeat(np.repeat(cr, vs, 0), hs, 1)[:H, :W]
-    return ycbcr_to_rgb(y[:H, :W], cb, cr, ycbcr_tables(tags))
+    return ycbcr_to_rgb(y[:H, :W], cb, cr, ycbcr_tables(tags))[:L["ysize"]]

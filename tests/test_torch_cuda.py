@@ -14,6 +14,7 @@ import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.accel import cuda_intersect as tci
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
 import torch_m10_scenes as ms
+import torch_tiff_files as tf
 from torch_tie_inputs import pack_rays, tie_inputs
 
 # the kernel against its plain version (chip_smoke.py holds the same):
@@ -1317,3 +1318,70 @@ def test_m9d_decoders_on_the_cards_host(name):
     ext = ".tif" if name.endswith("ycc") else ".jpg"
     np.testing.assert_array_equal(timage.read_8bit(_data(name + ext)),
                                   timage.read_8bit(_data(name + ".png")))
+
+
+@pytest.mark.cuda
+def test_m9e_scene_on_the_card_matches_cpu(tmp_path):
+    """bench.py's workload path from XML with the committed 32^2 ZSTD
+    height map and the Group 4 fax floor at 16x12, 4 spp: the card's
+    render against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_xml_files import write_proxy_files
+    path, _ = write_proxy_files(str(tmp_path / "scene"), 16, 12, 4,
+                                subdiv=2,
+                                height_file=_data("torch_height32_zstd.tif"),
+                                floor_file=_data("torch_floor_g4.tif"))
+    ref = lrt.render(lrt.load_file(path, device="cpu"), spp=4).numpy()
+    scene = lrt.load_file(path)
+    assert scene.device.type == "cuda" and scene.has_heightmap
+    before = tci.LAUNCHES
+    img = lrt.render(scene, spp=4).cpu().numpy()
+    assert tci.LAUNCHES > before
+    close = np.abs(img - ref) <= 1e-4 + 1e-3 * np.abs(ref)
+    assert close.all(-1).mean() >= 0.99
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * abs(ref.mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [0, 1, 7])
+def test_m9e_fax_and_zstd_loops_on_the_cards_host_match_plain(cut):
+    """The C++ fax and Zstandard loops built on the card's machine against
+    their plain versions on the committed strips, whole and cut short."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import tiff_fax, zstd
+    z = tf.first_strip(_data("torch_height_zstd.tif"))
+    z = z[:len(z) - cut * len(z) // 8]
+    assert zstd.decode(z, 65536) == zstd._decode_plain(z, 65536)
+    g4 = tf.first_strip(_data("torch_floor_g4.tif"))
+    g4 = g4[:len(g4) - cut * len(g4) // 8]
+    outs = []
+    for fn in (tiff_fax.decode, tiff_fax._decode_plain):
+        runs = np.zeros(2 * tiff_fax.nruns(256, tiff_fax.G4), np.uint32)
+        strip = np.full(32 * 256, 0x5A, np.uint8)
+        status = fn(g4, tiff_fax.G4, 256, 256, 32, False, False, runs, strip,
+                    np.zeros(1, np.int32))
+        outs.append((status, strip.tobytes(), runs.tobytes()))
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["torch_height_zstd.tif",
+                                  "torch_height_lzma.tif",
+                                  "torch_floor_g4.tif"])
+def test_m9e_decoders_on_the_cards_host(name):
+    """The committed ZSTD and LZMA height maps decode on the card's
+    machine (no Pillow, no zstd package there) to the height map's codes,
+    the G4 floor to its PNG twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from liverrenderer_tpu_torch.io import image as timage
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    got = timage.read_8bit(_data(name))
+    if name.startswith("torch_height"):
+        codes = np.round(height_map(BUMP[0], 0) * 255.0).astype(np.uint8)
+        np.testing.assert_array_equal(got[..., 0], codes)
+    else:
+        np.testing.assert_array_equal(got, timage.read_8bit(
+            _data("torch_floor_g4.png")))

@@ -18,7 +18,7 @@ for bit (tolerance 0), or the same exception class.
   unused and a used "None" colour), MSP versions 1 and 2, QOI, ICO and
   CUR (BMP entries at 8, 24 and 32 bits, PNG entries, Pillow's choice
   among several), PSD (raw and RLE composites: grey, RGB, RGBA, CMYK,
-  indexed, bitmap; 16-bit and CIELab are refused or not ported).
+  indexed, bitmap, CIELab; 16-bit is refused).
 - Writing: .tif, .pcx, .sgi, .im, .dib and .qoi byte-equal to the JAX
   package's write_image at RGB, RGBA and grey; what Pillow refuses
   (an unknown extension, a format without a writer, XBM / MSP / Palm)
@@ -291,17 +291,10 @@ def _small_cases():
 _SMALL = _small_cases()
 
 
-# what Pillow reads and the port leaves to ROADMAP M9
-_SMALL_NOT_PORTED = {"psd_lab_raw", "psd_lab_rle"}
-
-
 @pytest.mark.parametrize("case", sorted(_SMALL))
 def test_small_formats(tmp_path, case):
     p = tmp_path / "f.bin"
     p.write_bytes(_SMALL[case]())
-    if case in _SMALL_NOT_PORTED:
-        assert not _read_equal_or_not_ported(p)
-        return
     same_as_jax(p)
 
 

@@ -283,7 +283,7 @@ def _streams():
     out = [b"", bytes(1), bytes(rng.integers(0, 256, 5000, dtype=np.uint8)),
            bytes(20000),                      # long runs: KwKwK codes
            bytes(np.repeat(rng.integers(0, 4, 3000), 3).astype(np.uint8)),
-           bytes(rng.integers(0, 256, 70000, dtype=np.uint8))]  # clears
+           bytes(rng.integers(0, 256, 12000, dtype=np.uint8))]  # clears
     return out
 
 
