@@ -85,9 +85,9 @@ current ones, and each line reports the spp it ran:
   bump_env_render  the bumped, sky-lit liver proxy at 428x240, 64 spp, depth
                    12 (bench.py's workload path; 1,024^2 height map, 1,024
                    x 512 sky): seconds, paths/s, image checks, sweep and
-                   merge launches, peak memory, then the plain proxy
-                   (the ratio compares them within this call); host
-                   launches per iteration of both from torch.profiler
+                   merge launches, peak memory; host launches per
+                   iteration of it and of the plain proxy from
+                   torch.profiler at 2 spp (their ratio within this call)
   bump_env_render_grad  render_grad of its mean image at 16 spp, d/d
                    media.params: seconds of one run after a warm-up
                    against a 16 spp primal in the same call, launches of
@@ -326,11 +326,12 @@ current ones, and each line reports the spp it ran:
                    adjoint) against a 1 spp primal, peak memory
   shape_small      the vertices key at test size, card against CPU: the
                    vertex gradient of render_grad (replay adjoint plus
-                   both boundary terms) on tests/test_projective.py's
-                   occluder at 16^2 and the bumped, sky-lit proxy at 16x12,
-                   4 spp (cosine, norms); the primary boundary term's
-                   32,768 uniform samples: the same edges, the share of
-                   samples with the same visibility and side
+                   both boundary terms at 16,384 samples) on
+                   tests/test_projective.py's occluder at 16^2 and the
+                   bumped, sky-lit proxy at 16x12, 2 spp (cosine, norms);
+                   the primary boundary term's 16,384 uniform samples: the
+                   same edges, the share of samples with the same
+                   visibility and side
   projective_fd    the JAX tests' finite-difference gates on the card: the
                    occluder at 24^2 (render_grad 128 spp against central
                    FD at 512 spp, fd < -0.5, rtol 0.2) and the rough
@@ -470,6 +471,28 @@ current ones, and each line reports the spp it ran:
                    in turns with its PNG twin (arith_tiff_over_png),
                    launches
   m9d_phases       the seconds the m9d phases took
+  m9e_decode       the committed ZSTD and LZMA 1,024^2 height maps and the
+                   Group 4 fax floor decoded on the card's host in turns
+                   with the PNG height map (zstd_over_png_decode), each
+                   equal to the codes or its PNG twin, and the plain fax
+                   and Zstandard loops against the C++ ones on a strip
+  m9e_small        bench.py's workload path from XML with the 32^2 ZSTD
+                   height map and the G4 floor at 16x12, 4 spp: card
+                   against CPU
+  m9e_render       the same at 428x240, CMP_SPP, in turns with its PNG
+                   twin (zstd_g4_over_png), launches
+  m9e_phases       the seconds the m9e phases took
+  m9f_decode       the committed GZIP_1 FITS 1,024^2 height map and the
+                   256^2 FLC floor decoded on the card's host in turns with
+                   the PNG height map (fits_over_png_decode), each equal
+                   to the codes or its PNG twin, and the plain FLI frame
+                   loop against the C++ one on the floor
+  m9f_small        bench.py's workload path from XML with the 32^2 FITS
+                   height map and the FLC floor at 16x12, 4 spp: card
+                   against CPU
+  m9f_render       the same at 428x240, CMP_SPP, in turns with its PNG
+                   twin (fits_flc_over_png), launches
+  m9f_phases       the seconds the m9f phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -501,6 +524,7 @@ non-zero before it.  Without a CUDA device the script exits 2.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -681,7 +705,10 @@ VP_KEYS = ("volprims.opacity", "volprims.sh")
 # shape_small from 8 to 4 spp and from 65,536 to 32,768 boundary samples
 # (its CPU side was ~63 of its 72 s), shape_grad from 3 timed runs to 2;
 # and for the apps and multi-GPU phases (PR 17, on a slower host where
-# shape_small took 89 s): 2 spp and 16,384 samples, one timed run
+# shape_small took 89 s): 2 spp and 16,384 samples, one timed run; then
+# (62-73 s, most of it the CPU's render_grad with its boundary terms at
+# their default 65,536 samples) render_grad's boundary terms at 16,384
+# samples too, on the card and on the CPU alike
 SHAPE_SMALL_SPP = 2
 SHAPE_SMALL_SAMPLES = 1 << 14
 SHAPE_GRAD_REPS = 1
@@ -1574,12 +1601,8 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
     secs, img = timed_render(torch, lrt, bumped, SPP)
     counts = launch_counts(ci)
     peak = torch.cuda.max_memory_allocated()
-    # then the plain proxy (one render each: the second pair took ~15 s of
-    # the script's time limit)
-    torch.cuda.reset_peak_memory_stats()
-    plain_s = [timed_render(torch, lrt, plain, SPP)[0]]
-    plain_peak = torch.cuda.max_memory_allocated()
-    bumped_s = [secs]
+    # the plain proxy only in the profiles below: its timed 64 spp twin
+    # (~13 s) went for the script's time limit
     traces = {}
     for name, sc in (("bumped", bumped), ("plain", plain)):
         lrt.render(sc, spp=BUMP_TRACE_SPP, seed=SEED)            # warm-up
@@ -1589,17 +1612,15 @@ def bump_env_phases(torch, np, lrt, ci, treplay, smi, plain):
         traces[name] = primal_trace(prof, secs_tr, ci.LAUNCHES)
     finite = bool(torch.isfinite(img).all())
     paths = WIDTH * HEIGHT * SPP
-    t_b, t_p = bumped_s[0], plain_s[0]
     emit("bump_env_render", film=[WIDTH, HEIGHT], spp=SPP,
          max_depth=bumped.max_depth, tris=bumped.n_tris, bump=list(BUMP),
          sky=list(SKY), card=smi, build_seconds=build_s,
          seconds=round(secs, 3), paths_per_s=paths / secs, finite=finite,
          shape=list(img.shape), mean=float(img.mean()),
-         max_memory_allocated=peak,
-         plain_max_memory_allocated=plain_peak, launches=counts[0],
+         max_memory_allocated=peak, launches=counts[0],
          merge_launches=counts[1], shadow_launches=counts[2],
-         bumped_seconds_reps=bumped_s, plain_seconds_reps=plain_s,
-         bumped_over_plain=t_b / t_p,
+         bumped_over_plain_trace=traces["bumped"]["trace_seconds"]
+         / traces["plain"]["trace_seconds"],
          trace_spp=BUMP_TRACE_SPP, trace=traces,
          launches_per_iteration_added=traces["bumped"][
              "launches_per_iteration"] - traces["plain"][
@@ -3895,18 +3916,30 @@ def shape_phases(torch, np, lrt, ci, smi):
     counts = {}
 
     # ---- 17a. at test size, card against CPU: the vertex gradient of
-    # render_grad and the primary boundary term's samples
+    # render_grad (its boundary terms at SHAPE_SMALL_SAMPLES on both sides:
+    # the CPU's plain kernel took ~1 min at their default 65,536) and the
+    # primary boundary term's samples
     small = {"occluder": ms.occluder_dict(16),
              "bumped_proxy": liver_proxy_dict(16, 12, 4, 2, SEED,
                                               bump=BUMP_SMALL,
                                               sky=SKY_SMALL)}
-    out = {}
+    out, grads = {}, {}
+    terms = {n: getattr(tprb, n) for n in ("boundary_gradient",
+                                           "indirect_boundary_gradient")}
+    for n, fn in terms.items():
+        setattr(tprb, n, functools.partial(fn, n_samples=SHAPE_SMALL_SAMPLES))
+    try:
+        for name, d in small.items():
+            reset_counts(ci)
+            g_gpu = _vertex_grad(lrt, lrt.load_dict(d), SHAPE_SMALL_SPP)[1]
+            counts[f"small_{name}"] = launch_counts(ci)
+            grads[name] = (g_gpu, _vertex_grad(
+                lrt, lrt.load_dict(d, device="cpu"), SHAPE_SMALL_SPP)[1])
+    finally:
+        for n, fn in terms.items():
+            setattr(tprb, n, fn)
     for name, d in small.items():
-        reset_counts(ci)
-        g_gpu = _vertex_grad(lrt, lrt.load_dict(d), SHAPE_SMALL_SPP)[1]
-        counts[f"small_{name}"] = launch_counts(ci)
-        g_cpu = _vertex_grad(lrt, lrt.load_dict(d, device="cpu"),
-                             SHAPE_SMALL_SPP)[1]
+        g_gpu, g_cpu = grads[name]
         cos, norm_rel, gnorm = _cosine(torch, g_gpu, g_cpu)
         e_gpu, l_gpu = _boundary_lanes(torch, np, lrt.load_dict(d), proj,
                                        SHAPE_SMALL_SAMPLES)
@@ -5377,6 +5410,88 @@ def m9e_phases(torch, np, lrt, ci, smi, workdir):
     return {"m9e_render": counts, "m9e_twin": twin_counts}
 
 
+def m9f_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9f_decode, m9f_small, m9f_render and m9f_phases (the Pillow
+    plugins the port only identified before): the committed GZIP_1 FITS
+    height map (ZBITPIX 8, BUMP's codes) and the 256^2 FLC floor decoded
+    on the card's host in turns with the PNG height map, each held to the
+    codes or to its PNG twin, the C++ FLI frame loop against its plain
+    version on the floor; bench.py's workload path from XML with the FITS
+    height map and the FLC floor, card against CPU at test size, and at
+    full size in turns with its PNG twin -> {name: launch counts}."""
+    from liverrenderer_tpu_torch.io import fli
+    from liverrenderer_tpu_torch.io.image import read_8bit
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    files = {k: os.path.join(data, v) for k, v in (
+        ("fits", "torch_height_gzip.fits"),
+        ("fits32", "torch_height32_gzip.fits"),
+        ("flc", "torch_floor.flc"), ("flc_png", "torch_floor_flc.png"))}
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 27a. the decoders on the card's host, in turns with the PNG
+    t0 = time.perf_counter()
+    fli.library()
+    build_s = time.perf_counter() - t0
+    readers = {k: (lambda p=files[k]: lrt.read_image(p, False))
+               for k in ("fits", "flc")}
+    readers["png"] = lambda: lrt.read_image(png, False)
+    dec = {k: [] for k in readers}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    exact = {"fits": bool(np.array_equal(read_8bit(files["fits"])[..., 0],
+                                         codes)),
+             "flc": bool(np.array_equal(read_8bit(files["flc"]),
+                                        read_8bit(files["flc_png"])))}
+    # the plain frame loop against the C++ one on the floor's first frame
+    with open(files["flc"], "rb") as fh:
+        flc = fh.read()
+    framesize = struct.unpack_from("<I", flc, 128)[0]
+    frames, plain_s = {}, None
+    for which, fn in (("cpp", fli.frame), ("plain", fli._frame_plain)):
+        t0 = time.perf_counter()
+        frames[which] = fli.decode_first_frame(flc, (256, 256), framesize,
+                                               fn)
+        if which == "plain":
+            plain_s = time.perf_counter() - t0
+    plain_equal = bool(np.array_equal(frames["cpp"], frames["plain"]))
+    sizes = {k: os.path.getsize(v) for k, v in files.items()}
+    sizes["png"] = os.path.getsize(png)
+    emit("m9f_decode", files={k: os.path.relpath(v, os.path.dirname(data))
+                              for k, v in files.items()},
+         bytes=sizes, reps=M9_REPS, decode_seconds=med,
+         decode_seconds_reps=dec,
+         fits_over_png_decode=med["fits"] / med["png"],
+         build_seconds=build_s, plain_seconds=plain_s,
+         plain_equal=plain_equal, equals_codes_or_twin=exact)
+    check(all(exact.values()), "m9f_decode: the FITS height map is not the "
+          f"codes or the FLC floor not its PNG twin's pixels: {exact}")
+    check(plain_equal, "m9f_decode: the plain FLI loop disagrees with the "
+          "C++ one")
+
+    # ---- 27b, 27c. the main path from a FITS height map and an FLC floor
+    # at test size (the committed 32^2 map, as m9_small); at full size, in
+    # turns with its PNG twin (the PNG height codes and the floor's pixels
+    # as PNG)
+    counts, twin_counts, _ = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9f", "fits_flc_over_png",
+        dict(bump_res=BUMP_SMALL[0], sky=SKY_SMALL,
+             height_file=files["fits32"], floor_file=files["flc"]),
+        dict(height_file=files["fits"], floor_file=files["flc"]),
+        dict(floor_file=files["flc_png"]))
+    emit("m9f_phases", seconds=time.perf_counter() - t_start)
+    return {"m9f_render": counts, "m9f_twin": twin_counts}
+
+
 def _tiff_strip(path):
     """The first strip of a little-endian TIFF's first IFD."""
     with open(path, "rb") as fh:
@@ -6031,6 +6146,13 @@ def main() -> int:
         m9e = m9e_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps += sum(c[0] for c in m9e.values())
     m9_merges += sum(c[1] for c in m9e.values())
+
+    # ---- 27. the plugins the port only identified: a GZIP_1 FITS height
+    # map and an FLC floor on the main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9f_") as workdir:
+        m9f = m9f_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9f.values())
+    m9_merges += sum(c[1] for c in m9f.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -6105,6 +6227,7 @@ def main() -> int:
              m9c_launches={k: split_counts(c) for k, c in m9c.items()},
              m9d_launches={k: split_counts(c) for k, c in m9d.items()},
              m9e_launches={k: split_counts(c) for k, c in m9e.items()},
+             m9f_launches={k: split_counts(c) for k, c in m9f.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -6186,6 +6309,7 @@ def main() -> int:
              m9c_launches={k: c[1] for k, c in m9c.items()},
              m9d_launches={k: c[1] for k, c in m9d.items()},
              m9e_launches={k: c[1] for k, c in m9e.items()},
+             m9f_launches={k: c[1] for k, c in m9f.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

@@ -9,18 +9,20 @@ format is found as Image.open finds it: Pillow's plugins in their
 registry order (`_OPEN`, Pillow's Image.ID), each one's test of the
 file's first 16 bytes, and the plugins without one (IM, IMT, IPTC, PCD,
 SPIDER, TGA) tried on the file itself; a plugin that gives the file up
-(SyntaxError and its kin in Pillow) passes it on.  The plugins the port
-does not decode are checked as far as Pillow's plugin checks the header
-(io/pil_open.py): the stub formats (BUFR, GRIB, HDF5, WMF) raise
-Pillow's "cannot find loader" OSError, MPEG "cannot load this image", and
-EPS Pillow's Ghostscript error (or goes through `gs`); a file another
-Pillow plugin opens and decodes raises NotImplementedError (ROADMAP
-Queue 1 M9), AVIF on its prefix alone (Pillow's opener is libavif).  The
-port decodes PNG, JPEG, PPM/PGM/PBM, BMP, DIB, GIF, TIFF, PCX, DCX, SGI,
-IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD, TGA, WebP (io/webp.py),
-DDS (io/dds.py), BLP (io/blp.py) and FTEX (io/ftex.py); a file no plugin
-opens (an RGBE `.hdr`, say) raises OSError as Pillow's
-UnidentifiedImageError does.
+(SyntaxError and its kin in Pillow) passes it on.  The stub formats
+(BUFR, GRIB, HDF5, WMF) raise Pillow's "cannot find loader" OSError,
+MPEG "cannot load this image", and EPS Pillow's Ghostscript error (or
+goes through `gs`) (io/pil_open.py); JPEG 2000 raises NotImplementedError
+(ROADMAP Queue 1 M9) after Pillow's header checks, AVIF on its prefix
+alone (Pillow's opener is libavif).  The port decodes PNG, JPEG,
+PPM/PGM/PBM and Pillow's PPM extensions, BMP, DIB, GIF, TIFF, PCX, DCX,
+SGI, IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD, TGA, WebP
+(io/webp.py), DDS (io/dds.py), BLP (io/blp.py), FTEX (io/ftex.py), FITS
+(io/fits.py), FLI (io/fli.py), ICNS (io/icns.py), and GBR, IMT, IPTC,
+McIdas, PCD, PIXAR, SPIDER and XV thumbnails (io/pil_open.py); a file no
+plugin opens (an RGBE `.hdr`, say) raises OSError as Pillow's
+UnidentifiedImageError does.  `read_8bit` sets io/rawmode.FROM_PATH, so
+that a raw tile Pillow would memory-map fails as the map does.
 
 Written files: EXR and PFM as float; otherwise an ordered dither to 8
 bits, then the format of the extension as Pillow's registry names it:
@@ -42,8 +44,8 @@ import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
-from . import (blp, dds, ftex, gif, ico, legacy, pil_open, psd, raster,
-               tiff, webp)
+from . import (blp, dds, fits, fli, ftex, gif, icns, ico, legacy,
+               pil_open, psd, raster, rawmode, tiff, webp)
 from .exr import read_exr_any, write_exr
 from .jpeg import encode_jpeg, open_jpeg
 from .png import decode_png, write_png
@@ -51,7 +53,6 @@ from .png import decode_png, write_png
 # the 4 x 4 ordered-dither thresholds of an 8-bit write
 _BAYER = np.array([[0, 8, 2, 10], [12, 4, 14, 6],
                    [3, 11, 1, 9], [15, 7, 13, 5]], np.float32) / 16.0
-_WS = b" \t\n\r\x0b\x0c"
 
 
 def read_image(path: str, srgb_to_linear: bool = True) -> np.ndarray:
@@ -73,12 +74,21 @@ def read_8bit(path: str) -> np.ndarray:
     `Image.open(path).convert("RGB")` returns it (or the raise above)."""
     with open(path, "rb") as f:
         data = f.read()
-    return identify(data, path)()
+    token = rawmode.FROM_PATH.set(True)
+    try:
+        return identify(data, path)()
+    finally:
+        rawmode.FROM_PATH.reset(token)
 
 
 def identify(data: bytes, name: str = ""):
     """Image.open's walk over Pillow's plugins -> a function that decodes
     the file."""
+    return identify_format(data, name)[1]
+
+
+def identify_format(data: bytes, name: str = ""):
+    """identify -> (the format Pillow names the file, its decoder)."""
     prefix = data[:16]
     for fmt, accept, opener in _OPEN:
         try:
@@ -89,7 +99,7 @@ def identify(data: bytes, name: str = ""):
         if opener is None:
             raise not_ported(f"{fmt} image files", "Queue 1 M9")
         try:
-            return opener(data)
+            return fmt, opener(data)
         except SyntaxError:
             continue
     raise OSError(f"cannot identify image file {name!r}")
@@ -102,23 +112,6 @@ def _u32(p, e="<"):
 
 def _u16(p, o=0, e="<"):
     return struct.unpack_from(e + "H", p, o)[0]
-
-
-_PPM_MAGICS = {b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"P0CMYK", b"Pf",
-               b"PyP", b"PyRGBA", b"PyCMYK"}
-
-
-def _open_ppm(data):
-    magic = b""
-    for c in data[:6]:
-        if bytes([c]) in _WS:
-            break
-        magic += bytes([c])
-    if magic not in _PPM_MAGICS:
-        raise SyntaxError("not a PPM file")
-    if magic not in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
-        raise not_ported(f"{magic.decode()} PPM files", "Queue 1 M9")
-    return lambda: raster.read_ppm(data)
 
 
 def _open_tga(data):
@@ -151,7 +144,7 @@ _OPEN = (
     ("GIF", gif._accept, gif.open_gif),
     ("JPEG", _pfx(b"\xff\xd8\xff"), open_jpeg),
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy",
-     _open_ppm),
+     raster.open_ppm),
     ("PNG", _pfx(b"\x89PNG\r\n\x1a\n"), lambda d: (lambda: decode_png(d))),
     ("AVIF", lambda p: p[4:8] == b"ftyp"
      and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), None),
@@ -163,9 +156,9 @@ _OPEN = (
     ("DDS", _pfx(b"DDS "), dds.open_dds),
     ("EPS", lambda p: p.startswith(b"%!PS")
      or (len(p) >= 4 and _u32(p) == 0xC6D3D0C5), pil_open.open_eps),
-    ("FITS", _pfx(b"SIMPLE"), pil_open.open_fits),
+    ("FITS", _pfx(b"SIMPLE"), fits.open_fits),
     ("FLI", lambda p: len(p) >= 16 and _u16(p, 4) in (0xAF11, 0xAF12)
-     and _u16(p, 14) in (0, 3), pil_open.open_fli),
+     and _u16(p, 14) in (0, 3), fli.open_fli),
     ("FTEX", _pfx(b"FTEX"), ftex.open_ftex),
     ("GBR", lambda p: len(p) >= 8 and _u32(p, ">") >= 20
      and _u32(p[4:], ">") in (1, 2), pil_open.open_gbr),
@@ -175,7 +168,7 @@ _OPEN = (
     ("JPEG2000", _pfx(b"\xff\x4f\xff\x51",
                       b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
      pil_open.open_jpeg2000),
-    ("ICNS", _pfx(b"icns"), pil_open.open_icns),
+    ("ICNS", _pfx(b"icns"), icns.open_icns),
     ("ICO", _pfx(b"\0\0\1\0"), ico.open_ico),
     ("IM", None, legacy.open_im),
     ("IMT", None, pil_open.open_imt),

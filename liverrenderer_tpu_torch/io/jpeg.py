@@ -930,6 +930,21 @@ def colour_space(d: dict) -> str:
     raise OSError(BROKEN)
 
 
+def components(data: bytes) -> int:
+    """The component count of a JPEG's first frame header (0 without
+    one): 1 is Pillow's mode L."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker in (0xFF, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 1 if marker == 0xFF else 2
+            continue
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return data[pos + 9] if pos + 9 < len(data) else 0
+        pos += 2 + struct.unpack_from(">H", data, pos + 2)[0]
+    return 0
+
+
 def open_jpeg(data: bytes):
     """The JPEG entry of Image.open's registry: Pillow's header checks,
     then a function that decodes the file."""
@@ -958,7 +973,7 @@ def read_jpeg(data: bytes, scan_fn=None, arith_fn=None,
         return np.stack(p, -1)
     if space == "ycc":
         return ycc_to_rgb(*p)
-    from .tiff import cmyk_to_rgb        # Pillow's cmyk2rgb
+    from .rawmode import cmyk_to_rgb     # Pillow's cmyk2rgb
     if space == "ycck" and not as_cmyk:  # jdcolor.c ycck_cmyk_convert
         cmyk = np.concatenate([255 - ycc_to_rgb(*p[:3]), p[3][..., None]],
                               -1)

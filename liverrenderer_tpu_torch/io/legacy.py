@@ -22,7 +22,7 @@ import struct
 
 import numpy as np
 
-from ..errors import not_ported
+from . import rawmode
 
 _ERR = {-1: "buffer overrun when reading image file",
         -2: "broken data stream when reading image file"}
@@ -335,15 +335,31 @@ def encode_sgi(img: np.ndarray, path: str) -> bytes:
 _IM_KEYS = {"Comment", "Date", "Digitalization equipment",
             "File size (no of images)", "Lut", "Name", "Scale (x,y)",
             "Image size (x*y)", "Image type"}
-_IM_MODES = {"L": "L", "0 1 image": "1", "L 1 image": "1", "B1 image": "1",
-             "Greyscale image": "L", "Grayscale image": "L",
-             "RGB image": "RGB;L", "X 24 image": "RGB", "LA image": "LA;L",
-             "RGBA image": "RGBA;L", "RGBX image": "RGBX;L",
-             "CMYK image": "CMYK;L", "L 16 image": "I;16",
-             "L*16 image": "I;16", "L 16L image": "I;16",
-             "L*16L image": "I;16", "L 16B image": "I;16B",
-             "L*16B image": "I;16B", "L 32S image": "I;32S",
-             "L*32S image": "I;32S"}
+# ImImagePlugin.OPEN: image type -> (mode, rawmode)
+_IM_OPEN = {
+    "0 1 image": ("1", "1"), "L 1 image": ("1", "1"),
+    "Greyscale image": ("L", "L"), "Grayscale image": ("L", "L"),
+    "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"),
+    "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"),
+    "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"),
+    "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"),
+    "L 32 F image": ("F", "F;32"), "RGB3 image": ("RGB", "RGB;T"),
+    "RYB3 image": ("RGB", "RYB;T"), "LA image": ("LA", "LA;L"),
+    "PA image": ("LA", "PA;L"), "RGBA image": ("RGBA", "RGBA;L"),
+    "RGBX image": ("RGB", "RGBX;L"), "CMYK image": ("CMYK", "CMYK;L"),
+    "YCC image": ("YCbCr", "YCbCr;L")}
+for _i in ("8", "8S", "16", "16S", "32", "32F"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+for _i in ("16", "16L", "16B"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = (f"I;{_i}",
+                                                            f"I;{_i}")
+_IM_OPEN["L 32S image"] = _IM_OPEN["L*32S image"] = ("I", "I;32S")
+for _i in range(2, 33):
+    _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+# Pillow 12.1's image modes (Image.new refuses any other)
+_PIL_MODES = {"1", "L", "LA", "La", "P", "PA", "RGB", "RGBA", "RGBa",
+              "RGBX", "CMYK", "YCbCr", "LAB", "HSV", "I", "I;16", "I;16L",
+              "I;16B", "I;16N", "F"}
 _IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 
 
@@ -353,6 +369,7 @@ def open_im(data: bytes):
         raise SyntaxError("not an IM file")
     pos, n = 0, 0
     info = {"Image type": "L", "Image size (x*y)": (512, 512)}
+    raw = "L"
     s = b""
     while True:
         s = data[pos:pos + 1]
@@ -378,24 +395,24 @@ def open_im(data: bytes):
                  "Image size (x*y)"):
             vals = tuple(_number(t) for t in v.replace("*", ",").split(","))
             v = vals[0] if len(vals) == 1 else vals
+        elif k == "Image type" and v in _IM_OPEN:
+            v, raw = _IM_OPEN[v]
         info[k] = v
         if k in _IM_KEYS:
             n += 1
     if not n:
         raise SyntaxError("Not an IM file")
+    size = info["Image size (x*y)"]
+    mode = info["Image type"]
+    if not isinstance(size, tuple) or len(size) != 2 \
+            or not all(isinstance(t, int) for t in size) \
+            or size[0] <= 0 or size[1] <= 0 or not mode:
+        raise SyntaxError("an empty image")
     while s and not s.startswith(b"\x1a"):
         s = data[pos:pos + 1]
         pos += len(s)
     if not s:
         raise SyntaxError("File truncated")
-    size = info["Image size (x*y)"]
-    kind = info["Image type"]
-    if not isinstance(size, tuple) or len(size) != 2 \
-            or not all(isinstance(t, int) for t in size) \
-            or size[0] <= 0 or size[1] <= 0:
-        raise SyntaxError("an empty image")
-    w, h = size
-    raw = _IM_MODES.get(kind)
     palette = None
     if "Lut" in info:
         lut = data[pos:pos + 768]
@@ -404,16 +421,12 @@ def open_im(data: bytes):
             raise SyntaxError("truncated IM palette")     # an IndexError
         grey = all(lut[i] == lut[i + 256] == lut[i + 512]
                    for i in range(256))
-        if raw == "L" and not grey:
-            raw = "P"
+        if mode in ("L", "LA", "P", "PA") and not grey:
+            mode, raw = ("P", "P") if mode in ("L", "P") else ("PA", "PA;L")
             palette = np.frombuffer(lut, np.uint8).reshape(3, 256).T
-        elif raw == "LA;L" and not grey:
-            raise not_ported("IM files of mode PA", "Queue 1 M9")
-    if raw is None:
-        raise not_ported(f"IM files of type {kind!r}", "Queue 1 M9")
 
     def load():
-        return _im_load(data, pos, w, h, raw, palette)
+        return _im_load(data, pos, size, mode, raw, palette)
     return load
 
 
@@ -424,38 +437,53 @@ def _number(t: str):
         return float(t)
 
 
-def _im_load(data, pos, w, h, raw, palette):
-    bands = {"1": 1, "L": 1, "P": 1, "RGB": 3, "RGB;L": 3, "LA;L": 2,
-             "RGBA;L": 4, "RGBX;L": 4, "CMYK;L": 4, "I;16": 2, "I;16B": 2,
-             "I;32S": 4, "F;32F": 4}[raw]
-    row = (w + 7) // 8 if raw == "1" else w * bands
-    buf = data[pos:pos + row * h]
-    if len(buf) < row * h:
-        raise _truncated()
-    rows = np.frombuffer(buf, np.uint8).reshape(h, row)[::-1]  # bottom-up
-    if raw == "1":
-        return _grey3(_bits(rows, w) * 255)
-    if raw == "L":
-        return _grey3(rows)
-    if raw == "P":
-        return palette[rows]
-    if raw.startswith(("I;", "F;")):
-        dt = {"I;16": "<u2", "I;16B": ">u2", "I;32S": "<i4",
-              "F;32F": "<f4"}[raw]
-        v = np.ascontiguousarray(rows).view(dt)
-        if raw == "F;32F":
-            from .tiff import float_to_grey
-            return _grey3(float_to_grey(v))
-        return _grey3(np.clip(v.astype(np.int64), 0, 255))
-    if raw == "RGB":
-        return rows.reshape(h, w, 3).copy()
-    s = rows.reshape(h, bands, w).transpose(0, 2, 1)
-    if raw == "LA;L":
-        return _grey3(s[..., 0])
-    if raw == "CMYK;L":
-        from .tiff import cmyk_to_rgb
-        return cmyk_to_rgb(s)
-    return np.ascontiguousarray(s[..., :3])
+def _im_load(data, pos, size, mode, raw, palette):
+    """ImImageFile's tiles: one raw tile bottom-up; three band tiles (G,
+    R, B) for the old 3PC types; Pillow's bit decoder for the F;<bits>
+    types other than 8, 16 and 32."""
+    if mode not in _PIL_MODES:
+        raise ValueError("unrecognized image mode")
+    if raw in ("RGB;T", "RYB;T"):
+        w, h = size
+        px = np.zeros((h, w, 3), np.uint8)
+        for k, band in enumerate("GRB"):
+            px[..., "RGB".index(band)] = rawmode.raw_tile(
+                data, pos + k * w * h, size, "RGB", band, 0, -1, False)
+    elif mode == "P" and raw == "L":         # Unpack.c's P from "L"
+        px = rawmode.raw_tile(data, pos, size, "P", "P", 0, -1, False)
+    elif raw.startswith("F;") and raw[2:].isdigit() \
+            and int(raw[2:]) not in (8, 16, 32):
+        px = _bit_decode(data, pos, size, int(raw[2:]))
+    else:
+        px = rawmode.raw_tile(data, pos, size, mode, raw, 0, -1)
+    return rawmode.to_rgb(px, mode, palette)
+
+
+def _bit_decode(data, pos, size, bits) -> np.ndarray:
+    """BitDecode.c with (bits, pad 8, fill 3, unsigned, bottom-up): bytes
+    join the bit buffer above its `bitcount` bits, pixels leave from the
+    low end; at each row's end the count (not the buffer) is cleared, so a
+    row's leftover bits are OR-ed into the next row's first byte."""
+    w, h = size
+    rawmode.check_seek(pos)
+    mask = (1 << bits) - 1
+    out = np.zeros(w * h, np.float32)
+    buf = cnt = x = 0
+    k = 0
+    for byte in data[pos:]:
+        buf = (buf | byte << cnt) & 0xFFFFFFFFFFFFFFFF
+        cnt += 8
+        while cnt >= bits:
+            out[k] = buf & mask
+            k += 1
+            buf = byte >> (8 - (cnt - bits)) if cnt > 32 else buf >> bits
+            cnt -= bits
+            x += 1
+            if x >= w:
+                if k == w * h:
+                    return out.reshape(h, w)[::-1]
+                x = cnt = 0
+    raise _truncated()
 
 
 def encode_im(img: np.ndarray, path: str) -> bytes:

@@ -1,5 +1,7 @@
-"""The header checks of the Pillow 12.1 plugins whose pixels the port does
-not decode, for io/image.py's walk over Pillow's registry.
+"""The Pillow 12.1 plugins without a module of their own in the port, for
+io/image.py's walk over Pillow's registry: the stubs, MPEG, EPS, IPTC,
+GBR, IMT, McIdas, PhotoCD, PIXAR, SPIDER, XV thumbnails and JPEG 2000's
+header (FITS, FLI and ICNS live in io/fits.py, io/fli.py, io/icns.py).
 
 Each opener mirrors its plugin's `_open` on the file's bytes and returns
 the function that loads it, or raises as Pillow raises:
@@ -12,26 +14,32 @@ the function that loads it, or raises as Pillow raises:
   ...) where its `_open` raises one out of Image.open, and
   DecompressionBombError past twice Image.MAX_IMAGE_PIXELS.
 - At load: the stub plugins (BUFR, GRIB, HDF5, WMF), which have no
-  handler on this platform, raise "cannot find loader"; an MPEG file, or
-  an IPTC record without image data, has no tile ("cannot load this
-  image"); an EPS file goes through Ghostscript as Pillow runs it (the
-  same command line, the page read back by io/raster.py), or raises
-  Pillow's OSError where there is no `gs`.
-- A file that Pillow opens and decodes raises NotImplementedError (ROADMAP
-  Queue 1 M9): the port does not decode FITS, FLI, GBR, ICNS, IMT, IPTC,
-  JPEG 2000, McIdas, PCD, PIXAR, SPIDER or XV thumbnails yet.
+  handler on this platform, raise "cannot find loader"; an MPEG file, an
+  IPTC record without image data, or an IMT header without its form
+  feed, has no tile ("cannot load this image"); an EPS file goes through
+  Ghostscript as Pillow runs it (the same command line, the page read
+  back by io/raster.py), or raises Pillow's OSError where there is no
+  `gs`.  GBR, IMT, McIdas, PIXAR, SPIDER and XV thumbnails decode their
+  raw tile (io/rawmode.py); IPTC opens its image data as a file of its
+  own (a raw band behind a P5 header, or JPEG) and merges a band into
+  the mode's others as Pillow's Image.merge does; PhotoCD decodes the
+  base image's PhotoYCC as Pillow's pcd decoder and YCC;P unpacker do
+  and rotates it by the orientation byte.  A JPEG 2000 file raises
+  NotImplementedError (ROADMAP Queue 1 M9).
 """
 from __future__ import annotations
 
 import io
-import math
 import os
 import re
 import struct
 import subprocess
 import tempfile
 
+import numpy as np
+
 from ..errors import not_ported
+from . import rawmode
 
 # Image.MAX_IMAGE_PIXELS
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
@@ -89,11 +97,17 @@ def _no_tile():
     raise OSError("cannot load this image")
 
 
-def _not_ported(fmt):
-    """A file Pillow opens (and decodes) that the port does not decode."""
-    def load():
-        raise not_ported(f"{fmt} image files", "Queue 1 M9")
-    return load
+def _no_jpeg2000():
+    """JPEG 2000 (a file or an ICNS entry): Pillow decodes it through
+    OpenJPEG, the port does not yet."""
+    raise not_ported("JPEG 2000 image files", "Queue 1 M9")
+
+
+def _raw_load(fp, offset, size, mode, raw, stride=0, palette=None):
+    """The load of a plugin with one raw tile (rawmode.raw_tile)."""
+    data = fp.getvalue()
+    return lambda: rawmode.to_rgb(rawmode.raw_tile(
+        data, offset, size, mode, raw, stride), mode, palette)
 
 
 # --------------------------------------------------- the stub plugins ----
@@ -320,31 +334,35 @@ def _iptc_i(c):
     return _i32be((b"\0\0\0\0" + c)[-4:])
 
 
+def _iptc_field(fp):
+    """IptcImageFile.field -> (tag or None, size)."""
+    s = fp.read(5)
+    if not s.strip(b"\x00"):
+        return None, 0
+    tag = s[1], s[2]
+    if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+        raise SyntaxError("invalid IPTC/NAA file")
+    size = s[3]
+    if size > 132:
+        raise OSError("illegal field length in IPTC/NAA file")
+    if size == 128:
+        size = 0
+    elif size > 128:
+        size = _iptc_i(fp.read(size - 128))
+    else:
+        size = _i16be(s, 3)
+    return tag, size
+
+
 @_pillow_open
 def open_iptc(fp):
     """IptcImageFile._open: the fields up to the image data (8:10), then
     the image's layers (3:60), size (3:20, 3:30) and compression (3:120).
     Without 8:10 the file opens with no tile."""
     info = {}
-    tag = None
     while True:
-        s = fp.read(5)
-        if not s.strip(b"\x00"):
-            tag, size = None, 0
-        else:
-            tag = s[1], s[2]
-            if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9,
-                                              240):
-                raise SyntaxError("invalid IPTC/NAA file")
-            size = s[3]
-            if size > 132:
-                raise OSError("illegal field length in IPTC/NAA file")
-            if size == 128:
-                size = 0
-            elif size > 128:
-                size = _iptc_i(fp.read(size - 128))
-            else:
-                size = _i16be(s, 3)
+        offset = fp.tell()
+        tag, size = _iptc_field(fp)
         if not tag or tag == (8, 10):
             break
         tagdata = fp.read(size) if size else None
@@ -357,7 +375,7 @@ def open_iptc(fp):
             info[tag] = tagdata
     layers = info[(3, 60)][0]
     component = info[(3, 60)][1]
-    mode = ""
+    mode, band = "", None
     if layers == 1 and not component:
         mode = "L"
     else:
@@ -365,123 +383,70 @@ def open_iptc(fp):
             mode = "RGB"
         elif layers == 4 and component:
             mode = "CMYK"
-        if (3, 65) in info:
-            info[(3, 65)][0] - 1
+        band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
     size = _iptc_i(info[(3, 20)]), _iptc_i(info[(3, 30)])
     try:
-        {1: "raw", 5: "jpeg"}[_iptc_i(info[(3, 120)])]
+        compression = {1: "raw", 5: "jpeg"}[_iptc_i(info[(3, 120)])]
     except KeyError as e:
         raise OSError("Unknown IPTC image compression") from e
-    return mode, size, _not_ported("IPTC") if tag == (8, 10) else _no_tile
+    if tag != (8, 10):
+        return mode, size, _no_tile
+    data = fp.getvalue()
+    return mode, size, lambda: _iptc_load(data, offset, mode, size,
+                                          compression, band)
+
+
+def _iptc_load(data, offset, mode, size, compression, band):
+    """IptcImageFile.load: the 8:10 fields' bytes (after a P5 header when
+    raw) opened as an image of their own; a band image goes into the
+    mode's other bands as zeros (Image.merge)."""
+    from . import image, jpeg
+    fp = io.BytesIO(data)
+    fp.seek(offset)
+    o = bytearray(b"P5\n%d %d\n255\n" % size if compression == "raw"
+                  else b"")
+    while True:
+        tag, n = _iptc_field(fp)
+        if tag != (8, 10):
+            break
+        while n > 0:
+            s = fp.read(min(n, 8192))
+            if not s:
+                break
+            o += s
+            n -= len(s)
+    inner = bytes(o)
+    token = rawmode.FROM_PATH.set(False)        # Image.open of a stream
+    try:
+        fmt, load = image.identify_format(inner)
+        if band is None:
+            return load()
+        bands = [None] * (3 if mode == "RGB" else 4)
+        bands[band] = "image"                   # an IndexError, as Pillow
+        is_l = fmt == "PPM" and inner[:2] in (b"P2", b"P5") \
+            and _ppm_maxval(inner) < 256 \
+            or fmt == "JPEG" and jpeg.components(inner) == 1
+        if not is_l and bands[0] is None:       # Image.merge's test
+            raise ValueError("mode mismatch")
+        px = load()[..., 0]
+        if not is_l:                            # core.merge's
+            raise ValueError("image has wrong mode")
+    finally:
+        rawmode.FROM_PATH.reset(token)
+    out = np.zeros(px.shape + (len(bands),), np.uint8)
+    out[..., bands.index("image")] = px
+    return rawmode.to_rgb(out, mode)
+
+
+def _ppm_maxval(data: bytes) -> int:
+    """A P2 / P5 header's maxval (an L image up to 255, I above)."""
+    from .raster import _ppm_token
+    _, pos = _ppm_token(data, 2)
+    _, pos = _ppm_token(data, pos)
+    return int(_ppm_token(data, pos)[0])
 
 
 # ------------------------------------------ the plugins the port lacks ----
-@_pillow_open
-def open_fits(fp):
-    """FitsImageFile._open: 80-byte header cards to the first header with
-    an image (NAXIS, BITPIX; a GZIP_1-compressed BINTABLE extension)."""
-    headers = {}
-    in_progress = False
-    found = None
-    while True:
-        header = fp.read(80)
-        if not header:
-            raise OSError("Truncated FITS file")
-        keyword = header[:8].strip()
-        if keyword in (b"SIMPLE", b"XTENSION"):
-            in_progress = True
-        elif headers and not in_progress:
-            break
-        elif keyword == b"END":
-            fp.seek(math.ceil(fp.tell() / 2880) * 2880)
-            if not found:
-                found = _fits_headers(headers)
-            in_progress = False
-            continue
-        if found:
-            continue
-        value = header[8:].split(b"/")[0].strip()
-        if value.startswith(b"="):
-            value = value[1:].strip()
-        if not headers and (not keyword.startswith(b"SIMPLE")
-                            or value != b"T"):
-            raise SyntaxError("Not a FITS file")
-        headers[keyword] = value
-    if not found:
-        raise ValueError("No image data")
-    return found[0], found[1], _not_ported("FITS")
-
-
-def _fits_headers(headers):
-    """FitsImageFile._parse_headers -> (mode, size) or None."""
-    def get_size(prefix):
-        naxis = int(headers[prefix + b"NAXIS"])
-        if naxis == 0:
-            return None
-        if naxis == 1:
-            return 1, int(headers[prefix + b"NAXIS1"])
-        return (int(headers[prefix + b"NAXIS1"]),
-                int(headers[prefix + b"NAXIS2"]))
-
-    prefix = b""
-    if headers.get(b"XTENSION") == b"'BINTABLE'" \
-            and headers.get(b"ZIMAGE") == b"T" \
-            and headers[b"ZCMPTYPE"] == b"'GZIP_1  '":
-        get_size(prefix)
-        int(headers[b"BITPIX"])
-        prefix = b"Z"
-    size = get_size(prefix)
-    if not size:
-        return None
-    bits = int(headers[prefix + b"BITPIX"])
-    mode = {8: "L", 16: "I;16", 32: "I", -32: "F", -64: "F"}.get(bits, "")
-    return mode, size
-
-
-@_pillow_open
-def open_fli(fp):
-    """FliImageFile._open: the header's zero fields, the first frame's
-    palette chunk, then seek(0)'s frame size."""
-    s = fp.read(128)
-    if not (len(s) >= 16 and _i16(s, 4) in (0xAF11, 0xAF12)
-            and _i16(s, 14) in (0, 3) and s[20:22] == b"\x00" * 2
-            and s[42:80] == b"\x00" * 38 and s[88:] == b"\x00" * 40):
-        raise SyntaxError("not an FLI/FLC file")
-    n_frames = _i16(s, 6)
-    size = _i16(s, 8), _i16(s, 10)
-    palette = [(a, a, a) for a in range(256)]
-    s = fp.read(16)
-    if _i16(s, 4) == 0xF100:
-        fp.seek(128 + _i32(s))
-        s = fp.read(16)
-    if _i16(s, 4) == 0xF1FA:
-        chunk_size = None
-        for _ in range(_i16(s, 6)):
-            if chunk_size is not None:
-                fp.seek(chunk_size - 6, os.SEEK_CUR)
-            s = fp.read(6)
-            if _i16(s, 4) in (4, 11):
-                i = 0
-                for _ in range(_i16(fp.read(2))):
-                    s = fp.read(2)
-                    i = i + s[0]
-                    n = s[1] or 256
-                    s = fp.read(n * 3)
-                    for n in range(0, len(s), 3):
-                        palette[i] = (s[n], s[n + 1], s[n + 2])
-                        i += 1
-                break
-            chunk_size = _i32(s)
-            if not chunk_size:
-                break
-    if n_frames <= 0:
-        raise EOFError("attempt to seek outside sequence")
-    fp.seek(128)
-    if not fp.read(4):
-        raise EOFError("missing frame size")
-    return "P", size, _not_ported("FLI")
-
-
 @_pillow_open
 def open_gbr(fp):
     """GbrImageFile._open (its own decompression-bomb test included)."""
@@ -500,43 +465,11 @@ def open_gbr(fp):
         if fp.read(4) != b"GIMP":
             raise SyntaxError("not a GIMP brush, bad magic number")
         _i32be(fp.read(4))
-    return ("L" if depth == 1 else "RGBA"), (width, height), \
-        _not_ported("GBR")
-
-
-# IcnsFile.SIZES: (width, height, scale) -> the resource types it reads
-_ICNS_SIZES = {
-    (512, 512, 2): (b"ic10",), (512, 512, 1): (b"ic09",),
-    (256, 256, 2): (b"ic14",), (256, 256, 1): (b"ic08",),
-    (128, 128, 2): (b"ic13",), (128, 128, 1): (b"ic07", b"it32", b"t8mk"),
-    (64, 64, 1): (b"icp6",), (32, 32, 2): (b"ic12",),
-    (48, 48, 1): (b"ih32", b"h8mk"), (32, 32, 1): (b"icp5", b"il32", b"l8mk"),
-    (16, 16, 2): (b"ic11",), (16, 16, 1): (b"icp4", b"is32", b"s8mk")}
-
-
-@_pillow_open
-def open_icns(fp):
-    """IcnsImageFile._open: the resource headers, then the largest size
-    with a resource Pillow reads."""
-    sig, filesize = struct.unpack(">4sI", fp.read(8))
-    if not sig.startswith(b"icns"):
-        raise SyntaxError("not an icns file")
-    found = set()
-    i = 8
-    while i < filesize:
-        sig, blocksize = struct.unpack(">4sI", fp.read(8))
-        if blocksize <= 0:
-            raise SyntaxError("invalid block header")
-        i += 8
-        blocksize -= 8
-        found.add(sig)
-        fp.seek(blocksize, io.SEEK_CUR)
-        i += blocksize
-    sizes = [s for s, kinds in _ICNS_SIZES.items() if found & set(kinds)]
-    if not sizes:
-        raise SyntaxError("No 32bit icon resources found")
-    w, h, scale = max(sizes)
-    return "RGBA", (w * scale, h * scale), _not_ported("ICNS")
+    fp.read(header_size - (20 if version == 1 else 28))    # the comment
+    mode, size = ("L" if depth == 1 else "RGBA"), (width, height)
+    px = fp.read(width * height * depth)
+    return mode, size, lambda: rawmode.to_rgb(
+        rawmode.frombytes(px, size, mode), mode)
 
 
 _IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
@@ -549,13 +482,16 @@ def open_imt(fp):
     if b"\n" not in buffer:
         raise SyntaxError("not an IM file")
     xsize = ysize = 0
-    size, mode = (0, 0), ""
+    size, mode, offset = (0, 0), "", None
     while True:
         if buffer:
             s, buffer = buffer[:1], buffer[1:]
         else:
             s = fp.read(1)
-        if not s or s == b"\x0c":
+        if not s:
+            break
+        if s == b"\x0c":
+            offset = fp.tell() - len(buffer)
             break
         if b"\n" not in buffer:
             buffer += fp.read(100)
@@ -578,7 +514,9 @@ def open_imt(fp):
             size = xsize, ysize
         elif k == b"pixel" and v == b"n8":
             mode = "L"
-    return mode, size, _not_ported("IMT")
+    if offset is None:
+        return mode, size, _no_tile
+    return mode, size, _raw_load(fp, offset, size, mode, mode)
 
 
 class _Boxes:
@@ -741,7 +679,7 @@ def open_jpeg2000(fp):
         if fp.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
             fp.seek(_i16be(fp.read(2)) - 2, os.SEEK_CUR)
             _j2k_comment(fp)
-    return mode, size, _not_ported("JPEG 2000")
+    return mode, size, _no_jpeg2000
 
 
 @_pillow_open
@@ -754,8 +692,11 @@ def open_mcidas(fp):
     w = [0, *struct.unpack("!64i", s)]
     if w[11] not in (1, 2, 4):
         raise SyntaxError("unsupported McIdas format")
-    return {1: "L", 2: "I;16B", 4: "I"}[w[11]], (w[10], w[9]), \
-        _not_ported("McIdas")
+    mode, raw = {1: ("L", "L"), 2: ("I;16B", "I;16B"), 4: ("I", "I;32B")}[
+        w[11]]
+    size = w[10], w[9]
+    return mode, size, _raw_load(fp, w[34] + w[15], size, mode, raw,
+                                 w[15] + w[10] * w[11] * w[14])
 
 
 @_pillow_open
@@ -765,8 +706,32 @@ def open_pcd(fp):
     s = fp.read(1539)
     if not s.startswith(b"PCD_"):
         raise SyntaxError("not a PCD file")
-    size = (512, 768) if s[1538] & 3 in (1, 3) else (768, 512)
-    return "RGB", size, _not_ported("PCD")
+    orientation = s[1538] & 3
+    size = (512, 768) if orientation in (1, 3) else (768, 512)
+    data = fp.getvalue()
+    return "RGB", size, lambda: _pcd_load(data, orientation)
+
+
+def _pcd_load(data: bytes, orientation: int) -> np.ndarray:
+    """Pillow's pcd decoder (PcdDecode.c) on the 768 x 512 base image at
+    96 * 2,048: per two rows, their 768 lumas each, then 384 Cb and 384
+    Cr shared by the pair, PhotoYCC through the "YCC;P" unpacker; then
+    load_end's rotation by the orientation byte."""
+    start = 96 * 2048
+    if start + 256 * 2304 > len(data):
+        raise OSError("image file is truncated")
+    chunk = np.frombuffer(data, np.uint8, 256 * 2304, start) \
+        .reshape(256, 2304)
+    y = chunk[:, :1536].reshape(512, 768)
+    half = np.arange(768) // 2
+    cb = np.repeat(chunk[:, 1536 + half], 2, 0)
+    cr = np.repeat(chunk[:, 1920 + half], 2, 0)
+    img = rawmode.photoycc_to_rgb(np.stack([y, cb, cr], -1))
+    if orientation == 1:
+        img = np.rot90(img, 1)
+    elif orientation == 3:
+        img = np.rot90(img, -1)
+    return np.ascontiguousarray(img)
 
 
 @_pillow_open
@@ -779,7 +744,7 @@ def open_pixar(fp):
     s = s + fp.read(508)
     size = _i16(s, 418), _i16(s, 416)
     mode = "RGB" if (_i16(s, 424), _i16(s, 426)) == (14, 2) else ""
-    return mode, size, _not_ported("PIXAR")
+    return mode, size, _raw_load(fp, 1024, size, mode, mode)
 
 
 def _spider_header(t) -> int:
@@ -805,11 +770,15 @@ def open_spider(fp):
     """SpiderImageFile._open: 27 floats, big- then little-endian."""
     f = fp.read(108)
     try:
+        raw = "F;32BF"
         t = struct.unpack(">27f", f)
-        if not _spider_header(t):
+        hdrlen = _spider_header(t)
+        if not hdrlen:
+            raw = "F;32F"
             t = struct.unpack("<27f", f)
-            if not _spider_header(t):
-                raise SyntaxError("not a valid Spider file")
+            hdrlen = _spider_header(t)
+        if not hdrlen:
+            raise SyntaxError("not a valid Spider file")
     except struct.error as e:
         raise SyntaxError("not a valid Spider file") from e
     h = (99,) + t
@@ -817,15 +786,23 @@ def open_spider(fp):
         raise SyntaxError("not a Spider 2D image")
     size = int(h[12]), int(h[2])
     istack, imgnumber = int(h[24]), int(h[27])
+    offset = hdrlen
     if istack > 0 and imgnumber == 0:
         int(h[26])
+        offset = hdrlen * 2
     elif istack == 0 and imgnumber > 0:
         # Pillow reads self.stkoffset before it is set
         raise AttributeError(
             "'SpiderImageFile' object has no attribute 'stkoffset'")
     elif not (istack == 0 and imgnumber == 0):
         raise SyntaxError("inconsistent stack header values")
-    return "F", size, _not_ported("SPIDER")
+    return "F", size, _raw_load(fp, offset, size, "F", raw)
+
+
+# XVThumbImagePlugin.PALETTE: 3-3-2 bits of red, green and blue
+_XV_PALETTE = np.array([(r * 255 // 7, g * 255 // 7, b * 255 // 3)
+                        for r in range(8) for g in range(8)
+                        for b in range(4)], np.uint8)
 
 
 @_pillow_open
@@ -841,4 +818,5 @@ def open_xvthumb(fp):
         if s[0] != 35:
             break
     w, h = s.strip().split(maxsplit=2)[:2]
-    return "P", (int(w), int(h)), _not_ported("XV thumbnail")
+    return "P", (int(w), int(h)), _raw_load(fp, fp.tell(), (int(w), int(h)),
+                                            "P", "P", palette=_XV_PALETTE)

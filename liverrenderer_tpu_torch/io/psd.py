@@ -2,10 +2,10 @@
 Pillow: the composite image that PsdImagePlugin opens as frame 0, raw or
 PackBits, then `convert("RGB")`.  Pillow's modes: bitmap (1 bit), grey,
 duotone and multichannel (their first channel), indexed (the 768-byte
-colour table), RGB (RGBA with a fourth channel) and CMYK (stored
-inverted) at 8 bits.  Pillow gives up on other depths, 16-bit ones
-included (its mode table has no entry, so Image.open goes on to the next
-format); CIELab raises (ROADMAP M9).
+colour table; without one Pillow's empty palette: black), RGB (RGBA with
+a fourth channel), CMYK (stored inverted) and CIELab at 8 bits.  Pillow
+gives up on other depths, 16-bit ones included (its mode table has no
+entry, so Image.open goes on to the next format).
 """
 from __future__ import annotations
 
@@ -13,9 +13,8 @@ import struct
 
 import numpy as np
 
-from ..errors import not_ported
 from . import cielab
-from .tiff import cmyk_to_rgb
+from .rawmode import cmyk_to_rgb, to_rgb
 
 _MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
           (2, 8): ("P", 1), (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4),
@@ -55,10 +54,7 @@ def open_psd(data: bytes):
         raise SyntaxError(str(err)) from err
     pos += 2
     palette = None
-    if mode == "P":
-        if len(cmap) != 768:
-            raise not_ported("PSD files of indexed mode without a table",
-                             "Queue 1 M9")
+    if mode == "P" and len(cmap) == 768:
         palette = np.frombuffer(cmap, np.uint8).reshape(3, 256).T
     if w <= 0 or h <= 0:
         raise SyntaxError("an empty image")
@@ -121,8 +117,8 @@ def _load(data, pos, comp, mode, channels, w, h, palette):
         return np.repeat(v[..., None].astype(np.uint8), 3, -1)
     if mode == "L":
         return np.repeat(planes[0][..., None], 3, -1)
-    if mode == "P":
-        return palette[planes[0]]
+    if mode == "P":                    # without a table: Pillow's empty one
+        return to_rgb(planes[0], "P", palette)
     px = np.stack(planes, -1)
     if mode == "CMYK":
         return cmyk_to_rgb(255 - px)

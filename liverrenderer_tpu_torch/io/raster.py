@@ -49,6 +49,77 @@ def _ppm_plain_tokens(body: bytes) -> list:
     return out
 
 
+# PpmImagePlugin.MODES
+PPM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
+             b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P",
+             b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+
+
+def ppm_magic(data: bytes) -> bytes:
+    """PpmImageFile._read_magic: up to 6 bytes, to a whitespace."""
+    magic = b""
+    for c in data[:6]:
+        if bytes([c]) in _WS:
+            break
+        magic += bytes([c])
+    return magic
+
+
+def open_ppm(data: bytes):
+    """PpmImageFile._open -> a function that decodes the file: the magic,
+    the size and the scale or maxval read (and refused) at open."""
+    magic = ppm_magic(data)
+    if magic not in PPM_MODES:
+        raise SyntaxError("not a PPM file")
+    mode = PPM_MODES[magic]
+    tw, pos = _ppm_token(data, len(magic))
+    th, pos = _ppm_token(data, pos)
+    size = int(tw), int(th)
+    if size[0] <= 0 or size[1] <= 0:
+        raise SyntaxError("not identified by this plugin")
+    if mode == "F":
+        scale = float(_ppm_token(data, pos)[0])
+        if scale == 0.0 or not np.isfinite(scale):
+            raise ValueError("scale must be finite and non-zero")
+    elif mode != "1":
+        maxval = int(_ppm_token(data, pos)[0])
+        if not 0 < maxval < 65536:
+            raise ValueError("maxval must be greater than 0 and less than "
+                             "65536")
+    if magic[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6"):
+        return lambda: read_ppm(data)
+    return lambda: _read_ppm_ext(data, magic, size)
+
+
+def _read_ppm_ext(data: bytes, magic: bytes, size) -> np.ndarray:
+    """Pillow's extensions of the format: Pf (grey floats, bottom-up, the
+    scale's sign the byte order), P0CMYK / PyCMYK, PyP (P without a
+    palette: black) and PyRGBA, raw at maxval 255, else through
+    PpmDecoder's scaling."""
+    from . import rawmode
+    mode = PPM_MODES[magic]
+    _, pos = _ppm_token(data, len(magic))
+    _, pos = _ppm_token(data, pos)
+    tok, pos = _ppm_token(data, pos)
+    if mode == "F":
+        raw = "F;32F" if float(tok) < 0 else "F;32BF"
+        return rawmode.to_rgb(rawmode.raw_tile(data, pos, size, "F", raw,
+                                               0, -1), "F")
+    maxval = int(tok)
+    if maxval == 255:
+        return rawmode.to_rgb(rawmode.raw_tile(data, pos, size, mode, mode),
+                              mode)
+    rawmode.check_seek(pos)
+    bands = {"P": 1, "RGBA": 4, "CMYK": 4}[mode]
+    wide = maxval >= 256
+    n = size[0] * size[1] * bands
+    avail = (len(data) - pos) // ((1 + wide) * bands) * bands
+    v = np.frombuffer(data, ">u2" if wide else np.uint8, min(n, avail), pos)
+    v = np.minimum(255, np.round(v / maxval * 255))
+    return rawmode.to_rgb(rawmode.frombytes(v.astype(np.uint8).tobytes(),
+                                            size, mode), mode)
+
+
 def read_ppm(data: bytes) -> np.ndarray:
     """P1-P6 -> (H, W, 3) uint8."""
     magic = data[:2]
@@ -84,7 +155,10 @@ def read_ppm(data: bytes) -> np.ndarray:
             raise ValueError("Channel value too large for this mode")
         v = np.round(v / maxval * out_max)
     elif maxval == 255:
-        v = np.frombuffer(data, np.uint8, n, pos).astype(np.float64)
+        from . import rawmode
+        mode = "RGB" if bands == 3 else "L"
+        return rawmode.to_rgb(rawmode.raw_tile(data, pos, (w, h), mode,
+                                               mode), mode)
     else:
         dt = np.dtype(np.uint8) if maxval < 256 else np.dtype(">u2")
         v = np.frombuffer(data, dt, n, pos).astype(np.float64)

@@ -44,6 +44,7 @@ import zlib
 import numpy as np
 
 from . import cielab, lzw, tiff_fax, tiff_ycbcr, zstd
+from .rawmode import cmyk_to_rgb, float_to_grey
 
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
             b"MM\x00\x2b", b"II\x2b\x00")
@@ -659,24 +660,6 @@ def _samples(plane: np.ndarray, width: int, bits: int, n: int, dtype):
     nb = bits // 8
     flat = np.ascontiguousarray(plane[:, :width * n * nb])
     return flat.view(dtype).reshape(H, width, n)
-
-
-def float_to_grey(v: np.ndarray) -> np.ndarray:
-    """Pillow's F -> L conversion: truncate, clip to 0..255, NaN -> 0."""
-    f = np.asarray(v, np.float32)
-    grey = np.zeros(f.shape, np.uint8)
-    mid = (f > 0) & (f < 255)
-    grey[mid] = f[mid].astype(np.uint8)
-    grey[f >= 255] = 255
-    return grey
-
-
-def cmyk_to_rgb(c: np.ndarray) -> np.ndarray:
-    """Pillow's cmyk2rgb on (..., 4) uint8."""
-    c = c.astype(np.int64)
-    nk = 255 - c[..., 3:4]
-    t = c[..., :3] * nk + 128
-    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 # the rawmodes of the mode table that Pillow's raw decoder has no unpacker

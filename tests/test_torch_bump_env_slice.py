@@ -22,6 +22,11 @@ bends a little: on the bumped proxy at 16 x 12, 4 spp, seed 0 moves three
 pixels by up to 2.2e-4 and the media.params gradient by 2.7e-5 of its
 largest entry.  Its gradient tests run seed 1 (every pixel within 1.3e-6,
 the gradient within 1.7e-7); the image test keeps seed 0.
+
+The render_grad tests run from tests/test_torch_bump_env_grad.py, which
+shares this file's scenes and tolerances, so that xdist's file scheduler
+can start them apart from this file (a long file holds one worker to its
+end).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +34,7 @@ import pytest
 
 import liverrenderer_tpu as lr
 import liverrenderer_tpu_torch as lrt
-from liverrenderer_tpu_torch.bridge import (numpy_tree, params_from_numpy,
-                                            scene_from_numpy)
+from liverrenderer_tpu_torch.bridge import numpy_tree, scene_from_numpy
 from liverrenderer_tpu_torch.scene import cornell as tcornell
 from liverrenderer_tpu_torch.scene.liver_proxy import (height_map,
                                                        liver_proxy_dict,
@@ -113,35 +117,6 @@ def test_bump_env_render_matches_jax_per_pixel(kind, spp):
           f"{np.abs(img - ref).max():.3g}")
 
 
-@pytest.mark.parametrize("kind,key,seed", [
-    ("bump_sky_proxy", "media.params", 1),
-    ("bump_sky_proxy", "emitters.params", 1),
-    ("env_nee_plane", "emitters.params", 0)])
-def test_bump_env_render_grad_matches_jax(kind, key, seed):
-    """render_grad of mean(image) through the replay adjoint.  The
-    envmap's scale (emitters.params[env, 6]) reaches the loss through the
-    replay's deferred env term at lane death and, on the plane, through
-    NEE."""
-    js, ts = _pair(kind, res=8)
-    _, jg, jimg = lr.render_grad(js, {key: lr.traverse(js)[key]},
-                                 lambda im: jnp.mean(im), spp=4, seed=seed)
-    ref = np.asarray(jg[key])
-    params = params_from_numpy({key: np.asarray(lr.traverse(js)[key])},
-                               "cpu")
-    _, tg, timg = lrt.render_grad(ts, params, lambda im: im.mean(), spp=4,
-                                  seed=seed)
-    g = tg[key].numpy()
-    assert np.isfinite(g).all() and np.abs(ref).max() > 0
-    np.testing.assert_allclose(g, ref, rtol=0,
-                               atol=G_ATOL_REL * np.abs(ref).max())
-    _assert_images_agree(timg.numpy(), np.asarray(jimg))
-    if key == "media.params":
-        assert g[0, 0:3].sum() < 0
-    else:
-        # a brighter sky brightens the image
-        assert g[ts.emitters.env_index, 6] > 0
-
-
 @pytest.mark.parametrize("quads", [True, False], ids=["quads", "four_tap"])
 def test_bitmaps_gradient_matches_jax(quads):
     """The textures.bitmaps key on a bumped plane under the sky (a height
@@ -167,4 +142,3 @@ def test_bitmaps_gradient_matches_jax(quads):
         and np.abs(ref[1]).max() > 0
     np.testing.assert_allclose(g, ref, rtol=0,
                                atol=G_ATOL_REL * np.abs(ref).max())
-

@@ -10,6 +10,11 @@ polynomials and sines, a few ulps); images those of
 tests/test_torch_nee_slice.py (>= 99 % of pixels within rtol 1e-3 / atol
 1e-4, means within 1e-3 relative; measured: every pixel within 3e-7), and
 the scan adjoint's gradient within 4e-7 of its largest entry.
+
+The scan adjoint's gradient runs from tests/test_torch_filter_grad.py,
+which shares this file's scenes and tolerances, so that xdist's file
+scheduler can start it apart from this file (a long file holds one
+worker to its end).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -243,22 +248,3 @@ def test_filter_images_match_jax(rfilter):
     ref = np.asarray(lr.render(js, spp=8, seed=0))
     img = lrt.render(ts, spp=8, seed=0).numpy()
     _assert_images_agree(img, ref)
-
-
-def test_mitchell_scan_adjoint_gradient_matches_jax():
-    """bsdfs.params of a rough conductor through the scan adjoint (a
-    mitchell filter sends render_grad there)."""
-    d = _plane(rfilter="mitchell", res=8)
-    d["plane"]["bsdf"] = {"type": "roughconductor", "alpha": 0.3,
-                          "material": "Al"}
-    js, ts = _pair(d)
-    key = "bsdfs.params"
-    _, jg, jimg = lr.render_grad(js, {key: lr.traverse(js)[key]},
-                                 lambda im: jnp.mean(im), spp=4, seed=0)
-    _, tg, timg = lrt.render_grad(ts, {key: ts.bsdfs.params},
-                                  lambda im: im.mean(), spp=4, seed=0)
-    ref, g = np.asarray(jg[key]), tg[key].numpy()
-    assert np.isfinite(g).all() and np.abs(ref).max() > 0
-    np.testing.assert_allclose(g, ref, rtol=0,
-                               atol=G_ATOL_REL * np.abs(ref).max())
-    _assert_images_agree(timg.numpy(), np.asarray(jimg))

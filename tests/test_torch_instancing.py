@@ -22,6 +22,11 @@ Tolerances:
   through t + s - s, lands above 1e-5: an ulp of the march (the FMA
   above) decides it, and 4 of 256 pixels of the 16^2 sphere flip (the
   means still agree within 1e-3).
+
+The bsdfs.params gradient runs from tests/test_torch_instancing_grad.py,
+which shares this file's scenes and tolerances, so that xdist's file
+scheduler can start it apart from this file (a long file holds one
+worker to its end).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +38,7 @@ from liverrenderer_tpu.accel import intersect as jint
 from liverrenderer_tpu.core.types import Ray as JRay
 import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.accel import intersect as tint
-from liverrenderer_tpu_torch.bridge import numpy_tree, params_from_numpy
+from liverrenderer_tpu_torch.bridge import numpy_tree
 from liverrenderer_tpu_torch.core.types import Ray as TRay
 from torch_m10_scenes import (blobs_dict, instancing_dict, sdf_dict,
                               sphere_sdf)
@@ -190,36 +195,6 @@ def test_many_instances_render():
     assert np.isfinite(img).all() and img.mean() > 0.01
     _assert_images_agree(img, np.asarray(lr.render(lr.load_dict(d), spp=4,
                                                    seed=0)))
-
-
-def test_instanced_bsdf_grad_matches_jax():
-    """render_grad of mean(image) with respect to bsdfs.params, where the
-    cap's rough-plastic row is used by instances alone."""
-    d = instancing_dict(3, res=(12, 9), cap_bsdf={
-        "type": "roughplastic", "alpha": 0.3,
-        "diffuse_reflectance": {"type": "rgb", "value": [0.2, 0.6, 0.3]}})
-    js = lr.load_dict(d)
-    ts = lrt.load_dict(d, device="cpu")
-    key = "bsdfs.params"
-    _, jg, jimg = lr.render_grad(js, {key: lr.traverse(js)[key]},
-                                 lambda im: jnp.mean(im), spp=8, seed=0)
-    ref = np.asarray(jg[key])
-    params = params_from_numpy({key: np.asarray(lr.traverse(js)[key])},
-                               "cpu")
-    _, tg, timg = lrt.render_grad(ts, params, lambda im: im.mean(), spp=8,
-                                  seed=0)
-    g = tg[key].numpy()
-    cap = int(np.flatnonzero(ts.bsdfs.btype.numpy() == 8)[0])  # rough
-    assert cap in ts.shape_bsdf.numpy()[ts.shape_prim_count.numpy() == 0]
-    assert np.abs(ref[cap]).max() > 0 and np.isfinite(g[cap]).all()
-    # the diffuse rows' entries are nan in both packages: every lane runs
-    # the rough plastic's Fresnel on its own row, where eta = 0 gives
-    # 1 / eta = inf, and the masked branch's zero cotangent times inf is
-    # nan (ROADMAP Queue 3)
-    np.testing.assert_array_equal(np.isnan(g), np.isnan(ref))
-    np.testing.assert_allclose(g, ref, rtol=0,
-                               atol=G_ATOL_REL * np.nanmax(np.abs(ref)))
-    _assert_images_agree(timg.numpy(), np.asarray(jimg))
 
 
 def test_refusals_match_jax():

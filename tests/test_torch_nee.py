@@ -34,6 +34,7 @@ from liverrenderer_tpu_torch.core.types import SurfaceInteraction as TSI
 from liverrenderer_tpu_torch.emitter import dispatch as tem
 from liverrenderer_tpu_torch.integrators import volpath as tvp
 from liverrenderer_tpu_torch.scene import cornell as tcornell
+from test_torch_grad_keys import few_boundary_samples
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -354,13 +355,17 @@ def test_nee_scene_buffers_equal_bit_for_bit(monkeypatch, kind):
         and ps["needs_medium_nee"] == (kind == "fog_cube")
 
 
-def test_unported_gradient_keys_name_their_item():
+def test_unported_gradient_keys_name_their_item(monkeypatch):
     """The vertex key is carried now: its gradient has the vertices'
     shape and is finite; the texture rows are a key (a brighter albedo
     brightens the image).
     The bitmap stack and the media grids are keys: on a scene whose taps
     read quads the bitmaps' gradient is zero, as in the JAX package, and
-    on a scene without a grid medium so is the grids'."""
+    on a scene without a grid medium so is the grids'.  The boundary terms
+    of the vertices' gradient take 4,096 samples (not their 65,536), as
+    in tests/test_torch_grad_keys.py: only its shape and finiteness are
+    held here."""
+    few_boundary_samples(monkeypatch)
     ts = lrt.load_dict(tcornell.plane_light_dict(4), device="cpu")
     _, g, _ = lrt.render_grad(ts, {"vertices": ts.vertices},
                               lambda im: im.mean(), spp=1)

@@ -15,8 +15,8 @@ from liverrenderer_tpu.parallel import mesh as jmesh
 import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.integrators import prb_replay as treplay
 from test_torch_parallel import N, needs8
-from test_torch_parallel_regen import KEY, fog_dict, regen_ranks, \
-    replay_ranks
+from test_torch_parallel_regen import KEY, fog_dict, regen_ranks
+from test_torch_parallel_replay import replay_ranks
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 

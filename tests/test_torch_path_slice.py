@@ -20,6 +20,11 @@ Images: every pixel within rtol 1e-4 and atol 1e-6 (seen: 4e-6
 relative).  Gradients: every entry within 1e-5 of the largest |entry|
 (seen: 1.7e-7).  Lane state after a bounce: rtol 1e-4, atol 1e-5, with
 discrete outcomes (active, depth, valid) equal.
+
+The recorded bounce's VJP and the scan-adjoint gradients run from
+tests/test_torch_path_adjoint.py, which shares this file's scenes and
+tolerances, so that xdist's file scheduler can start them apart from
+this file (a long file holds one worker to its end).
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +39,6 @@ import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.bridge import params_from_numpy
 from liverrenderer_tpu_torch.core.rng import Sampler as TSampler
 from liverrenderer_tpu_torch.integrators import path as tpath
-from liverrenderer_tpu_torch.integrators import prb as tprb
 from liverrenderer_tpu_torch.integrators import regen as tregen
 from liverrenderer_tpu_torch.scene import cornell as tcornell
 from torch_threads import torch_threads_per_worker  # noqa: F401
@@ -167,35 +171,6 @@ def test_path_bounce_matches_jax(cornell_lanes, ad):
     assert bool(tst2.active.any()) and bool((tst2.L > 0).any())
 
 
-def test_recorded_bounce_vjp_matches_jax(cornell_lanes, np_rng):
-    """The VJP of one recorded bounce (ad=True: detached continuation,
-    smooth lobes re-evaluated) with respect to textures.data and
-    bsdfs.params, for random cotangents on L and the throughput."""
-    js, ts, _, st1 = cornell_lanes
-    ct_l = np_rng.normal(size=(1024, 3)).astype(np.float32)
-    ct_t = np_rng.normal(size=(1024, 3)).astype(np.float32)
-    keys = ("textures.data", "bsdfs.params")
-    jp = {k: lr.traverse(js)[k] for k in keys}
-
-    def jf(p):
-        st2 = jpath.bounce(lr.apply_params(js, p), st1, True)
-        return jnp.sum(st2.L * ct_l) + jnp.sum(st2.throughput * ct_t)
-    jg = jax.jit(jax.grad(jf))(jp)
-
-    leaves = {k: torch.tensor(np.asarray(v), requires_grad=True)
-              for k, v in jp.items()}
-    st2 = tpath.bounce(lrt.apply_params(ts, leaves), _to_port_state(st1),
-                       True)
-    f = torch.sum(st2.L * torch.from_numpy(ct_l)) \
-        + torch.sum(st2.throughput * torch.from_numpy(ct_t))
-    tg = torch.autograd.grad(f, list(leaves.values()))
-    for k, g in zip(keys, tg):
-        ref = np.asarray(jg[k])
-        assert np.abs(ref).max() > 0, k
-        np.testing.assert_allclose(g.numpy(), ref, rtol=0,
-                                   atol=1e-5 * np.abs(ref).max(), err_msg=k)
-
-
 # ---------------------------------------------------------------------------
 # images
 # ---------------------------------------------------------------------------
@@ -243,29 +218,5 @@ def test_ad_config_grad_matches_jax(name):
         replay_applicable
     assert replay_applicable(ts, {key: None}, 8)
     (ref, jimg), (g, timg) = _grads(js, ts, key, spp=8)
-    _assert_grads_equal(g, ref)
-    _assert_images_equal(timg, jimg)
-
-
-@pytest.mark.parametrize("integrator,rfilter",
-                         [("path", "gaussian"), ("prb", "box")])
-def test_scan_adjoint_matches_jax(integrator, rfilter, monkeypatch):
-    """render_grad of mean(image^2) with respect to textures.data on
-    scenes the regenerating wavefront does not take (a gaussian filter; the
-    prb integrator): the scan adjoint, whose primal image (the loss, dL/dI
-    and the develop weights) comes from the same fixed passes it
-    differentiates, as in the JAX package."""
-    d = tcornell.plane_light_dict(8, integrator=integrator, max_depth=3)
-    d["sensor"]["film"]["rfilter"] = {"type": rfilter}
-    js, ts = _pair(d)
-    assert not tregen.regen_applicable(ts, "primal")
-
-    def no_regen(*a, **k):
-        raise AssertionError("regen render on a non-regen scene")
-    monkeypatch.setattr(tprb, "render_regen", no_regen)
-    (ref, jimg), (g, timg) = _grads(
-        js, ts, "textures.data", spp=4,
-        loss=("mse", lambda im: jnp.mean(im * im),
-              lambda im: torch.mean(im * im)))
     _assert_grads_equal(g, ref)
     _assert_images_equal(timg, jimg)

@@ -2,8 +2,9 @@
 (made with numpy from a seed): the vertex refresh, the edge table, the
 film projection, the silhouette weights, the primary boundary term per
 sample on tests/test_projective.py's occluder, rough-mirror and
-two-mirror scenes, and render_grad of the vertices (both boundary terms
-with and without guiding: tests/test_torch_projective_terms.py).
+two-mirror scenes (both boundary terms with and without guiding:
+tests/test_torch_projective_terms.py; render_grad of the vertices:
+tests/test_torch_vertex_grad.py).
 
 The port runs on scenes bridged from the JAX-built ones (the same BVH
 leaf order, so the same packed rows).  Tolerances are stated per test:
@@ -22,8 +23,7 @@ import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.bridge import numpy_tree, scene_from_numpy
 from liverrenderer_tpu_torch.integrators import projective as tproj
 from liverrenderer_tpu_torch.scene.liver_proxy import liver_proxy_dict
-from torch_m10_scenes import (mirror_dict, occluder_dict, two_mirror_dict,
-                              right_edge_mask)
+from torch_m10_scenes import mirror_dict, occluder_dict, two_mirror_dict
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 SCENES = {"occluder": occluder_dict, "mirror": mirror_dict,
@@ -142,45 +142,3 @@ def test_silhouette_weights_match(shape_scenes):
                                    err_msg=name)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6,
                                    err_msg=name)
-
-
-@pytest.mark.parametrize("name", ["occluder", "two_mirror"])
-def test_boundary_samples_match(shape_scenes, name):
-    """The primary term per sample: the same edges; |contribution| within
-    rtol 1e-4 on lanes both packages keep; at most 0.1 % of lanes kept by
-    one package only."""
-    js, ts = shape_scenes[name]
-    n = 1 << 12
-    delta = _delta(js.film_h, js.film_w)
-    jv, jf = jproj.edge_table(np.asarray(js.faces), js.n_tris)
-    tv, tf = tproj.edge_table(ts.faces, ts.n_tris)
-    jw = jproj._sil_weights_jit(js, js.vertices, jv, jf)
-    tw = tproj.silhouette_weights(ts, ts.vertices, tv, tf)[0]
-    _, jm, je = jproj._boundary_grad_jit(js, js.vertices, jv, jf,
-                                         jnp.asarray(delta), jw, 3, n, 6)
-    _, tm, te = tproj._boundary_grad(ts, ts.vertices, tv, tf,
-                                     torch.from_numpy(delta), tw, 3, n, 6)
-    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
-    jm, tm = np.asarray(jm), tm.numpy()
-    both = (jm > 0) & (tm > 0)
-    assert both.sum() > 100
-    np.testing.assert_allclose(tm[both], jm[both], rtol=1e-4)
-    assert ((jm > 0) != (tm > 0)).mean() <= 1e-3
-
-
-def test_render_grad_vertices_matches():
-    """render_grad of the vertices on the occluder scene at 16^2, 8 spp
-    (the replay adjoint plus both boundary terms at their defaults):
-    within 1e-4 of the largest |entry|; the right edge's derivative is
-    negative (growing the dark occluder darkens the image)."""
-    js, ts = _scenes(occluder_dict(16))
-    lj, gj, ij = lr.render_grad(js, {"vertices": js.vertices},
-                                lambda im: jnp.mean(im), spp=8, seed=5)
-    lt, gt, it = lrt.render_grad(ts, {"vertices": ts.vertices}, torch.mean,
-                                 spp=8, seed=5)
-    np.testing.assert_allclose(it.numpy(), np.asarray(ij), rtol=1e-5,
-                               atol=1e-6)
-    _grad_close(gt["vertices"], gj["vertices"], "vertices")
-    mask, n = right_edge_mask(ts.vertices.numpy(), 0.0, 0.3)
-    assert n == 2
-    assert float((gt["vertices"] * torch.from_numpy(mask)).sum()) < 0

@@ -9,6 +9,11 @@ Tolerances (tests/test_torch_path_slice.py's): rays within rtol 1e-5 /
 atol 1e-6 (the same fp32 formulas; the matrix products may round
 apart); images every pixel within rtol 1e-4 / atol 1e-6; gradients every
 entry within 1e-5 of the largest.
+
+The thinlens gradient runs from tests/test_torch_thinlens_grad.py, which
+shares this file's scenes and tolerances, so that xdist's file scheduler
+can start it apart from this file (a long file holds one worker to its
+end).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,11 +25,9 @@ from liverrenderer_tpu.integrators import regen as jregen
 from liverrenderer_tpu.sensor import perspective as jsensor
 import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu_torch.integrators import regen as tregen
-from liverrenderer_tpu_torch.scene import cornell as tcornell
 from liverrenderer_tpu_torch.sensor import perspective as tsensor
-from test_torch_path_slice import (_assert_grads_equal, _assert_images_equal,
-                                   _grads, _pair)
-from torch_sensor_scenes import matrices, sensor_scenes
+from test_torch_path_slice import _assert_images_equal, _pair
+from torch_sensor_scenes import sensor_scenes
 from torch_threads import torch_threads_per_worker  # noqa: F401
 
 RAY_RTOL, RAY_ATOL = 1e-5, 1e-6
@@ -86,21 +89,6 @@ def test_sensor_statics_and_bsphere_match_jax(scenes):
             np.testing.assert_allclose(getattr(ts.sensor, f).numpy(),
                                        np.asarray(getattr(js.sensor, f)),
                                        rtol=1e-6, err_msg=f"{name}.{f}")
-
-
-def test_thinlens_gradient_matches_jax():
-    """bsdfs.params of a rough conductor under a thinlens camera: the scan
-    adjoint (no regen for a thinlens), per entry."""
-    d = tcornell.plane_light_dict(8, integrator="path", max_depth=3,
-                                  bsdf={"type": "roughconductor",
-                                        "alpha": 0.3, "material": "Al"})
-    d["sensor"].update(type="thinlens", aperture_radius=0.05,
-                       focus_distance=2.0)
-    js, ts = _pair(matrices(d))
-    assert not tregen.regen_applicable(ts, "primal")
-    (ref, jimg), (g, timg) = _grads(js, ts, "bsdfs.params", spp=4)
-    _assert_grads_equal(g, ref)
-    _assert_images_equal(timg, jimg)
 
 
 @pytest.mark.parametrize("name", ["distant", "batch", "irradiancemeter"])

@@ -16,7 +16,9 @@ the same random numbers (the hero packet too) and run the same fp32
 formulas, so paths agree lane by lane; an ulp-level difference can still
 flip a discrete decision and move one pixel by a sample's worth.
 Measured: every pixel and bin within tolerance, gradients within 6e-7 of
-the largest entry.
+the largest entry.  The gradients run from two files of their own,
+tests/test_torch_spectral_grad_replay.py and _scan.py (one adjoint
+each), so that xdist's file scheduler can start them apart.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -132,19 +134,10 @@ def test_specfilm_matches_jax_per_bin():
     np.testing.assert_allclose(Y.mean(), lum.mean(), rtol=0.05)
 
 
-@pytest.mark.parametrize("kind,key,replay,spp,seed", [
-    ("fog", "media.params", True, 4, 0),
-    ("fog", "media.params", False, 4, 0),
-    ("bump_sky_proxy", "media.params", True, 4, 1),
-    ("bump_sky_proxy", "media.params", False, 4, 1),
-    ("cornell_regen", "emitters.params", True, 8, 0),
-    ("cornell_regen", "emitters.params", False, 8, 0)])
-def test_spectral_render_grad_matches_jax(kind, key, replay, spp, seed):
-    """render_grad of mean(image) through the replay adjoint (packet-space
-    pool, the RGB cotangent turned into the packet's) and through the scan
-    adjoint, in both packages.  The proxy runs seed 1, as
-    tests/test_torch_bump_env_slice.py's gradients do (seed 0 bends a path
-    at a texel edge of the bump map)."""
+def check_render_grad(kind, key, replay, spp, seed):
+    """render_grad of mean(image) of `kind` in both packages (the split
+    files tests/test_torch_spectral_grad_replay.py and _scan.py run it):
+    every entry within G_ATOL_REL of the largest, images as above."""
     js, ts = _pair(kind, 8 if kind != "bump_sky_proxy" else None)
     _, jg, jimg = lr.render_grad(js, {key: lr.traverse(js)[key]},
                                  lambda im: jnp.mean(im), spp=spp, seed=seed,

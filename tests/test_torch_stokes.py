@@ -8,6 +8,11 @@ same fp32 formulas; a 4x4 product may sum in another order).  Images,
 per pixel and per Stokes component, those of test_torch_nee_slice.py:
 >= 99 % of pixels within rtol 1e-3 / atol 1e-4, the mean within 1e-3
 relative.  Measured: every Stokes image within 3e-5 of the JAX package's.
+
+Its gradients run from tests/test_torch_stokes_grad.py, which shares
+this file's scenes and tolerances, so that xdist's file scheduler can
+start them apart from this file (a long file holds one worker to its
+end).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -179,24 +184,6 @@ def test_render_of_a_stokes_scene_is_s0_as_jax(variant):
     assert img.mean() > 0.1
 
 
-def test_render_grad_of_a_stokes_scene_refused_as_in_jax():
-    """JAX cannot differentiate the stokes loop (a lax.while_loop) in
-    reverse mode: render_grad raises when a parameter reaches the loop,
-    and gives zeros when none does.  The port does the same."""
-    d = ms.area_floor_dict(res=4)
-    js, ts = lr.load_dict(d), lrt.load_dict(d, device="cpu")
-    key = "emitters.params"      # the lamp's radiance reaches the loop
-    with pytest.raises(ValueError, match="while_loop"):
-        lr.render_grad(js, {key: js.emitters.params}, jnp.mean, spp=1)
-    with pytest.raises(ValueError, match="while loop"):
-        lrt.render_grad(ts, {key: ts.emitters.params}, torch.mean, spp=1)
-    # a diffuse scene's bsdfs.params never reach it: zeros in both
-    key = "bsdfs.params"
-    gj = lr.render_grad(js, {key: js.bsdfs.params}, jnp.mean, spp=1)[1]
-    gt = lrt.render_grad(ts, {key: ts.bsdfs.params}, torch.mean, spp=1)[1]
-    assert not np.asarray(gj[key]).any() and not gt[key].any()
-
-
 STACK_XML = """<scene version="3.0.0">
   <integrator type="stokes"><integer name="max_depth" value="8"/></integrator>
   <sensor type="perspective">
@@ -258,15 +245,3 @@ def test_element_bsdfs_build_as_jax():
         b = getattr(ts.bsdfs, k).numpy()
         np.testing.assert_array_equal(b, a.astype(b.dtype), err_msg=k)
     assert set(ts.bsdfs.types_present) == set(js.bsdfs.types_present)
-
-
-def test_forward_gradient_of_a_stokes_scene_matches_jax():
-    """Forward mode differentiates the stokes loop in both packages
-    (JAX's JVP goes through its while_loop): render_fwd_grad of the
-    lamp's radiance."""
-    d = ms.area_floor_dict(res=4)
-    js, ts = lr.load_dict(d), lrt.load_dict(d, device="cpu")
-    key = "emitters.params"
-    _, jv = lr.render_fwd_grad(js, {key: js.emitters.params}, spp=2)
-    _, tv = lrt.render_fwd_grad(ts, {key: ts.emitters.params}, spp=2)
-    _assert_images_agree(tv.numpy(), np.asarray(jv))

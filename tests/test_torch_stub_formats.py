@@ -1,11 +1,10 @@
-"""The Pillow 12.1 plugins whose files the port does not decode, checked as
-far as each plugin's `_open` checks the header
-(liverrenderer_tpu_torch/io/pil_open.py), against the JAX package's reader
-(Image.open, then convert("RGB")): the port passes a file on where Pillow
-gives it up, and raises the class Pillow raises at the same stage (open or
-load).  Where Pillow opens and decodes a file of a format the port lacks
-(FITS, FLI, GBR, ICNS, IMT, IPTC, JPEG 2000, McIdas, PCD, PIXAR, SPIDER,
-XV thumbnails) the port raises NotImplementedError naming "Queue 1 M9".
+"""The Pillow 12.1 plugins of io/pil_open.py, io/fits.py, io/fli.py and
+io/icns.py, held to the JAX package's reader (Image.open, then
+convert("RGB")) on short headers: the port passes a file on where Pillow
+gives it up, raises the class Pillow raises at the same stage (open or
+load), and otherwise decodes the same pixels (FITS, FLI, GBR, ICNS, IMT,
+IPTC, McIdas, PCD, PIXAR, SPIDER, XV thumbnails).  Where Pillow opens a
+JPEG 2000 file the port raises NotImplementedError naming "Queue 1 M9".
 
 - The stubs (BUFR, GRIB, HDF5, and WMF/EMF here) raise Pillow's "cannot
   find loader" OSError at load, MPEG "cannot load this image", an IPTC
@@ -30,15 +29,17 @@ HEADERS = tf.stub_headers()
 
 def _agrees(data: bytes) -> bool:
     """The port agrees with Pillow on `data`: the same stage and class,
-    the same pixels, or a file of a format the port does not decode yet
-    that Pillow opens (NotImplementedError at load, whether Pillow's own
-    decoder then reads the pixels or fails on them)."""
+    the same pixels, or a JPEG 2000 file, which the port does not decode
+    yet, that Pillow opens (NotImplementedError at load, whether Pillow's
+    own decoder then reads the pixels or fails on them)."""
     want, got = tf.stage(data, True), tf.stage(data, False)
-    if want[0] == "ok":
-        return (got[0] == "ok" and np.array_equal(got[1], want[1])) \
-            or got == ("load", "NotImplementedError")
-    if want[0] == "load" and got == ("load", "NotImplementedError"):
+    jpeg2000 = data.startswith((b"\xff\x4f\xff\x51",
+                                b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))
+    if want[0] in ("ok", "load") and jpeg2000 \
+            and got == ("load", "NotImplementedError"):
         return True
+    if want[0] == "ok":
+        return got[0] == "ok" and np.array_equal(got[1], want[1])
     return want == got
 
 

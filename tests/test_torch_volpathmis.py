@@ -1,9 +1,9 @@
 """The spectral-MIS volumetric path tracer (`volpathmis`) in the port
 against the JAX package on the CPU: its weight-matrix updates and MIS
 weights on identical inputs, the images of tests/test_volpathmis.py's
-chromatic fog and of a bio scene, its routing, and its media.params
-gradient through the scan adjoint (a grid medium under volpathmis is in
-tests/test_torch_grid_slice.py).
+chromatic fog and of a bio scene, and its routing (its media.params
+gradient through the scan adjoint: tests/test_torch_volpathmis_grad.py;
+a grid medium under volpathmis: tests/test_torch_grid_slice.py).
 
 Tolerances.  Weight updates: fp32, rtol 1e-5 / atol 1e-6.  Images: those
 of test_torch_render.py (>= 99 % of pixels within rtol 1e-3 / atol 1e-4,
@@ -12,7 +12,6 @@ numbers, so paths agree lane by lane unless an ulp flips a discrete
 decision.  Gradients: within 3e-6 of the largest entry (the order of the
 per-lane sums differs).
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +20,6 @@ import torch
 import liverrenderer_tpu as lr
 from liverrenderer_tpu.integrators import volpathmis as jvm
 import liverrenderer_tpu_torch as lrt
-from liverrenderer_tpu_torch.bridge import params_from_numpy
 from liverrenderer_tpu_torch.integrators import common as tcommon
 from liverrenderer_tpu_torch.integrators import volpathmis as tvm
 from liverrenderer_tpu_torch.integrators.regen import regen_applicable
@@ -139,57 +137,3 @@ def test_every_volpathmis_scene_runs_the_mis_module(monkeypatch):
         assert not regen_applicable(sc, "primal")
         lrt.render(sc, spp=1, seed=0)
     assert calls == ["primal", "primal"]
-
-
-def _jax_update_weights_guarded(W, p, f, active):
-    """The JAX package's update_weights with the denominator f = 0
-    replaced before the divide (same values; its reverse pass is then
-    finite wherever no weight overflows)."""
-    n = W.shape[0]
-    p = jvm._spec(p, n)
-    f = jvm._spec(f, n)
-    fz = (f == 0.0)[:, :, None]
-    ratio = p[:, None, :] / jnp.where(fz, 1.0, f[:, :, None])
-    ratio = jnp.where(~fz & jnp.isfinite(ratio), ratio, 0.0)
-    Wn = W * ratio
-    Wn = jnp.where(jnp.isnan(Wn), 0.0, Wn)
-    return jnp.where(active[:, None, None], Wn, W)
-
-
-def test_media_params_gradient_scan_matches_jax(monkeypatch):
-    """The media.params gradient of test_volpathmis.py's mildly chromatic
-    fog through the scan adjoint (volpathmis is not regen-able).  The JAX
-    package's own gradient is nan on such fogs (measured on the strongly
-    chromatic one): its weight update divides by sigma_n = 0 at a
-    homogeneous medium's null collisions, and the masked lanes' zero
-    cotangents meet 1/0.  The port guards that term
-    (volpathmis._WeightUpdate), so it is held to the JAX package with the
-    same guard, in every entry.  On the strongly chromatic fog, where the
-    weights overflow to inf on long paths, the port's gradient is finite
-    too."""
-    js, ts = _pair(res=8, max_depth=4, sigma=(0.5, 0.35, 0.2))
-    key = "media.params"
-
-    def loss(im):
-        return jnp.mean(im * jnp.asarray([1.0, 0.5, 0.25]))
-
-    def tloss(im):
-        return torch.mean(im * torch.tensor([1.0, 0.5, 0.25]))
-
-    monkeypatch.setattr(jvm, "update_weights", _jax_update_weights_guarded)
-    jax.clear_caches()
-    _, jg, jimg = lr.render_grad(js, {key: js.media.params}, loss, spp=2,
-                                 seed=0)
-    jax.clear_caches()
-    params = params_from_numpy({key: np.asarray(js.media.params)}, "cpu")
-    _, tg, timg = lrt.render_grad(ts, params, tloss, spp=2, seed=0)
-    g, ref = tg[key].numpy(), np.asarray(jg[key])
-    assert np.isfinite(ref).all()
-    _assert_images_agree(timg.numpy(), np.asarray(jimg))
-    scale = np.abs(ref).max()
-    assert scale > 0 and np.abs(ref[:, 0:3]).min() > 0
-    np.testing.assert_allclose(g, ref, atol=G_ATOL_REL * scale, rtol=0)
-    strong = lrt.load_dict(chroma_fog(8, max_depth=4), device="cpu")
-    _, tg, _ = lrt.render_grad(
-        strong, {key: strong.media.params.clone()}, tloss, spp=2, seed=0)
-    assert torch.isfinite(tg[key]).all() and tg[key].abs().max() > 0
