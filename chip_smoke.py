@@ -493,6 +493,20 @@ current ones, and each line reports the spp it ran:
   m9f_render       the same at 428x240, CMP_SPP, in turns with its PNG
                    twin (fits_flc_over_png), launches
   m9f_phases       the seconds the m9f phases took
+  m9g_decode       the committed lossless 1,024^2 JP2 height map and the
+                   lossy 256^2 J2K floor decoded on the card's host in
+                   turns with the PNG height map (jp2_over_png_decode),
+                   each equal to the codes or its PNG twin, and the plain
+                   tier-1 loop against the C++ one on the 32^2 map's
+                   code-blocks and one floor tile's
+  m9g_small        bench.py's workload path from XML with the 32^2 JP2
+                   height map and the J2K floor at 16x12, 4 spp: card
+                   against CPU
+  m9g_render       the same at 428x240, CMP_SPP, in turns with its PNG
+                   twin (j2k_over_png), launches
+  m9g_write        the 428x240 render written by write_image as .jp2 and
+                   .j2k, read back equal to its dithered 8-bit pixels
+  m9g_phases       the seconds the m9g phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -5492,6 +5506,107 @@ def m9f_phases(torch, np, lrt, ci, smi, workdir):
     return {"m9f_render": counts, "m9f_twin": twin_counts}
 
 
+def m9g_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9g_decode, m9g_small, m9g_render, m9g_write and m9g_phases
+    (JPEG 2000 both ways): the committed lossless JP2 height map and the
+    lossy J2K floor decoded on the card's host in turns with the PNG
+    height map, each held to the codes or to its PNG twin, the C++
+    tier-1 loop against its plain version; bench.py's workload path from
+    XML with the JP2 height map and the J2K floor, card against CPU at
+    test size, and at full size in turns with its PNG twin; the full-size
+    render written as .jp2 and .j2k and read back -> {name: launch
+    counts}."""
+    from liverrenderer_tpu_torch.io import j2k_t1, jpeg2000
+    from liverrenderer_tpu_torch.io.image import dither_8bit, read_8bit
+    from liverrenderer_tpu_torch.io.png import write_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import BUMP, height_map
+    t_start = time.perf_counter()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    files = {k: os.path.join(data, v) for k, v in (
+        ("jp2", "torch_height_j2k.jp2"), ("jp2_32", "torch_height32_j2k.jp2"),
+        ("j2k", "torch_floor.j2k"), ("j2k_png", "torch_floor_j2k.png"))}
+    png = os.path.join(workdir, "height.png")
+    codes = np.round(height_map(BUMP[0], SEED) * 255.0).astype(np.uint8)
+    write_png(png, codes)
+
+    # ---- 28a. the decoders on the card's host, in turns with the PNG
+    t0 = time.perf_counter()
+    j2k_t1.library()
+    build_s = time.perf_counter() - t0
+    readers = {k: (lambda p=files[k]: lrt.read_image(p, False))
+               for k in ("jp2", "j2k")}
+    readers["png"] = lambda: lrt.read_image(png, False)
+    dec = {k: [] for k in readers}
+    for _ in range(M9_REPS):
+        for kind, fn in readers.items():
+            t0 = time.perf_counter()
+            fn()
+            dec[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in dec.items()}
+    exact = {"jp2": bool(np.array_equal(read_8bit(files["jp2"])[..., 0],
+                                        codes)),
+             "j2k": bool(np.array_equal(read_8bit(files["j2k"]),
+                                        read_8bit(files["j2k_png"])))}
+    # the plain tier-1 loop against the C++ one on the 32^2 map's
+    # code-blocks and the floor's first tile's
+    blocks = jpeg2000.committed_blocks(files["jp2_32"]) \
+        + jpeg2000.committed_blocks(files["j2k"], tiles=1)
+    t0 = time.perf_counter()
+    cpp = j2k_t1.decode_blocks(blocks)
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [j2k_t1._t1_plain(*b) for b in blocks]
+    plain_s = time.perf_counter() - t0
+    plain_equal = bool(all(np.array_equal(a, b) for a, b in zip(cpp, plain)))
+    sizes = {k: os.path.getsize(v) for k, v in files.items()}
+    sizes["png"] = os.path.getsize(png)
+    emit("m9g_decode", files={k: os.path.relpath(v, os.path.dirname(data))
+                              for k, v in files.items()},
+         bytes=sizes, reps=M9_REPS, decode_seconds=med,
+         decode_seconds_reps=dec,
+         jp2_over_png_decode=med["jp2"] / med["png"],
+         build_seconds=build_s, plain_blocks=len(blocks),
+         plain_seconds=plain_s, cpp_seconds=cpp_s, plain_equal=plain_equal,
+         equals_codes_or_twin=exact)
+    check(all(exact.values()), "m9g_decode: the JP2 height map is not the "
+          f"codes or the J2K floor not its PNG twin's pixels: {exact}")
+    check(plain_equal and len(blocks) > 20, "m9g_decode: the plain tier-1 "
+          "loop disagrees with the C++ one")
+
+    # ---- 28b, 28c. the main path from a JP2 height map and a J2K floor
+    # at test size (the committed 32^2 map, as m9_small); at full size, in
+    # turns with its PNG twin (the PNG height codes and the floor's pixels
+    # as PNG)
+    counts, twin_counts, img = _twin_phases(
+        torch, np, lrt, ci, smi, workdir, "m9g", "j2k_over_png",
+        dict(bump_res=BUMP_SMALL[0], sky=SKY_SMALL,
+             height_file=files["jp2_32"], floor_file=files["j2k"]),
+        dict(height_file=files["jp2"], floor_file=files["j2k"]),
+        dict(floor_file=files["j2k_png"]))
+
+    # ---- 28d. the render written as JPEG 2000 and read back
+    img = img.detach().cpu().numpy()
+    want = dither_8bit(img)
+    out = {}
+    for ext in (".jp2", ".j2k"):
+        p = os.path.join(workdir, "render" + ext)
+        t0 = time.perf_counter()
+        lrt.write_image(p, img)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = read_8bit(p)
+        read_s = time.perf_counter() - t0
+        out[ext] = dict(bytes=os.path.getsize(p), write_seconds=write_s,
+                        read_seconds=read_s,
+                        equal=bool(np.array_equal(back, want)))
+    emit("m9g_write", film=list(want.shape[1::-1]), files=out)
+    check(all(v["equal"] for v in out.values()), "m9g_write: a JPEG 2000 "
+          f"file does not read back as the written pixels: {out}")
+    emit("m9g_phases", seconds=time.perf_counter() - t_start)
+    return {"m9g_render": counts, "m9g_twin": twin_counts}
+
+
 def _tiff_strip(path):
     """The first strip of a little-endian TIFF's first IFD."""
     with open(path, "rb") as fh:
@@ -6153,6 +6268,13 @@ def main() -> int:
         m9f = m9f_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps += sum(c[0] for c in m9f.values())
     m9_merges += sum(c[1] for c in m9f.values())
+
+    # ---- 28. JPEG 2000 both ways: a JP2 height map and a J2K floor on
+    # the main path, the render written as .jp2 / .j2k
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9g_") as workdir:
+        m9g = m9g_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9g.values())
+    m9_merges += sum(c[1] for c in m9g.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -6228,6 +6350,7 @@ def main() -> int:
              m9d_launches={k: split_counts(c) for k, c in m9d.items()},
              m9e_launches={k: split_counts(c) for k, c in m9e.items()},
              m9f_launches={k: split_counts(c) for k, c in m9f.items()},
+             m9g_launches={k: split_counts(c) for k, c in m9g.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -6310,6 +6433,7 @@ def main() -> int:
              m9d_launches={k: c[1] for k, c in m9d.items()},
              m9e_launches={k: c[1] for k, c in m9e.items()},
              m9f_launches={k: c[1] for k, c in m9f.items()},
+             m9g_launches={k: c[1] for k, c in m9g.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

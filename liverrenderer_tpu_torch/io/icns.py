@@ -8,8 +8,10 @@ bytes) raw when they hold exactly three planes, else as Pillow's
 PackBits-like run lengths read plane by plane from the file (not bounded
 by the entry), and the 8-bit masks (`s8mk`, `l8mk`, `h8mk`, `t8mk`).  A
 PNG (or JPEG 2000) entry's image wins over the RGB planes; the mask only
-becomes alpha, which convert("RGB") drops.  A JPEG 2000 entry raises
-NotImplementedError (ROADMAP Queue 1 M9), as JPEG 2000 files do.  The
+becomes alpha, which convert("RGB") drops.  A JPEG 2000 entry (a
+codestream, or JP2 boxes) opens as Jpeg2KImageFile opens the entry's
+bytes (io/pil_open.py), the decompression-bomb test on its size, and
+decodes through io/jpeg2000.py.  The
 loaded image's size must be one the file allows (IcnsImageFile.size's
 setter), else ValueError.
 """
@@ -20,7 +22,7 @@ import struct
 import numpy as np
 
 from .pil_open import MAX_IMAGE_PIXELS, DecompressionBombError, \
-    _no_jpeg2000, _pillow_open
+    _pillow_open, open_jpeg2000
 
 # IcnsFile.SIZES: (width, height, scale) -> its entries, in order
 SIZES = {
@@ -81,7 +83,7 @@ def _load(data, entries, sizes, best) -> np.ndarray:
                 channels["RGBA"] = lambda s=start: decode_png(data[s:])
             elif sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")) \
                     or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-                _no_jpeg2000()
+                channels["RGBA"] = open_jpeg2000(data[start:start + length])
             else:
                 raise ValueError("Unsupported icon subimage format")
         elif kind == "mask":

@@ -12,9 +12,10 @@ SPIDER, TGA) tried on the file itself; a plugin that gives the file up
 (SyntaxError and its kin in Pillow) passes it on.  The stub formats
 (BUFR, GRIB, HDF5, WMF) raise Pillow's "cannot find loader" OSError,
 MPEG "cannot load this image", and EPS Pillow's Ghostscript error (or
-goes through `gs`) (io/pil_open.py); JPEG 2000 raises NotImplementedError
-(ROADMAP Queue 1 M9) after Pillow's header checks, AVIF on its prefix
-alone (Pillow's opener is libavif).  The port decodes PNG, JPEG,
+goes through `gs`) (io/pil_open.py); AVIF raises NotImplementedError
+(ROADMAP Queue 1 M9) on its prefix alone (Pillow's opener is libavif).
+The port decodes PNG, JPEG, JPEG 2000 (codestreams and JP2 files, as
+OpenJPEG 2.5.4 decodes them, io/jpeg2000.py),
 PPM/PGM/PBM and Pillow's PPM extensions, BMP, DIB, GIF, TIFF, PCX, DCX,
 SGI, IM, Sun raster, XBM, XPM, MSP, QOI, ICO, CUR, PSD, TGA, WebP
 (io/webp.py), DDS (io/dds.py), BLP (io/blp.py), FTEX (io/ftex.py), FITS
@@ -27,13 +28,14 @@ that a raw tile Pillow would memory-map fails as the map does.
 Written files: EXR and PFM as float; otherwise an ordered dither to 8
 bits, then the format of the extension as Pillow's registry names it:
 PNG (as io/png.py writes it), JPEG (quality 75, 4:2:0), PPM, BMP, DIB,
-TGA, TIFF, PCX, SGI, IM, QOI and DDS (raw, as Pillow saves it with no
-pixel format), the last ten byte for byte as Pillow saves them.  Where
-Pillow refuses, the port raises the same exception (an unknown extension
-ValueError, a format with no writer KeyError, XBM / MSP / Palm OSError
-for an RGB image); the writers Pillow has and the
-port does not yet (GIF, WebP, ICO, ...) raise NotImplementedError
-(ROADMAP M9).
+TGA, TIFF, PCX, SGI, IM, QOI, DDS (raw, as Pillow saves it with no
+pixel format) and JPEG 2000 (.jp2, .j2k, .jpc, .jpf, .jpx, .j2c:
+lossless, as Pillow saves it with its defaults, io/jpeg2000.py), the
+last eleven byte for byte as Pillow saves them.  Where Pillow refuses,
+the port raises the same exception (an unknown extension ValueError, a
+format with no writer KeyError, XBM / MSP / Palm OSError for an RGB
+image); the writers Pillow has and the port does not yet (GIF, WebP,
+ICO, ...) raise NotImplementedError (ROADMAP M9).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
-from . import (blp, dds, fits, fli, ftex, gif, icns, ico, legacy,
+from . import (blp, dds, fits, fli, ftex, gif, icns, ico, jpeg2000, legacy,
                pil_open, psd, raster, rawmode, tiff, webp)
 from .exr import read_exr_any, write_exr
 from .jpeg import encode_jpeg, open_jpeg
@@ -287,7 +289,8 @@ def encode_8bit(px: np.ndarray, fmt: str, path: str = "") -> bytes:
                "PCX": legacy.encode_pcx,
                "SGI": lambda a: legacy.encode_sgi(a, path),
                "IM": lambda a: legacy.encode_im(a, path),
-               "QOI": legacy.encode_qoi, "DDS": dds.encode_dds}
+               "QOI": legacy.encode_qoi, "DDS": dds.encode_dds,
+               "JPEG2000": lambda a: jpeg2000.encode_jpeg2000(a, path)}
     if fmt not in writers:
         raise not_ported(f"writing {fmt} image files", "Queue 1 M9")
     return writers[fmt](px)

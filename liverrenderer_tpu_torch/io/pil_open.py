@@ -24,8 +24,9 @@ the function that loads it, or raises as Pillow raises:
   own (a raw band behind a P5 header, or JPEG) and merges a band into
   the mode's others as Pillow's Image.merge does; PhotoCD decodes the
   base image's PhotoYCC as Pillow's pcd decoder and YCC;P unpacker do
-  and rotates it by the orientation byte.  A JPEG 2000 file raises
-  NotImplementedError (ROADMAP Queue 1 M9).
+  and rotates it by the orientation byte.  JPEG 2000 opens here (the
+  codestream's SIZ or the JP2 boxes, with the palette of a `pclr` box)
+  and decodes through io/jpeg2000.py.
 """
 from __future__ import annotations
 
@@ -38,7 +39,6 @@ import tempfile
 
 import numpy as np
 
-from ..errors import not_ported
 from . import rawmode
 
 # Image.MAX_IMAGE_PIXELS
@@ -95,12 +95,6 @@ def _no_loader(fmt):
 
 def _no_tile():
     raise OSError("cannot load this image")
-
-
-def _no_jpeg2000():
-    """JPEG 2000 (a file or an ICNS entry): Pillow decodes it through
-    OpenJPEG, the port does not yet."""
-    raise not_ported("JPEG 2000 image files", "Queue 1 M9")
 
 
 def _raw_load(fp, offset, size, mode, raw, stride=0, palette=None):
@@ -612,7 +606,7 @@ def _jp2_header(fp):
         if tbox == b"ftyp":
             reader.fields(">4s")
     assert header is not None
-    size = mode = nc = None
+    size = mode = nc = palette = None
     while header.has_next():
         tbox = header.next_type()
         if tbox == b"ihdr":
@@ -629,7 +623,7 @@ def _jp2_header(fp):
         elif tbox == b"pclr" and mode in ("L", "LA"):
             ne, npc = header.fields(">HB")
             if max(header.fields(">" + "B" * npc), default=0) <= 8:
-                _jp2_palette(header, ne, npc)
+                palette = _jp2_palette(header, ne, npc)
                 mode = "P" if mode == "L" else "PA"
         elif tbox == b"res ":
             res = header.sub()
@@ -639,13 +633,15 @@ def _jp2_header(fp):
                     break
     if size is None or mode is None:
         raise SyntaxError("Malformed JP2 header")
-    return size, mode
+    return size, mode, palette
 
 
-def _jp2_palette(header, ne, npc):
-    """ImagePalette.getcolor on each pclr entry: its refusals."""
+def _jp2_palette(header, ne, npc) -> np.ndarray:
+    """ImagePalette.getcolor on each pclr entry (its refusals; a colour
+    seen before adds nothing) -> the (n, 3) palette Pillow converts
+    through."""
     pmode = 4 if npc == 4 else 3
-    colors, length = set(), 0
+    colors, length, raw = set(), 0, bytearray()
     for _ in range(ne):
         color = header.fields(">" + "B" * npc)
         if pmode == 3 and len(color) == 4:
@@ -661,6 +657,10 @@ def _jp2_palette(header, ne, npc):
             raise ValueError("cannot allocate more than 256 colors")
         colors.add(color)
         length += len(color)
+        raw += bytes(color)
+    n = len(raw) // pmode
+    return np.frombuffer(bytes(raw[:n * pmode]), np.uint8).reshape(
+        n, pmode)[:, :3]
 
 
 @_pillow_open
@@ -668,18 +668,36 @@ def open_jpeg2000(fp):
     """Jpeg2KImageFile._open: a raw codestream's SIZ segment, or a JP2
     file's boxes."""
     sig = fp.read(4)
+    palette = None
     if sig == b"\xff\x4f\xff\x51":
+        codec = "j2k"
         size, mode = _j2k_codestream(fp)
         _j2k_comment(fp)
     else:
         sig = sig + fp.read(8)
         if sig != b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
             raise SyntaxError("not a JPEG 2000 file")
-        size, mode = _jp2_header(fp)
+        codec = "jp2"
+        size, mode, palette = _jp2_header(fp)
         if fp.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
             fp.seek(_i16be(fp.read(2)) - 2, os.SEEK_CUR)
             _j2k_comment(fp)
-    return mode, size, _no_jpeg2000
+    data = fp.getvalue()
+    return mode, size, lambda: jpeg2000_load(data, codec, mode, size,
+                                             palette)
+
+
+def jpeg2000_load(data: bytes, codec: str, mode: str, size,
+                  palette) -> np.ndarray:
+    """Jpeg2KImageFile.load, then convert("RGB") (an ICNS entry's
+    convert("RGBA") then "RGB" gives the same pixels)."""
+    from .jpeg2000 import decode
+    px = decode(data, codec, mode, size)
+    if mode in ("LA", "PA"):
+        px = px[..., [0, 3]]
+    elif mode == "RGB":
+        px = px[..., :3]
+    return rawmode.to_rgb(px, mode, palette)
 
 
 @_pillow_open

@@ -11,8 +11,9 @@ writes, and to Pillow's exception class where it refuses them.
   (`fli._frame_plain`) on every buffer the feeder hands it.
 - ICNS: the best size's RLE (is32, il32, ih32, it32) and raw entries and
   their masks, PNG entries (also one smaller than its slot, and one whose
-  size no slot allows), a JPEG 2000 entry (NotImplementedError, ROADMAP
-  Queue 1 M9), and cuts and mutations of a file.
+  size no slot allows), JPEG 2000 entries (a JP2 file and a codestream,
+  decoded; a malformed JP2 box, SyntaxError in both), and cuts and
+  mutations of a file.
 """
 import io
 
@@ -23,6 +24,7 @@ from PIL import Image
 import liverrenderer_tpu_torch as lrt
 from liverrenderer_tpu.io import image as jimage
 from liverrenderer_tpu_torch.io import fli
+import torch_j2k_files as j2f
 import torch_rare_files as rf
 import torch_tiff_files as tf
 from test_torch_rare_formats import _same
@@ -178,11 +180,18 @@ def test_icns(tmp_path, name):
     _same(tmp_path, rf.icns(entries), "f.icns", ok=ok)
 
 
-def test_icns_jpeg2000_entry_not_ported(tmp_path):
-    p = tmp_path / "f.icns"
+def test_icns_jpeg2000_entry(tmp_path):
+    """A JP2 entry and a codestream entry decode as Pillow decodes them;
+    a malformed JP2 box is SyntaxError in both packages."""
+    px = RNG.integers(0, 256, (128, 128, 3)).astype(np.uint8)
+    for entry in (j2f.pillow(px), j2f.pillow(px, no_jp2=True),
+                  j2f.pillow(px[..., 0], irreversible=True)):
+        ref = _same(tmp_path, rf.icns([(b"ic07", entry)]), "f.icns")
+        assert ref.std() > 0.1
+    p = tmp_path / "bad.icns"
     p.write_bytes(rf.icns([(b"ic07", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
                             + bytes(40))]))
-    with pytest.raises(NotImplementedError, match="JPEG 2000.*Queue 1 M9"):
+    with pytest.raises(SyntaxError):
         lrt.read_image(str(p), False)
     with pytest.raises(SyntaxError):     # Pillow's OpenJPEG reads the box
         jimage.read_image(str(p), False)

@@ -3,8 +3,7 @@ io/icns.py, held to the JAX package's reader (Image.open, then
 convert("RGB")) on short headers: the port passes a file on where Pillow
 gives it up, raises the class Pillow raises at the same stage (open or
 load), and otherwise decodes the same pixels (FITS, FLI, GBR, ICNS, IMT,
-IPTC, McIdas, PCD, PIXAR, SPIDER, XV thumbnails).  Where Pillow opens a
-JPEG 2000 file the port raises NotImplementedError naming "Queue 1 M9".
+IPTC, JPEG 2000, McIdas, PCD, PIXAR, SPIDER, XV thumbnails).
 
 - The stubs (BUFR, GRIB, HDF5, and WMF/EMF here) raise Pillow's "cannot
   find loader" OSError at load, MPEG "cannot load this image", an IPTC
@@ -29,15 +28,8 @@ HEADERS = tf.stub_headers()
 
 def _agrees(data: bytes) -> bool:
     """The port agrees with Pillow on `data`: the same stage and class,
-    the same pixels, or a JPEG 2000 file, which the port does not decode
-    yet, that Pillow opens (NotImplementedError at load, whether Pillow's
-    own decoder then reads the pixels or fails on them)."""
+    or the same pixels."""
     want, got = tf.stage(data, True), tf.stage(data, False)
-    jpeg2000 = data.startswith((b"\xff\x4f\xff\x51",
-                                b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))
-    if want[0] in ("ok", "load") and jpeg2000 \
-            and got == ("load", "NotImplementedError"):
-        return True
     if want[0] == "ok":
         return got[0] == "ok" and np.array_equal(got[1], want[1])
     return want == got
