@@ -507,6 +507,16 @@ current ones, and each line reports the spp it ran:
   m9g_write        the 428x240 render written by write_image as .jp2 and
                    .j2k, read back equal to its dithered 8-bit pixels
   m9g_phases       the seconds the m9g phases took
+  m9h_render       bench.py's workload path at 428x240, CMP_SPP, from its
+                   dict, launches
+  m9h_write        that render written by write_image as .gif, .ico,
+                   .icns, .eps, .pdf and .mpo (and an RGBA twin as .gif
+                   and .pdf), each writer's seconds, every file read back
+                   through the port's readers equal to the port's own
+                   quantised, resampled or JPEG pixels
+  m9h_plain        the C++ median cut, fast octree and GIF LZW encoder
+                   against their plain versions on the render's pixels
+  m9h_phases       the seconds the m9h phases took
   total            the script's seconds so far (every line's at_s: the
                    script's seconds at its end)
   kernels          every kernel of the path with the TPU kernels it
@@ -528,8 +538,8 @@ current ones, and each line reports the spp it ran:
                    textured, instanced, SDF and hair renders + the
                    viewer's and the interactive loop's frames and the
                    sharded renders and gradients (every rank) + the
-                   m9 render and its PNG + PIZ twin + the m9b, m9c and
-                   m9d renders and their PNG twins; the hair
+                   m9 render and its PNG + PIZ twin + the m9b to m9g
+                   renders and their PNG twins + the m9h render; the hair
                    tuft's query in K2's regime beside its bound),
                    agreement, times and bound
 The last line is {"ok": true, "device": {...}}.  Any failed check exits
@@ -5607,6 +5617,153 @@ def m9g_phases(torch, np, lrt, ci, smi, workdir):
     return {"m9g_render": counts, "m9g_twin": twin_counts}
 
 
+def _ico_entries(data):
+    """An ICO file's (width, height, entry bytes) in directory order."""
+    n = struct.unpack_from("<H", data, 4)[0]
+    out = []
+    for i in range(n):
+        w, h = data[6 + 16 * i] or 256, data[7 + 16 * i] or 256
+        size, off = struct.unpack_from("<II", data, 14 + 16 * i)
+        out.append((w, h, data[off:off + size]))
+    return out
+
+
+def _icns_entries(data):
+    """An ICNS file's (code, entry bytes) after its table of contents."""
+    pos, out = 8, []
+    while pos < len(data):
+        code, size = data[pos:pos + 4], struct.unpack_from(">I", data,
+                                                           pos + 4)[0]
+        if code != b"TOC ":
+            out.append((code, data[pos + 8:pos + size]))
+        pos += size
+    return out
+
+
+def m9h_phases(torch, np, lrt, ci, smi, workdir):
+    """Phases m9h_render, m9h_write, m9h_plain and m9h_phases (Pillow's
+    quantisers and resampler with the six writers that need them):
+    bench.py's workload path at full size on the card; the render written
+    by write_image as .gif, .ico, .icns, .eps, .pdf and .mpo on the card's
+    host, each file read back through the port's own readers and equal to
+    the pixels the port's quantiser, resampler or JPEG writer made (an
+    RGBA twin of the render, its alpha from its green codes, through the
+    GIF and PDF writers too); the C++ median cut, fast octree and GIF LZW
+    encoder against their plain versions on the render's pixels ->
+    {name: launch counts}."""
+    from liverrenderer_tpu_torch.io import (eps, jpeg, lzw, pdf, quantize,
+                                            resample)
+    from liverrenderer_tpu_torch.io.icns import WRITE_SIZES
+    from liverrenderer_tpu_torch.io.ico import SIZES as ICO_SIZES
+    from liverrenderer_tpu_torch.io.image import (dither_8bit, identify,
+                                                  read_8bit)
+    from liverrenderer_tpu_torch.io.png import decode_png
+    from liverrenderer_tpu_torch.scene.liver_proxy import (BUMP, SKY,
+                                                           liver_proxy_dict)
+    t_start = time.perf_counter()
+
+    # ---- 29a. the main path at full size
+    scene = lrt.load_dict(liver_proxy_dict(WIDTH, HEIGHT, CMP_SPP, SUBDIV,
+                                           SEED, bump=BUMP, sky=SKY))
+    reset_counts(ci)
+    secs, img = timed_render(torch, lrt, scene, CMP_SPP)
+    counts = launch_counts(ci)
+    emit("m9h_render", film=[WIDTH, HEIGHT], spp=CMP_SPP, card=smi,
+         render_seconds=secs, paths_per_s=WIDTH * HEIGHT * CMP_SPP / secs,
+         finite=bool(torch.isfinite(img).all()), mean=float(img.mean()),
+         **split_counts(counts))
+    check(scene.device.type == "cuda" and bool(torch.isfinite(img).all())
+          and 0.05 < float(img.mean()) < 5.0,
+          "m9h_render: not on the card, or the image not finite or its "
+          "mean out of range")
+    check(counts[0] > 0 and counts[1] > 0,
+          "m9h_render: the render launched no sweep or merge kernel")
+
+    # ---- 29b. the six writers, and the files read back
+    img = img.detach().cpu().numpy()
+    alpha = np.where(img[..., 1] < 0.02, 0.0, np.clip(img[..., 1], 0, 1))
+    img_rgba = np.dstack([img, alpha]).astype(np.float32)
+    rgba = dither_8bit(img_rgba)
+    px = rgba[..., :3]
+    pal, idx = quantize.quantize(px)
+    pal4, idx4 = quantize.quantize(rgba)
+    jpg = jpeg.encode_jpeg(px)
+    jpg_px = identify(jpg)()
+    thumbs = [resample.thumbnail(px, s) for s in ICO_SIZES
+              if s[0] <= WIDTH and s[1] <= HEIGHT]
+    squares = {n: resample.resize(px, (n, n))
+               for n in set(WRITE_SIZES.values())}
+
+    def ico_ok(d, p):
+        got = [decode_png(e) for _, _, e in _ico_entries(d)]
+        return len(got) == len(thumbs) and all(
+            np.array_equal(a, b) for a, b in zip(got, thumbs)) \
+            and np.array_equal(read_8bit(p), thumbs[-1])
+
+    def icns_ok(d, p):
+        got = _icns_entries(d)
+        return [c for c, _ in got] == list(WRITE_SIZES) and all(
+            np.array_equal(decode_png(e), squares[WRITE_SIZES[c]])
+            for c, e in got) and np.array_equal(read_8bit(p), squares[1024])
+
+    def pdf_ok(d, kind, want_px):
+        filt, stream = pdf.embedded_stream(d)
+        return filt == kind and np.array_equal(identify(stream)(), want_px)
+
+    want = {
+        ".gif": lambda d, p: np.array_equal(read_8bit(p), pal[idx]),
+        ".ico": ico_ok, ".icns": icns_ok,
+        ".eps": lambda d, p: np.array_equal(eps.read_eps_hex(d), px),
+        ".pdf": lambda d, p: pdf_ok(d, "DCTDecode", jpg_px)
+        and pdf.embedded_stream(d)[1] == jpg,
+        ".mpo": lambda d, p: d == jpg and np.array_equal(read_8bit(p),
+                                                         jpg_px),
+        "_rgba.gif": lambda d, p: np.array_equal(read_8bit(p),
+                                                 pal4[idx4][..., :3]),
+        "_rgba.pdf": lambda d, p: pdf_ok(d, "JPXDecode", px)}
+    files = {}
+    for ext, ok in want.items():
+        p = os.path.join(workdir, "render" + ext)
+        t0 = time.perf_counter()
+        lrt.write_image(p, img_rgba if ext.startswith("_rgba") else img)
+        write_s = time.perf_counter() - t0
+        with open(p, "rb") as fh:
+            data = fh.read()
+        t0 = time.perf_counter()
+        equal = bool(ok(data, p))
+        files[ext] = dict(bytes=len(data), write_seconds=write_s,
+                          check_seconds=time.perf_counter() - t0,
+                          equal=equal)
+    emit("m9h_write", film=[WIDTH, HEIGHT], card=smi, files=files,
+         gif_colours=len(pal), gif_rgba_colours=len(pal4))
+    check(all(v["equal"] for v in files.values()), "m9h_write: a file "
+          f"does not read back as the port's own pixels: {files}")
+
+    # ---- 29c. the C++ loops against their plain versions
+    runs = {}
+    for name, cpp, plain in (
+            ("median_cut", lambda: quantize.quantize(px),
+             lambda: quantize._quantize_plain(px)),
+            ("octree", lambda: quantize.quantize(rgba),
+             lambda: quantize._quantize_plain(rgba)),
+            ("lzw_gif_encode", lambda: lzw.lzw_gif_encode(idx, True),
+             lambda: lzw._lzw_gif_encode_plain(idx, True))):
+        t0 = time.perf_counter()
+        a = cpp()
+        t1 = time.perf_counter()
+        b = plain()
+        t2 = time.perf_counter()
+        same = a == b if isinstance(a, bytes) else all(
+            np.array_equal(x, y) for x, y in zip(a, b))
+        runs[name] = dict(cpp_seconds=t1 - t0, plain_seconds=t2 - t1,
+                          equal=bool(same))
+    emit("m9h_plain", pixels=int(px.shape[0] * px.shape[1]), loops=runs)
+    check(all(v["equal"] for v in runs.values()), "m9h_plain: a C++ loop "
+          f"disagrees with its plain version: {runs}")
+    emit("m9h_phases", seconds=time.perf_counter() - t_start)
+    return {"m9h_render": counts}
+
+
 def _tiff_strip(path):
     """The first strip of a little-endian TIFF's first IFD."""
     with open(path, "rb") as fh:
@@ -6275,6 +6432,13 @@ def main() -> int:
         m9g = m9g_phases(torch, np, lrt, ci, smi, workdir)
     m9_sweeps += sum(c[0] for c in m9g.values())
     m9_merges += sum(c[1] for c in m9g.values())
+
+    # ---- 29. Pillow's quantisers and resampler: the main path's render
+    # written as GIF, ICO, ICNS, EPS, PDF and MPO
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m9h_") as workdir:
+        m9h = m9h_phases(torch, np, lrt, ci, smi, workdir)
+    m9_sweeps += sum(c[0] for c in m9h.values())
+    m9_merges += sum(c[1] for c in m9h.values())
     emit("total", seconds=time.perf_counter() - _T0)
 
     # ---- 12. kernels
@@ -6351,6 +6515,7 @@ def main() -> int:
              m9e_launches={k: split_counts(c) for k, c in m9e.items()},
              m9f_launches={k: split_counts(c) for k, c in m9f.items()},
              m9g_launches={k: split_counts(c) for k, c in m9g.items()},
+             m9h_launches={k: split_counts(c) for k, c in m9h.items()},
              hair_k2_ms=hair_k2["ms"], hair_k2_bound_ms=hair_k2["bound_ms"],
              hair_k2_share=hair_k2["share"], hair_k2_tris=hair_k2["tris"],
              hair_k2_sweep_ms=hair_k2["sweep_ms"],
@@ -6434,6 +6599,7 @@ def main() -> int:
              m9e_launches={k: c[1] for k, c in m9e.items()},
              m9f_launches={k: c[1] for k, c in m9f.items()},
              m9g_launches={k: c[1] for k, c in m9g.items()},
+             m9h_launches={k: c[1] for k, c in m9h.items()},
              # the fog box's 36 triangles fill one chunk: one split, no
              # merge; the liver proxy's shadow rays run it
              fog_render_launches=fog_counts[1],

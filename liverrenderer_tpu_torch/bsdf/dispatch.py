@@ -474,7 +474,7 @@ def _principledthin_eval(wi, wo, p, t0, t1):
     g_t = mf.ggx_smith_g1(wi, h_t, alpha_t, alpha_t) \
         * mf.ggx_smith_g1(wo_f, h_t, alpha_t, alpha_t)
     F_t, _, _, _ = fr.fresnel_dielectric(torch.sum(wi * h_t, -1), eta)
-    spec_t = torch.sqrt(torch.clamp(t0, min=0.0)) \
+    spec_t = m.sqrt(torch.clamp(t0, min=0.0)) \
         * (st_ * (1.0 - F_t) * d_t * g_t
            / torch.clamp(4.0 * ci, min=1e-8))[..., None]
     diff_t = t0 * ((1.0 - st_) * dt * warp.INV_PI
@@ -569,8 +569,8 @@ def _gtr1_sample(u, a):
     a2 = a * a
     phi = 2.0 * torch.pi * u[..., 0]
     ct2 = (1.0 - torch.pow(a2, 1.0 - u[..., 1])) / (1.0 - a2)
-    st = torch.sqrt(torch.clamp(1.0 - ct2, min=0.0))
-    ct = torch.sqrt(torch.clamp(ct2, min=0.0))
+    st = m.sqrt(torch.clamp(1.0 - ct2, min=0.0))
+    ct = m.sqrt(torch.clamp(ct2, min=0.0))
     return torch.stack([torch.cos(phi) * st, torch.sin(phi) * st, ct], -1)
 
 
@@ -581,7 +581,7 @@ def _smith_ggx1(v, wh, alpha):
     cz = torch.abs(m.cos_theta(v))
     cz2 = torch.clamp(cz * cz, min=1e-12)
     tan2 = (1.0 - cz2) / cz2
-    g = 2.0 / (1.0 + torch.sqrt(1.0 + a2 * tan2))
+    g = 2.0 / (1.0 + m.sqrt(1.0 + a2 * tan2))
     g = torch.where(m.cos_theta(v) == 1.0, 1.0, g)
     return torch.where(torch.sum(v * wh, -1) * m.cos_theta(v) <= 0.0, 0.0, g)
 
@@ -591,7 +591,7 @@ def _principled_fetch(p):
     rough = torch.clamp(p[..., 1], 0.0, 1.0)
     eta = torch.clamp(p[..., 2], min=1.0009)
     r2 = rough * rough
-    aspect = torch.sqrt(1.0 - 0.9 * p[..., 5])
+    aspect = m.sqrt(1.0 - 0.9 * p[..., 5])
     ax = torch.clamp(r2 / aspect, min=1e-3)
     ay = torch.clamp(r2 * aspect, min=1e-3)
     return (metallic, rough, eta, p[..., 3], p[..., 4], ax, ay, p[..., 6],
@@ -663,7 +663,7 @@ def _principled_eval(wi, wo, p, t0, t1):
          * (1.0 - F_die) * D * G * eta_path * eta_path * cos_ih * cos_oh)
         / (ci * torch.clamp(denom * denom, min=1e-12)))
     val = val + torch.where(st_on[..., None],
-                            torch.sqrt(torch.clamp(base, min=0.0))
+                            m.sqrt(torch.clamp(base, min=0.0))
                             * tr[..., None], 0.0)
 
     # clearcoat (GTR1, a fixed 0.04 Schlick, Smith G at alpha 0.25)

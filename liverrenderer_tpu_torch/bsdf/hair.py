@@ -20,6 +20,7 @@ import math
 import torch
 
 from ..core import fresnel as fr
+from ..core import math as m
 from ..scene.ir import F_GLOSSY_REFL, F_GLOSSY_TRANS
 
 P_MAX = 3
@@ -40,7 +41,7 @@ def _ipow(x, n: int):
 
 
 def _safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return m.sqrt(torch.clamp(x, min=0.0))
 
 
 def _i0(x):

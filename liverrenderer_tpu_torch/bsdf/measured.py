@@ -22,6 +22,7 @@ import struct as pystruct
 import numpy as np
 import torch
 
+from ..core import math as m
 from ..scene.ir import MeasuredTable
 
 _DTYPES = {1: np.uint8, 2: np.int8, 3: np.uint16, 4: np.int16,
@@ -274,7 +275,7 @@ def _u2theta(u):
 
 
 def _theta2u(t):
-    return torch.sqrt(torch.clamp(t, min=0.0) / _HALF_PI)
+    return m.sqrt(torch.clamp(t, min=0.0) / _HALF_PI)
 
 
 def _u2phi(u):
@@ -286,7 +287,7 @@ def _phi2u(p):
 
 
 def _elevation(d):
-    dist = torch.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2
+    dist = m.sqrt(d[..., 0] ** 2 + d[..., 1] ** 2
                       + (d[..., 2] - 1.0) ** 2)
     return 2.0 * torch.arcsin(torch.clamp(0.5 * dist, -1.0, 1.0))
 
@@ -338,7 +339,7 @@ def measured_eval_pdf(md: MeasuredTable, wi, wo):
     s0, w = _slice_of(md.theta_i, theta_i)
 
     m_vec = wi + wo
-    ml = torch.sqrt(torch.sum(m_vec * m_vec, -1))
+    ml = m.sqrt(torch.sum(m_vec * m_vec, -1))
     m_vec = m_vec / torch.clamp(ml, min=1e-9)[..., None]
     theta_m = _elevation(m_vec)
     phi_m = torch.atan2(m_vec[..., 1], m_vec[..., 0])

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from .ieee_sqrt import sqrt  # noqa: F401  (m.sqrt for the port's callers)
 from .types import Frame
 
 
@@ -12,12 +13,12 @@ def dot(a, b):
 
 
 def norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return sqrt(torch.sum(v * v, dim=-1))
 
 
 def normalize(v, eps=1e-20):
     n2 = torch.sum(v * v, dim=-1)
-    return v / torch.sqrt(torch.clamp(n2, min=eps * eps))[..., None]
+    return v / sqrt(torch.clamp(n2, min=eps * eps))[..., None]
 
 
 def cross(a, b):
@@ -33,7 +34,7 @@ class _SafeSqrt(torch.autograd.Function):
 
     @staticmethod
     def forward(x):
-        return torch.sqrt(torch.clamp(x, min=0.0))
+        return sqrt(torch.clamp(x, min=0.0))
 
     @staticmethod
     def setup_context(ctx, inputs, output):

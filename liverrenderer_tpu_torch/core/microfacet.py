@@ -21,7 +21,7 @@ def ggx_d(h, ax, ay):
 def ggx_smith_g1(v, h, ax, ay):
     xy_alpha2 = (ax * v[..., 0]) ** 2 + (ay * v[..., 1]) ** 2
     tan2 = xy_alpha2 / torch.clamp(v[..., 2] ** 2, min=1e-20)
-    g = 2.0 / (1.0 + torch.sqrt(1.0 + tan2))
+    g = 2.0 / (1.0 + m.sqrt(1.0 + tan2))
     # v and h must lie in the same hemisphere with respect to n
     same = (torch.sum(v * h, -1) * v[..., 2]) > 0
     return torch.where(same, g, 0.0)
@@ -35,16 +35,16 @@ def ggx_sample_vndf(wi, u, ax, ay):
     t1 = torch.where(
         (lensq > 1e-12)[..., None],
         torch.stack([-v[..., 1], v[..., 0], torch.zeros_like(lensq)], -1)
-        / torch.sqrt(torch.clamp(lensq, min=1e-12))[..., None],
+        / m.sqrt(torch.clamp(lensq, min=1e-12))[..., None],
         v.new_tensor([1.0, 0.0, 0.0]))
     t2 = m.cross(v, t1)
-    r = torch.sqrt(u[..., 0])
+    r = m.sqrt(u[..., 0])
     phi = 2.0 * math.pi * u[..., 1]
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + v[..., 2])
-    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
-    p3 = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    p2 = (1.0 - s) * m.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    p3 = m.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
     nh = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * v
     return m.normalize(torch.stack([ax * nh[..., 0], ay * nh[..., 1],
                                     torch.clamp(nh[..., 2], min=1e-6)], -1))

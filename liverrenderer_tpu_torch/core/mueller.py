@@ -78,9 +78,9 @@ def specular_reflection_fresnel(cos_theta_i, eta_re, eta_im=None):
     # ct = sqrt(eta^2 - sin^2), complex
     a_re = e2_re - si2
     a_im = e2_im
-    r = torch.sqrt(a_re * a_re + a_im * a_im)
-    ct_re = torch.sqrt(torch.clamp((r + a_re) * 0.5, min=0.0))
-    ct_im = torch.sign(a_im + 1e-30) * torch.sqrt(
+    r = m.sqrt(a_re * a_re + a_im * a_im)
+    ct_re = m.sqrt(torch.clamp((r + a_re) * 0.5, min=0.0))
+    ct_im = torch.sign(a_im + 1e-30) * m.sqrt(
         torch.clamp((r - a_re) * 0.5, min=0.0))
 
     def cdiv(nre, nim, dre, dim):
@@ -96,8 +96,8 @@ def specular_reflection_fresnel(cos_theta_i, eta_re, eta_im=None):
     # relative phase: rs * conj(rp)
     cr_re = rs_re * rp_re + rs_im * rp_im
     cr_im = rs_im * rp_re - rs_re * rp_im
-    amp = torch.sqrt(torch.clamp(Rs * Rp, min=0.0))
-    nrm = torch.clamp(torch.sqrt(cr_re * cr_re + cr_im * cr_im), min=1e-20)
+    amp = m.sqrt(torch.clamp(Rs * Rp, min=0.0))
+    nrm = torch.clamp(m.sqrt(cr_re * cr_re + cr_im * cr_im), min=1e-20)
     cosd = cr_re / nrm
     sind = cr_im / nrm
 

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from .ieee_sqrt import sqrt
+
 Tensor = torch.Tensor
 
 # Epsilon used when spawning rays off surfaces (reference math::RayEpsilon).
@@ -80,7 +82,7 @@ class SurfaceInteraction:
         """A ray toward p2 that stops just short of it (shadow rays)."""
         o = offset_p(self.p, self.ng, p2 - self.p)
         d = p2 - o
-        dist = torch.sqrt(torch.sum(d * d, -1))
+        dist = sqrt(torch.sum(d * d, -1))
         d = d / torch.clamp(dist, min=1e-20)[..., None]
         return Ray(o=o, d=d, maxt=dist * (1.0 - 1e-3))
 

@@ -29,7 +29,19 @@
 //   an end code the decoder reads on.  dst is the frame's xsize * ysize
 //   bytes, rows in order; an interlaced frame's rows come in GIF's four
 //   passes.
+//
+// lrt_lzw_gif_encode(src, xsize, ysize, interlace, bufsize, dst, cap)
+//   -> bytes written (-1 when cap is short): Pillow's GIF encoder
+//   (GifEncode.c) on one frame of 8-bit palette indices, the data
+//   sub-blocks it writes after the minimum code size byte (8), without the
+//   terminator.  A clear code first, codes LSB-first from 9 bits, the width
+//   growing when the code just added passes the widest code, a clear
+//   instead of the 4,096th entry, the last string and the end code, the
+//   last byte zero-padded.  Sub-blocks of 255 bytes, cut where Pillow's
+//   encoder buffer of `bufsize` bytes ends; rows in GIF's four passes when
+//   interlaced.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 
@@ -252,4 +264,127 @@ extern "C" int64_t lrt_lzw_gif(const uint8_t* src, int64_t n, int32_t bits,
             if (++x >= xsize && !newline()) return -1;
         }
     }
+}
+
+namespace {
+
+constexpr int kEncTable = 8192;      // GifEncode.c's TABLE_SIZE (2^n)
+constexpr int kEncBits = 8;          // Pillow writes every frame at 8 bits
+
+struct GifWriter {
+    uint8_t* dst;
+    int64_t cap, n = 0, bufsize, in_buf = 0, block_at = -1, block_left = 0;
+    uint32_t acc = 0;
+    int acc_bits = 0;
+    bool ok = true;
+    void byte(uint8_t b) {
+        if (block_left == 0) {
+            if (bufsize - in_buf < 2) in_buf = 0;    // the next encode call
+            block_left = std::min<int64_t>(256, bufsize - in_buf) - 1;
+            in_buf += 1;
+            if (n >= cap) { ok = false; return; }
+            block_at = n;
+            dst[n++] = 0;
+        }
+        if (n >= cap) { ok = false; return; }
+        dst[n++] = b;
+        dst[block_at] += 1;
+        --block_left;
+        in_buf += 1;
+    }
+    void code(uint32_t c, int width) {
+        acc |= c << acc_bits;
+        acc_bits += width;
+        while (acc_bits >= 8) {
+            byte(uint8_t(acc));
+            acc >>= 8;
+            acc_bits -= 8;
+        }
+    }
+    void flush() {
+        if (acc_bits > 0) byte(uint8_t(acc));
+    }
+};
+
+}  // namespace
+
+extern "C" int64_t lrt_lzw_gif_encode(const uint8_t* src, int32_t xsize,
+                                      int32_t ysize, int32_t interlace,
+                                      int64_t bufsize,
+                                      uint8_t* dst, int64_t cap) {
+    GifWriter w{dst, cap};
+    w.bufsize = bufsize;
+    const uint32_t clear = 1u << kEncBits, end = clear + 1;
+    static thread_local uint32_t codes[kEncTable];
+    uint32_t next_code = 0, max_code = 0;
+    int width = 0;
+    auto reset = [&]() {
+        next_code = end + 1;
+        max_code = 2 * clear - 1;
+        width = kEncBits + 1;
+        std::memset(codes, 0, sizeof(codes));
+    };
+    reset();
+    w.code(clear, width);
+    // the rows in the order the encoder reads them
+    int y = 0, step = interlace ? 8 : 1, pass = interlace ? 1 : 0;
+    bool have_head = false;
+    uint32_t head = 0;
+    while (true) {
+        if (y >= ysize) break;
+        const uint8_t* row = src + int64_t(y) * xsize;
+        for (int32_t x = 0; x < xsize; ++x) {
+            uint32_t tail = row[x];
+            if (!have_head) {
+                head = tail;
+                have_head = true;
+                continue;
+            }
+            int32_t probe = int32_t(((head ^ (tail << 6)) * 31) &
+                                    (kEncTable - 1));
+            bool found = false;
+            while (codes[probe]) {
+                if ((codes[probe] & 0xFFFFF) == ((head << 8) | tail)) {
+                    head = codes[probe] >> 20;
+                    found = true;
+                    break;
+                }
+                probe -= int32_t((tail << 2) | 1);
+                if (probe < 0) probe += kEncTable;
+            }
+            if (found) continue;
+            w.code(head, width);
+            if (next_code < 4096) {
+                codes[probe] = (next_code << 20) | (head << 8) | tail;
+                if (next_code > max_code) {
+                    max_code = max_code * 2 + 1;
+                    width++;
+                }
+                next_code++;
+            } else {
+                w.code(clear, width);
+                reset();
+            }
+            head = tail;
+        }
+        y += step;
+        while (pass && y >= ysize) {
+            if (pass == 1) {
+                y = 4;
+                pass = 2;
+            } else if (pass == 2) {
+                step = 4;
+                y = 2;
+                pass = 3;
+            } else {
+                step = 2;
+                y = 1;
+                pass = 0;
+            }
+        }
+    }
+    if (have_head) w.code(head, width);
+    w.code(end, width);
+    w.flush();
+    return w.ok ? w.n : -1;
 }

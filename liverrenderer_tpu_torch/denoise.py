@@ -21,6 +21,8 @@ import sys
 
 import torch
 
+from .core.math import sqrt
+
 # B3 spline taps
 _B3 = torch.tensor([1.0 / 16, 1.0 / 4, 3.0 / 8, 1.0 / 4, 1.0 / 16])
 
@@ -118,7 +120,7 @@ def atrous_denoise(img, albedo=None, normal=None, variance=None,
             # accepted by them, so firefly energy is redistributed, not
             # destroyed
             v_q = _shift2(var, sy, sx)
-            denom_l = sigma_l * torch.sqrt(
+            denom_l = sigma_l * sqrt(
                 torch.clamp(torch.maximum(var, v_q), min=0.0)) + 1e-3
             w = k * torch.exp(-torch.abs(lum - l_q) / denom_l)
             if normal is not None:

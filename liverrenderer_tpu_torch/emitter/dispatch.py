@@ -100,7 +100,7 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
             scene, m.table_lookup(em.shape, eidx), u2, u_sel)
         dvec = sp - ref_p
         dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
-        dist_a = torch.sqrt(dist2)
+        dist_a = m.sqrt(dist2)
         dd = dvec / dist_a[:, None]
         cos_e = -torch.sum(dd * sn, -1)
         # area density -> solid angle
@@ -122,7 +122,7 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
         pos = prm[..., 0:3]
         dvec = pos - ref_p
         dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
-        dist_p = torch.sqrt(dist2)
+        dist_p = m.sqrt(dist2)
         sel = etype == EMITTER_POINT
         p = torch.where(sel[:, None], pos, p)
         d = torch.where(sel[:, None], dvec / dist_p[:, None], d)
@@ -174,7 +174,7 @@ def sample_emitter_direction(scene: Scene, ref_p, u2, u1):
         pos = prm[..., 0:3]
         dvec = pos - ref_p
         dist2 = torch.clamp(torch.sum(dvec * dvec, -1), min=1e-12)
-        dist_p = torch.sqrt(dist2)
+        dist_p = m.sqrt(dist2)
         dd = dvec / dist_p[:, None]
         sel = (etype == EMITTER_SPOT) | (etype == EMITTER_PROJECTOR)
         p = torch.where(sel[:, None], pos, p)

@@ -104,7 +104,7 @@ def _sample_emitter_ray(scene: Scene, sampler):
     v0 = scene.vertices[f[:, 0]]
     v1 = scene.vertices[f[:, 1]]
     v2 = scene.vertices[f[:, 2]]
-    su = torch.sqrt(torch.clamp(u_pos[:, 0], min=1e-12))
+    su = m.sqrt(torch.clamp(u_pos[:, 0], min=1e-12))
     b0 = 1.0 - su
     b1 = u_pos[:, 1] * su
     b2 = 1.0 - b0 - b1
@@ -140,7 +140,7 @@ def _sample_emitter_ray(scene: Scene, sampler):
     if inf_types:
         V = scene.vertices
         c = 0.5 * (V.amin(0) + V.amax(0))
-        radius = torch.clamp(torch.sqrt(torch.sum((V - c) ** 2, -1)).amax(),
+        radius = torch.clamp(m.sqrt(torch.sum((V - c) ** 2, -1)).amax(),
                              min=1e-3)
         u_disk, sampler = sampler.next_2d()
         dd = -d_point                                 # toward the emitter

@@ -1,6 +1,7 @@
 """GIF images (GIF87a and GIF89a) read as the JAX package reads them
 through Pillow 12: the first frame, composed as GifImagePlugin composes
-it, then `convert("RGB")`.
+it, then `convert("RGB")`; and written as Pillow saves an L, RGB or RGBA
+image (`encode_gif`).
 
 The logical screen grows to hold a frame that runs past it; outside the
 frame the canvas holds the transparency index of the frame's graphic
@@ -9,17 +10,27 @@ one, else the global one) gives the colours; a table that is the grey
 ramp i -> (i, i, i) counts as none (Pillow's mode "L"), and with no
 table an index is its own grey level.  Interlaced frames come in GIF's four
 passes.  The LZW loop is io/lzw.py's (C++, with its plain Python
-version).  Writing GIF needs Pillow's adaptive median-cut quantiser and
-raises (ROADMAP M9).
+version).
+
+Writing follows GifImagePlugin._save for one frame with its defaults: RGB
+quantised by median cut and RGBA by fast octree (io/quantize.py; an
+octree colour of alpha 0 becomes the transparency), L on the grey ramp;
+unused palette entries dropped (`_get_optimize`, for images under 512^2
+pixels and always for L), the colour table padded to a power of two,
+GIF89a only with a transparency, rows interlaced unless a side is under
+16, and Pillow's LZW encoder (io/lzw.py).
 
 `open_gif` raises SyntaxError where Pillow's plugin gives the file up
 and OSError where Pillow's load raises.
 """
 from __future__ import annotations
 
+import math
+import struct
+
 import numpy as np
 
-from . import lzw
+from . import lzw, quantize
 
 
 def _accept(prefix: bytes) -> bool:
@@ -156,3 +167,73 @@ def _load(data, offset, bits, interlace, size, extent, palette,
     n = min(len(palette) // 3, 256)
     lut[:n] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
     return lut[canvas]
+
+
+# ---------------------------------------------------------------- writing ----
+def _table_size(palette: bytes) -> int:
+    """_get_color_table_size."""
+    if not palette:
+        return 0
+    if len(palette) < 9:
+        return 1
+    return math.ceil(math.log(len(palette) // 3, 2)) - 1
+
+
+def _normalize(px: np.ndarray):
+    """_normalize_mode and _normalize_palette -> (indices, palette bytes
+    in RGB, transparency index or None)."""
+    h, w = px.shape[:2]
+    transparency = None
+    if px.ndim == 2:                                    # L
+        idx, bands = px, 3
+        source = bytes(i // 3 for i in range(768))
+        optimise = True
+    else:
+        pal, idx = quantize.quantize(px)
+        bands = pal.shape[1]
+        source = pal.tobytes()
+        if bands == 4:                         # the palette's mode RGBA
+            clear = np.nonzero(pal[:, 3] == 0)[0]
+            if len(clear):
+                transparency = int(clear[0])
+        optimise = False
+    used = None
+    if optimise or w * h < 512 * 512:
+        used = np.nonzero(np.bincount(idx.reshape(-1), minlength=256))[0]
+        if not optimise and used.max() < len(used):
+            n = len(source) // bands
+            current = 1 << (n - 1).bit_length()
+            if not (len(used) <= current // 2 and current > 2):
+                used = None
+    if used is not None:
+        pos = np.zeros(256, np.uint8)
+        pos[used] = np.arange(len(used))
+        idx = pos[idx]
+        source = b"".join(source[i * bands:(i + 1) * bands] for i in used)
+        if transparency is not None:
+            hit = np.nonzero(used == transparency)[0]
+            transparency = int(hit[0]) if len(hit) else None
+    if bands == 4:
+        source = b"".join(source[i:i + 3] for i in range(0, len(source), 4))
+    return idx, source, transparency
+
+
+def encode_gif(px: np.ndarray) -> bytes:
+    """(H, W), (H, W, 3) or (H, W, 4) uint8 -> the bytes Pillow 12.1 saves
+    for Image.fromarray(px) as GIF with its defaults."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape[:2]
+    idx, palette, transparency = _normalize(px)
+    size = _table_size(palette)
+    table = palette + bytes(3 * max((2 << size) - len(palette) // 3, 0))
+    version = b"89a" if transparency is not None else b"87a"
+    out = bytearray(b"GIF" + version + struct.pack("<HH", w, h))
+    out += bytes([size + 128, 0, 0]) + table
+    if transparency is not None:
+        out += b"!\xf9\x04\x01" + struct.pack("<H", 0) \
+            + bytes([transparency, 0])
+    interlace = min(w, h) >= 16
+    out += b"," + struct.pack("<HHHH", 0, 0, w, h)
+    out += bytes([64 if interlace else 0, 8])
+    out += lzw.lzw_gif_encode(idx, interlace) + b"\0;"
+    return bytes(out)

@@ -14,6 +14,12 @@ bytes (io/pil_open.py), the decompression-bomb test on its size, and
 decodes through io/jpeg2000.py.  The
 loaded image's size must be one the file allows (IcnsImageFile.size's
 setter), else ValueError.
+
+Writing follows IcnsImagePlugin._save: the image resized bicubically
+(io/resample.py; RGBA through premultiplied RGBa) to each of the six
+sizes of `WRITE_SIZES`, each stored as a PNG (io/png.encode_png: Pillow's
+PNG entries hold the same pixels in other deflate bytes), the 256 and 512
+streams twice, after a table of contents.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import struct
 
 import numpy as np
 
+from . import resample
 from .pil_open import MAX_IMAGE_PIXELS, DecompressionBombError, \
     _pillow_open, open_jpeg2000
+from .png import encode_png
 
 # IcnsFile.SIZES: (width, height, scale) -> its entries, in order
 SIZES = {
@@ -35,6 +43,24 @@ SIZES = {
     (32, 32, 1): ((b"icp5", "png"), (b"il32", "rgb"), (b"l8mk", "mask")),
     (16, 16, 2): ((b"ic11", "png"),),
     (16, 16, 1): ((b"icp4", "png"), (b"is32", "rgb"), (b"s8mk", "mask"))}
+
+
+# IcnsImagePlugin._save's entries, in the order written
+WRITE_SIZES = {b"ic07": 128, b"ic08": 256, b"ic09": 512, b"ic10": 1024,
+               b"ic11": 32, b"ic12": 64, b"ic13": 256, b"ic14": 512}
+
+
+def encode_icns(px: np.ndarray) -> bytes:
+    """(H, W), (H, W, 3) or (H, W, 4) uint8 -> Pillow 12.1's ICNS file for
+    Image.fromarray(px) (its PNG entries as io/png writes them)."""
+    streams = {s: encode_png(resample.resize(px, (s, s), resample.BICUBIC))
+               for s in sorted(set(WRITE_SIZES.values()))}
+    toc = b"TOC " + struct.pack(">i", 8 + 8 * len(WRITE_SIZES))
+    body = b""
+    for code, s in WRITE_SIZES.items():
+        toc += code + struct.pack(">i", 8 + len(streams[s]))
+        body += code + struct.pack(">i", 8 + len(streams[s])) + streams[s]
+    return b"icns" + struct.pack(">i", 8 + len(toc) + len(body)) + toc + body
 
 
 @_pillow_open

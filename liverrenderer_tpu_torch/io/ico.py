@@ -5,16 +5,27 @@ one), or for CUR the entry CurImagePlugin picks (the first, replaced by
 any later one larger in both sides), then `convert("RGB")`.  PNG entries
 decode through io/png.py; bitmap entries through raster.read_dib at half
 their stored height, the XOR rows only (the AND mask sets alpha, which
-convert("RGB") drops).  Pillow's ICO writer resamples to its own list of
-sizes, so writing ICO raises (ROADMAP M9).
+convert("RGB") drops).
+
+Writing follows IcoImagePlugin._save with its defaults: each of Pillow's
+sizes from 16 to 256 that fits inside the image becomes a Lanczos
+thumbnail (io/resample.py, the aspect kept), stored as a PNG entry
+(io/png.encode_png: Pillow's PNG entries hold the same pixels in other
+deflate bytes), 32 bits and no colour count in the directory.
 """
 from __future__ import annotations
 
 import math
 import struct
 
-from . import raster
-from .png import decode_png
+import numpy as np
+
+from . import raster, resample
+from .png import decode_png, encode_png
+
+# IcoImagePlugin._save's default sizes
+SIZES = [(16, 16), (24, 24), (32, 32), (48, 48), (64, 64), (128, 128),
+         (256, 256)]
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -67,3 +78,21 @@ def open_cur(data: bytes):
         raise SyntaxError("truncated cursor entry")        # struct.error
     header = struct.unpack_from("<I", m, 12)[0]
     return lambda: raster.read_dib(data, header, 0, halve=True)
+
+
+def encode_ico(px: np.ndarray) -> bytes:
+    """(H, W), (H, W, 3) or (H, W, 4) uint8 -> Pillow 12.1's ICO file for
+    Image.fromarray(px) (its PNG entries as io/png writes them)."""
+    px = np.asarray(px, np.uint8)
+    height, width = px.shape[:2]
+    frames = [resample.thumbnail(px, size)
+              for size in SIZES if size[0] <= width and size[1] <= height]
+    entries = [encode_png(f) for f in frames]
+    out = bytearray(b"\0\0\1\0" + struct.pack("<H", len(frames)))
+    offset = len(out) + 16 * len(frames)
+    for frame, data in zip(frames, entries):
+        h, w = frame.shape[:2]
+        out += bytes([w if w < 256 else 0, h if h < 256 else 0, 0, 0])
+        out += struct.pack("<HHII", 0, 32, len(data), offset)
+        offset += len(data)
+    return bytes(out + b"".join(entries))

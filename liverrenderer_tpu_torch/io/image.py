@@ -27,15 +27,19 @@ that a raw tile Pillow would memory-map fails as the map does.
 
 Written files: EXR and PFM as float; otherwise an ordered dither to 8
 bits, then the format of the extension as Pillow's registry names it:
-PNG (as io/png.py writes it), JPEG (quality 75, 4:2:0), PPM, BMP, DIB,
-TGA, TIFF, PCX, SGI, IM, QOI, DDS (raw, as Pillow saves it with no
-pixel format) and JPEG 2000 (.jp2, .j2k, .jpc, .jpf, .jpx, .j2c:
-lossless, as Pillow saves it with its defaults, io/jpeg2000.py), the
-last eleven byte for byte as Pillow saves them.  Where Pillow refuses,
-the port raises the same exception (an unknown extension ValueError, a
-format with no writer KeyError, XBM / MSP / Palm OSError for an RGB
-image); the writers Pillow has and the port does not yet (GIF, WebP,
-ICO, ...) raise NotImplementedError (ROADMAP M9).
+PNG (as io/png.py writes it), JPEG and MPO (quality 75, 4:2:0), PPM,
+BMP, DIB, TGA, TIFF, PCX, SGI, IM, QOI, DDS (raw, as Pillow saves it
+with no pixel format), JPEG 2000 (.jp2, .j2k, .jpc, .jpf, .jpx, .j2c:
+lossless, as Pillow saves it with its defaults, io/jpeg2000.py), GIF
+(Pillow's quantisers, io/quantize.py, and LZW encoder), EPS (io/eps.py)
+and PDF (io/pdf.py; its dates from the clock), all byte for byte as
+Pillow saves them; ICO and ICNS with Pillow's resampler
+(io/resample.py), byte for byte but for the deflate streams of their PNG
+entries.  Where Pillow refuses, the port raises the same exception (an
+unknown extension ValueError, a format with no writer KeyError, XBM /
+MSP / Palm OSError for an RGB image, EPS ValueError and JPEG / MPO
+OSError for RGBA); WebP and AVIF, which Pillow writes through libwebp
+and libavif, raise NotImplementedError (ROADMAP M9).
 """
 from __future__ import annotations
 
@@ -46,8 +50,8 @@ import numpy as np
 
 from ..core.spectrum import linear_to_srgb_np
 from ..errors import not_ported
-from . import (blp, dds, fits, fli, ftex, gif, icns, ico, jpeg2000, legacy,
-               pil_open, psd, raster, rawmode, tiff, webp)
+from . import (blp, dds, eps, fits, fli, ftex, gif, icns, ico, jpeg2000,
+               legacy, pdf, pil_open, psd, raster, rawmode, tiff, webp)
 from .exr import read_exr_any, write_exr
 from .jpeg import encode_jpeg, open_jpeg
 from .png import decode_png, write_png
@@ -221,7 +225,8 @@ EXTENSION = {
     ".rgba": "SGI", ".sgi": "SGI", ".ras": "SUN", ".tga": "TGA",
     ".icb": "TGA", ".vda": "TGA", ".vst": "TGA", ".webp": "WEBP",
     ".wmf": "WMF", ".emf": "WMF", ".xbm": "XBM", ".xpm": "XPM"}
-# the formats with a writer in Pillow (Image.SAVE)
+# the formats with a writer in Pillow (Image.SAVE); encode_8bit ports all
+# but AVIF and WEBP and mirrors the refusals of the others
 SAVE = {"AVIF", "BLP", "BMP", "BUFR", "DDS", "DIB", "EPS", "GIF", "GRIB",
         "HDF5", "ICNS", "ICO", "IM", "JPEG", "JPEG2000", "MPO", "MSP",
         "PALM", "PCX", "PDF", "PNG", "PPM", "QOI", "SGI", "SPIDER", "TGA",
@@ -279,10 +284,11 @@ def encode_8bit(px: np.ndarray, fmt: str, path: str = "") -> bytes:
         raise OSError(f"{fmt} save handler not installed")
     if fmt == "BLP":
         raise ValueError("Unsupported BLP image mode")
-    if fmt == "JPEG":
+    if fmt in ("JPEG", "MPO"):
         if mode == "RGBA":
             raise OSError("cannot write mode RGBA as JPEG")
         return encode_jpeg(px)
+    # the writers of Pillow's formats the port writes, by format name
     writers = {"PPM": raster.encode_ppm, "BMP": raster.encode_bmp,
                "DIB": lambda a: raster.encode_bmp(a)[14:],
                "TGA": raster.encode_tga, "TIFF": tiff.encode_tiff,
@@ -290,7 +296,10 @@ def encode_8bit(px: np.ndarray, fmt: str, path: str = "") -> bytes:
                "SGI": lambda a: legacy.encode_sgi(a, path),
                "IM": lambda a: legacy.encode_im(a, path),
                "QOI": legacy.encode_qoi, "DDS": dds.encode_dds,
-               "JPEG2000": lambda a: jpeg2000.encode_jpeg2000(a, path)}
+               "JPEG2000": lambda a: jpeg2000.encode_jpeg2000(a, path),
+               "GIF": gif.encode_gif, "ICO": ico.encode_ico,
+               "ICNS": icns.encode_icns, "EPS": eps.encode_eps,
+               "PDF": lambda a: pdf.encode_pdf(a, path)}
     if fmt not in writers:
         raise not_ported(f"writing {fmt} image files", "Queue 1 M9")
     return writers[fmt](px)

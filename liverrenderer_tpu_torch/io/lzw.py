@@ -1,7 +1,8 @@
-"""The LZW decoders of TIFF (io/tiff.py) and GIF (io/gif.py): the loops run
-in C++ (csrc/lzw.cpp, built at first use by host_build.compile_shared; a
-failed build raises, and nothing falls back), and `_lzw_tiff_plain` and
-`_lzw_gif_plain` are their plain Python versions with the same contract.
+"""The LZW decoders of TIFF (io/tiff.py) and GIF (io/gif.py), and GIF's
+encoder: the loops run in C++ (csrc/lzw.cpp, built at first use by
+host_build.compile_shared; a failed build raises, and nothing falls back),
+and `_lzw_tiff_plain`, `_lzw_gif_plain` and `_lzw_gif_encode_plain` are
+their plain Python versions with the same contract.
 
 TIFF's LZW is libtiff's: codes MSB-first, 9 to 12 bits, the width growing
 one code early, or with `compat` its old style (LZWDecodeCompat): codes
@@ -10,7 +11,11 @@ GIF's is Pillow's GifDecode.c with ImageFile.load's feeding around it:
 codes LSB-first in sub-blocks, a deferred clear past 4,096 entries, the
 KwKwK case, and a stream that ends early (or an end code before the
 frame is full, with nothing more in the file) reported as a truncated
-file.
+file.  The encoder is Pillow's GifEncode.c: a clear code first, the
+width growing when the code just added passes the widest one, a clear in
+place of the 4,096th entry, and the data in 255-byte sub-blocks cut where
+Pillow's encoder buffer ends (ImageFile._save's max(65,536, 4 * width)
+bytes).
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ def library():
         lib.lrt_lzw_tiff.restype = i64
         lib.lrt_lzw_gif.argtypes = [p, i64, i32, i32, p, i32, i32, i64, p]
         lib.lrt_lzw_gif.restype = i64
+        lib.lrt_lzw_gif_encode.argtypes = [p, i32, i32, i32, i64, p, i64]
+        lib.lrt_lzw_gif_encode.restype = i64
         _LIB = lib
     return _LIB
 
@@ -270,3 +277,87 @@ def _gif_plain_run(src, bits, interlace, frame):
                         step, y, il = 2, 1, 0
                     else:
                         return -1, 0
+
+
+def _gif_bufsize(width: int) -> int:
+    """The encoder buffer of Pillow's ImageFile._save."""
+    return max(GIF_CHUNK, width * 4)
+
+
+def lzw_gif_encode(idx: np.ndarray, interlace: bool) -> bytes:
+    """(H, W) uint8 palette indices -> the data sub-blocks Pillow's GIF
+    encoder writes after the minimum code size byte, 8 (no terminator)."""
+    src = np.ascontiguousarray(idx, np.uint8)
+    h, w = src.shape
+    cap = 2 * h * w + 4096
+    dst = np.zeros(cap, np.uint8)
+    n = library().lrt_lzw_gif_encode(src.ctypes.data, w, h,
+                                     int(bool(interlace)), _gif_bufsize(w),
+                                     dst.ctypes.data, cap)
+    if n < 0:
+        raise ValueError("LZW: the output buffer is short")
+    return dst[:n].tobytes()
+
+
+def _gif_rows(h: int, interlace: bool) -> list:
+    """The order GifEncode.c reads the rows in."""
+    if not interlace:
+        return list(range(h))
+    return [y for start, step in ((0, 8), (4, 8), (2, 4), (1, 2))
+            for y in range(start, h, step)]
+
+
+def _lzw_gif_encode_plain(idx: np.ndarray, interlace: bool) -> bytes:
+    """lzw_gif_encode's plain Python version."""
+    idx = np.asarray(idx, np.uint8)
+    h, w = idx.shape
+    bits = 8
+    clear = 1 << bits
+    end = clear + 1
+    codes = []                       # (code, width)
+    table = {}
+    next_code, max_code, width = end + 1, 2 * clear - 1, bits + 1
+    codes.append((clear, width))
+    stream = idx[_gif_rows(h, interlace)].reshape(-1).tolist()
+    head = stream[0]
+    for tail in stream[1:]:
+        hit = table.get((head, tail))
+        if hit is not None:
+            head = hit
+            continue
+        codes.append((head, width))
+        if next_code < 4096:
+            table[(head, tail)] = next_code
+            if next_code > max_code:
+                max_code = max_code * 2 + 1
+                width += 1
+            next_code += 1
+        else:
+            codes.append((clear, width))
+            table = {}
+            next_code, max_code, width = end + 1, 2 * clear - 1, bits + 1
+        head = tail
+    codes += [(head, width), (end, width)]
+    data = bytearray()
+    acc = nbits = 0
+    for c, wd in codes:
+        acc |= c << nbits
+        nbits += wd
+        while nbits >= 8:
+            data.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        data.append(acc & 255)
+    # sub-blocks of at most 255 bytes, none across an encoder buffer's end
+    out = bytearray()
+    size, used, pos = _gif_bufsize(w), 0, 0
+    while pos < len(data):
+        if size - used < 2:
+            used = 0
+        k = min(256, size - used) - 1
+        chunk = data[pos:pos + k]
+        out += bytes([len(chunk)]) + chunk
+        used += 1 + len(chunk)
+        pos += len(chunk)
+    return bytes(out)

@@ -181,6 +181,12 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 def write_png(path: str, img: np.ndarray):
     """Write (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) uint8 pixels as
     grey, RGB or RGBA, every row Paeth-filtered."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """write_png's file bytes."""
     px = np.asarray(img, np.uint8)
     if px.ndim == 2:
         px = px[..., None]
@@ -198,9 +204,7 @@ def write_png(path: str, img: np.ndarray):
     pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
     filt = ((cur - pred) & 0xFF).astype(np.uint8)
     raw = np.concatenate([np.full((h, 1), 4, np.uint8), filt], 1)
-    with open(path, "wb") as f:
-        f.write(_SIG
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
-                                              0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+    return (_SIG + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
+                                               0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))

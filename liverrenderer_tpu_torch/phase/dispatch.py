@@ -54,7 +54,7 @@ def _sggx_ndf(wm, s):
         + 2.0 * (x * y * (xz * yz - zz * xy) + x * z * (xy * yz - yy * xz)
                  + y * z * (xy * xz - xx * yz))
     det = _sggx_det(s)
-    return det * torch.sqrt(torch.clamp(det, min=0.0)) \
+    return det * m.sqrt(torch.clamp(det, min=0.0)) \
         / torch.clamp(math.pi * den * den, min=1e-20)
 
 
@@ -64,7 +64,7 @@ def _sggx_sigma(w, s):
     x, y, z = w[..., 0], w[..., 1], w[..., 2]
     q = x * x * xx + y * y * yy + z * z * zz \
         + 2.0 * (x * y * xy + x * z * xz + y * z * yz)
-    return torch.sqrt(torch.clamp(q, min=1e-20))
+    return m.sqrt(torch.clamp(q, min=1e-20))
 
 
 def _sggx_sample_normal(wi, u2, s):
@@ -87,9 +87,9 @@ def _sggx_sample_normal(wi, u2, s):
     sji = sq(frame.t, frame.n)
     det = torch.abs(skk * sjj * sii - skk * sji * sji - sjj * ski * ski
                     - sii * skj * skj + 2.0 * skj * ski * sji)
-    inv_sqrt_sii = 1.0 / torch.sqrt(torch.clamp(sii, min=1e-20))
-    tmp = torch.sqrt(torch.clamp(sjj * sii - sji * sji, min=1e-20))
-    mk_x = torch.sqrt(torch.clamp(det, min=0.0)) / tmp
+    inv_sqrt_sii = 1.0 / m.sqrt(torch.clamp(sii, min=1e-20))
+    tmp = m.sqrt(torch.clamp(sjj * sii - sji * sji, min=1e-20))
+    mk_x = m.sqrt(torch.clamp(det, min=0.0)) / tmp
     mj_x = -inv_sqrt_sii * (ski * sji - skj * sii) / tmp
     mj_y = inv_sqrt_sii * tmp
 
@@ -225,7 +225,7 @@ def phase_sample(ptype, g, fwd, u2, prm=None, present=None):
         wo = torch.where((ptype == PHASE_BLEND)[..., None], d_blend, wo)
     if prm is not None and PHASE_TAB in pres:
         ct = _tab_sample_cos(prm, u2[..., 0])
-        st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+        st = m.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
         phi = 2.0 * math.pi * u2[..., 1]
         d_tab = frame.to_world(torch.stack(
             [st * torch.cos(phi), st * torch.sin(phi), ct], -1))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.fresnel import fresnel_dielectric
+from ..core.math import sqrt
 from ..core.rng import make_sampler
 from ..core.types import Ray
 
@@ -84,8 +85,8 @@ def dipole_lo(scene, p, wi_cos, active):
     for c in range(0, ss.dip_points.shape[0], CHUNK):
         pts = ss.dip_points[c:c + CHUNK]
         r2 = torch.sum((p[:, None, :] - pts[None, :, :]) ** 2, -1)[..., None]
-        dr = torch.sqrt(r2 + zr * zr)
-        dv = torch.sqrt(r2 + zv * zv)
+        dr = sqrt(r2 + zr * zr)
+        dv = sqrt(r2 + zv * zv)
         c1 = zr * (sigma_tr + 1.0 / dr)
         c2 = zv * (sigma_tr + 1.0 / dv)
         rd = (1.0 / (4.0 * math.pi)) * (

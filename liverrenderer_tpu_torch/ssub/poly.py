@@ -21,6 +21,8 @@ from itertools import product
 import numpy as np
 import torch
 
+from ..core.math import sqrt
+
 # (dx, dy, dz) exponents in reference order
 EXPONENTS = np.array(
     [(0, 0, 0),
@@ -138,7 +140,7 @@ def kernel_eps(sigma_t, albedo, g, kernel_multiplier=1.0):
 
 
 def fit_scale(k_eps):
-    return 1.0 / torch.sqrt(k_eps)
+    return 1.0 / sqrt(k_eps)
 
 
 def rotate_poly(coeffs, S):
@@ -176,7 +178,7 @@ def fit_polynomials(query_p, cons_p, cons_n, k_eps, regularization=1e-4):
     diff = cons_p - query_p[:, None, :]
     rel = diff * scale[:, None, None]
     d2 = torch.sum(diff ** 2, -1)
-    w = torch.sqrt(torch.exp(-d2 / (2.0 * k_eps[:, None]))) / math.sqrt(K)
+    w = sqrt(torch.exp(-d2 / (2.0 * k_eps[:, None]))) / math.sqrt(K)
     w = torch.clamp(w, min=1e-6)
     basis = _powers(rel)                               # (V, K, 20)
     gbasis = _basis_grad(rel)                          # (V, K, 20, 3)
@@ -208,7 +210,7 @@ def poly_normal_and_adjusted_dir(coeffs, in_dir, sh_n):
     parallel = s < 1e-8
     axis = axis / torch.clamp(s, min=1e-12)[..., None]
     c = torch.clamp(torch.sum(pn * sh_n, -1), -1.0, 1.0)
-    sin_t = torch.sqrt(torch.clamp(1.0 - c * c, min=0.0))
+    sin_t = sqrt(torch.clamp(1.0 - c * c, min=0.0))
     d = in_dir
     rot = d * c[..., None] + torch.linalg.cross(axis, d, dim=-1) \
         * sin_t[..., None] \

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.math import sqrt
 from .poly import effective_albedo
 
 _ROOT = Path(__file__).resolve().parents[2]
@@ -202,5 +203,5 @@ def numpy_from_vae(vae: VAE) -> dict:
 
 def gaussian_from_uniform(u1, u2):
     """Box-Muller."""
-    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+    r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
     return r * torch.cos(2.0 * np.pi * u2), r * torch.sin(2.0 * np.pi * u2)

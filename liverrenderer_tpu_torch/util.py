@@ -25,6 +25,7 @@ from typing import Any, Dict
 import torch
 
 from .accel.cuda_intersect import TILE_T
+from .core.math import sqrt
 from .scene.ir import Scene
 
 Tensor = torch.Tensor
@@ -40,7 +41,7 @@ def _smooth_normals(verts: Tensor, F: Tensor) -> Tensor:
         acc = acc.index_add(0, F[:, k], fn)
     ln2 = torch.sum(acc * acc, -1, keepdim=True)
     return torch.where(ln2 > 1e-24,
-                       acc / torch.sqrt(torch.clamp(ln2, min=1e-24)), 0.0)
+                       acc / sqrt(torch.clamp(ln2, min=1e-24)), 0.0)
 
 
 def bw_rows(v0: Tensor, v1: Tensor, v2: Tensor):

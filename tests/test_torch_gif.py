@@ -9,8 +9,8 @@ to 8, a table past 4,096 entries without a clear, clears mid-stream) and
 on damaged streams (no end code, a stream cut inside a sub-block or
 before the frame is full, a code past the table, a code size of 13),
 where Pillow raises the port raises the same exception class.  The C++
-LZW loop equals its plain version on each file.  Writing GIF raises
-NotImplementedError (ROADMAP M9).
+LZW loop equals its plain version on each file.  Writing GIF gives the
+JAX package's bytes.
 """
 import io
 
@@ -19,6 +19,7 @@ import pytest
 from PIL import Image
 
 import liverrenderer_tpu_torch as lrt
+from liverrenderer_tpu.io import image as jimage
 from liverrenderer_tpu_torch.io import gif, lzw
 import torch_raster_files as rf
 from test_torch_tiff import same_as_jax
@@ -127,10 +128,16 @@ def test_pil_written_files(tmp_path, shape, mode, extra):
 
 
 def test_writing_gif_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 M9"):
-        lrt.write_image(str(tmp_path / "o.gif"),
-                        np.zeros((4, 4, 3), np.float32))
-    assert not (tmp_path / "o.gif").exists()
+    """Writing GIF was refused until the port had Pillow's quantisers;
+    now write_image writes the JAX package's bytes, which read back
+    alike (tests/test_torch_pil_writers.py holds the writer)."""
+    img = np.zeros((4, 4, 3), np.float32)
+    img[1:3, 1:3] = 0.5
+    lrt.write_image(str(tmp_path / "o.gif"), img)
+    jimage.write_image(str(tmp_path / "j.gif"), img)
+    assert (tmp_path / "o.gif").read_bytes() \
+        == (tmp_path / "j.gif").read_bytes()
+    same_as_jax(tmp_path / "o.gif")
 
 
 def test_pil_written_animation_frame_0(tmp_path):

@@ -22,8 +22,8 @@ for bit (tolerance 0), or the same exception class.
 - Writing: .tif, .pcx, .sgi, .im, .dib and .qoi byte-equal to the JAX
   package's write_image at RGB, RGBA and grey; what Pillow refuses
   (an unknown extension, a format without a writer, XBM / MSP / Palm)
-  the port refuses with the same exception class, and the writers the
-  port lacks raise NotImplementedError (M9).
+  the port refuses with the same exception class, and the WebP and AVIF
+  writers, which the port lacks, raise NotImplementedError (M9).
 """
 import io
 import os
@@ -359,9 +359,11 @@ def test_pillows_refusals(tmp_path, ext):
     assert not (tmp_path / f"t{ext}").exists()
 
 
-@pytest.mark.parametrize("ext", [".gif", ".webp", ".ico", ".avif", ".eps",
-                                 ".pdf", ".icns", ".mpo"])
+@pytest.mark.parametrize("ext", [".webp", ".avif"])
 def test_writers_still_to_port(tmp_path, ext):
+    """Pillow writes these through libwebp's and libaom's encoders, whose
+    sources the repository does not hold (ROADMAP M9); the other writers
+    are tests/test_torch_pil_writers.py's."""
     with pytest.raises(NotImplementedError, match="Queue 1 M9"):
         lrt.write_image(str(tmp_path / f"t{ext}"),
                         np.zeros((4, 5, 3), np.float32))
